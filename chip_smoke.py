@@ -2,9 +2,13 @@
 
     python3 chip_smoke.py
 
-Two main paths are driven: the flagship frame at msaa=1 (shadow K1,
-character K2, ground PCF K3) and the frame the reference app renders, at
-msaa=4 with the windowed shadow map (shadow K6, character K4, ground K3).
+Three main paths are driven: the flagship frame at msaa=1 (shadow K1,
+character K2, ground PCF K3), the frame the reference app renders, at
+msaa=4 with the windowed shadow map (shadow K6, character K4, ground K3),
+and the crowd: 64 instances of the flagship character stepped and rendered
+by one batched program (`parallel.mesh.crowd_step_fn`: shadow maps K5c,
+ground K3 over the batch of maps, characters K5a at msaa=1 or K5b at
+msaa=4).
 
 Phases (each prints its own line; any failure raises and exits nonzero):
 
@@ -21,19 +25,32 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    attributes within 1e-6; K6's pasted map must equal K1's over the same
    bins. Prints mismatch counts, both times (CUDA events) and each
    kernel's bound.
+   The crowd kernels K5c, K5a and K5b are held the same way on the
+   arguments of frame 1 of the 64-instance crowd, K3 on its [64,256,256]
+   batch of shadow maps, and one instance's planes must equal the
+   single-instance kernel's on that instance's own bins (K5c vs K1, K5a vs
+   K2, K5b vs K4).
 4. flagship: the sample character at density 2.0, 1920x1080, 2048^2 shadow
    map, physics on, at msaa=1 and at msaa=4 + shadow_window: 3 warm-up
-   frames each, then 30 timed frames of each through `Scene.rollout`, in
-   turns (segments of 15 frames: msaa=1, msaa=4, msaa=4, msaa=1, so that
+   frames each, then 20 timed frames of each through `Scene.rollout`, in
+   turns (segments of 10 frames: msaa=1, msaa=4, msaa=4, msaa=1, so that
    drift over the call falls on both paths alike), every kernel's launch
    counter reset just before each segment and read just after. The frames
    must be finite, the checksums must advance, the path's kernels must
    each launch once a frame and the other path's never, and the character
    must cover a plausible share of the frame. Prints ms/frame and fps.
-5. parity: a small scene rendered on the card and on the CPU (plain
+5. crowd: 64 instances (`crowd_init(scene, 64)`, clocks 7 frames apart)
+   of the density-2.0 character with `sample_motion(120, fps_keys=5)` at
+   256x144, shadow 256^2, physics on: 3 warm-up frames, then 8 timed frames
+   at msaa=1 and 8 at msaa=4 in turns (segments of 4), the counters checked
+   per segment as above; then the density-0.5 crowd at msaa=4. The frames
+   must be finite [64,144,256,3], their checksums must advance, and
+   instance 0 must differ from instance 1. Prints ms per crowd frame and
+   instance-frames per second.
+6. parity: a small scene rendered on the card and on the CPU (plain
    versions) must agree (fewer than 2e-3 of pixels off by more than 0.02,
    mean absolute difference below 1/255), at msaa=1 and at msaa=4 with the
-   windowed shadow map.
+   windowed shadow map; and a crowd of 4 at msaa=1 and at msaa=4.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -41,6 +58,8 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -50,9 +69,11 @@ import numpy as np
 import torch
 
 from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
+from simple_mmd_renderer_tpu_torch.parallel.mesh import (crowd_init,
+                                                         crowd_step_fn)
 
 WIDTH, HEIGHT, SHADOW, DENSITY = 1920, 1080, 2048, 2.0
-WARMUP, FRAMES = 3, 30
+WARMUP, FRAMES = 3, 20
 MSAA_PATH = dict(msaa=4, shadow_window=True)
 PATH_LABEL = {False: "msaa=1", True: "msaa=4 + shadow_window"}
 # the timed segments' paths (msaa?), in turns; FRAMES per path in all
@@ -81,8 +102,14 @@ OPS_WINNER, OPS_PER_ATTR = 12, 5
 # 1/9 scale and the clamp (3)
 OPS_PCF = 24
 
-KERNELS = ("K1", "K2", "K3", "K4", "K6")
+KERNELS = ("K1", "K2", "K3", "K4", "K6", "K5a", "K5b", "K5c")
 ROW_LANES = 11   # lanes of a setup row the depth kernels read
+
+# the crowd: instances, frame, shadow map, motion length; timed frames per
+# path and per segment (in turns, as the flagship)
+CROWD_N, CROWD_W, CROWD_H, CROWD_SHADOW, CROWD_MOTION = 64, 256, 144, 256, 120
+CROWD_FRAMES, CROWD_SEGMENT = 8, 4
+CROWD_LABEL = {False: "msaa=1", True: "msaa=4"}
 
 
 def log(msg: str) -> None:
@@ -132,6 +159,7 @@ def bin_work(rows, starts, counts, width, height, tile_h, lanes,
 
     idx, tile = tr._tile_entries(starts, counts)
     n_bytes = 4 * (idx.numel() * lanes + 2 * counts.shape[0] + 1)
+    tile = tile % tr._grid(width, height, tile_h)[2]   # a crowd's global tile
     tiles_x = -(-width // tr.TILE_W)
     row0 = (tile // tiles_x) * tile_h
     lo = torch.maximum(torch.ceil(rows[idx, 11] - 0.5 - max(sample_dy)).long(),
@@ -179,6 +207,8 @@ def reset_counters():
     shadow_pcf.launches = 0
     tr.depth_launches = tr.raster_launches = 0
     tr.raster_ms_launches = tr.depth_win_launches = 0
+    tr.raster_multi_launches = tr.raster_ms_multi_launches = 0
+    tr.depth_multi_launches = 0
 
 
 def read_counters() -> dict:
@@ -187,25 +217,35 @@ def read_counters() -> dict:
 
     return {"K1": tr.depth_launches, "K2": tr.raster_launches,
             "K3": shadow_pcf.launches, "K4": tr.raster_ms_launches,
-            "K6": tr.depth_win_launches}
+            "K6": tr.depth_win_launches, "K5a": tr.raster_multi_launches,
+            "K5b": tr.raster_ms_multi_launches,
+            "K5c": tr.depth_multi_launches}
 
 
 def path_kernels(msaa: bool) -> tuple[str, ...]:
     return ("K6", "K4", "K3") if msaa else ("K1", "K2", "K3")
 
 
-def capture_frame(scene, state, expect):
-    """One frame through `Scene.step_and_render`, recording the arguments
-    and result of every kernel wrapper it calls: -> (state', image,
-    {"K1"|"K2"|"K3"|"K4"|"K6": (args, result)}). The frame must call the
-    wrappers in `expect` and no other."""
+def crowd_kernels(msaa: bool) -> tuple[str, ...]:
+    return ("K5c", "K5b", "K3") if msaa else ("K5c", "K5a", "K3")
+
+
+def capture_frame(step, state, expect):
+    """One frame through `step` (`Scene.step_and_render`, or a crowd's
+    step function), recording the arguments and result of every kernel
+    wrapper it calls: -> (state', image, {"K1"|...|"K5c": (args,
+    result)}). The frame must call the wrappers in `expect` and no
+    other."""
     from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     seen = {}
     wrapped = [(tr, "depth_tiles", "K1"), (tr, "raster_tiles", "K2"),
                (shadow_pcf, "pcf_lit_map", "K3"),
-               (tr, "raster_tiles_ms", "K4"), (tr, "depth_tiles_win", "K6")]
+               (tr, "raster_tiles_ms", "K4"), (tr, "depth_tiles_win", "K6"),
+               (tr, "raster_tiles_multi", "K5a"),
+               (tr, "raster_tiles_ms_multi", "K5b"),
+               (tr, "depth_tiles_multi", "K5c")]
     originals = [getattr(mod, name) for mod, name, _ in wrapped]
 
     def spy(fn, key):
@@ -218,7 +258,7 @@ def capture_frame(scene, state, expect):
     try:
         for (mod, name, key), fn in zip(wrapped, originals):
             setattr(mod, name, spy(fn, key))
-        state, image = scene.step_and_render(state)
+        state, image = step(state)
     finally:
         for (mod, name, _), fn in zip(wrapped, originals):
             setattr(mod, name, fn)
@@ -265,7 +305,8 @@ def check_kernels(scene, state, results):
     from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
-    _, _, seen = capture_frame(scene, state, path_kernels(False))  # frame 1
+    _, _, seen = capture_frame(scene.step_and_render, state,
+                               path_kernels(False))                # frame 1
     k1_args, k1_out = seen["K1"]
     k2_args, k2_out = seen["K2"]
     k3_args, k3_out = seen["K3"]
@@ -292,10 +333,15 @@ def check_kernels(scene, state, results):
     lit_plain = shadow_pcf.pcf_lit_map_plain(*k3_args)
     k3_bad = mismatches(lit, lit_plain, k3_out)
     k3_err = float((lit - lit_plain).abs().max())
-    k3_ms = cuda_ms(lambda: shadow_pcf.pcf_lit_map(*k3_args), 50)
+    # a ~30 us kernel: 10 groups of 50 launches, to tell a shift from noise
+    k3_groups = [cuda_ms(lambda: shadow_pcf.pcf_lit_map(*k3_args), 50)
+                 for _ in range(10)]
+    k3_ms = sum(k3_groups) / len(k3_groups)
     k3_plain = cuda_ms(lambda: shadow_pcf.pcf_lit_map_plain(*k3_args), 5)
     log(f"kernels: K3 pcf_lit_map {tuple(lit.shape)}: mismatches {k3_bad}, "
-        f"{k3_ms:.4f} ms vs plain {k3_plain:.4f} ms")
+        f"{k3_ms:.4f} ms vs plain {k3_plain:.4f} ms; 10 groups of 50 "
+        f"launches: min {min(k3_groups):.4f}, median "
+        f"{sorted(k3_groups)[5]:.4f}, max {max(k3_groups):.4f} ms")
     k3_bound = bound(4 * (k3_args[0].numel() + k3_args[1].numel()
                           + lit.numel()), lit.numel() * OPS_PCF)
 
@@ -345,7 +391,8 @@ def check_kernels_msaa(scene, state, results):
     arguments."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
-    _, _, seen = capture_frame(scene, state, path_kernels(True))   # frame 1
+    _, _, seen = capture_frame(scene.step_and_render, state,
+                               path_kernels(True))                 # frame 1
     k6_args, k6_out = seen["K6"]
     k4_args, k4_out = seen["K4"]
     rows6, starts6, counts6, window = k6_args[:4]
@@ -478,7 +525,8 @@ def run_flagships(scenes, results):
         # the next frame's image and character coverage (the share of the
         # frame where K2 found a triangle; at msaa=4 where K4 covered any
         # sample)
-        _, image, seen = capture_frame(scenes[msaa][0], states[msaa], mine)
+        _, image, seen = capture_frame(scenes[msaa][0].step_and_render,
+                                       states[msaa], mine)
         if msaa:
             sdepth = seen["K4"][1][5][:, :HEIGHT, :WIDTH]
             cover = float((sdepth < 1.0).any(0).float().mean())
@@ -494,6 +542,249 @@ def run_flagships(scenes, results):
         if not 0.01 < cover < 0.6:
             raise AssertionError(f"implausible character coverage "
                                  f"{cover:.4f}")
+
+
+def with_render(scene, **render):
+    """A shallow copy of `scene` (same device tables) whose render config
+    differs in `render`."""
+    other = copy.copy(scene)
+    other.config = copy.copy(scene.config)
+    other.config.render = dataclasses.replace(scene.config.render, **render)
+    return other
+
+
+def build_crowd(density, label):
+    """{msaa?: (step function, crowd state)} of CROWD_N instances of the
+    sample character at `density`: one scene's tables, two render
+    configs."""
+    t0 = time.perf_counter()
+    scene = build_sample_scene(density, CROWD_W, CROWD_H, CROWD_SHADOW,
+                               "cuda", n_frames=CROWD_MOTION, fps_keys=5)
+    crowd = {msaa: (crowd_step_fn(with_render(scene, msaa=4 if msaa else 1)),
+                    crowd_init(scene, CROWD_N)) for msaa in (False, True)}
+    rig = scene.rig
+    log(f"scene ({label}): {CROWD_N} instances of {rig.n_vertices} verts, "
+        f"{rig.triangles.shape[0]} tris ({CROWD_N * rig.triangles.shape[0]} "
+        f"per frame), {rig.n_bones} bones, {scene.phys.n_bodies} bodies, "
+        f"{scene.phys.n_joints} joints; clocks "
+        f"{float(crowd[False][1].time[1] * scene.config.fps):.1f} frames "
+        f"apart; built in {time.perf_counter() - t0:.2f} s")
+    return crowd
+
+
+def instance_bins(starts, counts, i, n_tiles):
+    """Instance i's own (starts, counts) cut out of a crowd's global
+    ones."""
+    sl = slice(i * n_tiles, (i + 1) * n_tiles)
+    return (torch.cat([starts[sl], starts[sl][-1:] + counts[sl][-1:]]),
+            counts[sl].contiguous())
+
+
+def check_kernels_crowd(crowd, results):
+    """K5c, K5a and K5b on the arguments of frame 1 of the dense crowd (K5a
+    from the msaa=1 step, K5b from the msaa=4 step), K3 on its batch of
+    shadow maps, and the fold of one instance onto K1, K2 and K4."""
+    from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    seen = {}
+    for msaa in (False, True):
+        step, state = crowd[msaa]
+        _, _, got = capture_frame(step, state, crowd_kernels(msaa))
+        seen.update({k: v for k, v in got.items() if k not in seen})
+    c_args, c_out = seen["K5c"]
+    a_args, a_out = seen["K5a"]
+    b_args, b_out = seen["K5b"]
+    k3_args, k3_out = seen["K3"]
+    n_inst, w, h = a_args[3:6]
+    n_tiles = tr._grid(w, h)[2]
+    s_tiles = tr._grid(*c_args[4:6])[2]
+    cc, ca, cb = c_args[2], a_args[2], b_args[2]
+    log(f"kernels: crowd frame-1 bins ({n_inst} instances): shadow "
+        f"{int(cc.sum())} entries in {cc.shape[0]} tiles (max "
+        f"{int(cc.max())}), character {int(ca.sum())} entries in "
+        f"{ca.shape[0]} tiles (max {int(ca.max())}) at msaa=1, "
+        f"{int(cb.sum())} (max {int(cb.max())}) at msaa=4")
+    mid = n_inst // 2       # the instance whose fold is checked
+
+    # K5c on all instances' shadow bins
+    got = tr.depth_tiles_multi(*c_args)
+    want = tr.depth_tiles_multi_plain(*c_args)
+    c_bad = mismatches(got, want, c_out)
+    c_err = float((got - want).abs().max())
+    c_fold = mismatches(got[mid], tr.depth_tiles(
+        c_args[0], *instance_bins(c_args[1], cc, mid, s_tiles), *c_args[4:6]))
+    c_ms = cuda_ms(lambda: tr.depth_tiles_multi(*c_args), 20)
+    c_plain = cuda_ms(lambda: tr.depth_tiles_multi_plain(*c_args), 3)
+    log(f"kernels: K5c depth_tiles_multi {tuple(got.shape)}: mismatches "
+        f"{c_bad}, instance {mid} vs K1 on its own bins {c_fold}, "
+        f"{c_ms:.4f} ms vs plain {c_plain:.4f} ms")
+    n_bytes, evals = bin_work(*c_args[:3], *c_args[4:6], tr.TILE_H, ROW_LANES)
+    c_bound = bound(n_bytes + 4 * got.numel(), evals * OPS_DEPTH)
+
+    # K3 on the crowd's batch of shadow maps
+    lit = shadow_pcf.pcf_lit_map(*k3_args)
+    lit_plain = shadow_pcf.pcf_lit_map_plain(*k3_args)
+    k3_bad = mismatches(lit, lit_plain, k3_out)
+    k3_ms = cuda_ms(lambda: shadow_pcf.pcf_lit_map(*k3_args), 50)
+    k3_plain = cuda_ms(lambda: shadow_pcf.pcf_lit_map_plain(*k3_args), 5)
+    k3_bound = bound(4 * (k3_args[0].numel() + k3_args[1].numel()
+                          + lit.numel()), lit.numel() * OPS_PCF)
+    log(f"kernels: K3 pcf_lit_map on the crowd's maps {tuple(lit.shape)}: "
+        f"mismatches {k3_bad}, {k3_ms:.4f} ms vs plain {k3_plain:.4f} ms, "
+        f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+
+    # K5a and K5b on all instances' character bins (A = 3: normals)
+    rec = {}
+    for key, args, out, fn, plain, single, ops, dy in (
+            ("K5a", a_args, a_out, tr.raster_tiles_multi,
+             tr.raster_tiles_multi_plain, tr.raster_tiles, OPS_RASTER,
+             (0.0,)),
+            ("K5b", b_args, b_out, tr.raster_tiles_ms_multi,
+             tr.raster_tiles_ms_multi_plain, tr.raster_tiles_ms,
+             OPS_RASTER_MS,
+             (0.0,) + tuple(oy for _, oy in tr.MSAA4_OFFSETS))):
+        k = fn(*args)
+        kp = plain(*args)
+        exact = [i for i in range(len(k)) if i != 4]    # all but attr
+        bad = [mismatches(k[i], kp[i], out[i]) for i in exact]
+        attr_err = float((k[4] - kp[4]).abs().max())
+        err = max(attr_err, max(float((k[i].float() - kp[i].float())
+                                      .abs().max()) for i in exact))
+        one = single(args[0], *instance_bins(args[1], args[2], mid, n_tiles),
+                     *args[4:7])
+        fold = sum(mismatches(a[mid], b) for a, b in zip(k, one))
+        ms = cuda_ms(lambda: fn(*args), 20)
+        plain_ms = cuda_ms(lambda: plain(*args), 3)
+        log(f"kernels: {key} {fn.__name__} {tuple(k[0].shape)}, {args[6]} "
+            f"attributes: depth/tri/b1/b2{'/sdepth' if len(k) > 5 else ''} "
+            f"mismatches {bad}, attr max err {attr_err:.3g}, instance {mid} "
+            f"vs {single.__name__} on its own bins {fold}, {ms:.4f} ms vs "
+            f"plain {plain_ms:.4f} ms")
+        bnd = raster_bound(args[:3] + args[4:7], k, ops, dy)
+        rec[key] = (bad, attr_err, fold, err, ms, plain_ms, bnd)
+
+    if c_bad or c_fold or k3_bad or any(any(r[0]) or r[2]
+                                        for r in rec.values()):
+        raise AssertionError("a crowd kernel disagrees with its plain "
+                             "version or with the single-instance kernel")
+    if not all(r[1] <= 1e-6 for r in rec.values()):
+        raise AssertionError("crowd attributes beyond 1e-6 of the plain "
+                             "version")
+    record(results, "K5a", "K5a raster_tiles_multi (crowd visibility + "
+           "attributes)", "tiled_raster.cu", "tiled_raster.py:1772",
+           *rec["K5a"][3:])
+    record(results, "K5b", "K5b raster_tiles_ms_multi (crowd 4x MSAA "
+           "visibility + attributes + per-sample depth)", "tiled_raster.cu",
+           "tiled_raster.py:1952", *rec["K5b"][3:])
+    record(results, "K5c", "K5c depth_tiles_multi (crowd shadow depth)",
+           "tiled_raster.cu", "tiled_raster.py:2072", c_err, c_ms, c_plain,
+           c_bound)
+
+
+def time_crowd_segment(step, state, msaa: bool, label: str):
+    """CROWD_SEGMENT crowd frames, every launch counter reset just before
+    and read just after: -> (state', ms per crowd frame, counts, last
+    images)."""
+    reset_counters()
+    sums = []
+    t0 = time.perf_counter()
+    for _ in range(CROWD_SEGMENT):
+        state, images = step(state)
+        sums.append(images.mean())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counters()
+    sums = torch.stack(sums).cpu().numpy()
+    ms = 1000.0 * dt / CROWD_SEGMENT
+    log(f"crowd ({label}, {CROWD_LABEL[msaa]}): segment of {CROWD_SEGMENT} "
+        f"frames, {ms:.3f} ms per crowd frame; launches {counts}; checksums "
+        f"{sums.min():.5f}..{sums.max():.5f}")
+    if not np.isfinite(sums).all():
+        raise AssertionError("non-finite crowd frames")
+    if not (np.abs(np.diff(sums)) > 0).any():
+        raise AssertionError("crowd frames did not advance")
+    mine = crowd_kernels(msaa)
+    for k, n in counts.items():
+        want = CROWD_SEGMENT if k in mine else 0
+        if n != want:
+            raise AssertionError(f"{k} launched {n} times in "
+                                 f"{CROWD_SEGMENT} crowd frames ({label}, "
+                                 f"{CROWD_LABEL[msaa]}), expected {want}")
+    return state, ms, counts, images
+
+
+def run_crowd(crowd, label, paths, results=None):
+    """The crowd's paths warmed up, then timed in turns; each path's last
+    frames checked for shape, finite values and instances that differ."""
+    states = {}
+    for msaa in set(paths):
+        step, state = crowd[msaa]
+        for _ in range(WARMUP):
+            state, _ = step(state)
+        states[msaa] = state
+    torch.cuda.synchronize()
+
+    seg_ms = {msaa: [] for msaa in states}
+    launches = {msaa: dict.fromkeys(KERNELS, 0) for msaa in states}
+    images = {}
+    for msaa in paths:
+        states[msaa], ms, counts, images[msaa] = time_crowd_segment(
+            crowd[msaa][0], states[msaa], msaa, label)
+        seg_ms[msaa].append(ms)
+        for k, n in counts.items():
+            launches[msaa][k] += n
+
+    for msaa in sorted(states):
+        ms = sum(seg_ms[msaa]) / len(seg_ms[msaa])
+        img = images[msaa]
+        apart = float((img[0] - img[1]).abs().max())
+        log(f"crowd ({label}, {CROWD_LABEL[msaa]}): "
+            f"{CROWD_SEGMENT * len(seg_ms[msaa])} frames of {CROWD_N} "
+            f"instances at {CROWD_W}x{CROWD_H}, shadow {CROWD_SHADOW}: "
+            f"{ms:.3f} ms per crowd frame, {1000.0 * CROWD_N / ms:.3f} "
+            f"instance-frames/s (segments "
+            f"{', '.join(f'{t:.3f}' for t in seg_ms[msaa])}); launches "
+            f"{launches[msaa]}; images {tuple(img.shape)}, finite "
+            f"{bool(torch.isfinite(img).all())}, instance 0 vs 1 max "
+            f"difference {apart:.3f}")
+        if tuple(img.shape) != (CROWD_N, CROWD_H, CROWD_W, 3) or \
+                not bool(torch.isfinite(img).all()):
+            raise AssertionError("bad crowd frames")
+        if not apart > 0.05:
+            raise AssertionError("instances 0 and 1 render the same frame")
+        if results is not None:
+            for k in crowd_kernels(msaa):
+                if k in results:
+                    results[k].setdefault("launches", launches[msaa][k])
+
+
+def check_parity_crowd(msaa: bool):
+    """A crowd of 4 (density 0.25) on the card vs the same crowd on the
+    CPU, frame 2."""
+    imgs = []
+    for dev in ("cuda", "cpu"):
+        scene = build_sample_scene(0.25, CROWD_W, CROWD_H, CROWD_SHADOW, dev,
+                                   n_frames=60, fps_keys=10,
+                                   solver_iterations=4,
+                                   msaa=4 if msaa else 1)
+        step, state = crowd_step_fn(scene), crowd_init(scene, 4)
+        reset_counters()
+        for _ in range(2):
+            state, images = step(state)
+        imgs.append(images.cpu().numpy())
+        counts = read_counters()
+        want = 2 if dev == "cuda" else 0
+        if any(counts[k] != want for k in crowd_kernels(msaa)):
+            raise AssertionError(f"crowd parity on {dev}: launches {counts}")
+    d = np.abs(imgs[0] - imgs[1])
+    frac = max(float((d[i] > 0.02).mean()) for i in range(4))
+    mad = max(float(d[i].mean()) for i in range(4))
+    log(f"parity (crowd of 4, {CROWD_LABEL[msaa]}): {CROWD_W}x{CROWD_H} "
+        f"frame 2, shadow {CROWD_SHADOW}, card vs CPU, worst instance: "
+        f"|d|>0.02 fraction {frac:.3g}, mean abs diff {mad:.3g}")
+    if not (frac < 2e-3 and mad < 1 / 255):
+        raise AssertionError("card and CPU crowd frames disagree")
 
 
 def check_parity(msaa: bool):
@@ -555,12 +846,20 @@ def main() -> int:
             f"{scene.phys.n_joints} joints; built in "
             f"{time.perf_counter() - t0:.2f} s")
 
+    dense = build_crowd(DENSITY, "crowd-dense")
+
     results: dict = {}
     check_kernels(*scenes[False], results)
     check_kernels_msaa(*scenes[True], results)
+    check_kernels_crowd(dense, results)
     run_flagships(scenes, results)
+    run_crowd(dense, "crowd-dense", ORDER, results)
+    del dense
+    run_crowd(build_crowd(0.5, "crowd-bench"), "crowd-bench", (True, True))
     check_parity(msaa=False)
     check_parity(msaa=True)
+    check_parity_crowd(msaa=False)
+    check_parity_crowd(msaa=True)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

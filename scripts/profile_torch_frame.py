@@ -1,12 +1,17 @@
-"""Where a flagship frame's time goes in the PyTorch + CUDA port.
+"""Where a frame's time goes in the PyTorch + CUDA port.
 
     python3 scripts/profile_torch_frame.py [--frames N] [--out DIR]
                                            [--msaa 4 --shadow-window]
+                                           [--crowd I [--density D]]
 
 Builds the flagship scene (sample character at density 2.0, 1920x1080,
 2048^2 shadow map, physics on; msaa=1, or with `--msaa 4 --shadow-window`
 the frame the reference app renders) on the first CUDA device, warms up 3
 frames, then profiles N frames with torch.profiler (CPU + CUDA activities).
+With `--crowd I` the frame is the crowd's: I instances of the character
+(density 2.0 unless `--density` says otherwise, `sample_motion(120,
+fps_keys=5)`, clocks 7 frames apart) at 256x144 with a 256^2 shadow map,
+stepped and rendered by `parallel.mesh.crowd_step_fn`.
 Prints, per pass label (the `pass_scope` ranges: anim, pre_physics,
 physics, post_physics, deform, shadow, ground, character, shade), the host
 time and the device kernel time per frame, the kernel launches and host <->
@@ -33,6 +38,8 @@ def main() -> int:
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--msaa", type=int, default=1, choices=(1, 4))
     ap.add_argument("--shadow-window", action="store_true")
+    ap.add_argument("--crowd", type=int, default=0, metavar="I")
+    ap.add_argument("--density", type=float, default=2.0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_frame: no CUDA device", file=sys.stderr)
@@ -43,22 +50,41 @@ def main() -> int:
 
     from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
 
-    scene = build_sample_scene(2.0, 1920, 1080, 2048, "cuda", msaa=args.msaa,
-                               shadow_window=args.shadow_window)
-    state = scene.init_state()
-    state, _ = scene.rollout(state, 3)
+    if args.crowd:
+        from simple_mmd_renderer_tpu_torch.parallel.mesh import (
+            crowd_init, crowd_step_fn)
+
+        scene = build_sample_scene(args.density, 256, 144, 256, "cuda",
+                                   n_frames=120, fps_keys=5, msaa=args.msaa)
+        step = crowd_step_fn(scene)
+        state = crowd_init(scene, args.crowd)
+
+        def rollout(state, n_frames):
+            for _ in range(n_frames):
+                state, _ = step(state)
+            return state
+    else:
+        scene = build_sample_scene(args.density, 1920, 1080, 2048, "cuda",
+                                   msaa=args.msaa,
+                                   shadow_window=args.shadow_window)
+        state = scene.init_state()
+
+        def rollout(state, n_frames):
+            return scene.rollout(state, n_frames)[0]
+
+    state = rollout(state, 3)
     torch.cuda.synchronize()
 
     n = args.frames
     t0 = time.perf_counter()
-    state, _ = scene.rollout(state, n)
+    state = rollout(state, n)
     torch.cuda.synchronize()
     plain_ms = 1000 * (time.perf_counter() - t0) / n
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = scene.rollout(state, n)
+        state = rollout(state, n)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -77,6 +103,9 @@ def main() -> int:
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0.0)
 
+    if args.crowd:
+        print(f"crowd of {args.crowd} instances, density {args.density}, "
+              f"msaa={args.msaa}")
     print(f"frame (no profiler): {plain_ms:.3f} ms; profiled: "
           f"{1000 * wall / n:.3f} ms/frame over {n} frames")
     # a pass label appears twice (its host range and its device

@@ -15,7 +15,9 @@ this module needs neither JAX nor the reference package:
 - `sim_state_to_torch` / `sim_state_to_numpy`: a SimState (time + the
   physics leaves pos, quat, vel, omega) into torch tensors on a device and
   back to NumPy, so a test can start both packages from one `init_state`
-  and compare them frame by frame.
+  and compare them frame by frame. A crowd state (`parallel.mesh.
+  crowd_init`: every leaf with a leading instance axis) converts the same
+  way.
 """
 
 from __future__ import annotations

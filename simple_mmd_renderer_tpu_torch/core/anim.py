@@ -138,7 +138,8 @@ class MotionTables(nn.Module):
 
 
 def _bracket(key, frame_arr, off, frame):
-    """For every track: (left_idx, right_idx, use_left_only)."""
+    """For every track: (left_idx, right_idx, use_left_only), each [T]; a
+    vector of frames arrives as [I, 1] and gives [I, T]."""
     t = torch.arange(off.shape[0] - 1, device=key.device)
     k0 = off[:-1]
     kn = off[1:]
@@ -162,41 +163,47 @@ def _bracket(key, frame_arr, off, frame):
 
 def sample_bones(mo: MotionTables, frame):
     """-> (anim_rot [B,4], anim_trans [B,3]) for all model bones (identity
-    for unbound bones), at the (0-d tensor) `frame`."""
+    for unbound bones), at the (0-d tensor) `frame`; a vector of frames [I]
+    (a crowd's staggered clocks) gives [I,B,4] and [I,B,3]."""
     dev = mo.b_key.device
-    anim_rot = m3.quat_identity((mo.n_bones,), device=dev)
-    anim_trans = torch.zeros((mo.n_bones, 3), dtype=torch.float32, device=dev)
+    frame = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    lead = frame.shape
+    anim_rot = m3.quat_identity(lead + (mo.n_bones,), device=dev)
+    anim_trans = torch.zeros(lead + (mo.n_bones, 3), dtype=torch.float32,
+                             device=dev)
     if mo.b_bone.shape[0] == 0:
         return anim_rot, anim_trans
 
-    frame = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    frame = frame[..., None]                        # against the track axis
     left, right, use_left = _bracket(mo.b_key, mo.b_frame, mo.b_off, frame)
     fl = mo.b_frame[left].to(torch.float32)
     fr = mo.b_frame[right].to(torch.float32)
     bary = (frame - fl) / torch.clamp(fr - fl, min=1.0)
 
     lut = mo.b_lut[left]                            # [T,4,32]
-    lam = bezier.lut_eval(lut, bary[:, None])       # [T,4]
+    lam = bezier.lut_eval(lut, bary[..., None])     # [T,4]
 
     tl, tr = mo.b_trans[left], mo.b_trans[right]
-    trans = tl * (1.0 - lam[:, :3]) + tr * lam[:, :3]
-    rot = m3.quat_nlerp(mo.b_quat[left], mo.b_quat[right], lam[:, 3])
+    trans = tl * (1.0 - lam[..., :3]) + tr * lam[..., :3]
+    rot = m3.quat_nlerp(mo.b_quat[left], mo.b_quat[right], lam[..., 3])
 
-    trans = torch.where(use_left[:, None], tl, trans)
-    rot = torch.where(use_left[:, None], mo.b_quat[left], rot)
+    trans = torch.where(use_left[..., None], tl, trans)
+    rot = torch.where(use_left[..., None], mo.b_quat[left], rot)
 
-    anim_rot[mo.b_bone] = rot
-    anim_trans[mo.b_bone] = trans
+    anim_rot[..., mo.b_bone, :] = rot
+    anim_trans[..., mo.b_bone, :] = trans
     return anim_rot, anim_trans
 
 
 def sample_morphs(mo: MotionTables, frame):
-    """-> morph_rates [M] (zero for unbound morphs)."""
+    """-> morph_rates [M] (zero for unbound morphs); [I,M] for frames [I]."""
     dev = mo.b_key.device
-    rates = torch.zeros((mo.n_morphs,), dtype=torch.float32, device=dev)
+    frame = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    rates = torch.zeros(frame.shape + (mo.n_morphs,), dtype=torch.float32,
+                        device=dev)
     if mo.m_morph.shape[0] == 0:
         return rates
-    frame = torch.as_tensor(frame, dtype=torch.float32, device=dev)
+    frame = frame[..., None]
     left, right, use_left = _bracket(mo.m_key, mo.m_frame, mo.m_off, frame)
     fl = mo.m_frame[left].to(torch.float32)
     fr = mo.m_frame[right].to(torch.float32)
@@ -204,7 +211,7 @@ def sample_morphs(mo: MotionTables, frame):
     lam = bezier.lut_eval(mo.m_lut[left], bary)
     wl, wr = mo.m_weight[left], mo.m_weight[right]
     w = torch.where(use_left, wl, wl * (1.0 - lam) + wr * lam)
-    rates[mo.m_morph] = w
+    rates[..., mo.m_morph] = w
     return rates
 
 

@@ -637,12 +637,132 @@ class ModelTables(nn.Module):
             self.register_buffer(name, torch.as_tensor(
                 np.asarray(_segment_bones(segs), np.int64), device=device))
 
+    n_inst = 1      # one instance; `crowd(n)` gives the view of n
+
     @property
     def device(self):
         return self.positions.device
+
+    @property
+    def n_vertices(self):
+        return self.positions.shape[0]
 
     def passes(self, name: str) -> list[torch.Tensor]:
         """The occurrence passes of the vertex ("vm") or bone ("bm") morph
         entries (`_occurrence_passes`)."""
         return [getattr(self, f"{name}_pass{k}")
                 for k in range(getattr(self, f"n_{name}_passes"))]
+
+    def instance_rows(self, k: int) -> torch.Tensor:
+        """Row of bone `k` in every instance's block of the per-bone state:
+        [k] for the rig itself."""
+        return torch.full((1,), k, dtype=torch.int64, device=self.device)
+
+    def crowd(self, n_inst: int) -> "CrowdModelTables":
+        """The instance-major view of this rig for `n_inst` instances
+        (built once per count and device)."""
+        key = (n_inst, str(self.device))
+        cache = self.__dict__.setdefault("_crowd_views", {})
+        if key not in cache:
+            cache[key] = CrowdModelTables(self, n_inst)
+        return cache[key]
+
+
+def tile_rows(t: torch.Tensor, n_inst: int) -> torch.Tensor:
+    """[K, ...] -> [n_inst*K, ...], instance-major."""
+    return t.repeat((n_inst,) + (1,) * (t.dim() - 1))
+
+
+def tile_index(t: torch.Tensor, n_inst: int, stride: int) -> torch.Tensor:
+    """An index table [K, ...] into rows of one instance -> [n_inst*K, ...]
+    into instance-major rows: instance i's copy is offset by i*stride;
+    negative entries ("none") stay as they are."""
+    off = torch.arange(n_inst, device=t.device) * stride
+    out = t[None] + off.reshape((n_inst,) + (1,) * t.dim())
+    out = torch.where(t[None] < 0, t[None], out)
+    return out.reshape((n_inst * t.shape[0],) + t.shape[1:])
+
+
+class _CrowdFK:
+    kind = "fk"
+
+    def __init__(self, seg: FKSegment, n_inst, n_bones):
+        self.levels = [tile_index(lv, n_inst, n_bones) for lv in seg.levels]
+
+
+class _CrowdIK:
+    """An IKSegment's group of G chains repeated for every instance: I*G
+    independent chains of one shape, solved in the same batched steps."""
+    kind = "ik"
+
+    def __init__(self, seg: IKSegment, n_inst, n_bones):
+        for name in ("n_links", "loop", "fix_types", "orders", "limited"):
+            setattr(self, name, getattr(seg, name))
+        for name in ("links", "link_parent_safe", "targets", "goal_bones"):
+            setattr(self, name, tile_index(getattr(seg, name), n_inst,
+                                           n_bones))
+        for name in ("link_has_parent", "angle_limit", "limits_min",
+                     "limits_max"):
+            setattr(self, name, tile_rows(getattr(seg, name), n_inst))
+
+
+class CrowdModelTables:
+    """Instance-major view of a ModelTables for a crowd of `n_inst`
+    instances of one rig.
+
+    The posing code works on rows gathered and scattered by index tensors
+    (bones of a level, chains of an IK group, morph entries), so a crowd is
+    posed by the same code on `n_inst * B` bone rows: every per-bone table
+    is the rig's repeated per instance, and every index table is the rig's
+    repeated with instance i's copy offset by i * B (bones), i * N
+    (vertices) or i * M (leaf morph rates). One FK level, one CCD step or
+    one morph pass then handles all instances in the launches it takes for
+    one. Tables that all instances share (the mesh, the dense skin weights,
+    the morph expansion matrix) stay the rig's; the functions that use them
+    reshape the state to [n_inst, ...] for one batched product."""
+
+    PER_BONE = ("bone_rest", "local_offset", "append_ratio", "append_rotate",
+                "append_translate", "is_ik_link")
+    SHARED = ("positions", "normals", "triangles", "skin_bones",
+              "skin_weights", "skin_weight_dense", "morph_expand")
+
+    def __init__(self, rig: ModelTables, n_inst: int):
+        b, n = rig.n_bones, rig.n_vertices
+        self.rig = rig
+        self.host = rig.host
+        self.n_inst = n_inst
+        self.n_bones = n_inst * b
+        self.n_morphs = n_inst * rig.n_morphs
+        self.n_vertices = n_inst * n
+        self.device = rig.device
+        for name in self.SHARED:
+            setattr(self, name, getattr(rig, name))
+        for name in self.PER_BONE:
+            setattr(self, name, tile_rows(getattr(rig, name), n_inst))
+        for name in ("bone_parent", "append_parent", "pre_bones",
+                     "post_bones", "bm_bone"):
+            setattr(self, name, tile_index(getattr(rig, name), n_inst, b))
+        n_leaf = rig.morph_expand.shape[1] if rig.n_morphs else 0
+        self.vm_morph = tile_index(rig.vm_morph, n_inst, n_leaf)
+        self.bm_morph = tile_index(rig.bm_morph, n_inst, n_leaf)
+        self.vm_vertex = tile_index(rig.vm_vertex, n_inst, n)
+        for name in ("vm_offset", "bm_trans", "bm_rot"):
+            setattr(self, name, tile_rows(getattr(rig, name), n_inst))
+        self._passes = {
+            "vm": [tile_index(e, n_inst, rig.vm_vertex.shape[0])
+                   for e in rig.passes("vm")],
+            "bm": [tile_index(e, n_inst, rig.bm_bone.shape[0])
+                   for e in rig.passes("bm")]}
+        self.pre_segments = self._segments(rig.pre_segments, b)
+        self.post_segments = self._segments(rig.post_segments, b)
+
+    def _segments(self, segments, n_bones):
+        return [(_CrowdFK if seg.kind == "fk" else _CrowdIK)(
+            seg, self.n_inst, n_bones) for seg in segments]
+
+    def passes(self, name: str) -> list[torch.Tensor]:
+        return self._passes[name]
+
+    def instance_rows(self, k: int) -> torch.Tensor:
+        return k + torch.arange(self.n_inst, device=self.device) \
+            * self.rig.n_bones

@@ -14,6 +14,15 @@ copied (the port imports nothing of the reference). `PhysicsTables` holds
 the static tables on the device. Per-body accumulation of constraint rows
 stays a dense matmul with the static, count-scaled incidence matrices, as
 in the reference: deterministic, with no float atomics.
+
+A crowd is stepped by the same functions on the instance-major view of the
+tables (`PhysicsTables.crowd(n)`, see `CrowdPhysicsTables`): n_inst * R
+body rows, n_inst * K candidate pairs and n_inst * C joints, every index
+table the rig's with instance i's copy offset by i * R. Every contact,
+manifold and sort acts along the last axis of one pair's or one body's
+row, so no instance sees another. The incidence sums apply the rig's
+shared [R, K] matrices to each instance's rows (`_incidence_sum`, one
+batched product), never a block-diagonal matrix.
 """
 
 from __future__ import annotations
@@ -27,8 +36,9 @@ from torch import nn
 from ..formats import pmx as P
 from ..utils import math3d as m3
 from ..utils.device import resolve_device
-from .model import ModelStatic, ModelTables, register_arrays
-from .pose import PoseArrays
+from .model import (ModelStatic, ModelTables, register_arrays, tile_index,
+                    tile_rows)
+from .pose import PoseArrays, _set
 
 _EPS = 1e-9
 
@@ -312,9 +322,66 @@ class PhysicsTables(nn.Module):
         self.strict_ids = [i for i in range(ps.n_bodies)
                            if ps.strict[i] and ps.writeback[i]]
 
+    n_inst = 1      # one instance; `crowd(n)` gives the view of n
+
     @property
     def device(self):
         return self.inv_mass.device
+
+    def crowd(self, n_inst: int, n_bones: int) -> "CrowdPhysicsTables":
+        """The instance-major view for `n_inst` instances of a rig of
+        `n_bones` bones (built once per count and device)."""
+        key = (n_inst, n_bones, str(self.device))
+        cache = self.__dict__.setdefault("_crowd_views", {})
+        if key not in cache:
+            cache[key] = CrowdPhysicsTables(self, n_inst, n_bones)
+        return cache[key]
+
+
+class CrowdPhysicsTables:
+    """Instance-major view of a PhysicsTables for a crowd: per-body,
+    per-pair and per-joint tables repeated per instance, body indices
+    offset by i * R, bone indices by i * B and box-pair indices by i * K.
+    The incidence matrices stay the rig's [R, K]: `_incidence_sum` applies
+    them per instance."""
+
+    PER_ROW = ("shape", "dims", "inv_mass", "inv_inertia", "lin_damp",
+               "ang_damp", "friction", "restitution", "rest_quat", "rest_pos",
+               "j_qa", "j_ta", "j_qb", "j_tb", "j_lin_lo", "j_lin_hi",
+               "j_ang_lo", "j_ang_hi", "j_k_lin", "j_k_ang")
+    SHARED = ("s_joint_a", "s_joint_b", "s_pair_a", "s_pair_b", "has_box",
+              "has_cap", "strict_ids", "host", "device")
+
+    def __init__(self, ps: PhysicsTables, n_inst: int, n_bones: int):
+        self.n_inst = n_inst
+        self.n_bodies = n_inst * ps.n_bodies
+        self.n_joints = n_inst * ps.n_joints
+        self.n_pairs = n_inst * ps.n_pairs
+        for name in self.SHARED:
+            setattr(self, name, getattr(ps, name))
+        for name in self.PER_ROW:
+            setattr(self, name, tile_rows(getattr(ps, name), n_inst))
+        for name in ("pair_i", "pair_j", "j_a", "j_b", "wb_idx"):
+            setattr(self, name, tile_index(getattr(ps, name), n_inst,
+                                           ps.n_bodies))
+        for name in ("bone", "wb_bone"):
+            setattr(self, name, tile_index(getattr(ps, name), n_inst,
+                                           n_bones))
+        self.box_pairs = tile_index(ps.box_pairs, n_inst, ps.n_pairs)
+
+
+def _incidence_sum(ps, s, rows, groups):
+    """Per-body sum of constraint rows through the count-scaled incidence
+    matrix s [R, groups*K] -> [R, D]. `rows` [groups*K, D] are laid out
+    group-major (axis or manifold slot), then the rig's K constraints. On a
+    crowd view the rows are [groups, n_inst, K] and every instance's
+    [groups*K] rows meet the same shared matrix in one batched product ->
+    [n_inst*R, D]."""
+    if ps.n_inst == 1:
+        return s @ rows
+    d = rows.shape[-1]
+    per_inst = rows.reshape(groups, ps.n_inst, -1, d).transpose(0, 1)
+    return (s @ per_inst.reshape(ps.n_inst, -1, d)).reshape(-1, d)
 
 
 def _vec(values, like):
@@ -619,11 +686,12 @@ def _apply_position_corrections(ps, pos, quat, idx_a, idx_b, n, c, r_a, r_b,
                                 alpha, scat, dt, iiw=None):
     """Batched XPBD positional constraint projection with Jacobi averaging:
     per-body accumulation is a dense matmul with the count-scaled static
-    incidence matrices `scat` = (S_a [R,K], S_b [R,K])."""
+    incidence matrices `scat` = (S_a [R,K], S_b [R,K], row groups in K; see
+    `_incidence_sum`)."""
     inv_m = ps.inv_mass
     if iiw is None:
         iiw = _inv_inertia_world(ps, quat)
-    s_a, s_b = scat
+    s_a, s_b, groups = scat
     ra_x_n = m3.cross(r_a, n)
     rb_x_n = m3.cross(r_b, n)
     w_a = inv_m[idx_a] + _quad(ra_x_n, iiw[idx_a])
@@ -636,8 +704,8 @@ def _apply_position_corrections(ps, pos, quat, idx_a, idx_b, n, c, r_a, r_b,
     dpos_b = -p * inv_m[idx_b][..., None]
     dw_a = _mv(iiw[idx_a], m3.cross(r_a, p))
     dw_b = -_mv(iiw[idx_b], m3.cross(r_b, p))
-    acc = s_a @ torch.cat([dpos_a, dw_a], -1) \
-        + s_b @ torch.cat([dpos_b, dw_b], -1)
+    acc = _incidence_sum(ps, s_a, torch.cat([dpos_a, dw_a], -1), groups) \
+        + _incidence_sum(ps, s_b, torch.cat([dpos_b, dw_b], -1), groups)
     pos = pos + acc[:, :3]
     quat = _apply_small_rotation(quat, acc[:, 3:])
     return pos, quat
@@ -664,7 +732,7 @@ def _apply_velocity_corrections(ps, vel, omega, idx_a, idx_b, n, dv, r_a,
                                 r_b, scat, iiw):
     """Velocity-level impulse rows with the same incidence aggregation."""
     inv_m = ps.inv_mass
-    s_a, s_b = scat
+    s_a, s_b, groups = scat
     ra_x_n = m3.cross(r_a, n)
     rb_x_n = m3.cross(r_b, n)
     w_a = inv_m[idx_a] + _quad(ra_x_n, iiw[idx_a])
@@ -675,8 +743,8 @@ def _apply_velocity_corrections(ps, vel, omega, idx_a, idx_b, n, dv, r_a,
     dvel_b = -p * inv_m[idx_b][..., None]
     dw_a = _mv(iiw[idx_a], m3.cross(r_a, p))
     dw_b = -_mv(iiw[idx_b], m3.cross(r_b, p))
-    acc = s_a @ torch.cat([dvel_a, dw_a], -1) \
-        + s_b @ torch.cat([dvel_b, dw_b], -1)
+    acc = _incidence_sum(ps, s_a, torch.cat([dvel_a, dw_a], -1), groups) \
+        + _incidence_sum(ps, s_b, torch.cat([dvel_b, dw_b], -1), groups)
     return vel + acc[:, :3], omega + acc[:, 3:]
 
 
@@ -689,7 +757,7 @@ def _apply_angular_corrections(ps, quat, idx_a, idx_b, axis, c, alpha,
                                scat, dt, iiw=None):
     if iiw is None:
         iiw = _inv_inertia_world(ps, quat)
-    s_a, s_b = scat
+    s_a, s_b, groups = scat
     w_a = _quad(axis, iiw[idx_a])
     w_b = _quad(axis, iiw[idx_b])
     denom = w_a + w_b + alpha / (dt * dt)
@@ -697,7 +765,9 @@ def _apply_angular_corrections(ps, quat, idx_a, idx_b, axis, c, alpha,
     p = lam[..., None] * axis
     dw_a = _mv(iiw[idx_a], p)
     dw_b = -_mv(iiw[idx_b], p)
-    return _apply_small_rotation(quat, s_a @ dw_a + s_b @ dw_b)
+    return _apply_small_rotation(
+        quat, _incidence_sum(ps, s_a, dw_a, groups)
+        + _incidence_sum(ps, s_b, dw_b, groups))
 
 
 def _clip(x, lo, hi):
@@ -711,7 +781,7 @@ def _joint_pass(ps: PhysicsTables, pos, quat, dt, iiw=None):
         return pos, quat
     a, b = ps.j_a, ps.j_b
     c_n = ps.n_joints
-    scat = (ps.s_joint_a, ps.s_joint_b)
+    scat = (ps.s_joint_a, ps.s_joint_b, 6)   # rows: (hard, spring) x axis
 
     qa = m3.quat_mul(quat[a], ps.j_qa)                 # constraint frame (A)
     qb = m3.quat_mul(quat[b], ps.j_qb)
@@ -783,9 +853,9 @@ def _slot_rows(ps, c_point, c_n, c_depth0):
                 c_n.transpose(0, 1).reshape(-1, 3),
                 c_point.transpose(0, 1).reshape(-1, 3),
                 c_depth0.T.reshape(-1),
-                (ps.s_pair_a.repeat(1, m), ps.s_pair_b.repeat(1, m)), m)
+                (ps.s_pair_a.repeat(1, m), ps.s_pair_b.repeat(1, m), m), m)
     return (ps.pair_i, ps.pair_j, c_n, c_point, c_depth0,
-            (ps.s_pair_a, ps.s_pair_b), 0)
+            (ps.s_pair_a, ps.s_pair_b, 1), 0)
 
 
 def _contact_pass(ps: PhysicsTables, pos, quat, cfg, dt, cache,
@@ -1043,24 +1113,25 @@ def physics_react(static: ModelTables, ps: PhysicsTables,
         skin[ps.wb_bone] = skin_new
         pose = pose.replace(skin=skin)
 
-    # Fix: strict bodies re-pin the bone translation
+    # Fix: strict bodies re-pin the bone translation (one step per strict
+    # body of the rig, over that bone's row in every instance)
     for i in ps.strict_ids:
         bone = int(ps.host.bone[i])
-        rest = static.bone_rest[bone]
         parent = int(static.host.bone_parent[bone])
-        skin_b = pose.skin[bone]
+        rows = static.instance_rows(bone)
+        rest = static.bone_rest[rows]
+        skin_b = pose.skin[rows]
         local = skin_b.clone()
-        local[:3, 3] = local[:3, 3] + skin_b[:3, :3] @ rest
+        local[:, :3, 3] = local[:, :3, 3] + _mv(skin_b[:, :3, :3], rest)
         if parent >= 0:
-            local = torch.linalg.inv(pose.world[parent]) @ local
+            parent_world = pose.world[static.instance_rows(parent)]
+            local = torch.linalg.inv(parent_world) @ local
         local = local.clone()
-        local[:3, 3] = pose.total_trans[bone] + static.local_offset[bone]
-        world_b = (pose.world[parent] @ local) if parent >= 0 else local
+        local[:, :3, 3] = pose.total_trans[rows] + static.local_offset[rows]
+        world_b = (parent_world @ local) if parent >= 0 else local
         skin_fixed = world_b.clone()
-        skin_fixed[:3, 3] = skin_fixed[:3, 3] - world_b[:3, :3] @ rest
-        world = pose.world.clone()
-        world[bone] = world_b
-        skin = pose.skin.clone()
-        skin[bone] = skin_fixed
-        pose = pose.replace(world=world, skin=skin)
+        skin_fixed[:, :3, 3] = skin_fixed[:, :3, 3] \
+            - _mv(world_b[:, :3, :3], rest)
+        pose = pose.replace(world=_set(pose.world, rows, world_b),
+                            skin=_set(pose.skin, rows, skin_fixed))
     return state, pose

@@ -9,6 +9,14 @@ Functions are pure: each returns a new PoseArrays.
 The CCD loop's early exit (every chain converged) is a Python loop that
 reads a device flag once per iteration — a host synchronisation that a
 later CUDA-graph change will want to remove.
+
+A crowd is posed by the same functions on the rig's instance-major view
+(`ModelTables.crowd(n)`, see `CrowdModelTables`): the state then holds
+n_inst * B bone rows and n_inst * N vertex rows, an IK group n_inst * G
+chains (each converges, and is frozen, on its own), and one FK level, CCD
+step or morph pass serves every instance. Only the products with a table
+the instances share (`morph_expand`, the dense skin weights) see the
+instance axis, as one batched product.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ def _ordered_add(t, idx, val, passes):
 
 def init_pose(static: ModelTables) -> PoseArrays:
     b = static.n_bones
-    n = static.positions.shape[0]
+    n = static.n_vertices
     dev = static.device
     eye = torch.eye(4, dtype=torch.float32, device=dev).expand(b, 4, 4)
     return PoseArrays(
@@ -83,9 +91,10 @@ def apply_morphs(static: ModelTables, morph_rates):
     """-> (vertex_offsets [N,3], morph_rot [B,4], morph_trans [B,3],
     leaf_rates [M]). Group morphs are pre-expanded into leaf rates; the
     reference's `rate < eps` skip applies to the summed leaf rate."""
-    n = static.positions.shape[0]
+    n = static.n_vertices
     b = static.n_bones
     dev = static.device
+    n_inst = static.n_inst
     vertex_offsets = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     morph_rot = m3.quat_identity((b,), device=dev)
     morph_trans = torch.zeros((b, 3), dtype=torch.float32, device=dev)
@@ -93,7 +102,9 @@ def apply_morphs(static: ModelTables, morph_rates):
         return vertex_offsets, morph_rot, morph_trans, torch.zeros(
             (0,), dtype=torch.float32, device=dev)
 
-    leaf = morph_rates @ static.morph_expand
+    # per instance: rates [I, M] @ the shared expansion matrix
+    leaf = (morph_rates.reshape(n_inst, -1)
+            @ static.morph_expand).reshape(-1)
     leaf = torch.where(leaf >= _EPS, leaf, torch.zeros_like(leaf))
 
     if static.vm_morph.shape[0]:
@@ -110,11 +121,15 @@ def apply_morphs(static: ModelTables, morph_rates):
                                    static.passes("bm"))
         # rotations compose in morph order:
         # morph_rotation = morph_rotation ⊗ slerp(id, q, rate)
-        ident = m3.quat_identity((), device=dev)
-        for k in range(bones.shape[0]):
-            bone, q, rate = bones[k], static.bm_rot[k], rates[k]
+        # (entry k of every instance in one step: [I] rows)
+        ident = m3.quat_identity((n_inst,), device=dev)
+        bones_i = bones.reshape(n_inst, -1)
+        rot_i = static.bm_rot.reshape(n_inst, -1, 4)
+        rates_i = rates.reshape(n_inst, -1)
+        for k in range(bones_i.shape[1]):
+            bone, q, rate = bones_i[:, k], rot_i[:, k], rates_i[:, k]
             delta = m3.quat_slerp(ident, q, rate)
-            delta = torch.where(rate >= _EPS, delta, ident)
+            delta = torch.where((rate >= _EPS)[:, None], delta, ident)
             morph_rot = _set(morph_rot, bone,
                              m3.quat_mul(morph_rot[bone], delta))
 
@@ -374,20 +389,27 @@ def deform(static: ModelTables, pose: PoseArrays, use_matmul=None,
            sdef=False):
     """-> (positions [N,3], normals [N,3]) in MMD units. BDEF1/2/4 and the
     SDEF->BDEF2 matrix-lerp fallback all reduce to M = sum_k w_k skin[b_k];
-    with the dense weight matrix this is a bone-palette matmul."""
+    with the dense weight matrix this is a bone-palette matmul. On a crowd
+    view the mesh and weights are shared and the skin matrices and morph
+    offsets carry the instances: -> [I,N,3] each, from one batched
+    product."""
     if sdef:
         raise NotImplementedError("sdef")
+    skin, offsets = pose.skin, pose.vertex_offsets
+    if static.n_inst > 1:
+        skin = skin.reshape(static.n_inst, -1, 4, 4)
+        offsets = offsets.reshape(static.n_inst, -1, 3)
     if use_matmul is None:
         use_matmul = static.skin_weight_dense is not None
     if use_matmul and static.skin_weight_dense is not None:
         from ..ops.skinning import skin_matmul
-        return skin_matmul(static.skin_weight_dense, pose.skin,
-                           static.positions, pose.vertex_offsets,
+        return skin_matmul(static.skin_weight_dense, skin, static.positions,
+                           offsets, static.normals)
+    mats = skin[..., static.skin_bones, :, :]           # [N,4,4,4]
+    blend = torch.einsum("nk,...nkij->...nij", static.skin_weights, mats)
+    p = static.positions + offsets
+    out_pos = (torch.einsum("...nij,...nj->...ni", blend[..., :3, :3], p)
+               + blend[..., :3, 3])
+    out_nrm = torch.einsum("...nij,nj->...ni", blend[..., :3, :3],
                            static.normals)
-    mats = pose.skin[static.skin_bones]                 # [N,4,4,4]
-    blend = torch.einsum("nk,nkij->nij", static.skin_weights, mats)
-    p = static.positions + pose.vertex_offsets
-    out_pos = (torch.einsum("nij,nj->ni", blend[:, :3, :3], p)
-               + blend[:, :3, 3])
-    out_nrm = torch.einsum("nij,nj->ni", blend[:, :3, :3], static.normals)
     return out_pos, out_nrm

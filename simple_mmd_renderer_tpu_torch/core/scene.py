@@ -12,10 +12,16 @@ physics tables (sub-modules `rig`, `motion`, `phys`); every per-frame stage
 is a plain function on tensors. The scene runs on the device it was built
 for (`device=`, the card unless the caller asks for another), or wherever
 `.to()` moves it.
+
+A crowd state (`parallel.mesh.crowd_init`: every leaf with a leading
+instance axis, `time` [I]) goes through the same `step_pose`: the stages
+run once, on the instance-major views of the rig and physics tables, so a
+crowd step makes about the launches of a single step, whatever I.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,8 +42,21 @@ from .physics import PhysicsState, PhysicsStatic, PhysicsTables
 
 @dataclass
 class SimState:
-    time: torch.Tensor           # f32 scalar, seconds
-    physics: PhysicsState
+    time: torch.Tensor           # f32 scalar, seconds ([I] for a crowd)
+    physics: PhysicsState        # leaves [R,...] ([I,R,...] for a crowd)
+
+
+def _flat(x):
+    """[I, K, ...] -> [I*K, ...] (instance-major rows)."""
+    return x.reshape((-1,) + x.shape[2:])
+
+
+def _per_instance(obj, n_inst):
+    """A dataclass of [I*K, ...] tensors -> the same with [I, K, ...]."""
+    return type(obj)(**{
+        f.name: getattr(obj, f.name).reshape(
+            (n_inst, -1) + getattr(obj, f.name).shape[1:])
+        for f in dataclasses.fields(obj)})
 
 
 class Scene(nn.Module):
@@ -65,47 +84,65 @@ class Scene(nn.Module):
     def _neutral_pose(self):
         return pose_mod.pre_physics_posing(self.rig, *self._neutral_inputs())
 
-    def _neutral_inputs(self):
+    def _neutral_inputs(self, lead=()):
         dev = self.device
         b = self.rig.n_bones
-        rot = torch.zeros((b, 4), dtype=torch.float32, device=dev)
-        rot[:, 3] = 1.0
-        trans = torch.zeros((b, 3), dtype=torch.float32, device=dev)
-        rates = torch.zeros((self.rig.n_morphs,), dtype=torch.float32,
+        rot = torch.zeros(lead + (b, 4), dtype=torch.float32, device=dev)
+        rot[..., 3] = 1.0
+        trans = torch.zeros(lead + (b, 3), dtype=torch.float32, device=dev)
+        rates = torch.zeros(lead + (self.rig.n_morphs,), dtype=torch.float32,
                             device=dev)
         return rot, trans, rates
 
     def _sample_anim(self, time):
-        """Motion pose inputs at `time` seconds (neutral without motion)."""
+        """Motion pose inputs at `time` seconds (neutral without motion);
+        a crowd's times [I] give a leading instance axis."""
         if self.motion is None:
-            return self._neutral_inputs()
+            return self._neutral_inputs(tuple(time.shape))
         frame = torch.floor(time * self.config.fps)
         return anim_mod.sample_motion(self.motion, frame)
 
     def step_pose(self, state: SimState):
         """One animation+physics frame -> (state', pose, positions, normals)
-        with the deformed vertices in MMD units."""
-        static = self.rig
+        with the deformed vertices in MMD units. A crowd state (time [I])
+        steps all instances at once, each at its own clock, and returns
+        every leaf with the leading instance axis."""
+        static, phys = self.rig, self.phys
         cfg = self.config
         time = state.time + float(np.float32(1.0 / cfg.fps))
+        physics = state.physics
+        n_inst = time.shape[0] if time.dim() else None
 
         with pass_scope("anim"):
             anim_rot, anim_trans, rates = self._sample_anim(time)
+        if n_inst is not None:
+            # instance-major rows: [I, K, ...] -> [I*K, ...] on the views
+            static = static.crowd(n_inst)
+            phys = phys.crowd(n_inst, self.rig.n_bones)
+            anim_rot, anim_trans = _flat(anim_rot), _flat(anim_trans)
+            rates = rates.reshape(-1)
+            physics = PhysicsState(**{
+                f.name: _flat(getattr(physics, f.name))
+                for f in dataclasses.fields(physics)})
         with pass_scope("pre_physics"):
             pose = pose_mod.pre_physics_posing(static, anim_rot, anim_trans,
                                                rates)
-        physics = state.physics
         if self.motion is not None and cfg.physics.enabled \
                 and self.phys.n_bodies:
             with pass_scope("physics"):
                 physics, pose = phys_mod.physics_react(
-                    static, self.phys, physics, pose, cfg.physics)
+                    static, phys, physics, pose, cfg.physics)
         with pass_scope("post_physics"):
             pose = pose_mod.post_physics_posing(static, pose, anim_rot,
                                                 anim_trans, rates)
         with pass_scope("deform"):
             positions, normals = pose_mod.deform(static, pose,
                                                  sdef=cfg.sdef_true)
+        if n_inst is not None:
+            physics = _per_instance(physics, n_inst)
+            pose = _per_instance(pose, n_inst)
+            positions = positions.reshape(n_inst, -1, 3)
+            normals = normals.reshape(n_inst, -1, 3)
         return SimState(time=time, physics=physics), pose, positions, normals
 
     def step_and_render(self, state: SimState, width=None, height=None):

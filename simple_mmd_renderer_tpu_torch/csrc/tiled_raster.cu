@@ -1,4 +1,5 @@
-// K1, K2, K4 and K6: the binned tile rasterizer's per-tile loops.
+// K1, K2, K4, K6 and the crowd's K5a, K5b, K5c: the binned tile
+// rasterizer's per-tile loops.
 //
 // K1 (`depth_tiles_kernel`) replaces the Pallas kernel `_depth_kernel` with
 // its loop `_depth_tile_loop` (simple_mmd_renderer_tpu/ops/tiled_raster.py,
@@ -10,7 +11,16 @@
 // `_run_kernel` for `rasterize_attrs_tiled`, the character's visibility and
 // perspective-correct attributes); K4 (`raster_tiles_ms_kernel`) replaces
 // its 4x MSAA variant `_raster_kernel_ms` (launched by `_run_kernel_ms` for
-// `rasterize_attrs_tiled_msaa`).
+// `rasterize_attrs_tiled_msaa`). The crowd kernels replace the same Pallas
+// bodies launched with `inst_tiles` over an instance x tile grid: K5a
+// (`raster_tiles_multi_kernel`) `_run_kernel_multi`, K5b
+// (`raster_tiles_ms_multi_kernel`) `_run_kernel_ms_multi` and K5c
+// (`depth_tiles_multi_kernel`) `_run_depth_kernel_multi`. Each runs the
+// tile body of K2, K4 or K1 (`raster_tile`, `raster_tile_ms`, `depth_tile`)
+// with one block per (instance, tile): block g reads the bins of the global
+// tile g, takes its pixel coordinates from the local tile g % inst_tiles
+// and writes the planes of instance g / inst_tiles, so a crowd tile gets
+// the single-instance kernel's bits on the same bins.
 //
 // Input is the binning's output: setup rows sorted by tile, so that tile t
 // owns the contiguous entries [starts[t], starts[t] + counts[t]) of `rows`
@@ -231,18 +241,15 @@ __device__ __forceinline__ void write_winner(const float* __restrict__ rows,
   b2[o] = w2;
 }
 
-__global__ void __launch_bounds__(THREADS)
-raster_tiles_kernel(const int* __restrict__ starts,
-                    const int* __restrict__ counts,
-                    const float* __restrict__ rows, int row_w, int n_attrs,
-                    int tiles_x, float* __restrict__ depth,
-                    int* __restrict__ tri, float* __restrict__ b1,
-                    float* __restrict__ b2, float* __restrict__ attr,
-                    int pad_h, int pad_w) {
-  __shared__ float sh[LANES * CHUNK];
-  const int t = blockIdx.x;
-  const int ty = t / tiles_x;
-  const int tx = t - ty * tiles_x;
+// One tile of K2/K5a: tile (ty, tx) of one instance's frame, whose entries
+// are [starts[gid], starts[gid] + counts[gid]); the output planes are that
+// instance's. Every thread of the block calls it.
+__device__ __forceinline__ void raster_tile(
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const float* __restrict__ rows, int row_w, int n_attrs, int gid, int ty,
+    int tx, float* __restrict__ depth, int* __restrict__ tri,
+    float* __restrict__ b1, float* __restrict__ b2, float* __restrict__ attr,
+    int pad_h, int pad_w, float* sh) {
   const int col = threadIdx.x % TILE_W;
   const int row0 = (threadIdx.x / TILE_W) * ROWS_PER_THREAD;
   const float px = (float)col + ((float)(tx * TILE_W) + 0.5f);
@@ -258,8 +265,8 @@ raster_tiles_kernel(const int* __restrict__ starts,
     win[r] = -1;
   }
 
-  const int start = starts[t];
-  const int count = counts[t];
+  const int start = starts[gid];
+  const int count = counts[gid];
   for (int c0 = 0; c0 < count; c0 += CHUNK) {
     const int n = min(CHUNK, count - c0);
     __syncthreads();
@@ -308,18 +315,50 @@ raster_tiles_kernel(const int* __restrict__ starts,
   }
 }
 
-__global__ void __launch_bounds__(MS_THREADS)
-raster_tiles_ms_kernel(const int* __restrict__ starts,
-                       const int* __restrict__ counts,
-                       const float* __restrict__ rows, int row_w,
-                       int n_attrs, int tiles_x, float* __restrict__ depth,
-                       int* __restrict__ tri, float* __restrict__ b1,
-                       float* __restrict__ b2, float* __restrict__ attr,
-                       float* __restrict__ sdepth, int pad_h, int pad_w) {
+__global__ void __launch_bounds__(THREADS)
+raster_tiles_kernel(const int* __restrict__ starts,
+                    const int* __restrict__ counts,
+                    const float* __restrict__ rows, int row_w, int n_attrs,
+                    int tiles_x, float* __restrict__ depth,
+                    int* __restrict__ tri, float* __restrict__ b1,
+                    float* __restrict__ b2, float* __restrict__ attr,
+                    int pad_h, int pad_w) {
   __shared__ float sh[LANES * CHUNK];
   const int t = blockIdx.x;
   const int ty = t / tiles_x;
-  const int tx = t - ty * tiles_x;
+  raster_tile(starts, counts, rows, row_w, n_attrs, t, ty, t - ty * tiles_x,
+              depth, tri, b1, b2, attr, pad_h, pad_w, sh);
+}
+
+// K5a: block i takes tile i % inst_tiles of instance i / inst_tiles;
+// starts/counts are indexed by the global tile i, pixel coordinates come
+// from the local tile, every output plane is offset by the instance.
+__global__ void __launch_bounds__(THREADS)
+raster_tiles_multi_kernel(const int* __restrict__ starts,
+                          const int* __restrict__ counts,
+                          const float* __restrict__ rows, int row_w,
+                          int n_attrs, int inst_tiles, int tiles_x,
+                          float* __restrict__ depth, int* __restrict__ tri,
+                          float* __restrict__ b1, float* __restrict__ b2,
+                          float* __restrict__ attr, int pad_h, int pad_w) {
+  __shared__ float sh[LANES * CHUNK];
+  const int g = blockIdx.x;
+  const int inst = g / inst_tiles;
+  const int local = g - inst * inst_tiles;
+  const int ty = local / tiles_x;
+  const size_t o = static_cast<size_t>(inst) * pad_h * pad_w;
+  raster_tile(starts, counts, rows, row_w, n_attrs, g, ty,
+              local - ty * tiles_x, depth + o, tri + o, b1 + o, b2 + o,
+              attr + o * max(n_attrs, 1), pad_h, pad_w, sh);
+}
+
+// One tile of K4/K5b (see raster_tile), with the per-sample depths.
+__device__ __forceinline__ void raster_tile_ms(
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const float* __restrict__ rows, int row_w, int n_attrs, int gid, int ty,
+    int tx, float* __restrict__ depth, int* __restrict__ tri,
+    float* __restrict__ b1, float* __restrict__ b2, float* __restrict__ attr,
+    float* __restrict__ sdepth, int pad_h, int pad_w, float* sh) {
   const int col = threadIdx.x % TILE_W;
   const int row0 = (threadIdx.x / TILE_W) * MS_ROWS;
   const float px = (float)col + ((float)(tx * TILE_W) + 0.5f);
@@ -338,8 +377,8 @@ raster_tiles_ms_kernel(const int* __restrict__ starts,
     for (int k = 0; k < 4; ++k) sd[k][r] = 1.0f;
   }
 
-  const int start = starts[t];
-  const int count = counts[t];
+  const int start = starts[gid];
+  const int count = counts[gid];
   for (int c0 = 0; c0 < count; c0 += CHUNK) {
     const int n = min(CHUNK, count - c0);
     __syncthreads();
@@ -416,6 +455,62 @@ raster_tiles_ms_kernel(const int* __restrict__ starts,
     write_winner(rows, row_w, n_attrs, win[r], px,
                  (float)(row0 + r) + ybase, o, plane, b1, b2, attr);
   }
+}
+
+__global__ void __launch_bounds__(MS_THREADS)
+raster_tiles_ms_kernel(const int* __restrict__ starts,
+                       const int* __restrict__ counts,
+                       const float* __restrict__ rows, int row_w,
+                       int n_attrs, int tiles_x, float* __restrict__ depth,
+                       int* __restrict__ tri, float* __restrict__ b1,
+                       float* __restrict__ b2, float* __restrict__ attr,
+                       float* __restrict__ sdepth, int pad_h, int pad_w) {
+  __shared__ float sh[LANES * CHUNK];
+  const int t = blockIdx.x;
+  const int ty = t / tiles_x;
+  raster_tile_ms(starts, counts, rows, row_w, n_attrs, t, ty,
+                 t - ty * tiles_x, depth, tri, b1, b2, attr, sdepth, pad_h,
+                 pad_w, sh);
+}
+
+// K5b: K4 over the instance x tile grid (see raster_tiles_multi_kernel).
+__global__ void __launch_bounds__(MS_THREADS)
+raster_tiles_ms_multi_kernel(const int* __restrict__ starts,
+                             const int* __restrict__ counts,
+                             const float* __restrict__ rows, int row_w,
+                             int n_attrs, int inst_tiles, int tiles_x,
+                             float* __restrict__ depth,
+                             int* __restrict__ tri, float* __restrict__ b1,
+                             float* __restrict__ b2, float* __restrict__ attr,
+                             float* __restrict__ sdepth, int pad_h,
+                             int pad_w) {
+  __shared__ float sh[LANES * CHUNK];
+  const int g = blockIdx.x;
+  const int inst = g / inst_tiles;
+  const int local = g - inst * inst_tiles;
+  const int ty = local / tiles_x;
+  const size_t o = static_cast<size_t>(inst) * pad_h * pad_w;
+  raster_tile_ms(starts, counts, rows, row_w, n_attrs, g, ty,
+                 local - ty * tiles_x, depth + o, tri + o, b1 + o, b2 + o,
+                 attr + o * max(n_attrs, 1), sdepth + o * 4, pad_h, pad_w,
+                 sh);
+}
+
+// K5c: K1 over the instance x tile grid (see raster_tiles_multi_kernel).
+__global__ void __launch_bounds__(THREADS)
+depth_tiles_multi_kernel(const int* __restrict__ starts,
+                         const int* __restrict__ counts,
+                         const float* __restrict__ rows, int row_w,
+                         int inst_tiles, int tiles_x,
+                         float* __restrict__ depth, int pad_h, int pad_w) {
+  __shared__ float sh[LANES * CHUNK];
+  const int g = blockIdx.x;
+  const int inst = g / inst_tiles;
+  const int local = g - inst * inst_tiles;
+  const int ty = local / tiles_x;
+  depth_tile<TILE_H>(starts, counts, rows, row_w, g, ty, local - ty * tiles_x,
+                     depth + static_cast<size_t>(inst) * pad_h * pad_w, pad_w,
+                     sh);
 }
 
 }  // namespace
@@ -505,5 +600,66 @@ extern "C" int smr_depth_tiles_win(const void* window, const void* starts,
   else
     depth_tiles_win_kernel<8><<<n_tiles, THREADS, 0, st>>>(
         w, s, c, r, row_w, n_tiles, tiles_x, d, pad_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5c, K5a, K5b: the crowd launchers. starts: i32 [n_inst * inst_tiles + 1]
+// and counts: i32 [n_inst * inst_tiles] over the global tile
+// inst * inst_tiles + tile; every output gains a leading instance axis:
+// depth/tri/b1/b2 [n_inst, pad_h, pad_w], attr [n_inst, max(n_attrs, 1),
+// pad_h, pad_w], sdepth [n_inst, 4, pad_h, pad_w]. One block per
+// (instance, tile).
+extern "C" int smr_depth_tiles_multi(const void* starts, const void* counts,
+                                     const void* rows, int row_w, int n_inst,
+                                     int inst_tiles, int tiles_x, void* depth,
+                                     int pad_h, int pad_w, void* stream) {
+  if (n_inst <= 0 || inst_tiles <= 0) return 0;
+  if (row_w < LANES) return static_cast<int>(cudaErrorInvalidValue);
+  depth_tiles_multi_kernel<<<n_inst * inst_tiles, THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(starts), static_cast<const int*>(counts),
+      static_cast<const float*>(rows), row_w, inst_tiles, tiles_x,
+      static_cast<float*>(depth), pad_h, pad_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int smr_raster_tiles_multi(const void* starts, const void* counts,
+                                      const void* rows, int row_w,
+                                      int n_attrs, int n_inst, int inst_tiles,
+                                      int tiles_x, void* depth, void* tri,
+                                      void* b1, void* b2, void* attr,
+                                      int pad_h, int pad_w, void* stream) {
+  if (n_inst <= 0 || inst_tiles <= 0) return 0;
+  if (n_attrs < 0 || n_attrs > MAX_ATTRS || row_w < LANES
+      || (n_attrs > 0 && row_w < BASE_WIDTH + 3 + 3 * n_attrs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  raster_tiles_multi_kernel<<<n_inst * inst_tiles, THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(starts), static_cast<const int*>(counts),
+      static_cast<const float*>(rows), row_w, n_attrs, inst_tiles, tiles_x,
+      static_cast<float*>(depth), static_cast<int*>(tri),
+      static_cast<float*>(b1), static_cast<float*>(b2),
+      static_cast<float*>(attr), pad_h, pad_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int smr_raster_tiles_ms_multi(const void* starts,
+                                         const void* counts, const void* rows,
+                                         int row_w, int n_attrs, int n_inst,
+                                         int inst_tiles, int tiles_x,
+                                         void* depth, void* tri, void* b1,
+                                         void* b2, void* attr, void* sdepth,
+                                         int pad_h, int pad_w, void* stream) {
+  if (n_inst <= 0 || inst_tiles <= 0) return 0;
+  if (n_attrs < 0 || n_attrs > MAX_ATTRS || row_w < LANES
+      || (n_attrs > 0 && row_w < BASE_WIDTH + 3 + 3 * n_attrs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  raster_tiles_ms_multi_kernel<<<n_inst * inst_tiles, MS_THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(starts), static_cast<const int*>(counts),
+      static_cast<const float*>(rows), row_w, n_attrs, inst_tiles, tiles_x,
+      static_cast<float*>(depth), static_cast<int*>(tri),
+      static_cast<float*>(b1), static_cast<float*>(b2),
+      static_cast<float*>(attr), static_cast<float*>(sdepth), pad_h, pad_w);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,12 +31,14 @@ def build_weight_matrix(skin_bones: np.ndarray, skin_weights: np.ndarray,
 
 def skin_matmul(weight_matrix, skin_mats, positions, vertex_offsets, normals):
     """-> (pos' [N,3], nrm' [N,3]). weight_matrix: [N,B]; skin_mats:
-    [B,4,4]; the blend accumulates in float32."""
-    b = skin_mats.shape[0]
-    palette = skin_mats[:, :3, :4].reshape(b, 12).to(torch.float32)
-    blended = weight_matrix.to(torch.float32) @ palette       # [N,12]
-    m = blended.reshape(-1, 3, 4)
+    [B,4,4]; the blend accumulates in float32. For a crowd, skin_mats
+    [I,B,4,4] and vertex_offsets [I,N,3] against the shared weights, mesh
+    and normals give [I,N,3] each, the blend as one batched product."""
+    palette = skin_mats[..., :3, :4].reshape(
+        skin_mats.shape[:-2] + (12,)).to(torch.float32)
+    blended = weight_matrix.to(torch.float32) @ palette       # [..,N,12]
+    m = blended.reshape(blended.shape[:-1] + (3, 4))
     p = positions + vertex_offsets
-    out_pos = torch.einsum("nij,nj->ni", m[:, :, :3], p) + m[:, :, 3]
-    out_nrm = torch.einsum("nij,nj->ni", m[:, :, :3], normals)
+    out_pos = torch.einsum("...nij,...nj->...ni", m[..., :3], p) + m[..., 3]
+    out_nrm = torch.einsum("...nij,nj->...ni", m[..., :3], normals)
     return out_pos, out_nrm

@@ -1,7 +1,8 @@
-"""Binned tile rasterizer: the main path's shadow-depth and character raster.
+"""Binned tile rasterizer: the shadow-depth and character rasters of one
+character and of a crowd.
 
-Port of the single-instance path of `simple_mmd_renderer_tpu/ops/
-tiled_raster.py`, with the same visibility semantics (pixel centres at
+Port of `simple_mmd_renderer_tpu/ops/tiled_raster.py`, with the same
+visibility semantics (pixel centres at
 +0.5, covered = barycentrics >= 0 and w1 + w2 <= 1, z-less wins, a z-tie
 goes to the larger triangle id):
 
@@ -32,8 +33,20 @@ where tri < 0. TILE_H x TILE_W stays 32 x 128 (the windowed shadow raster
 also takes 8-row tiles) so that starts/counts can be compared with the
 reference.
 
+The crowd (`rasterize_*_crowd`, at the end of the module) rasterizes I
+instances of one topology at once: one binning over the valid triangles of
+all instances, keyed by the global tile inst * n_tiles + tile, and one
+launch of K5a (`raster_tiles_multi`), K5b (`raster_tiles_ms_multi`) or K5c
+(`depth_tiles_multi`) over the instance x tile grid, each running K2's,
+K4's or K1's tile body; oversized triangles merge per instance through the
+same capped scan. The reference bins a crowd in up to four
+validity-compacted passes of static size and merges them in draw order;
+the port compacts to the exact count, so one pass does, with the same
+result.
+
 Host synchronisations (for a later CUDA-graph change): the compacted
-triangle count (`nonzero`) and the big-triangle count.
+triangle count (`nonzero`) and the big-triangle count, once per raster
+whatever the number of instances.
 """
 
 from __future__ import annotations
@@ -61,7 +74,8 @@ depth_win_launches = 0     # K6
 
 
 def _setup_rows(s, tri_ids, attrs=None):
-    """Pack per-triangle setup into [T, W] f32 rows of screen-space plane
+    """Pack per-triangle setup ([T, ...], or [I, T, ...] for a crowd) into
+    [..., T, W] f32 rows of screen-space plane
     coefficients anchored at vertex 0: ax, ay, w1x, w1y, w2x, w2y, z0, zx,
     zy, valid, tri_id, ymin, ymax, pad (3); with attrs [V,A] the 1/w
     denominator plane (3) and per-attribute numerator planes (3A) follow,
@@ -71,9 +85,9 @@ def _setup_rows(s, tri_ids, attrs=None):
     area2 = s["area2"]
     inv_area = torch.where(torch.abs(area2) > 1e-12, 1.0 / area2,
                            torch.zeros_like(area2))
-    ax, ay = xy[:, 0, 0], xy[:, 0, 1]
-    bx, by = xy[:, 1, 0], xy[:, 1, 1]
-    cx, cy = xy[:, 2, 0], xy[:, 2, 1]
+    ax, ay = xy[..., 0, 0], xy[..., 0, 1]
+    bx, by = xy[..., 1, 0], xy[..., 1, 1]
+    cx, cy = xy[..., 2, 0], xy[..., 2, 1]
     ymin_r = torch.clamp(torch.minimum(torch.minimum(ay, by), cy),
                          0.0, 65535.0)
     ymax_r = torch.clamp(torch.maximum(torch.maximum(ay, by), cy),
@@ -88,23 +102,24 @@ def _setup_rows(s, tri_ids, attrs=None):
         d2 = v2 - v0
         return (v0, d1 * w1x + d2 * w2x, d1 * w1y + d2 * w2y)
 
-    z0, zx, zy = combo(z[:, 0], z[:, 1], z[:, 2])
+    z0, zx, zy = combo(z[..., 0], z[..., 1], z[..., 2])
     zero = torch.zeros_like(z0)
     cols = [ax, ay, w1x, w1y, w2x, w2y, z0, zx, zy,
-            s["valid"].to(torch.float32), tri_ids.to(torch.float32),
+            s["valid"].to(torch.float32),
+            tri_ids.to(torch.float32).expand_as(z0),
             ymin_r, ymax_r, zero, zero, zero]
     if attrs is not None:
-        if attrs.shape[1] > MAX_ATTRS:
+        if attrs.shape[-1] > MAX_ATTRS:
             raise ValueError("attr payload exceeds the row's plane budget")
         va = s.get("va")
         if va is None:
             va = attrs[s["tris_v"].long()]           # [T,3,A]
         iw = s["inv_w"]
-        cols.extend(combo(iw[:, 0], iw[:, 1], iw[:, 2]))
-        for a in range(attrs.shape[1]):
-            cols.extend(combo(va[:, 0, a] * iw[:, 0],
-                              va[:, 1, a] * iw[:, 1],
-                              va[:, 2, a] * iw[:, 2]))
+        cols.extend(combo(iw[..., 0], iw[..., 1], iw[..., 2]))
+        for a in range(attrs.shape[-1]):
+            cols.extend(combo(va[..., 0, a] * iw[..., 0],
+                              va[..., 1, a] * iw[..., 1],
+                              va[..., 2, a] * iw[..., 2]))
     cols.extend([zero] * ((-len(cols)) % 8))
     return torch.stack(cols, dim=-1)
 
@@ -118,11 +133,11 @@ def _grid(width, height, tile_h=TILE_H):
 def _expand_tiles(s, width, height, e_max, tile_h=TILE_H):
     """Per-triangle covered-tile enumeration over tile_h x TILE_W tiles ->
     (tile [T, E] int64 with n_tiles in unused slots, big [T]
-    oversized-triangle mask)."""
+    oversized-triangle mask); a crowd's setup gives [I, T, E] and [I, T]."""
     tiles_x, _, n_tiles = _grid(width, height, tile_h)
     xy = s["xy"]
-    x_lo, x_hi = torch.amin(xy[:, :, 0], 1), torch.amax(xy[:, :, 0], 1)
-    y_lo, y_hi = torch.amin(xy[:, :, 1], 1), torch.amax(xy[:, :, 1], 1)
+    x_lo, x_hi = torch.amin(xy[..., 0], -1), torch.amax(xy[..., 0], -1)
+    y_lo, y_hi = torch.amin(xy[..., 1], -1), torch.amax(xy[..., 1], -1)
     xmin = torch.clamp(x_lo, 0.0, width - 1.0)
     xmax = torch.clamp(x_hi, 0.0, width - 1.0)
     ymin = torch.clamp(y_lo, 0.0, height - 1.0)
@@ -139,10 +154,11 @@ def _expand_tiles(s, width, height, e_max, tile_h=TILE_H):
     big = valid & (n_cover > e_max)
     small = valid & ~big
 
-    e = torch.arange(e_max, device=xy.device)[None, :]            # [1,E]
-    bwc = torch.clamp(bw, 1, e_max)[:, None]
-    tile = (ty0[:, None] + e // bwc) * tiles_x + (tx0[:, None] + e % bwc)
-    mask = small[:, None] & (e < n_cover[:, None])
+    e = torch.arange(e_max, device=xy.device)                     # [E]
+    bwc = torch.clamp(bw, 1, e_max)[..., None]
+    tile = ((ty0[..., None] + e // bwc) * tiles_x
+            + (tx0[..., None] + e % bwc))
+    mask = small[..., None] & (e < n_cover[..., None])
     tile = torch.where(mask, tile, torch.full_like(tile, n_tiles))
     return tile, big
 
@@ -196,8 +212,9 @@ def _tile_entries(starts, counts):
 
 
 def _planes(rows, tile_of, tiles_x, tile_h=TILE_H):
-    """Centre planes of entries over their tiles -> (w1, w2, zp
-    [B,TH,TW]), in the kernels' arithmetic order."""
+    """Centre planes of entries over their tiles (`tile_of`: each entry's
+    tile within its own frame) -> (w1, w2, zp [B,TH,TW]), in the kernels'
+    arithmetic order."""
     dev = rows.device
     ty = tile_of // tiles_x
     tx = tile_of - ty * tiles_x
@@ -237,28 +254,33 @@ def _reduce_into(out, tile_of, vals, how):
     out.scatter_reduce_(0, idx, vals, how, include_self=True)
 
 
-def _untile(t, tiles_x, tiles_y):
-    """[n_tiles, TH, TW, ...] -> [tiles_y*TH, tiles_x*TW, ...]."""
+def _untile(t, tiles_x, tiles_y, n_inst=None):
+    """[n_tiles, TH, TW, ...] -> [tiles_y*TH, tiles_x*TW, ...]; with n_inst
+    the tiles are instance-major and a leading [n_inst] axis is kept."""
     tile_h = t.shape[1]
     rest = t.shape[3:]
-    t = t.reshape((tiles_y, tiles_x, tile_h, TILE_W) + rest)
-    t = t.transpose(1, 2)
-    return t.reshape((tiles_y * tile_h, tiles_x * TILE_W) + rest)
+    t = t.reshape((-1, tiles_y, tiles_x, tile_h, TILE_W) + rest)
+    t = t.transpose(2, 3)
+    t = t.reshape((t.shape[0], tiles_y * tile_h, tiles_x * TILE_W) + rest)
+    return t[0] if n_inst is None else t
 
 
-def _depth_plain(sorted_rows, starts, counts, width, height, tile_h):
+def _depth_plain(sorted_rows, starts, counts, width, height, tile_h,
+                 n_inst=None):
     """Per-tile min of zp over covering entries (zp >= 0) on the tile_h x
-    TILE_W grid, cleared to 1. Returns depth [pad_h, pad_w]."""
+    TILE_W grid, cleared to 1. Returns depth [pad_h, pad_w]; with n_inst,
+    starts/counts run over the global tile inst * n_tiles + tile and the
+    result is [n_inst, pad_h, pad_w]."""
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile_h)
-    depth = torch.ones((n_tiles, tile_h, TILE_W), dtype=torch.float32,
-                       device=sorted_rows.device)
+    depth = torch.ones((counts.shape[0], tile_h, TILE_W),
+                       dtype=torch.float32, device=sorted_rows.device)
     eidx, tile_of = _tile_entries(starts, counts)
     for b in range(0, eidx.shape[0], _BLOCK_ENTRIES):
         sl = slice(b, b + _BLOCK_ENTRIES)
-        zm, _ = _eval_entries(sorted_rows[eidx[sl]], tile_of[sl], tiles_x,
-                              zmax=False, tile_h=tile_h)
+        zm, _ = _eval_entries(sorted_rows[eidx[sl]], tile_of[sl] % n_tiles,
+                              tiles_x, zmax=False, tile_h=tile_h)
         _reduce_into(depth, tile_of[sl], zm, "amin")
-    return _untile(depth, tiles_x, tiles_y)
+    return _untile(depth, tiles_x, tiles_y, n_inst)
 
 
 def depth_tiles_plain(sorted_rows, starts, counts, width, height):
@@ -282,39 +304,42 @@ def depth_tiles_win_plain(sorted_rows, starts, counts, window, width,
                         width, height, tile_h)
 
 
-def raster_tiles_plain(sorted_rows, starts, counts, width, height, n_attrs):
+def raster_tiles_plain(sorted_rows, starts, counts, width, height, n_attrs,
+                       n_inst=None):
     """Plain K2: per pixel the covering entry with the smallest zp in
     [0, 1] wins, a tie going to the larger triangle id (a vectorised min,
     then a max of the id among the entries at that min — order-free like
     the kernel's fold). b1, b2 and the attribute planes are evaluated from
     the winner's row with the kernel's arithmetic.
 
-    Returns (depth, tri, b1, b2, attr [max(A,1), pad_h, pad_w])."""
+    Returns (depth, tri, b1, b2, attr [max(A,1), pad_h, pad_w]); with
+    n_inst (global tiles, see _depth_plain) each gains a leading [n_inst]."""
     tiles_x, tiles_y, n_tiles = _grid(width, height)
     dev = sorted_rows.device
     eidx, tile_of = _tile_entries(starts, counts)
+    local = tile_of % n_tiles
     n = eidx.shape[0]
     blocks = [slice(b, b + _BLOCK_ENTRIES) for b in range(0, n, _BLOCK_ENTRIES)]
 
-    depth = torch.ones((n_tiles, TILE_H, TILE_W), dtype=torch.float32,
-                       device=dev)
+    depth = torch.ones((counts.shape[0], TILE_H, TILE_W),
+                       dtype=torch.float32, device=dev)
     for sl in blocks:
-        zm, _ = _eval_entries(sorted_rows[eidx[sl]], tile_of[sl], tiles_x,
+        zm, _ = _eval_entries(sorted_rows[eidx[sl]], local[sl], tiles_x,
                               zmax=True)
         _reduce_into(depth, tile_of[sl], zm, "amin")
     # winner: max triangle id among the entries at the min depth; the key
     # carries the entry index too (ids are unique within a tile)
     span = max(int(sorted_rows.shape[0]), 1)
-    key = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int64,
-                     device=dev)
+    key = torch.full((counts.shape[0], TILE_H, TILE_W), -1,
+                     dtype=torch.int64, device=dev)
     for sl in blocks:
-        zm, tid = _eval_entries(sorted_rows[eidx[sl]], tile_of[sl], tiles_x,
+        zm, tid = _eval_entries(sorted_rows[eidx[sl]], local[sl], tiles_x,
                                 zmax=True)
         hit = zm == depth[tile_of[sl]]
         k = (tid * span + eidx[sl])[:, None, None]
         _reduce_into(key, tile_of[sl], torch.where(hit, k, -1), "amax")
-    depth = _untile(depth, tiles_x, tiles_y)
-    key = _untile(key, tiles_x, tiles_y)
+    depth = _untile(depth, tiles_x, tiles_y, n_inst)
+    key = _untile(key, tiles_x, tiles_y, n_inst)
     won = key >= 0
     tri = torch.where(won, key // span, -1).to(torch.int32)
     b1, b2, attr = _winner_planes(sorted_rows, won,
@@ -357,7 +382,7 @@ def _eval_entries_ms(rows, tile_of, tiles_x):
 
 
 def raster_tiles_ms_plain(sorted_rows, starts, counts, width, height,
-                          n_attrs):
+                          n_attrs, n_inst=None):
     """Plain K4: K2 with any-sample coverage and per-sample depth.
 
     Depth starts at the biased clear 3.0 with triangle -1, which takes part
@@ -370,50 +395,54 @@ def raster_tiles_ms_plain(sorted_rows, starts, counts, width, height,
     centre, as in K2.
 
     Returns (depth, tri, b1, b2, attr [max(A,1)], sdepth [4]), each over
-    [pad_h, pad_w]."""
+    [pad_h, pad_w]; with n_inst (global tiles, see _depth_plain) each gains
+    a leading [n_inst]."""
     tiles_x, tiles_y, n_tiles = _grid(width, height)
     dev = sorted_rows.device
     eidx, tile_of = _tile_entries(starts, counts)
+    local = tile_of % n_tiles
+    all_tiles = counts.shape[0]
     n = eidx.shape[0]
     blocks = [slice(b, b + _BLOCK_ENTRIES) for b in range(0, n, _BLOCK_ENTRIES)]
 
     f32 = dict(dtype=torch.float32, device=dev)
-    depth = torch.full((n_tiles, TILE_H, TILE_W), 3.0, **f32)
-    sdepth = torch.ones((4, n_tiles, TILE_H, TILE_W), **f32)
+    depth = torch.full((all_tiles, TILE_H, TILE_W), 3.0, **f32)
+    sdepth = torch.ones((4, all_tiles, TILE_H, TILE_W), **f32)
     for sl in blocks:
-        zb, szm, _ = _eval_entries_ms(sorted_rows[eidx[sl]], tile_of[sl],
+        zb, szm, _ = _eval_entries_ms(sorted_rows[eidx[sl]], local[sl],
                                       tiles_x)
         _reduce_into(depth, tile_of[sl], zb, "amin")
         for k in range(4):
             _reduce_into(sdepth[k], tile_of[sl], szm[k], "amin")
     span = max(int(sorted_rows.shape[0]), 1)
-    key = torch.full((n_tiles, TILE_H, TILE_W), -1, dtype=torch.int64,
+    key = torch.full((all_tiles, TILE_H, TILE_W), -1, dtype=torch.int64,
                      device=dev)
     for sl in blocks:
-        zb, _, tid = _eval_entries_ms(sorted_rows[eidx[sl]], tile_of[sl],
+        zb, _, tid = _eval_entries_ms(sorted_rows[eidx[sl]], local[sl],
                                       tiles_x)
         hit = zb == depth[tile_of[sl]]
         k = (tid * span + eidx[sl])[:, None, None]
         _reduce_into(key, tile_of[sl], torch.where(hit, k, -1), "amax")
-    depth = _untile(depth, tiles_x, tiles_y)
-    key = _untile(key, tiles_x, tiles_y)
+    depth = _untile(depth, tiles_x, tiles_y, n_inst)
+    key = _untile(key, tiles_x, tiles_y, n_inst)
     won = key >= 0
     tri = torch.where(won, key // span, -1).to(torch.int32)
     depth = torch.where(won, torch.where(depth > 1.5, depth - 2.0, depth),
                         1.0)
     b1, b2, attr = _winner_planes(sorted_rows, won,
                                   torch.where(won, key % span, 0), n_attrs)
-    sdepth = torch.stack([_untile(sdepth[k], tiles_x, tiles_y)
-                          for k in range(4)])
+    sdepth = torch.stack([_untile(sdepth[k], tiles_x, tiles_y, n_inst)
+                          for k in range(4)], dim=-3)
     return depth, tri, b1, b2, attr, sdepth
 
 
 def _winner_planes(sorted_rows, won, win, n_attrs):
     """b1, b2 and attr [max(A,1), H, W] at the pixel centres of a padded
-    [H, W] target from each pixel's winning entry `win` (where `won`), as
-    the kernels evaluate them after their loop; 0 where nothing won."""
+    [H, W] target (or [I, H, W]: attr [I, max(A,1), H, W]) from each
+    pixel's winning entry `win` (where `won`), as the kernels evaluate them
+    after their loop; 0 where nothing won."""
     dev = sorted_rows.device
-    pad_h, pad_w = won.shape
+    pad_h, pad_w = won.shape[-2:]
     lanes = BASE_WIDTH + 3 + 3 * n_attrs if n_attrs else 6
     rows = sorted_rows[:, :lanes]
     if rows.shape[0] == 0:      # no entries at all: nothing wins anywhere
@@ -433,15 +462,16 @@ def _winner_planes(sorted_rows, won, win, n_attrs):
         den = torch.where(torch.abs(den) > 1e-9, den, torch.ones_like(den))
         attr = torch.stack([
             torch.where(won, plane(BASE_WIDTH + 3 + 3 * a) / den, zero)
-            for a in range(n_attrs)])
+            for a in range(n_attrs)], dim=-3)
     else:
-        attr = torch.zeros((1, pad_h, pad_w), dtype=torch.float32, device=dev)
+        attr = torch.zeros(won.shape[:-2] + (1, pad_h, pad_w),
+                           dtype=torch.float32, device=dev)
     return b1, b2, attr
 
 
 def _check_bins(sorted_rows, starts, counts, width, height, min_lanes, name,
-                tile_h=TILE_H):
-    _, _, n_tiles = _grid(width, height, tile_h)
+                tile_h=TILE_H, n_inst=1):
+    n_tiles = n_inst * _grid(width, height, tile_h)[2]
     dev = sorted_rows.device
     if sorted_rows.dtype != torch.float32 or sorted_rows.dim() != 2:
         raise TypeError(f"{name}: rows must be float32 [E, W]")
@@ -605,17 +635,28 @@ def _run_kernel(sorted_rows, starts, counts, width, height, n_attrs):
 # ---------------------------------------------------------------------------
 
 def _scan_subset(width, height, s):
-    """The exact scan raster's body over a precomputed (masked) setup:
-    later triangles win z-ties (`zp <= depth`)."""
+    """The exact scan raster's body over a precomputed (masked) setup of n
+    triangles ([n, ...], or [I, n, ...] for a crowd: one step rasterizes
+    triangle k of every instance): later triangles win z-ties
+    (`zp <= depth`)."""
     dev = s["xy"].device
+    lead = s["xy"].shape[:-3]
     xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
     ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]
-    depth = torch.ones((height, width), dtype=torch.float32, device=dev)
-    tri_id = torch.full((height, width), -1, dtype=torch.int32, device=dev)
-    bary = torch.zeros((height, width, 2), dtype=torch.float32, device=dev)
-    for k in range(s["xy"].shape[0]):
-        xy, z, area2, valid = s["xy"][k], s["z"][k], s["area2"][k], \
-            s["valid"][k]
+    depth = torch.ones(lead + (height, width), dtype=torch.float32,
+                       device=dev)
+    tri_id = torch.full(lead + (height, width), -1, dtype=torch.int32,
+                        device=dev)
+    bary = torch.zeros(lead + (height, width, 2), dtype=torch.float32,
+                       device=dev)
+
+    def px(t):      # a per-triangle value against the [H, W] pixel planes
+        return t[..., None, None]
+
+    for k in range(s["xy"].shape[-3]):
+        xy = px(s["xy"][..., k, :, :].movedim(-2, 0).movedim(-1, 1))
+        z = px(s["z"][..., k, :].movedim(-1, 0))
+        area2, valid = px(s["area2"][..., k]), px(s["valid"][..., k])
         inv_area = torch.where(torch.abs(area2) > 1e-12, 1.0 / area2,
                                torch.zeros_like(area2))
 
@@ -818,3 +859,328 @@ def rasterize_depth_tiled_window(clip, tris, width, height,
     if sub is None:
         return depth
     return torch.minimum(depth, _scan_subset(width, height, sub[1]).depth)
+
+
+# ---------------------------------------------------------------------------
+# Crowd: one binning and one kernel launch over instance x tile
+# ---------------------------------------------------------------------------
+
+# most tiles a triangle may be binned into on the crowd path (bins then
+# compare with the reference's); oversized triangles take the capped merge
+CROWD_E_MAX = 6
+
+# launches of the crowd kernels since the last reset
+raster_multi_launches = 0      # K5a
+raster_ms_multi_launches = 0   # K5b
+depth_multi_launches = 0       # K5c
+
+
+def _crowd_e_max(width, height) -> int:
+    return min(_grid(width, height)[2], CROWD_E_MAX)
+
+
+def _bin_crowd(s, rows, width, height):
+    """Crowd binning: one pass over the valid triangles of all instances,
+    keyed by the global tile inst * n_tiles + tile, then by draw order
+    (inst * T + triangle) -> (sorted_rows [N, W], starts i32
+    [I * n_tiles + 1], counts i32 [I * n_tiles], big [I, T]).
+
+    The valid triangles are compacted to their exact count on the device
+    (one host read, as `_bin` has), so one sort covers them all; it equals
+    the reference's validity-compacted passes merged in draw order."""
+    n_tiles = _grid(width, height)[2]
+    tile, big = _expand_tiles(s, width, height, _crowd_e_max(width, height))
+    n_inst, t, e_max = tile.shape
+    all_tiles = n_inst * n_tiles
+    dev = tile.device
+    inst = torch.arange(n_inst, device=dev)[:, None, None]
+    gtile = torch.where(tile < n_tiles, inst * n_tiles + tile,
+                        all_tiles).reshape(n_inst * t, e_max)
+    # slot 0 is real iff the triangle produced any entry at all
+    ids = torch.nonzero(gtile[:, 0] < all_tiles).squeeze(1)
+    id_bits = max(int(n_inst * t - 1).bit_length(), 1)
+    key = (gtile[ids] << id_bits) | ids[:, None]
+    packed = torch.sort(key.reshape(-1)).values
+    sorted_id = packed & ((1 << id_bits) - 1)
+    bound = torch.arange(all_tiles + 1, device=dev) << id_bits
+    starts = torch.searchsorted(packed, bound).to(torch.int32)
+    counts = starts[1:] - starts[:-1]
+    return rows.reshape(n_inst * t, -1)[sorted_id], starts, counts, big
+
+
+def depth_tiles_multi_plain(sorted_rows, starts, counts, n_inst, width,
+                            height):
+    """Plain K5c: K1's per-tile min over the instance x tile grid ->
+    depth [n_inst, pad_h, pad_w]."""
+    return _depth_plain(sorted_rows, starts, counts, width, height, TILE_H,
+                        n_inst)
+
+
+def raster_tiles_multi_plain(sorted_rows, starts, counts, n_inst, width,
+                             height, n_attrs):
+    """Plain K5a: K2's order-free reduction over the instance x tile grid
+    -> (depth, tri, b1, b2 [n_inst, pad_h, pad_w], attr [n_inst, max(A,1),
+    pad_h, pad_w])."""
+    return raster_tiles_plain(sorted_rows, starts, counts, width, height,
+                              n_attrs, n_inst)
+
+
+def raster_tiles_ms_multi_plain(sorted_rows, starts, counts, n_inst, width,
+                                height, n_attrs):
+    """Plain K5b: K4's order-free reduction over the instance x tile grid
+    -> K5a's outputs plus sdepth [n_inst, 4, pad_h, pad_w]; the depth is
+    un-biased, as K4's."""
+    return raster_tiles_ms_plain(sorted_rows, starts, counts, width, height,
+                                 n_attrs, n_inst)
+
+
+def _multi_planes(n_inst, width, height, n_attrs, dev, sdepth=False):
+    tiles_x, tiles_y, _ = _grid(width, height)
+    shape = (n_inst, tiles_y * TILE_H, tiles_x * TILE_W)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = [torch.empty(shape, **f32),
+           torch.empty(shape, dtype=torch.int32, device=dev),
+           torch.empty(shape, **f32), torch.empty(shape, **f32),
+           torch.empty((n_inst, max(n_attrs, 1)) + shape[1:], **f32)]
+    if sdepth:
+        out.append(torch.empty((n_inst, 4) + shape[1:], **f32))
+    return out
+
+
+def depth_tiles_multi(sorted_rows, starts, counts, n_inst, width, height):
+    """K5c dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
+    global depth_multi_launches
+    dev = sorted_rows.device
+    if dev.type == "cpu":
+        return depth_tiles_multi_plain(sorted_rows, starts, counts, n_inst,
+                                       width, height)
+    if dev.type != "cuda":
+        raise ValueError(f"depth_tiles_multi: unsupported device {dev}")
+    rows, starts, counts = _check_bins(sorted_rows, starts, counts, width,
+                                       height, 11, "depth_tiles_multi",
+                                       n_inst=n_inst)
+    tiles_x, tiles_y, n_tiles = _grid(width, height)
+    pad_h, pad_w = tiles_y * TILE_H, tiles_x * TILE_W
+    depth = torch.empty((n_inst, pad_h, pad_w), dtype=torch.float32,
+                        device=dev)
+    rc = _build.lib().smr_depth_tiles_multi(
+        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(), rows.shape[1],
+        n_inst, n_tiles, tiles_x, depth.data_ptr(), pad_h, pad_w,
+        _build.stream_ptr(dev))
+    _build.check(rc, "smr_depth_tiles_multi")
+    depth_multi_launches += 1
+    return depth
+
+
+def raster_tiles_multi(sorted_rows, starts, counts, n_inst, width, height,
+                       n_attrs):
+    """K5a dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
+    global raster_multi_launches
+    dev = sorted_rows.device
+    if dev.type == "cpu":
+        return raster_tiles_multi_plain(sorted_rows, starts, counts, n_inst,
+                                        width, height, n_attrs)
+    if dev.type != "cuda":
+        raise ValueError(f"raster_tiles_multi: unsupported device {dev}")
+    if not 0 <= n_attrs <= MAX_ATTRS:
+        raise ValueError(f"raster_tiles_multi: n_attrs {n_attrs} out of range")
+    rows, starts, counts = _check_bins(
+        sorted_rows, starts, counts, width, height,
+        BASE_WIDTH + 3 + 3 * n_attrs if n_attrs else 11,
+        "raster_tiles_multi", n_inst=n_inst)
+    tiles_x, _, n_tiles = _grid(width, height)
+    depth, tri, b1, b2, attr = _multi_planes(n_inst, width, height, n_attrs,
+                                             dev)
+    rc = _build.lib().smr_raster_tiles_multi(
+        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(), rows.shape[1],
+        n_attrs, n_inst, n_tiles, tiles_x, depth.data_ptr(), tri.data_ptr(),
+        b1.data_ptr(), b2.data_ptr(), attr.data_ptr(), depth.shape[1],
+        depth.shape[2], _build.stream_ptr(dev))
+    _build.check(rc, "smr_raster_tiles_multi")
+    raster_multi_launches += 1
+    return depth, tri, b1, b2, attr
+
+
+def raster_tiles_ms_multi(sorted_rows, starts, counts, n_inst, width, height,
+                          n_attrs):
+    """K5b dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
+    global raster_ms_multi_launches
+    dev = sorted_rows.device
+    if dev.type == "cpu":
+        return raster_tiles_ms_multi_plain(sorted_rows, starts, counts,
+                                           n_inst, width, height, n_attrs)
+    if dev.type != "cuda":
+        raise ValueError(f"raster_tiles_ms_multi: unsupported device {dev}")
+    if not 0 <= n_attrs <= MAX_ATTRS:
+        raise ValueError(f"raster_tiles_ms_multi: n_attrs {n_attrs} out of "
+                         "range")
+    rows, starts, counts = _check_bins(
+        sorted_rows, starts, counts, width, height,
+        BASE_WIDTH + 3 + 3 * n_attrs if n_attrs else 11,
+        "raster_tiles_ms_multi", n_inst=n_inst)
+    tiles_x, _, n_tiles = _grid(width, height)
+    depth, tri, b1, b2, attr, sdepth = _multi_planes(
+        n_inst, width, height, n_attrs, dev, sdepth=True)
+    rc = _build.lib().smr_raster_tiles_ms_multi(
+        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(), rows.shape[1],
+        n_attrs, n_inst, n_tiles, tiles_x, depth.data_ptr(), tri.data_ptr(),
+        b1.data_ptr(), b2.data_ptr(), attr.data_ptr(), sdepth.data_ptr(),
+        depth.shape[1], depth.shape[2], _build.stream_ptr(dev))
+    _build.check(rc, "smr_raster_tiles_ms_multi")
+    raster_ms_multi_launches += 1
+    return depth, tri, b1, b2, attr, sdepth
+
+
+def _take(x, order):
+    """x [I, T, ...] gathered along T at order [I, n] -> [I, n, ...]."""
+    idx = order.reshape(order.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(order.shape + x.shape[2:]))
+
+
+def _big_subset_crowd(s, big):
+    """Per instance, the setup of its first BIG_TRI_CAP oversized triangles
+    in stable order -> (order [I, n], setup dict of [I, n, ...]), or None
+    when no instance has one (one host read for the whole crowd). n is the
+    largest count of any instance, capped; an instance's slots past its own
+    count are masked invalid."""
+    n_big = int(big.sum(-1).max())      # host sync
+    if n_big == 0:
+        return None
+    n = min(BIG_TRI_CAP, big.shape[1], n_big)
+    order = torch.argsort((~big).to(torch.int32), dim=-1, stable=True)[:, :n]
+    return order, {
+        "xy": _take(s["xy"], order),
+        "z": _take(s["z"], order),
+        "area2": _take(s["area2"], order),
+        "valid": _take(s["valid"] & big, order),
+    }
+
+
+def _merge_big_crowd(vis, attr, clip, tris, width, height, s, big, attrs):
+    """The crowd's _merge_big: per instance the capped exact scan over its
+    oversized triangles, all instances per step, merged by depth (a big
+    triangle wins a tie). -> (vis, attr [I, A, H, W], big_won [I, H, W])."""
+    sub = _big_subset_crowd(s, big)
+    if sub is None:
+        return vis, attr, torch.zeros_like(vis.tri, dtype=torch.bool)
+    order, s_big = sub
+    vis_big = _scan_subset(width, height, s_big)
+    n_inst = order.shape[0]
+    real_tri = torch.gather(
+        order, 1, torch.clamp(vis_big.tri, min=0).long().reshape(n_inst, -1)
+    ).reshape(vis_big.tri.shape).to(torch.int32)
+    real_tri = torch.where(vis_big.tri >= 0, real_tri, -1)
+    better = (vis_big.depth <= vis.depth) & (vis_big.tri >= 0)
+    merged = raster.VisBuffer(
+        depth=torch.where(better, vis_big.depth, vis.depth),
+        tri=torch.where(better, real_tri, vis.tri),
+        bary=torch.where(better[..., None], vis_big.bary, vis.bary))
+    big_attr = raster.interpolate(vis_big, clip, tris.long()[order], attrs)
+    attr = torch.where(better[:, None], big_attr.movedim(-1, 1), attr)
+    return merged, attr, better
+
+
+def _merge_big_depth_crowd(depth, width, height, s, big):
+    """Depth-only crowd big-triangle merge (shadow maps)."""
+    sub = _big_subset_crowd(s, big)
+    if sub is None:
+        return depth
+    return torch.minimum(depth, _scan_subset(width, height, sub[1]).depth)
+
+
+def _crowd_setup(clip, tris, attrs, width, height, cull, cv, va, nocull,
+                 sample_extent=0.0):
+    """Setup and rows of every instance at once -> (s, rows [I, T, W])."""
+    if nocull is not None:
+        raise NotImplementedError("double_sided")
+    if clip.dim() != 3:
+        raise ValueError("crowd raster: clip must be [I, V, 4]")
+    if cv is None:
+        if attrs is None:
+            cv = clip[:, tris.long()]
+        else:
+            g = torch.cat([clip, attrs], -1)[:, tris.long()]
+            cv, va = g[..., :4], g[..., 4:]
+    s = raster.setup(clip, tris, width, height, cull, cv=cv,
+                     sample_extent=sample_extent)
+    s["va"] = va
+    rows = _setup_rows(s, torch.arange(tris.shape[0], device=clip.device),
+                       attrs)
+    return s, rows
+
+
+def _crowd_vis(planes, width, height):
+    depth, tri, b1, b2, attr = planes[:5]
+    vis = raster.VisBuffer(
+        depth=depth[:, :height, :width], tri=tri[:, :height, :width],
+        bary=torch.stack([b1[:, :height, :width], b2[:, :height, :width]],
+                         -1))
+    return vis, attr[:, :, :height, :width]
+
+
+def _crowd_attr_out(vis, attr):
+    attr = attr.movedim(1, -1)
+    return torch.where((vis.tri >= 0)[..., None], attr,
+                       torch.zeros_like(attr))
+
+
+def rasterize_attrs_tiled_crowd(clip, tris, attrs, width, height,
+                                cull=raster.CULL_BACK, cv=None, va=None,
+                                nocull=None):
+    """Multi-instance raster + attribute interpolation in one binning and
+    one launch of K5a.
+
+    clip [I,V,4], tris [T,3] (shared topology), attrs [I,V,A] -> (VisBuffer
+    with a leading instance axis, attr [I,H,W,A]). Binning is limited to
+    `_crowd_e_max` tiles per triangle; oversized triangles merge through
+    the capped scan, per instance. Per pixel and per entry the semantics
+    are rasterize_attrs_tiled's. `cv` [I,T,3,4] / `va` [I,T,3,A] may pass
+    pre-gathered corner tables."""
+    s, rows = _crowd_setup(clip, tris, attrs, width, height, cull, cv, va,
+                           nocull)
+    sorted_rows, starts, counts, big = _bin_crowd(s, rows, width, height)
+    vis, attr = _crowd_vis(
+        raster_tiles_multi(sorted_rows, starts, counts, clip.shape[0], width,
+                           height, attrs.shape[-1]), width, height)
+    if not _covers_all(_crowd_e_max(width, height), width, height):
+        vis, attr, _ = _merge_big_crowd(vis, attr, clip, tris, width, height,
+                                        s, big, attrs)
+    return vis, _crowd_attr_out(vis, attr)
+
+
+def rasterize_attrs_tiled_msaa_crowd(clip, tris, attrs, width, height,
+                                     cull=raster.CULL_BACK, cv=None, va=None,
+                                     nocull=None):
+    """Multi-instance 4x-MSAA raster (K5b): rasterize_attrs_tiled_crowd's
+    outputs plus per-sample depth [I,4,H,W], per instance the semantics of
+    rasterize_attrs_tiled_msaa. Where a big triangle wins the merge its
+    centre depth bounds all four samples."""
+    s, rows = _crowd_setup(clip, tris, attrs, width, height, cull, cv, va,
+                           nocull, sample_extent=0.375)
+    sorted_rows, starts, counts, big = _bin_crowd(s, rows, width, height)
+    planes = raster_tiles_ms_multi(sorted_rows, starts, counts, clip.shape[0],
+                                   width, height, attrs.shape[-1])
+    vis, attr = _crowd_vis(planes, width, height)
+    sdepth = planes[5][:, :, :height, :width]
+    if not _covers_all(_crowd_e_max(width, height), width, height):
+        vis, attr, big_won = _merge_big_crowd(vis, attr, clip, tris, width,
+                                              height, s, big, attrs)
+        sdepth = torch.where(big_won[:, None],
+                             torch.minimum(sdepth, vis.depth[:, None]),
+                             sdepth)
+    return vis, _crowd_attr_out(vis, attr), sdepth
+
+
+def rasterize_depth_tiled_crowd(clip, tris, width, height,
+                                cull=raster.CULL_FRONT, cv=None):
+    """Multi-instance depth-only raster (crowd shadow maps, K5c): clip
+    [I,V,4], tris [T,3] -> depth [I,H,W]. `cv` [I,T,3,4] may pass
+    pre-gathered corner clip coords."""
+    s, rows = _crowd_setup(clip, tris, None, width, height, cull, cv, None,
+                           None)
+    sorted_rows, starts, counts, big = _bin_crowd(s, rows, width, height)
+    depth = depth_tiles_multi(sorted_rows, starts, counts, clip.shape[0],
+                              width, height)[:, :height, :width]
+    if _covers_all(_crowd_e_max(width, height), width, height):
+        return depth
+    return _merge_big_depth_crowd(depth, width, height, s, big)

@@ -10,6 +10,11 @@ the binned tile raster (`ops/tiled_raster.py`) on every device; its
 kernels (K1/K6 shadow depth, K2/K4 character) and the ground's PCF kernel
 (K3) run as hand-written CUDA on the card.
 
+`crowd_render_frame` is the multi-instance frame: one binning and one
+kernel launch for all instances' shadow maps (K5c) and character rasters
+(K5a, or K5b at msaa=4), K3 over the batch of shadow maps, and the
+camera-shared ground computed once.
+
 Options outside the slice raise NotImplementedError naming the option.
 """
 
@@ -54,7 +59,8 @@ def build_matrices(cfg, aspect=None, device=None):
 
 def unproject_depth(depth, vp, width, height):
     """[H,W] NDC depth -> [H,W,3] world positions through inv(vp), evaluated
-    per row of inv(vp) on [H,W] planes."""
+    per row of inv(vp) on [H,W] planes; [I,H,W] depths of a shared camera
+    -> [I,H,W,3]."""
     dev = depth.device
     inv = torch.linalg.inv_ex(vp).inverse   # no host sync on the card
     xs = ((torch.arange(width, dtype=torch.float32, device=dev) + 0.5)
@@ -112,14 +118,16 @@ def ground_pass(cfg, view, proj, width, height, row0=0, rows=None):
 
 def upsample_bilinear_int(img, f, pre_padded_rows=False):
     """[h,w,1] -> [f*h, f*w, 1] bilinear upsample with half-pixel centres,
-    as f static per-phase plane blends per axis. `pre_padded_rows`: the
-    input's first and last row are halo rows used as the row padding
-    (output rows = f*(h-2)); columns always edge-pad."""
+    as f static per-phase plane blends per axis (leading axes, as the
+    crowd's [I,h,w,1], pass through). `pre_padded_rows`: the input's first
+    and last row are halo rows used as the row padding (output rows =
+    f*(h-2)); columns always edge-pad."""
     lo = img[..., 0]
+    row_axis = lo.dim() - 2
 
     def axis_up(a, axis):
-        if axis == 0 and pre_padded_rows:
-            n = a.shape[0] - 2
+        if axis == row_axis and pre_padded_rows:
+            n = a.shape[axis] - 2
             p = a
         else:
             n = a.shape[axis]
@@ -139,7 +147,7 @@ def upsample_bilinear_int(img, f, pre_padded_rows=False):
         shape[axis] = n * f
         return st.reshape(shape)
 
-    return axis_up(axis_up(lo, 0), 1)[..., None]
+    return axis_up(axis_up(lo, row_axis), row_axis + 1)[..., None]
 
 
 def _tiled_e_max(width, height, default=6):
@@ -170,6 +178,74 @@ def shadow_pass(verts_m, tris_flipped, light_mvp, size, window=False,
     return rasterize_depth_tiled(clip, tris_flipped, size, size,
                                  raster.CULL_FRONT, _tiled_e_max(size, size),
                                  compact=compact, cv=cv)
+
+
+def _background(cfg, mats, shadow_map, lead, width, height, dev):
+    """Clear colour and shadowed ground -> (color [*lead, H, W, 3],
+    ground_depth [H, W]). `shadow_map` is [S, S] for one frame (lead ()) or
+    [I, S, S] for a crowd (lead (I,)), None with shadows off: the ground's
+    geometry and light-space positions belong to the camera and are
+    computed once, the lit lookup per map."""
+    color = _f32(cfg.clear_color, dev).expand(lead + (height, width, 3))
+    if not cfg.show_ground:
+        return color, torch.ones((height, width), dtype=torch.float32,
+                                 device=dev)
+    with pass_scope("ground"):
+        ground_mask, gpos, ground_depth = ground_pass(
+            cfg, mats["view"], mats["proj"], width, height)
+        if shadow_map is not None:
+            lit_map = shade.ground_lit_map(shadow_map, mats["light_vp"])
+            ds = max(int(cfg.shadow_lookup_downsample), 1)
+            if ds > 1 and width % ds == 0 and height % ds == 0:
+                # one geometric halo row beyond each edge (row0=-1,
+                # rows=lh+2) feeds the bilinear upsample
+                lw, lh = width // ds, height // ds
+                _, gpos_lo, _ = ground_pass(cfg, mats["view"], mats["proj"],
+                                            lw, lh, row0=-1, rows=lh + 2)
+                lclip = raster.transform_clip(
+                    gpos_lo.reshape(-1, 3), mats["light_vp"]).reshape(
+                        lh + 2, lw, 4)
+                lit = upsample_bilinear_int(
+                    shade.ground_shadow_lookup(lclip, lit_map), ds,
+                    pre_padded_rows=True)
+            else:
+                lclip = raster.transform_clip(
+                    gpos.reshape(-1, 3), mats["light_vp"]).reshape(
+                        height, width, 4)
+                lit = shade.ground_shadow_lookup(lclip, lit_map)
+        else:
+            lit = torch.ones(lead + (height, width, 1), dtype=torch.float32,
+                             device=dev)
+        gcolor = torch.ones(3, dtype=torch.float32, device=dev) * 0.7 * lit
+        return torch.where(ground_mask[..., None], gcolor, color), \
+            ground_depth
+
+
+def _composite(cfg, mats, color, vis, attr_px, sdepth, ground_depth, width,
+               height):
+    """Shade the character once per pixel from the visibility buffer and
+    lay it over `color`: by the depth test against the ground, or with
+    per-sample depths (`sdepth` [..., 4, H, W]) by coverage. Leading
+    instance axes pass through."""
+    dev = vis.depth.device
+    char_mask = (vis.tri >= 0) & (vis.depth <= ground_depth)
+    world_px = unproject_depth(vis.depth, mats["proj"] @ mats["view"],
+                               width, height)
+    nrm_px = attr_px[..., 0:3]
+    albedo = torch.ones(vis.depth.shape + (3,), dtype=torch.float32,
+                        device=dev)
+    with pass_scope("shade"):
+        char_color = shade.shade_character(
+            albedo, nrm_px, world_px, _f32(cfg.camera_pos, dev), cfg)
+    if sdepth is not None:
+        # MSAA resolve: shaded once per pixel (centre attributes), coverage
+        # from the 4 per-sample depths against the ground's depth
+        mask_s = (sdepth < 1.0 - 1e-7) & (sdepth <= ground_depth)
+        frac = mask_s.to(torch.float32).mean(-3)[..., None]
+        color = color * (1.0 - frac) + char_color * frac
+    else:
+        color = torch.where(char_mask[..., None], char_color, color)
+    return torch.clamp(color, 0.0, 1.0)
 
 
 def _check_slice(cfg, part_textures, cubemap, uv_offsets, part_color,
@@ -226,6 +302,7 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
     g3 = torch.cat([verts_m, attrs], -1)[tris.long()]
     corner_pos, corner_va = g3[..., :3], g3[..., 3:]
 
+    shadow_map = None
     if cfg.shadows_enabled:
         with pass_scope("shadow"):
             shadow_map = shadow_pass(verts_m, tris, mats["light_vp"],
@@ -233,41 +310,8 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
                                      compact=cfg.compact_bin,
                                      corner_pos=corner_pos)
 
-    color = _f32(cfg.clear_color, dev).expand(height, width, 3)
-
-    if cfg.show_ground:
-        with pass_scope("ground"):
-            ground_mask, gpos, ground_depth = ground_pass(
-                cfg, mats["view"], mats["proj"], width, height)
-            if cfg.shadows_enabled:
-                lit_map = shade.ground_lit_map(shadow_map, mats["light_vp"])
-                ds = max(int(cfg.shadow_lookup_downsample), 1)
-                if ds > 1 and width % ds == 0 and height % ds == 0:
-                    # one geometric halo row beyond each edge (row0=-1,
-                    # rows=lh+2) feeds the bilinear upsample
-                    lw, lh = width // ds, height // ds
-                    _, gpos_lo, _ = ground_pass(cfg, mats["view"],
-                                                mats["proj"], lw, lh,
-                                                row0=-1, rows=lh + 2)
-                    lclip = raster.transform_clip(
-                        gpos_lo.reshape(-1, 3), mats["light_vp"]).reshape(
-                            lh + 2, lw, 4)
-                    lit_lo = shade.ground_shadow_lookup(lclip, lit_map)
-                    lit = upsample_bilinear_int(lit_lo, ds,
-                                                pre_padded_rows=True)
-                else:
-                    lclip = raster.transform_clip(
-                        gpos.reshape(-1, 3), mats["light_vp"]).reshape(
-                            height, width, 4)
-                    lit = shade.ground_shadow_lookup(lclip, lit_map)
-            else:
-                lit = torch.ones((height, width, 1), dtype=torch.float32,
-                                 device=dev)
-            gcolor = torch.ones(3, dtype=torch.float32, device=dev) * 0.7 * lit
-            color = torch.where(ground_mask[..., None], gcolor, color)
-    else:
-        ground_depth = torch.ones((height, width), dtype=torch.float32,
-                                  device=dev)
+    color, ground_depth = _background(cfg, mats, shadow_map, (), width,
+                                      height, dev)
 
     clip = raster.transform_clip(verts_m, mats["mvp"])
     cv = raster.transform_clip(corner_pos, mats["mvp"])
@@ -285,22 +329,77 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
                 clip, tris, attrs, width, height, raster.CULL_BACK,
                 _tiled_e_max(width, height), cfg.compact_bin, cv=cv,
                 va=corner_va)
-    char_mask = (vis.tri >= 0) & (vis.depth <= ground_depth)
+    return _composite(cfg, mats, color, vis, attr_px, sdepth, ground_depth,
+                      width, height)
 
-    world_px = unproject_depth(vis.depth, mats["proj"] @ mats["view"],
-                               width, height)
-    nrm_px = attr_px[..., 0:3]
-    albedo = torch.ones((height, width, 3), dtype=torch.float32, device=dev)
 
-    with pass_scope("shade"):
-        char_color = shade.shade_character(
-            albedo, nrm_px, world_px, _f32(cfg.camera_pos, dev), cfg)
-    if sdepth is not None:
-        # MSAA resolve: shaded once per pixel (centre attributes), coverage
-        # from the 4 per-sample depths against the ground's depth
-        mask_s = (sdepth < 1.0 - 1e-7) & (sdepth <= ground_depth[None])
-        frac = mask_s.to(torch.float32).mean(0)[..., None]
-        color = color * (1.0 - frac) + char_color * frac
-    else:
-        color = torch.where(char_mask[..., None], char_color, color)
-    return torch.clamp(color, 0.0, 1.0)
+def crowd_render_supported(cfg, part_textures=None, cubemap=None,
+                           camera=None) -> bool:
+    """True when `crowd_render_frame` covers the config: a shared camera,
+    the tiled raster, and msaa=1 or native 4x MSAA. The supersampled MSAA
+    and a per-instance camera render instance by instance instead
+    (parallel.mesh.crowd_step_fn)."""
+    return (camera is None
+            and not (cfg.msaa >= 4 and cfg.msaa_supersample)
+            and cfg.raster_mode != "scan")
+
+
+def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
+                       height=None, part_textures=None, atlas=None,
+                       cubemap=None, mmd_maps=None, uv_offsets=None,
+                       part_color=None):
+    """Multi-instance frame: positions/normals carry a leading instance
+    axis [I,N,3]; one binning sort and one kernel launch cover all
+    instances' shadow maps, and one more their character rasters. Work the
+    instances share through the camera (ground geometry, the ground's
+    light-space positions) is computed once. -> [I,H,W,3]."""
+    from ..ops.tiled_raster import (rasterize_attrs_tiled_crowd,
+                                    rasterize_attrs_tiled_msaa_crowd,
+                                    rasterize_depth_tiled_crowd)
+    _check_slice(cfg, part_textures, cubemap, uv_offsets, part_color,
+                 mmd_maps, None)
+    if atlas is not None:
+        raise NotImplementedError("atlas")
+    if not crowd_render_supported(cfg):
+        raise NotImplementedError("msaa_supersample")
+    dev = positions_mmd.device
+    width = width or cfg.width
+    height = height or cfg.height
+    n_inst = positions_mmd.shape[0]
+    mats = build_matrices(cfg, aspect=width / height, device=dev)
+    verts_m = positions_mmd * cfg.mmd_to_meter
+    tris = static.triangles.flip(-1)              # winding flip at upload
+    attrs = normals
+
+    # per-corner vertex tables shared by the shadow and character rasters:
+    # one [I*T*3]-row gather of [pos | attrs], transformed per pass
+    g3 = torch.cat([verts_m, attrs], -1)[:, tris.long()]
+    corner_pos, corner_va = g3[..., :3], g3[..., 3:]
+
+    shadow_maps = None
+    if cfg.shadows_enabled:
+        with pass_scope("shadow"):
+            shadow_maps = rasterize_depth_tiled_crowd(
+                raster.transform_clip(verts_m, mats["light_vp"]), tris,
+                cfg.shadow_map_size, cfg.shadow_map_size, raster.CULL_FRONT,
+                cv=raster.transform_clip(corner_pos, mats["light_vp"]))
+
+    # background and ground: camera-shared geometry computed once, the lit
+    # maps of all instances in one launch of K3
+    color, ground_depth = _background(cfg, mats, shadow_maps, (n_inst,),
+                                      width, height, dev)
+
+    clip = raster.transform_clip(verts_m, mats["mvp"])
+    cv = raster.transform_clip(corner_pos, mats["mvp"])
+    sdepth = None
+    with pass_scope("character"):
+        if cfg.msaa >= 4:
+            vis, attr_px, sdepth = rasterize_attrs_tiled_msaa_crowd(
+                clip, tris, attrs, width, height, raster.CULL_BACK, cv=cv,
+                va=corner_va)
+        else:
+            vis, attr_px = rasterize_attrs_tiled_crowd(
+                clip, tris, attrs, width, height, raster.CULL_BACK, cv=cv,
+                va=corner_va)
+    return _composite(cfg, mats, color, vis, attr_px, sdepth, ground_depth,
+                      width, height)

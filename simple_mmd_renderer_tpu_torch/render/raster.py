@@ -49,15 +49,16 @@ def setup(clip, tris, width, height, cull=CULL_BACK, cv=None,
     of the camera, non-degenerate, not culled, straddling a sample point).
     `cv` may pass pre-gathered clip[tris]. `sample_extent` widens the
     sample-point cull for MSAA samples up to that many pixels from the
-    centre (0 = centre sampling)."""
+    centre (0 = centre sampling). A crowd's clip [I,V,4] (cv [I,T,3,4])
+    gives [I,T,...] tensors."""
     if cv is None:
-        cv = clip[tris.long()]                          # [T,3,4]
+        cv = clip[..., tris.long(), :]                  # [T,3,4]
     xy, z, iw = screen_from_clip(cv, width, height)
     w_ok = torch.all(cv[..., 3] > _W_EPS, dim=-1)
 
-    d1 = xy[:, 1] - xy[:, 0]
-    d2 = xy[:, 2] - xy[:, 0]
-    area2 = d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0]  # y-down: CW>0
+    d1 = xy[..., 1, :] - xy[..., 0, :]
+    d2 = xy[..., 2, :] - xy[..., 0, :]
+    area2 = d1[..., 0] * d2[..., 1] - d1[..., 1] * d2[..., 0]  # y-down: CW>0
 
     if cull == CULL_BACK:
         face_ok = area2 < 0.0
@@ -83,9 +84,22 @@ def setup(clip, tris, width, height, cull=CULL_BACK, cv=None,
 
 def interpolate(vis: VisBuffer, clip, tris, attrs):
     """Perspective-correct interpolation of per-vertex attributes over the
-    visibility buffer. attrs: [V,A] -> [H,W,A]; empty pixels get zeros."""
+    visibility buffer. attrs: [V,A] -> [H,W,A]; empty pixels get zeros.
+    With a leading instance axis (vis [I,H,W], clip [I,V,4], tris [I,T,3]
+    or [T,3], attrs [I,V,A]) -> [I,H,W,A]."""
     tid = torch.clamp(vis.tri, min=0).long()
-    v = tris.long()[tid]                                # [H,W,3]
+    if clip.dim() == 3:
+        n_inst, n_verts = clip.shape[:2]
+        tris_b = tris.long().expand(n_inst, -1, -1)
+        v = torch.gather(tris_b, 1, tid.reshape(n_inst, -1, 1).expand(
+            -1, -1, 3)).reshape(tid.shape + (3,))
+        # instance-major vertex rows
+        v = v + (torch.arange(n_inst, device=v.device)
+                 * n_verts)[:, None, None, None]
+        clip = clip.reshape(-1, 4)
+        attrs = attrs.reshape(-1, attrs.shape[-1])
+    else:
+        v = tris.long()[tid]                            # [H,W,3]
     cw = clip[v][..., 3]
     iw = torch.where(torch.abs(cw) > _W_EPS, 1.0 / cw, torch.zeros_like(cw))
     b1 = vis.bary[..., 0]
@@ -96,5 +110,5 @@ def interpolate(vis: VisBuffer, clip, tris, attrs):
     wgt = wgt / torch.where(torch.abs(denom) > _W_EPS, denom,
                             torch.ones_like(denom))
     a = attrs[v]                                        # [H,W,3,A]
-    out = torch.einsum("hwk,hwka->hwa", wgt, a)
+    out = torch.einsum("...k,...ka->...a", wgt, a)
     return torch.where((vis.tri >= 0)[..., None], out, torch.zeros_like(out))

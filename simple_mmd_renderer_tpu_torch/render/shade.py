@@ -100,8 +100,10 @@ def ground_lit_map(shadow_map, light_vp, bias=0.001):
 
 def ground_shadow_lookup(light_space_pos, lit_map, enabled=True):
     """Single-tap lookup into `ground_lit_map` with the reference's bounds
-    fallback (outside the frustum -> fully lit). Returns [...,1]."""
-    s = lit_map.shape[0]
+    fallback (outside the frustum -> fully lit). Returns [...,1]; a batch
+    of lit maps [I,S,S] is looked up at the same (camera-shared) positions
+    -> [I,...,1]."""
+    s = lit_map.shape[-1]
     w = light_space_pos[..., 3]
     wsafe = torch.where(torch.abs(w) > 1e-9, w, torch.ones_like(w))
     u = (light_space_pos[..., 0] / wsafe) * 0.5 + 0.5
@@ -111,7 +113,7 @@ def ground_shadow_lookup(light_space_pos, lit_map, enabled=True):
               & (zref >= 0.0) & (zref <= 1.001))
     px = torch.clamp((torch.clamp(u, 0.0, 1.0) * s).to(torch.int32), 0, s - 1)
     py = torch.clamp((torch.clamp(v, 0.0, 1.0) * s).to(torch.int32), 0, s - 1)
-    lit = lit_map[py.long(), px.long()]
+    lit = lit_map[..., py.long(), px.long()]
     lit = torch.where(inside, lit, torch.ones_like(lit))
     if not enabled:
         lit = torch.ones_like(lit)

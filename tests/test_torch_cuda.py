@@ -9,7 +9,9 @@ out:
 
 K1, K3, K6 and the depth/tri/b1/b2 (and K4's per-sample depth) of K2 and
 K4 must be bit-exact; K2's and K4's attributes within 1e-6 (same
-arithmetic, one IEEE division).
+arithmetic, one IEEE division). The crowd kernels K5a, K5b and K5c are
+held the same way against their plain versions, give the same bits in two
+runs, and fold to K2, K4 and K1 on one instance's own bins.
 """
 
 import dataclasses
@@ -230,3 +232,121 @@ def test_default_device_is_cuda(cuda):
     assert ModelTables(static).device.type == "cuda"
     state, image = scene.step_and_render(scene.init_state())
     assert image.device.type == "cuda"
+
+
+def _crowd_bins(device, n_inst, t, spread, size, w, h, z, sample_extent=0.0,
+                seed=5):
+    """Bins of n_inst random meshes over one topology (crowd binning); the
+    last instance lies behind the camera and bins nothing."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-spread, spread, (n_inst, t, 2))
+    d1 = rng.uniform(-size, size, (n_inst, t, 2))
+    d2 = rng.uniform(-size, size, (n_inst, t, 2))
+    verts = np.stack([v0, v0 + d1, v0 + d2], 2).reshape(n_inst, -1, 2)
+    zs = rng.uniform(*z, (n_inst, t, 1)).repeat(3, 2).reshape(n_inst, -1, 1)
+    clip = np.concatenate([verts, zs, np.ones_like(zs)], -1).astype(
+        np.float32)
+    clip[-1, :, 3] = -1.0
+    clip = torch.as_tensor(clip, device=device)
+    tris = torch.arange(3 * t, dtype=torch.int32, device=device).reshape(t, 3)
+    attrs = torch.as_tensor(rng.normal(size=(n_inst, 3 * t, 3)).astype(
+        np.float32), device=device)
+    s, rows = tr._crowd_setup(clip, tris, attrs, w, h, raster.CULL_NONE, None,
+                              None, None, sample_extent)
+    return tr._bin_crowd(s, rows, w, h)[:3]
+
+
+CROWD_CASES = [
+    # n_inst, t, spread, size, w, h, z
+    (5, 300, 0.9, 0.25, 256, 144, (0.1, 0.9)),
+    (3, 2000, 0.05, 0.08, 128, 64, (0.5, 0.5)),   # dense: every overlap a tie
+]
+
+
+@pytest.mark.parametrize("case", CROWD_CASES, ids=["random", "dense"])
+def test_crowd_kernels_bit_exact_and_fold(cuda, case):
+    """K5a, K5b, K5c against their plain versions (the dense case: several
+    shared-memory chunks per tile, every overlap a z-tie), the same bits
+    in two runs, and instance i's planes equal to K2's, K4's and K1's on
+    that instance's own bins."""
+    n_inst, t, spread, size, w, h, z = case
+    n_tiles = tr._grid(w, h)[2]
+    for ms in (False, True):
+        rows, starts, counts = _crowd_bins(cuda, n_inst, t, spread, size, w,
+                                           h, z, 0.375 if ms else 0.0)
+        if t >= 2000:
+            assert int(counts.max()) > 256
+        assert int(counts[-n_tiles:].sum()) == 0
+        multi = tr.raster_tiles_ms_multi if ms else tr.raster_tiles_multi
+        plain = (tr.raster_tiles_ms_multi_plain if ms
+                 else tr.raster_tiles_multi_plain)
+        single = tr.raster_tiles_ms if ms else tr.raster_tiles
+        counter = "raster_ms_multi_launches" if ms else \
+            "raster_multi_launches"
+        before = getattr(tr, counter)
+        got = multi(rows, starts, counts, n_inst, w, h, 3)
+        assert getattr(tr, counter) == before + 1
+        again = multi(rows, starts, counts, n_inst, w, h, 3)
+        want = plain(rows, starts, counts, n_inst, w, h, 3)
+        exact = (0, 1, 2, 3, 5) if ms else (0, 1, 2, 3)
+        for k in exact:
+            assert torch.equal(got[k], want[k]), (ms, k)
+        assert float((got[4] - want[4]).abs().max()) <= 1e-6
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        assert bool((got[1][0] >= 0).any()) and bool((got[1][-1] < 0).all())
+
+        before = tr.depth_multi_launches
+        depth = tr.depth_tiles_multi(rows, starts, counts, n_inst, w, h)
+        assert tr.depth_multi_launches == before + 1
+        assert torch.equal(depth, tr.depth_tiles_multi_plain(
+            rows, starts, counts, n_inst, w, h))
+        assert torch.equal(depth, tr.depth_tiles_multi(rows, starts, counts,
+                                                       n_inst, w, h))
+        for i in range(n_inst):
+            sl = slice(i * n_tiles, (i + 1) * n_tiles)
+            st_i = torch.cat([starts[sl], starts[sl][-1:] + counts[sl][-1:]])
+            one = single(rows, st_i, counts[sl].contiguous(), w, h, 3)
+            for a, b in zip(got, one):
+                assert torch.equal(a[i], b), (ms, i)
+            assert torch.equal(depth[i], tr.depth_tiles(
+                rows, st_i, counts[sl].contiguous(), w, h))
+
+
+def test_crowd_wrappers_reject_bad_inputs(cuda):
+    rows, starts, counts = _crowd_bins(cuda, 2, 50, 0.9, 0.25, 128, 64,
+                                       (0.1, 0.9))
+    with pytest.raises(ValueError):      # bins of 2 instances, asked for 3
+        tr.depth_tiles_multi(rows, starts, counts, 3, 128, 64)
+    with pytest.raises(ValueError):
+        tr.raster_tiles_multi(rows[:, :12], starts, counts, 2, 128, 64, 3)
+    with pytest.raises(TypeError):
+        tr.raster_tiles_ms_multi(rows, starts.long(), counts, 2, 128, 64, 3)
+
+
+def test_crowd_step_runs_on_the_card_and_matches_the_cpu(cuda):
+    """A crowd of 3 through `parallel.mesh` on the card: the crowd kernels
+    launch once a frame each, the frames match the CPU's (plain versions)
+    within the image tolerance, and the bodies within the posing
+    tolerance (2e-2: the card's and the CPU's `acos` may differ in the last
+    bit, which the CCD steps amplify, PARITY D1)."""
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = build_sample_scene(0.25, 128, 64, 64, dev, n_frames=60,
+                                   fps_keys=10, solver_iterations=4, msaa=4)
+        state = mesh.crowd_init(scene, 3)
+        before = (tr.depth_multi_launches, tr.raster_ms_multi_launches,
+                  shadow_pcf.launches)
+        step = mesh.crowd_step_fn(scene)
+        for _ in range(2):
+            state, images = step(state)
+        after = (tr.depth_multi_launches, tr.raster_ms_multi_launches,
+                 shadow_pcf.launches)
+        grew = 2 if dev == "cuda" else 0
+        assert [a - b for a, b in zip(after, before)] == [grew] * 3
+        out[dev] = (images.cpu().numpy(), state.physics.pos.cpu().numpy())
+    d = np.abs(out["cuda"][0] - out["cpu"][0])
+    assert (d > 0.02).mean() < 2e-3 and d.mean() < 1 / 255
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=2e-2)

@@ -107,8 +107,9 @@ def test_port_runs_without_jax():
     """A fresh interpreter whose imports refuse `jax`, `flax` and the JAX
     package `simple_mmd_renderer_tpu` imports the port, `chip_smoke.py` and
     the port's profile script, and renders one 64x48 frame at msaa=1
-    and one at msaa=4 with the windowed shadow map: the card's machine has
-    no JAX, and the port keeps its own copies of the host modules."""
+    and one at msaa=4 with the windowed shadow map, and a crowd of two
+    through `parallel.mesh` at msaa=1 and 4: the card's machine has no JAX,
+    and the port keeps its own copies of the host modules."""
     code = textwrap.dedent(f"""
         import importlib.util
         import sys
@@ -141,6 +142,17 @@ def test_port_runs_without_jax():
             assert image.shape == (48, 64, 3)
             assert bool(torch.isfinite(image).all())
             print("rendered", extra, float(image.mean()))
+
+        from simple_mmd_renderer_tpu_torch.parallel import mesh
+        for msaa in (1, 4):
+            scene = build_sample_scene(0.25, 64, 48, 64, "cpu", n_frames=30,
+                                       fps_keys=10, solver_iterations=2,
+                                       msaa=msaa)
+            state, images = mesh.crowd_step_fn(scene)(
+                mesh.crowd_init(scene, 2))
+            assert images.shape == (2, 48, 64, 3)
+            assert bool(torch.isfinite(images).all())
+            print("crowd", msaa, float(images.mean()))
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -149,6 +161,7 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.count("rendered") == 2
+    assert res.stdout.count("crowd") == 2
 
 
 def _imported_modules(tree):
@@ -176,6 +189,8 @@ def test_port_imports_nothing_of_the_reference():
     files += [os.path.join(REPO, "chip_smoke.py"),
               os.path.join(REPO, "scripts", "profile_torch_frame.py")]
     assert len(files) > 20
+    assert os.path.join(REPO, "simple_mmd_renderer_tpu_torch", "parallel",
+                        "mesh.py") in files
     seen = set()
     for path in files:
         with open(path, encoding="utf-8") as f:
