@@ -23,8 +23,13 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    (more entries than one shared-memory chunk, all at one depth). Depth,
    triangle ids, barycentrics and per-sample depths must be bit-exact,
    attributes within 1e-6; K6's pasted map must equal K1's over the same
-   bins. Prints mismatch counts, both times (CUDA events) and each
-   kernel's bound.
+   bins. K4 and K5b get the entries' pixel boxes the frame passed them;
+   their plain versions take none and evaluate every entry over its whole
+   tile, and K4's dense tile runs with boxes and without. Prints mismatch
+   counts, both times (CUDA events) and each kernel's bound (for K4 and
+   K5b by two rules: each entry over its tile's columns, as for the
+   kernels without boxes, and over its exact box, the rule their record
+   carries).
    The crowd kernels K5c, K5a and K5b are held the same way on the
    arguments of frame 1 of the 64-instance crowd, K3 on its [64,256,256]
    batch of shadow maps, and one instance's planes must equal the
@@ -148,17 +153,23 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def bin_work(rows, starts, counts, width, height, tile_h, lanes,
-             sample_dy=(0.0,)):
+             sample_dy=(0.0,), boxes=None):
     """(bytes read, entry-pixel evaluations) of a per-tile loop, from this
     run's bins: each real entry's lanes once, starts and counts; and each
     entry evaluated only over the pixels of its tile that it can cover, the
     rows holding a sample point (row + 0.5 + dy) inside the entry's y-range
     (setup lanes 11-12), each over the tile's columns in the frame (the
-    rows carry no x-range)."""
+    rows carry no x-range). With the entries' pixel `boxes` (K4, K5b) the
+    columns are those of the exact box (the stored one less its margin; an
+    entry given the whole range counts its tile's columns) inside the tile
+    and the frame, and the boxes' bytes are read too: the least work,
+    neither the margin nor the kernel's split into small and wide boxes."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     idx, tile = tr._tile_entries(starts, counts)
     n_bytes = 4 * (idx.numel() * lanes + 2 * counts.shape[0] + 1)
+    if boxes is not None:
+        n_bytes += idx.numel() * boxes.shape[1] * boxes.element_size()
     tile = tile % tr._grid(width, height, tile_h)[2]   # a crowd's global tile
     tiles_x = -(-width // tr.TILE_W)
     row0 = (tile // tiles_x) * tile_h
@@ -166,24 +177,50 @@ def bin_work(rows, starts, counts, width, height, tile_h, lanes,
                        row0)
     hi = torch.minimum(torch.floor(rows[idx, 12] - 0.5 - min(sample_dy)).long(),
                        torch.clamp(row0 + tile_h, max=height) - 1)
-    cols = torch.clamp(width - (tile % tiles_x) * tr.TILE_W, max=tr.TILE_W)
+    col0 = (tile % tiles_x) * tr.TILE_W
+    cols = torch.clamp(width - col0, max=tr.TILE_W)
+    if boxes is not None:
+        first = torch.maximum(boxes[idx, 0].long() + tr.BOX_MARGIN, col0)
+        last = torch.minimum(boxes[idx, 2].long() - tr.BOX_MARGIN,
+                             col0 + cols - 1)
+        cols = (last - first + 1).clamp(min=0)
     return n_bytes, int(((hi - lo + 1).clamp(min=0) * cols).sum())
 
 
-def raster_bound(args, out, ops_per_eval, sample_dy=(0.0,)):
+def raster_bound(args, out, ops_per_eval, sample_dy=(0.0,), boxes=None):
     """Bound of K2/K4 on their arguments (rows, starts, counts, width,
-    height, n_attrs): the bins in, every output plane out."""
+    height, n_attrs): the bins in, every output plane out; with `boxes`,
+    each entry charged over its exact box (`bin_work`)."""
     from simple_mmd_renderer_tpu_torch.ops.tiled_raster import (BASE_WIDTH,
                                                                 TILE_H)
 
     n_attrs = args[5]
     lanes = BASE_WIDTH + 3 + 3 * n_attrs if n_attrs else ROW_LANES
-    n_bytes, evals = bin_work(*args[:5], TILE_H, lanes, sample_dy)
+    n_bytes, evals = bin_work(*args[:5], TILE_H, lanes, sample_dy, boxes)
     n_bytes += sum(t.numel() * t.element_size() for t in out)
     pixels = out[0].numel()
     n_ops = (evals * ops_per_eval
              + pixels * (OPS_WINNER + OPS_PER_ATTR * n_attrs))
     return bound(n_bytes, n_ops)
+
+
+def boxed_bound(key, args, boxes, out, ms):
+    """K4's or K5b's bound with each entry charged over its exact box (the
+    rule its record carries), printed beside the rule of the kernels without
+    boxes (the tile's columns over the entry's rows)."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    dy = (0.0,) + tuple(oy for _, oy in tr.MSAA4_OFFSETS)
+    rows_rule = raster_bound(args, out, OPS_RASTER_MS, dy)
+    box_rule = raster_bound(args, out, OPS_RASTER_MS, dy, boxes)
+    idx, _ = tr._tile_entries(args[1], args[2])
+    whole = int((boxes[idx, 2] == torch.iinfo(boxes.dtype).max).sum())
+    log(f"kernels: {key} bound by the rows rule {rows_rule[0]:.4f} ms "
+        f"({rows_rule[1]}; card / bound {ms / rows_rule[0]:.1f}), by the box "
+        f"rule {box_rule[0]:.4f} ms ({box_rule[1]}; card / bound "
+        f"{ms / box_rule[0]:.1f}); {whole} of {idx.numel()} entries carry "
+        f"the whole range as their box")
+    return box_rule
 
 
 def record(results, key, name, source, line, err, ms, plain_ms, bnd):
@@ -271,7 +308,7 @@ def capture_frame(step, state, expect):
 def dense_bins(device, n=2000, sample_extent=0.0):
     """A 128x64 target (two tiles) holding n small triangles at one depth:
     each tile gets several shared-memory chunks of entries, and every
-    overlap is a z-tie."""
+    overlap is a z-tie. -> (rows, starts, counts, pixel boxes)."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
     from simple_mmd_renderer_tpu_torch.render import raster
 
@@ -290,7 +327,9 @@ def dense_bins(device, n=2000, sample_extent=0.0):
                      sample_extent=sample_extent)
     s["tris_v"] = tris
     rows = tr._setup_rows(s, torch.arange(n, device=device), attrs)
-    return tr._bin(s, rows, 128, 64, 2, False)[:3]
+    bins = tr._bin(s, rows, 128, 64, 2, False,
+                   boxes=tr._pixel_boxes(s, sample_extent))
+    return bins[:3] + bins[4:]
 
 
 def mismatches(got, want, seen=None) -> int:
@@ -361,7 +400,7 @@ def check_kernels(scene, state, results):
     k2_bound = raster_bound(k2_args, k2, OPS_RASTER)
 
     # dense tile: more entries than one chunk, all at one depth
-    rd, sd, cd = dense_bins(c1.device)
+    rd, sd, cd, _ = dense_bins(c1.device)
     dd = tr.depth_tiles(rd, sd, cd, 128, 64)
     ddp = tr.depth_tiles_plain(rd, sd, cd, 128, 64)
     kd = tr.raster_tiles(rd, sd, cd, 128, 64, 3)
@@ -395,6 +434,8 @@ def check_kernels_msaa(scene, state, results):
                                path_kernels(True))                 # frame 1
     k6_args, k6_out = seen["K6"]
     k4_args, k4_out = seen["K4"]
+    if len(k4_args) != 7 or k4_args[6] is None:
+        raise AssertionError("the frame passed K4 no pixel boxes")
     rows6, starts6, counts6, window = k6_args[:4]
     c4 = k4_args[2]
     log(f"kernels: frame-1 bins (msaa=4, shadow window): shadow "
@@ -422,7 +463,7 @@ def check_kernels_msaa(scene, state, results):
 
     # K4 at bench shapes (A = 3: normals)
     k4 = tr.raster_tiles_ms(*k4_args)
-    k4p = tr.raster_tiles_ms_plain(*k4_args)
+    k4p = tr.raster_tiles_ms_plain(*k4_args[:6])       # brute force
     exact = (0, 1, 2, 3, 5)      # depth, tri, b1, b2, sdepth
     k4_bad = [mismatches(k4[i], k4p[i], k4_out[i]) for i in exact]
     k4_attr_err = float((k4[4] - k4p[4]).abs().max())
@@ -430,23 +471,27 @@ def check_kernels_msaa(scene, state, results):
                                          - k4p[i].float()).abs().max())
                                   for i in exact))
     k4_ms = cuda_ms(lambda: tr.raster_tiles_ms(*k4_args), 20)
-    k4_plain = cuda_ms(lambda: tr.raster_tiles_ms_plain(*k4_args), 3)
+    k4_plain = cuda_ms(lambda: tr.raster_tiles_ms_plain(*k4_args[:6]), 3)
     edge = float(((k4[1] >= 0) & ~(k4[5] < 1.0).all(0)).float().mean())
     log(f"kernels: K4 raster_tiles_ms {tuple(k4[0].shape)}, {k4_args[5]} "
         f"attributes: depth/tri/b1/b2/sdepth mismatches {k4_bad}, attr max "
         f"err {k4_attr_err:.3g}, {k4_ms:.4f} ms vs plain {k4_plain:.4f} ms; "
         f"{100 * edge:.3f}% of pixels won with some sample uncovered")
-    k4_bound = raster_bound(k4_args, k4, OPS_RASTER_MS,
-                            (0.0,) + tuple(oy for _, oy in tr.MSAA4_OFFSETS))
+    k4_bound = boxed_bound("K4", k4_args[:6], k4_args[6], k4, k4_ms)
 
     # dense tile for K4, binned with the MSAA sample-point cull
-    rd, sd, cd = dense_bins(c4.device, sample_extent=0.375)
-    kd = tr.raster_tiles_ms(rd, sd, cd, 128, 64, 3)
+    # (with its boxes: small ones, a thread each; and with none, so that
+    # every entry is a wide one over its whole tile)
+    rd, sd, cd, bd = dense_bins(c4.device, sample_extent=tr.MSAA4_EXTENT)
     kdp = tr.raster_tiles_ms_plain(rd, sd, cd, 128, 64, 3)
-    dense_bad = [mismatches(kd[i], kdp[i]) for i in exact]
-    dense_attr = float((kd[4] - kdp[4]).abs().max())
+    dense_bad, dense_attr = [], 0.0
+    for boxes in (bd, None):
+        kd = tr.raster_tiles_ms(rd, sd, cd, 128, 64, 3, boxes)
+        dense_bad += [mismatches(kd[i], kdp[i]) for i in exact]
+        dense_attr = max(dense_attr, float((kd[4] - kdp[4]).abs().max()))
     log(f"kernels: dense tile ({int(cd.max())} entries in one tile): K4 "
-        f"mismatches {dense_bad}, attr max err {dense_attr:.3g}")
+        f"with and without boxes, mismatches {dense_bad}, attr max err "
+        f"{dense_attr:.3g}")
 
     if k6_bad or k6_vs_k1 or any(k4_bad) or any(dense_bad):
         raise AssertionError("a kernel disagrees with its plain version")
@@ -635,33 +680,35 @@ def check_kernels_crowd(crowd, results):
         f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
 
     # K5a and K5b on all instances' character bins (A = 3: normals)
+    if len(b_args) != 8 or b_args[7] is None:
+        raise AssertionError("the crowd frame passed K5b no pixel boxes")
     rec = {}
-    for key, args, out, fn, plain, single, ops, dy in (
+    for key, args, out, fn, plain, single in (
             ("K5a", a_args, a_out, tr.raster_tiles_multi,
-             tr.raster_tiles_multi_plain, tr.raster_tiles, OPS_RASTER,
-             (0.0,)),
+             tr.raster_tiles_multi_plain, tr.raster_tiles),
             ("K5b", b_args, b_out, tr.raster_tiles_ms_multi,
-             tr.raster_tiles_ms_multi_plain, tr.raster_tiles_ms,
-             OPS_RASTER_MS,
-             (0.0,) + tuple(oy for _, oy in tr.MSAA4_OFFSETS))):
+             tr.raster_tiles_ms_multi_plain, tr.raster_tiles_ms)):
         k = fn(*args)
-        kp = plain(*args)
+        kp = plain(*args[:7])               # brute force, without the boxes
         exact = [i for i in range(len(k)) if i != 4]    # all but attr
         bad = [mismatches(k[i], kp[i], out[i]) for i in exact]
         attr_err = float((k[4] - kp[4]).abs().max())
         err = max(attr_err, max(float((k[i].float() - kp[i].float())
                                       .abs().max()) for i in exact))
         one = single(args[0], *instance_bins(args[1], args[2], mid, n_tiles),
-                     *args[4:7])
+                     *args[4:])
         fold = sum(mismatches(a[mid], b) for a, b in zip(k, one))
         ms = cuda_ms(lambda: fn(*args), 20)
-        plain_ms = cuda_ms(lambda: plain(*args), 3)
+        plain_ms = cuda_ms(lambda: plain(*args[:7]), 3)
         log(f"kernels: {key} {fn.__name__} {tuple(k[0].shape)}, {args[6]} "
             f"attributes: depth/tri/b1/b2{'/sdepth' if len(k) > 5 else ''} "
             f"mismatches {bad}, attr max err {attr_err:.3g}, instance {mid} "
             f"vs {single.__name__} on its own bins {fold}, {ms:.4f} ms vs "
             f"plain {plain_ms:.4f} ms")
-        bnd = raster_bound(args[:3] + args[4:7], k, ops, dy)
+        if key == "K5a":
+            bnd = raster_bound(args[:3] + args[4:7], k, OPS_RASTER)
+        else:
+            bnd = boxed_bound(key, args[:3] + args[4:7], args[7], k, ms)
         rec[key] = (bad, attr_err, fold, err, ms, plain_ms, bnd)
 
     if c_bad or c_fold or k3_bad or any(any(r[0]) or r[2]

@@ -56,26 +56,59 @@
 // the library is built with --fmad=false), in the reference's order, so the
 // kernels agree bit for bit with their plain PyTorch versions
 // (`depth_tiles_plain`, `depth_tiles_win_plain`, `raster_tiles_plain`,
-// `raster_tiles_ms_plain`).
+// `raster_tiles_ms_plain`), which evaluate every entry at every pixel of
+// its tile.
 //
-// Design: one block per tile; a thread owns one column and consecutive
-// rows, so each row's stores are coalesced (K1/K2/K6: 256 threads, 16 rows
-// of a 32-row tile or 4 of an 8-row one; K4: 512 threads of 8 rows, so its
-// four per-sample depths per row stay in registers). The block walks its
-// entries in chunks of CHUNK rows copied cooperatively into shared memory
-// (counts are unbounded: a dense tile loops over as many chunks as it
-// needs). K2/K4 keep only depth, triangle id and the winning entry's index
-// per pixel and evaluate b1, b2 and the attribute planes once, from the
-// winner's row, after the loop: the same arithmetic as carrying every
-// plane through the loop, with register use flat in the attribute count.
-// K6 reads its window from the card, so its caller sizes no grid from the
-// data and needs no host synchronisation.
-//
+// Design of K1/K2/K6 and their crowd forms K5c/K5a: one block per tile; a
+// thread owns one column and consecutive rows, so each row's stores are
+// coalesced (256 threads, 16 rows of a 32-row tile or 4 of an 8-row one).
+// The block walks its entries in chunks of CHUNK rows copied cooperatively
+// into shared memory (counts are unbounded: a dense tile loops over as many
+// chunks as it needs). K2 keeps only depth, triangle id and the winning
+// entry's index per pixel and evaluates b1, b2 and the attribute planes
+// once, from the winner's row, after the loop: the same arithmetic as
+// carrying every plane through the loop, with register use flat in the
+// attribute count. K6 reads its window from the card, so its caller sizes
+// no grid from the data and needs no host synchronisation.
 // What bounds them on the H100: the per-entry plane arithmetic (about 20
-// fp32 operations per pixel per entry, ~60 for K4's four samples), all from
-// shared-memory broadcasts; rows are read once per tile. The simple design
-// leaves for later: skipping the rows an entry cannot cover, a
-// TMA/cp.async double buffer for the chunk copy, and a retuned tile shape.
+// fp32 operations per pixel per entry), all from shared-memory broadcasts,
+// over every pixel of the tile whether the entry can reach it or not; rows
+// are read once per tile. Left for later: the pixel boxes below in
+// `raster_tile` and `depth_tile`, and a retuned tile shape.
+//
+// Design of K4 and K5b (`raster_tile_ms`): an entry is evaluated only where
+// it can cover. The binning hands each entry the box of pixels its triangle
+// can reach (`boxes`, int16 x0, y0, x1, y1 in the frame, a pixel of margin
+// included; see `_pixel_boxes` in ops/tiled_raster.py for why the margin is
+// safe and which triangles get the whole range instead). One block still
+// owns a 32x128 tile, but its running state lives in shared memory (per
+// pixel the least biased depth and four sample depths, 80 KB) and its 1,024
+// threads take ENTRIES, a chunk of 1,024 at a time: a thread reads its
+// entry's row and box straight into registers (three float4 loads and one
+// 8-byte load; no staging buffer, no barrier around a copy), clamps the box
+// to the tile and walks it, updating the pixels it covers with integer
+// atomicMin on the depths' bits. An entry whose clamped box is wider than
+// `wide_box` pixels is queued instead, and the block's 32 warps then share
+// the queue, the 32 lanes of a warp striding over one box (all the threads
+// of the block over a box of more than MS_BLOCK_BOX pixels), so that one
+// thread never holds its block up with a box of thousands of pixels. A
+// second pass over the same entries finds each pixel's winner: among the
+// entries whose candidate equals the final depth, atomicMax on (triangle
+// id, entry index) - the plain version's choice whatever the order of the
+// entries; it skips a pixel as soon as the entry's zp cannot be the pixel's
+// depth. The epilogue (un-bias, b1, b2, attributes from the winner's row)
+// is pixel-parallel with coalesced stores, as in K2. 1,024 threads (64
+// registers each: one block on an SM) measured faster than 512 (two
+// blocks): a tile's block is the unit of work, and the fullest tile's sets
+// the kernel's time.
+// What bounds K4/K5b now: with sub-pixel triangles (the crowd) a box holds
+// a dozen pixels and most of the time goes to what the kernel moves - the
+// rows, read once per pass, and the output planes; with triangles of tens
+// of pixels (the flagship) to the evaluation of the fullest tile's entries
+// on one SM and to the epilogue's gather of the winners' rows, since one
+// block still owns a tile however many entries it holds. Left for later:
+// splitting such a tile over the blocks of a cluster, and a sorted row
+// buffer without the unused slots.
 //
 // Launches on the caller's stream, never synchronises, allocates nothing.
 
@@ -91,20 +124,19 @@ constexpr int CHUNK = 256;       // entries per shared-memory chunk
 constexpr int LANES = 11;        // lanes the loop reads (0..10)
 constexpr int BASE_WIDTH = 16;   // first attribute-plane lane
 constexpr int MAX_ATTRS = 36;    // the reference's row-payload bound
-constexpr int MS_THREADS = 512;  // K4
-constexpr int MS_ROWS = TILE_H * TILE_W / MS_THREADS;  // 8
+constexpr int MS_THREADS = 1024;  // K4/K5b
+constexpr int MS_ROWS = TILE_H * TILE_W / MS_THREADS;  // 4, in the epilogue
 
 // D3D11/OpenGL standard 4x MSAA sample offsets from the pixel centre
 __constant__ float kSampleX[4] = {-0.125f, 0.375f, -0.375f, 0.125f};
 __constant__ float kSampleY[4] = {-0.375f, -0.125f, 0.125f, 0.375f};
 
 // Copy lanes [0, LANES) of rows [first, first + n) into shared memory,
-// lane-major (lane l of entry e at sh[l * CHUNK + e]), with NT threads.
-template <int NT = THREADS>
+// lane-major (lane l of entry e at sh[l * CHUNK + e]).
 __device__ __forceinline__ void load_chunk(float* sh,
                                            const float* __restrict__ rows,
                                            int row_w, int first, int n) {
-  for (int i = threadIdx.x; i < n * LANES; i += NT) {
+  for (int i = threadIdx.x; i < n * LANES; i += THREADS) {
     const int e = i / LANES;
     const int l = i - e * LANES;
     sh[l * CHUNK + e] = rows[static_cast<size_t>(first + e) * row_w + l];
@@ -352,148 +384,334 @@ raster_tiles_multi_kernel(const int* __restrict__ starts,
               attr + o * max(n_attrs, 1), pad_h, pad_w, sh);
 }
 
-// One tile of K4/K5b (see raster_tile), with the per-sample depths.
-__device__ __forceinline__ void raster_tile_ms(
-    const int* __restrict__ starts, const int* __restrict__ counts,
-    const float* __restrict__ rows, int row_w, int n_attrs, int gid, int ty,
-    int tx, float* __restrict__ depth, int* __restrict__ tri,
-    float* __restrict__ b1, float* __restrict__ b2, float* __restrict__ attr,
-    float* __restrict__ sdepth, int pad_h, int pad_w, float* sh) {
-  const int col = threadIdx.x % TILE_W;
-  const int row0 = (threadIdx.x / TILE_W) * MS_ROWS;
-  const float px = (float)col + ((float)(tx * TILE_W) + 0.5f);
-  const float ybase = (float)(ty * TILE_H) + 0.5f;
+// ---------------------------------------------------------------------------
+// K4/K5b: the MSAA tile body. Entries are evaluated only inside their pixel
+// boxes, in parallel, against tile state held in shared memory.
+// ---------------------------------------------------------------------------
 
-  float d[MS_ROWS];
-  int id[MS_ROWS];
-  int win[MS_ROWS];
-  float sd[4][MS_ROWS];
+// Shared memory of one K4/K5b block (dynamic, MS_SHARED bytes):
+//   depth  u32 [TILE_PIX]      bits of each pixel's least biased depth
+//   sd     u32 [4][TILE_PIX]   bits of the four per-sample depths; once they
+//                              are written out, the same bytes hold
+//   win    u64 [TILE_PIX]      (triangle id + 1) << 32 | (entry in tile + 1)
+//   wide   i32 [MS_THREADS]    this chunk's entries with wide boxes
+//   n_wide i32
+// Every depth kept here is >= +0 (zp >= 0 is tested, -0 is folded into +0,
+// the biases are +2 and the clears 3 and 1), and the bits of non-negative
+// floats order as unsigned integers. So the state is updated with integer
+// atomicMin / atomicMax only: exact and order-free, whatever order the
+// threads arrive in, which keeps the kernel deterministic (no float atomic
+// is used anywhere).
+constexpr int TILE_PIX = TILE_H * TILE_W;   // 4096
+constexpr int MS_WARPS = MS_THREADS / 32;
+constexpr int MS_BLOCK_BOX = 1024;   // pixels of the largest box one warp takes
+constexpr size_t MS_SHARED =
+    sizeof(unsigned) * (5 * TILE_PIX + MS_THREADS + 4);
+
+struct MsShared {
+  unsigned* depth;
+  unsigned* sd;
+  unsigned long long* win;
+  int* wide;
+  int* n_wide;
+};
+
+__device__ __forceinline__ MsShared ms_shared(unsigned char* smem) {
+  MsShared sh;
+  sh.depth = reinterpret_cast<unsigned*>(smem);
+  sh.sd = sh.depth + TILE_PIX;
+  sh.win = reinterpret_cast<unsigned long long*>(sh.sd);
+  sh.wide = reinterpret_cast<int*>(sh.sd + 4 * TILE_PIX);
+  sh.n_wide = sh.wide + MS_THREADS;
+  return sh;
+}
+
+// One entry's planes in registers, with its per-sample plane offsets.
+struct MsEntry {
+  float ax, ay, w1x, w1y, w2x, w2y, z0, zx, zy;
+  int tid;
+  float dw1[4], dw2[4], dz[4];
+  int x0, y0, x1, y1;   // its box clamped to the tile, tile-local
+};
+
+// Entry e's box clamped to tile (ty, tx), tile-local -> its pixel count (0
+// where it misses the tile).
+__device__ __forceinline__ int ms_box(const short4* __restrict__ boxes, int e,
+                                      int ty, int tx, MsEntry& en) {
+  const short4 bx = __ldg(boxes + e);
+  en.x0 = max((int)bx.x - tx * TILE_W, 0);
+  en.y0 = max((int)bx.y - ty * TILE_H, 0);
+  en.x1 = min((int)bx.z - tx * TILE_W, TILE_W - 1);
+  en.y1 = min((int)bx.w - ty * TILE_H, TILE_H - 1);
+  return max(en.x1 - en.x0 + 1, 0) * max(en.y1 - en.y0 + 1, 0);
+}
+
+// Load the planes of entry e of `rows` (lanes 0..11 as three float4). False
+// where the entry is invalid: it covers no sample.
+__device__ __forceinline__ bool ms_planes(const float* __restrict__ rows,
+                                          int row_w, int e, MsEntry& en) {
+  const float4* r = reinterpret_cast<const float4*>(
+      rows + static_cast<size_t>(e) * row_w);
+  const float4 c = __ldg(r + 2);            // lanes 8..11
+  if (!(c.y > 0.0f)) return false;          // lane 9: valid
+  const float4 a = __ldg(r);                // lanes 0..3
+  const float4 b = __ldg(r + 1);            // lanes 4..7
+  en.ax = a.x; en.ay = a.y; en.w1x = a.z; en.w1y = a.w;
+  en.w2x = b.x; en.w2y = b.y; en.z0 = b.z; en.zx = b.w;
+  en.zy = c.x;
+  en.tid = (int)c.z;                        // lane 10
 #pragma unroll
-  for (int r = 0; r < MS_ROWS; ++r) {
-    d[r] = 3.0f;          // the biased clear
-    id[r] = -1;
-    win[r] = -1;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) sd[k][r] = 1.0f;
+  for (int k = 0; k < 4; ++k) {
+    en.dw1[k] = __fadd_rn(__fmul_rn(en.w1x, kSampleX[k]),
+                          __fmul_rn(en.w1y, kSampleY[k]));
+    en.dw2[k] = __fadd_rn(__fmul_rn(en.w2x, kSampleX[k]),
+                          __fmul_rn(en.w2y, kSampleY[k]));
+    en.dz[k] = __fadd_rn(__fmul_rn(en.zx, kSampleX[k]),
+                         __fmul_rn(en.zy, kSampleY[k]));
   }
+  return true;
+}
 
-  const int start = starts[gid];
-  const int count = counts[gid];
-  for (int c0 = 0; c0 < count; c0 += CHUNK) {
-    const int n = min(CHUNK, count - c0);
-    __syncthreads();
-    load_chunk<MS_THREADS>(sh, rows, row_w, start + c0, n);
-    __syncthreads();
-    for (int e = 0; e < n; ++e) {
-      // an invalid entry covers no sample: its candidate (4) never wins
-      // and its sample depths (2) never go below the clear (1)
-      if (!(sh[9 * CHUNK + e] > 0.0f)) continue;
-      const float dx = __fsub_rn(px, sh[0 * CHUNK + e]);
-      const float ay = sh[1 * CHUNK + e];
-      const float w1x = sh[2 * CHUNK + e];
-      const float w1y = sh[3 * CHUNK + e];
-      const float w2x = sh[4 * CHUNK + e];
-      const float w2y = sh[5 * CHUNK + e];
-      const float zx = sh[7 * CHUNK + e];
-      const float zy = sh[8 * CHUNK + e];
-      const float w1dx = __fmul_rn(w1x, dx);
-      const float w2dx = __fmul_rn(w2x, dx);
-      const float zdx = __fadd_rn(sh[6 * CHUNK + e], __fmul_rn(zx, dx));
-      const int tid = (int)sh[10 * CHUNK + e];
-      float dw1[4], dw2[4], dz[4];   // per-sample plane offsets
+// Entry `en` at tile-local pixel (lx, ly), whose centre is (px, py): the
+// arithmetic of the reference's loop, product by product. PASS 1 lowers the
+// pixel's biased depth and its sample depths; PASS 2 (the depths final)
+// raises `win` to `key` where the entry's candidate is the pixel's depth.
+template <int PASS>
+__device__ __forceinline__ void ms_pixel(const MsEntry& en, int lx, int ly,
+                                         float px, float py,
+                                         const MsShared& sh,
+                                         unsigned long long key) {
+  const int p = ly * TILE_W + lx;
+  const float dx = __fsub_rn(px, en.ax);
+  const float dy = __fsub_rn(py, en.ay);
+  const float w1 = __fadd_rn(__fmul_rn(en.w1x, dx), __fmul_rn(en.w1y, dy));
+  const float w2 = __fadd_rn(__fmul_rn(en.w2x, dx), __fmul_rn(en.w2y, dy));
+  const float zp = __fadd_rn(__fadd_rn(en.z0, __fmul_rn(en.zx, dx)),
+                             __fmul_rn(en.zy, dy));
+  if (PASS == 2) {
+    // the candidate is zp + 0 or zp + 2: where the pixel's depth is neither,
+    // the entry is not its winner, whatever it covers
+    const unsigned d = sh.depth[p];
+    if (d != __float_as_uint(__fadd_rn(zp, 0.0f))
+        && d != __float_as_uint(__fadd_rn(zp, 2.0f)))
+      return;
+  }
+  bool any = false;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        dw1[k] = __fadd_rn(__fmul_rn(w1x, kSampleX[k]),
-                           __fmul_rn(w1y, kSampleY[k]));
-        dw2[k] = __fadd_rn(__fmul_rn(w2x, kSampleX[k]),
-                           __fmul_rn(w2y, kSampleY[k]));
-        dz[k] = __fadd_rn(__fmul_rn(zx, kSampleX[k]),
-                          __fmul_rn(zy, kSampleY[k]));
-      }
-#pragma unroll
-      for (int r = 0; r < MS_ROWS; ++r) {
-        const float dy = __fsub_rn((float)(row0 + r) + ybase, ay);
-        const float w1 = __fadd_rn(w1dx, __fmul_rn(w1y, dy));
-        const float w2 = __fadd_rn(w2dx, __fmul_rn(w2y, dy));
-        const float zp = __fadd_rn(zdx, __fmul_rn(zy, dy));
-        bool any = false;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float w1s = __fadd_rn(w1, dw1[k]);
-          const float w2s = __fadd_rn(w2, dw2[k]);
-          const float zs = __fadd_rn(zp, dz[k]);
-          const bool cov = (w1s >= 0.0f) && (w2s >= 0.0f)
-                           && (__fadd_rn(w1s, w2s) <= 1.0f);
-          any = any || cov;
-          if (cov && zs >= 0.0f) sd[k][r] = fminf(sd[k][r], zs);
-        }
-        if (any && zp >= 0.0f && zp <= 1.0f) {
-          const bool centre = (w1 >= 0.0f) && (w2 >= 0.0f)
-                              && (__fadd_rn(w1, w2) <= 1.0f);
-          const float zb = __fadd_rn(zp, centre ? 0.0f : 2.0f);
-          if (zb < d[r] || (zb == d[r] && tid > id[r])) {
-            d[r] = zb;
-            id[r] = tid;
-            win[r] = start + c0 + e;
-          }
-        }
+  for (int k = 0; k < 4; ++k) {
+    const float w1s = __fadd_rn(w1, en.dw1[k]);
+    const float w2s = __fadd_rn(w2, en.dw2[k]);
+    const bool cov = (w1s >= 0.0f) && (w2s >= 0.0f)
+                     && (__fadd_rn(w1s, w2s) <= 1.0f);
+    any = any || cov;
+    if (PASS == 1 && cov) {
+      const float zs = __fadd_rn(zp, en.dz[k]);
+      if (zs >= 0.0f) {
+        const unsigned bits = __float_as_uint(__fadd_rn(zs, 0.0f));  // -0: +0
+        atomicMin(sh.sd + k * TILE_PIX + p, bits);
       }
     }
   }
+  if (any && zp >= 0.0f && zp <= 1.0f) {
+    const bool centre = (w1 >= 0.0f) && (w2 >= 0.0f)
+                        && (__fadd_rn(w1, w2) <= 1.0f);
+    // zp + 0 folds -0 into +0, like the sample depths
+    const unsigned bits =
+        __float_as_uint(__fadd_rn(zp, centre ? 0.0f : 2.0f));
+    if (PASS == 1) {
+      atomicMin(sh.depth + p, bits);
+    } else {
+      if (bits == sh.depth[p]) atomicMax(sh.win + p, key);
+    }
+  }
+}
 
+// Entry `en` over its clamped box, by one thread alone (a small box).
+template <int PASS>
+__device__ __forceinline__ void ms_walk_thread(const MsEntry& en, int ty,
+                                               int tx, const MsShared& sh,
+                                               unsigned long long key) {
+  for (int ly = en.y0; ly <= en.y1; ++ly) {
+    const float py = (float)(ty * TILE_H + ly) + 0.5f;
+    for (int lx = en.x0; lx <= en.x1; ++lx)
+      ms_pixel<PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f, py, sh,
+                     key);
+  }
+}
+
+// Entry `en` over its clamped box, shared by `step` threads (a wide box):
+// thread `first` of them takes the box pixels first, first + step, ... in
+// row-major order.
+template <int PASS>
+__device__ __forceinline__ void ms_walk_shared(const MsEntry& en, int first,
+                                               int step, int ty, int tx,
+                                               const MsShared& sh,
+                                               unsigned long long key) {
+  const int bw = en.x1 - en.x0 + 1;
+  const int n = bw * (en.y1 - en.y0 + 1);
+  for (int i = first; i < n; i += step) {
+    const int q = i / bw;
+    const int lx = en.x0 + (i - q * bw);
+    const int ly = en.y0 + q;
+    ms_pixel<PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f,
+                   (float)(ty * TILE_H + ly) + 0.5f, sh, key);
+  }
+}
+
+__device__ __forceinline__ unsigned long long ms_key(int tid, int local) {
+  return (static_cast<unsigned long long>(tid + 1) << 32)
+         | static_cast<unsigned>(local + 1);
+}
+
+// One pass over the tile's entries [start, start + count), a chunk of
+// MS_THREADS at a time: each thread takes one entry, walks its box itself
+// when it holds at most `wide_box` pixels and queues it otherwise. The
+// queued entries are then shared: one of at most MS_BLOCK_BOX pixels goes to
+// one warp (the warps take them in turn), its 32 lanes striding over the
+// box; a larger one (up to the whole tile) to all the threads of the block.
+// All of them update the same shared state with the same order-free
+// atomics, so the split changes no bit.
+template <int PASS>
+__device__ __forceinline__ void ms_entries(const float* __restrict__ rows,
+                                           const short4* __restrict__ boxes,
+                                           int row_w, int start, int count,
+                                           int ty, int tx, int wide_box,
+                                           const MsShared& sh) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  MsEntry en;
+  for (int c0 = 0; c0 < count; c0 += MS_THREADS) {
+    if (threadIdx.x == 0) *sh.n_wide = 0;
+    __syncthreads();
+    const int local = c0 + threadIdx.x;
+    if (local < count) {
+      const int n = ms_box(boxes, start + local, ty, tx, en);
+      if (n > wide_box)
+        sh.wide[atomicAdd(sh.n_wide, 1)] = local;
+      else if (n > 0 && ms_planes(rows, row_w, start + local, en))
+        ms_walk_thread<PASS>(en, ty, tx, sh, ms_key(en.tid, local));
+    }
+    __syncthreads();
+    const int n_wide = *sh.n_wide;
+    for (int i = 0; i < n_wide; ++i) {
+      const int wl = sh.wide[i];
+      const bool whole_block =
+          ms_box(boxes, start + wl, ty, tx, en) > MS_BLOCK_BOX;
+      if (!whole_block && i % MS_WARPS != warp) continue;
+      if (!ms_planes(rows, row_w, start + wl, en)) continue;
+      if (whole_block)
+        ms_walk_shared<PASS>(en, threadIdx.x, MS_THREADS, ty, tx, sh,
+                             ms_key(en.tid, wl));
+      else
+        ms_walk_shared<PASS>(en, lane, 32, ty, tx, sh, ms_key(en.tid, wl));
+    }
+    __syncthreads();
+  }
+}
+
+// One tile of K4/K5b: tile (ty, tx) of one instance's frame, whose entries
+// are [starts[gid], starts[gid] + counts[gid]); the output planes are that
+// instance's. Every thread of the block calls it.
+__device__ __forceinline__ void raster_tile_ms(
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const float* __restrict__ rows, const short4* __restrict__ boxes,
+    int row_w, int n_attrs, int gid, int ty, int tx, int wide_box,
+    float* __restrict__ depth, int* __restrict__ tri,
+    float* __restrict__ b1, float* __restrict__ b2, float* __restrict__ attr,
+    float* __restrict__ sdepth, int pad_h, int pad_w, unsigned char* smem) {
+  const MsShared sh = ms_shared(smem);
+  const int start = starts[gid];
+  const int count = counts[gid];
+
+  // the biased clear (3.0; no winner) and the sample clear (1.0)
+  for (int i = threadIdx.x; i < TILE_PIX; i += MS_THREADS)
+    sh.depth[i] = __float_as_uint(3.0f);
+  for (int i = threadIdx.x; i < 4 * TILE_PIX; i += MS_THREADS)
+    sh.sd[i] = __float_as_uint(1.0f);
+  // (the first barrier of ms_entries orders the clears before the updates)
+  ms_entries<1>(rows, boxes, row_w, start, count, ty, tx, wide_box, sh);
+  __syncthreads();
+
+  // a thread owns one column and MS_ROWS rows: coalesced stores
+  const int col = threadIdx.x % TILE_W;
+  const int row0 = (threadIdx.x / TILE_W) * MS_ROWS;
   const size_t plane = static_cast<size_t>(pad_h) * pad_w;
   const size_t base = static_cast<size_t>(ty * TILE_H + row0) * pad_w
                       + tx * TILE_W + col;
 #pragma unroll
   for (int r = 0; r < MS_ROWS; ++r) {
+    const int p = (row0 + r) * TILE_W + col;
     const size_t o = base + static_cast<size_t>(r) * pad_w;
-    depth[o] = id[r] < 0 ? 1.0f
-                         : (d[r] > 1.5f ? __fsub_rn(d[r], 2.0f) : d[r]);
-    tri[o] = id[r];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) sdepth[k * plane + o] = sd[k][r];
-    write_winner(rows, row_w, n_attrs, win[r], px,
-                 (float)(row0 + r) + ybase, o, plane, b1, b2, attr);
+    for (int k = 0; k < 4; ++k)
+      sdepth[k * plane + o] = __uint_as_float(sh.sd[k * TILE_PIX + p]);
+  }
+  __syncthreads();
+
+  // the winning entry: among the entries whose candidate equals the pixel's
+  // depth, the larger triangle id, then the larger entry index (what the
+  // plain version's max over id * span + index picks). 0: only the clear.
+  for (int i = threadIdx.x; i < TILE_PIX; i += MS_THREADS) sh.win[i] = 0ull;
+  ms_entries<2>(rows, boxes, row_w, start, count, ty, tx, wide_box, sh);
+  __syncthreads();
+
+  const float px = (float)(tx * TILE_W + col) + 0.5f;
+#pragma unroll
+  for (int r = 0; r < MS_ROWS; ++r) {
+    const int p = (row0 + r) * TILE_W + col;
+    const size_t o = base + static_cast<size_t>(r) * pad_w;
+    const unsigned long long key = sh.win[p];
+    const bool won = key != 0ull;
+    const float d = __uint_as_float(sh.depth[p]);
+    depth[o] = !won ? 1.0f : (d > 1.5f ? __fsub_rn(d, 2.0f) : d);
+    tri[o] = won ? (int)(key >> 32) - 1 : -1;
+    const int win = won ? start + (int)(key & 0xffffffffull) - 1 : -1;
+    write_winner(rows, row_w, n_attrs, win, px,
+                 (float)(ty * TILE_H + row0 + r) + 0.5f, o, plane, b1, b2,
+                 attr);
   }
 }
 
 __global__ void __launch_bounds__(MS_THREADS)
 raster_tiles_ms_kernel(const int* __restrict__ starts,
                        const int* __restrict__ counts,
-                       const float* __restrict__ rows, int row_w,
-                       int n_attrs, int tiles_x, float* __restrict__ depth,
-                       int* __restrict__ tri, float* __restrict__ b1,
-                       float* __restrict__ b2, float* __restrict__ attr,
-                       float* __restrict__ sdepth, int pad_h, int pad_w) {
-  __shared__ float sh[LANES * CHUNK];
+                       const float* __restrict__ rows,
+                       const short4* __restrict__ boxes, int row_w,
+                       int n_attrs, int tiles_x, int wide_box,
+                       float* __restrict__ depth, int* __restrict__ tri,
+                       float* __restrict__ b1, float* __restrict__ b2,
+                       float* __restrict__ attr, float* __restrict__ sdepth,
+                       int pad_h, int pad_w) {
+  extern __shared__ __align__(16) unsigned char ms_smem[];
   const int t = blockIdx.x;
   const int ty = t / tiles_x;
-  raster_tile_ms(starts, counts, rows, row_w, n_attrs, t, ty,
-                 t - ty * tiles_x, depth, tri, b1, b2, attr, sdepth, pad_h,
-                 pad_w, sh);
+  raster_tile_ms(starts, counts, rows, boxes, row_w, n_attrs, t, ty,
+                 t - ty * tiles_x, wide_box, depth, tri, b1, b2, attr, sdepth,
+                 pad_h, pad_w, ms_smem);
 }
 
 // K5b: K4 over the instance x tile grid (see raster_tiles_multi_kernel).
 __global__ void __launch_bounds__(MS_THREADS)
 raster_tiles_ms_multi_kernel(const int* __restrict__ starts,
                              const int* __restrict__ counts,
-                             const float* __restrict__ rows, int row_w,
+                             const float* __restrict__ rows,
+                             const short4* __restrict__ boxes, int row_w,
                              int n_attrs, int inst_tiles, int tiles_x,
-                             float* __restrict__ depth,
+                             int wide_box, float* __restrict__ depth,
                              int* __restrict__ tri, float* __restrict__ b1,
                              float* __restrict__ b2, float* __restrict__ attr,
                              float* __restrict__ sdepth, int pad_h,
                              int pad_w) {
-  __shared__ float sh[LANES * CHUNK];
+  extern __shared__ __align__(16) unsigned char ms_smem[];
   const int g = blockIdx.x;
   const int inst = g / inst_tiles;
   const int local = g - inst * inst_tiles;
   const int ty = local / tiles_x;
   const size_t o = static_cast<size_t>(inst) * pad_h * pad_w;
-  raster_tile_ms(starts, counts, rows, row_w, n_attrs, g, ty,
-                 local - ty * tiles_x, depth + o, tri + o, b1 + o, b2 + o,
-                 attr + o * max(n_attrs, 1), sdepth + o * 4, pad_h, pad_w,
-                 sh);
+  raster_tile_ms(starts, counts, rows, boxes, row_w, n_attrs, g, ty,
+                 local - ty * tiles_x, wide_box, depth + o, tri + o, b1 + o,
+                 b2 + o, attr + o * max(n_attrs, 1), sdepth + o * 4, pad_h,
+                 pad_w, ms_smem);
 }
 
 // K5c: K1 over the instance x tile grid (see raster_tiles_multi_kernel).
@@ -554,24 +772,40 @@ extern "C" int smr_raster_tiles(const void* starts, const void* counts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// As smr_raster_tiles (K4), plus sdepth: f32 [4, pad_h, pad_w].
+// Whether K4/K5b take these rows: lanes 0..11 are read as three aligned
+// float4 loads, so a row is a multiple of 4 lanes at a 16-byte address.
+static bool ms_rows_ok(const void* rows, int row_w, int n_attrs) {
+  return n_attrs >= 0 && n_attrs <= MAX_ATTRS && row_w >= 12
+         && row_w % 4 == 0 && reinterpret_cast<size_t>(rows) % 16 == 0
+         && (n_attrs == 0 || row_w >= BASE_WIDTH + 3 + 3 * n_attrs);
+}
+
+// As smr_raster_tiles (K4), plus boxes: i16 [E, 4] (each entry's first
+// column, first row, last column, last row in the frame, inclusive; the
+// kernel clamps them to the tile), wide_box: the most pixels of a clamped
+// box that one thread walks alone, and sdepth: f32 [4, pad_h, pad_w].
 extern "C" int smr_raster_tiles_ms(const void* starts, const void* counts,
-                                   const void* rows, int row_w, int n_attrs,
-                                   int n_tiles, int tiles_x, void* depth,
+                                   const void* rows, const void* boxes,
+                                   int row_w, int n_attrs, int n_tiles,
+                                   int tiles_x, int wide_box, void* depth,
                                    void* tri, void* b1, void* b2, void* attr,
                                    void* sdepth, int pad_h, int pad_w,
                                    void* stream) {
   if (n_tiles <= 0) return 0;
-  if (n_attrs < 0 || n_attrs > MAX_ATTRS || row_w < LANES
-      || (n_attrs > 0 && row_w < BASE_WIDTH + 3 + 3 * n_attrs))
+  if (!ms_rows_ok(rows, row_w, n_attrs))
     return static_cast<int>(cudaErrorInvalidValue);
-  raster_tiles_ms_kernel<<<n_tiles, MS_THREADS, 0,
+  const cudaError_t rc = cudaFuncSetAttribute(
+      raster_tiles_ms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(MS_SHARED));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  raster_tiles_ms_kernel<<<n_tiles, MS_THREADS, MS_SHARED,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(rows), row_w, n_attrs, tiles_x,
-      static_cast<float*>(depth), static_cast<int*>(tri),
-      static_cast<float*>(b1), static_cast<float*>(b2),
-      static_cast<float*>(attr), static_cast<float*>(sdepth), pad_h, pad_w);
+      static_cast<const float*>(rows), static_cast<const short4*>(boxes),
+      row_w, n_attrs, tiles_x, wide_box, static_cast<float*>(depth),
+      static_cast<int*>(tri), static_cast<float*>(b1),
+      static_cast<float*>(b2), static_cast<float*>(attr),
+      static_cast<float*>(sdepth), pad_h, pad_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -645,19 +879,26 @@ extern "C" int smr_raster_tiles_multi(const void* starts, const void* counts,
 
 extern "C" int smr_raster_tiles_ms_multi(const void* starts,
                                          const void* counts, const void* rows,
-                                         int row_w, int n_attrs, int n_inst,
+                                         const void* boxes, int row_w,
+                                         int n_attrs, int n_inst,
                                          int inst_tiles, int tiles_x,
-                                         void* depth, void* tri, void* b1,
-                                         void* b2, void* attr, void* sdepth,
-                                         int pad_h, int pad_w, void* stream) {
+                                         int wide_box, void* depth, void* tri,
+                                         void* b1, void* b2, void* attr,
+                                         void* sdepth, int pad_h, int pad_w,
+                                         void* stream) {
   if (n_inst <= 0 || inst_tiles <= 0) return 0;
-  if (n_attrs < 0 || n_attrs > MAX_ATTRS || row_w < LANES
-      || (n_attrs > 0 && row_w < BASE_WIDTH + 3 + 3 * n_attrs))
+  if (!ms_rows_ok(rows, row_w, n_attrs))
     return static_cast<int>(cudaErrorInvalidValue);
-  raster_tiles_ms_multi_kernel<<<n_inst * inst_tiles, MS_THREADS, 0,
+  const cudaError_t rc = cudaFuncSetAttribute(
+      raster_tiles_ms_multi_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(MS_SHARED));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  raster_tiles_ms_multi_kernel<<<n_inst * inst_tiles, MS_THREADS, MS_SHARED,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(rows), row_w, n_attrs, inst_tiles, tiles_x,
+      static_cast<const float*>(rows), static_cast<const short4*>(boxes),
+      row_w, n_attrs, inst_tiles, tiles_x, wide_box,
       static_cast<float*>(depth), static_cast<int*>(tri),
       static_cast<float*>(b1), static_cast<float*>(b2),
       static_cast<float*>(attr), static_cast<float*>(sdepth), pad_h, pad_w);

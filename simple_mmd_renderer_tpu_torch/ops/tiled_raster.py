@@ -21,7 +21,11 @@ goes to the larger triangle id):
    attributes) and K4 (`raster_tiles_ms`: K2 with any-sample coverage and
    per-sample depth, for 4x MSAA) — hand-written CUDA kernels in
    `csrc/tiled_raster.cu` for CUDA tensors, the plain PyTorch versions
-   (`*_plain`) for CPU tensors. Both give the same bits.
+   (`*_plain`) for CPU tensors. Both give the same bits. K4 (and K5b)
+   evaluates an entry only inside the box of pixels its triangle can reach
+   (`_pixel_boxes`, carried into entry order by the binning); the plain
+   versions stay brute force over the whole tile, so the comparison also
+   checks the boxes.
 3. Triangles covering more than `e_max` tiles (at most BIG_TRI_CAP of them)
    are rasterized exactly by a full-frame loop (`_scan_subset`) and merged
    by depth, a big triangle winning a tie. When `e_max` covers the whole
@@ -124,6 +128,75 @@ def _setup_rows(s, tri_ids, attrs=None):
     return torch.stack(cols, dim=-1)
 
 
+# Pixel boxes (K4, K5b): the margin in pixels around a triangle's exact box,
+# and the largest conditioning G * max(1, extent) a box is trusted for
+BOX_MARGIN = 1
+BOX_TRUST = 2.0 ** 17
+_BOX_MIN, _BOX_MAX = -BOX_MARGIN, 2 ** 15 - 1
+# the most pixels of a box (clamped to its tile) that one thread of K4/K5b
+# walks alone; a wider box is shared by the lanes of a warp or, from 1,024
+# pixels on, by the whole block (scripts/tune_torch_raster_ms.py: both
+# kernels' times are flat from 128 to 1,024 and worse on either side)
+WIDE_BOX = 128
+
+
+def _pixel_boxes(s, sample_extent=0.0):
+    """Per triangle, the box of pixels it can cover -> int16 [..., T, 4]
+    (first column, first row, last column, last row; inclusive, in pixel
+    indices of the frame).
+
+    The exact box holds every pixel with a sample point inside the
+    triangle's bounding box: columns ceil(xmin - 0.5 - e) ..
+    floor(xmax - 0.5 + e) for samples up to e = `sample_extent` pixels from
+    the centre (0.375 for the 4x MSAA pattern), rows likewise. It is widened
+    by BOX_MARGIN pixels and clamped only to the int16 range
+    [-BOX_MARGIN, 32767]: the kernels clamp it to their own tile, padding
+    included (the plain versions evaluate a tile's padding pixels too), and
+    the exact box is still the stored one less the margin.
+
+    Why one pixel of margin is enough, and for which triangles. The tile
+    loops test coverage on planes evaluated in rounded float32, so a pixel
+    outside the exact box passes the test only if rounding moves a
+    barycentric across zero. Let X, Y be the extents of the triangle's
+    bounding box, A its doubled area and u = 2^-24. For a sample point whose
+    x lies r * X beyond the box (or whose y lies r * Y beyond it), x being
+    the barycentric mean of the vertices' x gives some exact barycentric
+    <= -r / 2. Against that stand (a) the relative error of the computed
+    area, at most 8 u X Y / |A|, which scales w1 and w2 alike (their signs
+    keep) and shifts the w1 + w2 <= 1 edge by that share; and (b) the
+    rounding of the plane evaluation (vertex-0 anchor, dx, two products, a
+    sum, the per-sample offset and its sum): at most 8 u (|w1x| (|dx| +
+    0.375) + |w1y| (|dy| + 0.375)) with |w1x| <= Y / |A|, |w1y| <= X / |A|,
+    |dx| <= X + r X + 0.375, |dy| <= Y + r Y + 0.375, so at most
+    8 u G (1 + r) with G = (2 X Y + X + Y) / |A|. A false cover needs
+    r / 2 <= 2 (b) + u + (a) <= u G (16 (1 + r) + 4.5) up to second order.
+    With u G <= min(1, M / max(X, Y)) / 128 and r >= M / max(X, Y) (a pixel
+    M columns or rows outside the exact box) the right side stays below
+    0.33 r: no false cover. So a triangle is trusted when
+    G * max(1, max(X, Y) / M) <= 2^24 / 128 = BOX_TRUST (M = BOX_MARGIN).
+    Every other triangle (slivers with |A| down to the 1e-12 cut, whose
+    barycentric slopes reach 1e5 and more; non-finite coordinates) gets the
+    whole int16 range as its box: every tile it is binned into then
+    evaluates it over all of its pixels, as a loop without boxes does."""
+    xy = s["xy"]
+    x_lo, x_hi = torch.amin(xy[..., 0], -1), torch.amax(xy[..., 0], -1)
+    y_lo, y_hi = torch.amin(xy[..., 1], -1), torch.amax(xy[..., 1], -1)
+    ext_x, ext_y = x_hi - x_lo, y_hi - y_lo
+    g = (2.0 * ext_x * ext_y + ext_x + ext_y) / torch.abs(s["area2"])
+    reach = torch.clamp(torch.maximum(ext_x, ext_y) / BOX_MARGIN, min=1.0)
+    trusted = g * reach <= BOX_TRUST          # false for NaN and inf
+    e = float(sample_extent)
+    lo = torch.stack([torch.ceil(x_lo - 0.5 - e), torch.ceil(y_lo - 0.5 - e)],
+                     -1) - BOX_MARGIN
+    hi = torch.stack([torch.floor(x_hi - 0.5 + e),
+                      torch.floor(y_hi - 0.5 + e)], -1) + BOX_MARGIN
+    box = torch.cat([lo, hi], -1)
+    whole = torch.tensor([_BOX_MIN, _BOX_MIN, _BOX_MAX, _BOX_MAX],
+                         dtype=torch.float32, device=xy.device)
+    box = torch.where(trusted[..., None], box, whole)
+    return torch.clamp(box, _BOX_MIN, _BOX_MAX).to(torch.int16)
+
+
 def _grid(width, height, tile_h=TILE_H):
     tiles_x = -(-width // TILE_W)
     tiles_y = -(-height // tile_h)
@@ -163,10 +236,11 @@ def _expand_tiles(s, width, height, e_max, tile_h=TILE_H):
     return tile, big
 
 
-def _bin(s, rows, width, height, e_max, compact, tile_h=TILE_H):
+def _bin(s, rows, width, height, e_max, compact, tile_h=TILE_H, boxes=None):
     """-> (sorted_rows [N, W], starts i32 [n_tiles + 1], counts i32
     [n_tiles], big [T]) over tile_h x TILE_W tiles. Entries past
-    starts[n_tiles] are unused slots."""
+    starts[n_tiles] are unused slots. With per-triangle `boxes` [T, 4]
+    (`_pixel_boxes`) a fifth result holds them in entry order [N, 4]."""
     _, _, n_tiles = _grid(width, height, tile_h)
     tile, big = _expand_tiles(s, width, height, e_max, tile_h)
     t = tile.shape[0]
@@ -184,7 +258,9 @@ def _bin(s, rows, width, height, e_max, compact, tile_h=TILE_H):
     bound = torch.arange(n_tiles + 1, device=dev) << tri_bits
     starts = torch.searchsorted(packed, bound).to(torch.int32)
     counts = starts[1:] - starts[:-1]
-    return rows[sorted_tri], starts, counts, big
+    if boxes is None:
+        return rows[sorted_tri], starts, counts, big
+    return rows[sorted_tri], starts, counts, big, boxes[sorted_tri]
 
 
 def _covers_all(e_max, width, height, tile_h=TILE_H) -> bool:
@@ -350,22 +426,41 @@ def raster_tiles_plain(sorted_rows, starts, counts, width, height, n_attrs,
 # D3D11/OpenGL standard 4x MSAA sample pattern (pixel units from centre)
 MSAA4_OFFSETS = ((-0.125, -0.375), (0.375, -0.125),
                  (-0.375, 0.125), (0.125, 0.375))
+MSAA4_EXTENT = 0.375    # the samples' farthest reach from the centre
 
 
-def _eval_entries_ms(rows, tile_of, tiles_x):
+def _in_boxes(boxes, tile_of, tiles_x):
+    """[B, TH, TW] mask of the pixels of each entry's tile (`tile_of`: the
+    tile within its own frame) that lie inside the entry's box."""
+    dev = boxes.device
+    ty = tile_of // tiles_x
+    tx = tile_of - ty * tiles_x
+    xs = (torch.arange(TILE_W, device=dev)[None, None, :]
+          + (tx * TILE_W)[:, None, None])
+    ys = (torch.arange(TILE_H, device=dev)[None, :, None]
+          + (ty * TILE_H)[:, None, None])
+    b = boxes.long()[:, :, None, None]
+    return ((xs >= b[:, 0]) & (xs <= b[:, 2])
+            & (ys >= b[:, 1]) & (ys <= b[:, 3]))
+
+
+def _eval_entries_ms(rows, tile_of, tiles_x, boxes=None):
     """K4's per-entry candidates over their tiles -> (zb [B,TH,TW], szm
     [4,B,TH,TW], tid [B]). zb is zp for an entry that covers the pixel
     centre, zp + 2 for one that covers only some sample (the biased
     depth), 4 for one that covers no sample or whose zp is outside [0, 1];
     szm is a sample's zs where the entry covers it and zs >= 0, else 2.
     Per-sample planes are the centre's plus a per-entry offset,
-    w1s = w1 + (w1x*ox + w1y*oy), in the kernel's order."""
+    w1s = w1 + (w1x*ox + w1y*oy), in the kernel's order. With `boxes`
+    [B, 4] an entry covers nothing outside its box."""
     w1, w2, zp = _planes(rows, tile_of, tiles_x)
 
     def c(i):
         return rows[:, i][:, None, None]
 
     valid = c(9) > 0.0
+    if boxes is not None:
+        valid = valid & _in_boxes(boxes, tile_of, tiles_x)
     cover_any = torch.zeros_like(valid)
     szm = []
     for ox, oy in MSAA4_OFFSETS:
@@ -382,8 +477,12 @@ def _eval_entries_ms(rows, tile_of, tiles_x):
 
 
 def raster_tiles_ms_plain(sorted_rows, starts, counts, width, height,
-                          n_attrs, n_inst=None):
-    """Plain K4: K2 with any-sample coverage and per-sample depth.
+                          n_attrs, n_inst=None, boxes=None):
+    """Plain K4: K2 with any-sample coverage and per-sample depth, brute
+    force over every pixel of an entry's tile. `boxes` [E, 4] (in entry
+    order, `_pixel_boxes`) masks each entry to its box, as the kernel
+    culls; it is for checks of the boxes only: the dispatchers never pass
+    it, so the kernel is held against the unmasked loop.
 
     Depth starts at the biased clear 3.0 with triangle -1, which takes part
     in the tie rule like any entry: the smallest zb wins, a tie going to
@@ -408,9 +507,13 @@ def raster_tiles_ms_plain(sorted_rows, starts, counts, width, height,
     f32 = dict(dtype=torch.float32, device=dev)
     depth = torch.full((all_tiles, TILE_H, TILE_W), 3.0, **f32)
     sdepth = torch.ones((4, all_tiles, TILE_H, TILE_W), **f32)
+
+    def entry_boxes(sl):
+        return None if boxes is None else boxes[eidx[sl]]
+
     for sl in blocks:
         zb, szm, _ = _eval_entries_ms(sorted_rows[eidx[sl]], local[sl],
-                                      tiles_x)
+                                      tiles_x, entry_boxes(sl))
         _reduce_into(depth, tile_of[sl], zb, "amin")
         for k in range(4):
             _reduce_into(sdepth[k], tile_of[sl], szm[k], "amin")
@@ -419,7 +522,7 @@ def raster_tiles_ms_plain(sorted_rows, starts, counts, width, height,
                      device=dev)
     for sl in blocks:
         zb, _, tid = _eval_entries_ms(sorted_rows[eidx[sl]], local[sl],
-                                      tiles_x)
+                                      tiles_x, entry_boxes(sl))
         hit = zb == depth[tile_of[sl]]
         k = (tid * span + eidx[sl])[:, None, None]
         _reduce_into(key, tile_of[sl], torch.where(hit, k, -1), "amax")
@@ -492,6 +595,27 @@ def _check_bins(sorted_rows, starts, counts, width, height, min_lanes, name,
             counts.contiguous())
 
 
+def _check_boxes(boxes, rows, name):
+    """The entries' pixel boxes as K4/K5b take them: int16 [E, 4] beside
+    rows of a multiple of 4 lanes. None means no entry's reach is known:
+    each gets the whole range, and its tile evaluates it over all of its
+    pixels."""
+    n = rows.shape[0]
+    if rows.shape[1] < 12 or rows.shape[1] % 4:
+        raise ValueError(f"{name}: rows must hold a multiple of 4 lanes, at "
+                         f"least 12 (the kernel loads them four at a time), "
+                         f"got {rows.shape[1]}")
+    if boxes is None:
+        whole = torch.tensor([_BOX_MIN, _BOX_MIN, _BOX_MAX, _BOX_MAX],
+                             dtype=torch.int16, device=rows.device)
+        return whole.expand(n, 4).contiguous()
+    if boxes.dtype != torch.int16 or boxes.shape != (n, 4):
+        raise TypeError(f"{name}: boxes must be int16 [{n}, 4]")
+    if boxes.device != rows.device:
+        raise ValueError(f"{name}: boxes on another device")
+    return boxes.contiguous()
+
+
 def depth_tiles(sorted_rows, starts, counts, width, height):
     """K1 dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
     global depth_launches
@@ -546,8 +670,12 @@ def raster_tiles(sorted_rows, starts, counts, width, height, n_attrs):
     return depth, tri, b1, b2, attr
 
 
-def raster_tiles_ms(sorted_rows, starts, counts, width, height, n_attrs):
-    """K4 dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
+def raster_tiles_ms(sorted_rows, starts, counts, width, height, n_attrs,
+                    boxes=None):
+    """K4 dispatch: plain version for CPU tensors (brute force: it ignores
+    the boxes), CUDA kernel for CUDA, which evaluates an entry only inside
+    its box (`boxes` int16 [E, 4] in entry order, from `_bin`; None: every
+    entry over its whole tile)."""
     global raster_ms_launches
     dev = sorted_rows.device
     if dev.type == "cpu":
@@ -560,8 +688,11 @@ def raster_tiles_ms(sorted_rows, starts, counts, width, height, n_attrs):
     rows, starts, counts = _check_bins(
         sorted_rows, starts, counts, width, height,
         BASE_WIDTH + 3 + 3 * n_attrs if n_attrs else 11, "raster_tiles_ms")
+    boxes = _check_boxes(boxes, rows, "raster_tiles_ms")
     tiles_x, tiles_y, n_tiles = _grid(width, height)
     pad_h, pad_w = tiles_y * TILE_H, tiles_x * TILE_W
+    if max(pad_h, pad_w) > _BOX_MAX:
+        raise ValueError("raster_tiles_ms: frame beyond the boxes' range")
     f32 = dict(dtype=torch.float32, device=dev)
     depth = torch.empty((pad_h, pad_w), **f32)
     tri = torch.empty((pad_h, pad_w), dtype=torch.int32, device=dev)
@@ -570,10 +701,11 @@ def raster_tiles_ms(sorted_rows, starts, counts, width, height, n_attrs):
     attr = torch.empty((max(n_attrs, 1), pad_h, pad_w), **f32)
     sdepth = torch.empty((4, pad_h, pad_w), **f32)
     rc = _build.lib().smr_raster_tiles_ms(
-        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(), rows.shape[1],
-        n_attrs, n_tiles, tiles_x, depth.data_ptr(), tri.data_ptr(),
-        b1.data_ptr(), b2.data_ptr(), attr.data_ptr(), sdepth.data_ptr(),
-        pad_h, pad_w, _build.stream_ptr(dev))
+        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(),
+        boxes.data_ptr(), rows.shape[1], n_attrs, n_tiles, tiles_x, WIDE_BOX,
+        depth.data_ptr(), tri.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+        attr.data_ptr(), sdepth.data_ptr(), pad_h, pad_w,
+        _build.stream_ptr(dev))
     _build.check(rc, "smr_raster_tiles_ms")
     raster_ms_launches += 1
     return depth, tri, b1, b2, attr, sdepth
@@ -778,15 +910,16 @@ def rasterize_attrs_tiled_msaa(clip, tris, attrs, width, height,
         g = torch.cat([clip, attrs], -1)[tris.long()]
         cv, va = g[..., :4], g[..., 4:]
     s = raster.setup(clip, tris, width, height, cull, cv=cv,
-                     sample_extent=0.375)
+                     sample_extent=MSAA4_EXTENT)
     s["tris_v"] = tris
     s["va"] = va
     t = tris.shape[0]
     rows = _setup_rows(s, torch.arange(t, device=clip.device), attrs)
-    sorted_rows, starts, counts, big = _bin(
-        s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T)
+    sorted_rows, starts, counts, big, boxes = _bin(
+        s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T,
+        boxes=_pixel_boxes(s, MSAA4_EXTENT))
     depth, tri, b1, b2, attr, sdepth = raster_tiles_ms(
-        sorted_rows, starts, counts, width, height, attrs.shape[1])
+        sorted_rows, starts, counts, width, height, attrs.shape[1], boxes)
     vis = raster.VisBuffer(
         depth=depth[:height, :width], tri=tri[:height, :width],
         bary=torch.stack([b1[:height, :width], b2[:height, :width]], -1))
@@ -879,11 +1012,13 @@ def _crowd_e_max(width, height) -> int:
     return min(_grid(width, height)[2], CROWD_E_MAX)
 
 
-def _bin_crowd(s, rows, width, height):
+def _bin_crowd(s, rows, width, height, boxes=None):
     """Crowd binning: one pass over the valid triangles of all instances,
     keyed by the global tile inst * n_tiles + tile, then by draw order
     (inst * T + triangle) -> (sorted_rows [N, W], starts i32
-    [I * n_tiles + 1], counts i32 [I * n_tiles], big [I, T]).
+    [I * n_tiles + 1], counts i32 [I * n_tiles], big [I, T]); with
+    per-triangle `boxes` [I, T, 4] (`_pixel_boxes`), also those in entry
+    order [N, 4].
 
     The valid triangles are compacted to their exact count on the device
     (one host read, as `_bin` has), so one sort covers them all; it equals
@@ -905,7 +1040,11 @@ def _bin_crowd(s, rows, width, height):
     bound = torch.arange(all_tiles + 1, device=dev) << id_bits
     starts = torch.searchsorted(packed, bound).to(torch.int32)
     counts = starts[1:] - starts[:-1]
-    return rows.reshape(n_inst * t, -1)[sorted_id], starts, counts, big
+    sorted_rows = rows.reshape(n_inst * t, -1)[sorted_id]
+    if boxes is None:
+        return sorted_rows, starts, counts, big
+    return (sorted_rows, starts, counts, big,
+            boxes.reshape(n_inst * t, 4)[sorted_id])
 
 
 def depth_tiles_multi_plain(sorted_rows, starts, counts, n_inst, width,
@@ -926,12 +1065,12 @@ def raster_tiles_multi_plain(sorted_rows, starts, counts, n_inst, width,
 
 
 def raster_tiles_ms_multi_plain(sorted_rows, starts, counts, n_inst, width,
-                                height, n_attrs):
+                                height, n_attrs, boxes=None):
     """Plain K5b: K4's order-free reduction over the instance x tile grid
     -> K5a's outputs plus sdepth [n_inst, 4, pad_h, pad_w]; the depth is
-    un-biased, as K4's."""
+    un-biased, as K4's. `boxes` as in raster_tiles_ms_plain."""
     return raster_tiles_ms_plain(sorted_rows, starts, counts, width, height,
-                                 n_attrs, n_inst)
+                                 n_attrs, n_inst, boxes)
 
 
 def _multi_planes(n_inst, width, height, n_attrs, dev, sdepth=False):
@@ -1002,8 +1141,9 @@ def raster_tiles_multi(sorted_rows, starts, counts, n_inst, width, height,
 
 
 def raster_tiles_ms_multi(sorted_rows, starts, counts, n_inst, width, height,
-                          n_attrs):
-    """K5b dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
+                          n_attrs, boxes=None):
+    """K5b dispatch: plain version for CPU tensors, CUDA kernel for CUDA;
+    `boxes` as raster_tiles_ms takes them (from `_bin_crowd`)."""
     global raster_ms_multi_launches
     dev = sorted_rows.device
     if dev.type == "cpu":
@@ -1018,13 +1158,18 @@ def raster_tiles_ms_multi(sorted_rows, starts, counts, n_inst, width, height,
         sorted_rows, starts, counts, width, height,
         BASE_WIDTH + 3 + 3 * n_attrs if n_attrs else 11,
         "raster_tiles_ms_multi", n_inst=n_inst)
+    boxes = _check_boxes(boxes, rows, "raster_tiles_ms_multi")
     tiles_x, _, n_tiles = _grid(width, height)
     depth, tri, b1, b2, attr, sdepth = _multi_planes(
         n_inst, width, height, n_attrs, dev, sdepth=True)
+    if max(depth.shape[1:]) > _BOX_MAX:
+        raise ValueError("raster_tiles_ms_multi: frame beyond the boxes' "
+                         "range")
     rc = _build.lib().smr_raster_tiles_ms_multi(
-        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(), rows.shape[1],
-        n_attrs, n_inst, n_tiles, tiles_x, depth.data_ptr(), tri.data_ptr(),
-        b1.data_ptr(), b2.data_ptr(), attr.data_ptr(), sdepth.data_ptr(),
+        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(),
+        boxes.data_ptr(), rows.shape[1], n_attrs, n_inst, n_tiles, tiles_x,
+        WIDE_BOX, depth.data_ptr(), tri.data_ptr(), b1.data_ptr(),
+        b2.data_ptr(), attr.data_ptr(), sdepth.data_ptr(),
         depth.shape[1], depth.shape[2], _build.stream_ptr(dev))
     _build.check(rc, "smr_raster_tiles_ms_multi")
     raster_ms_multi_launches += 1
@@ -1156,10 +1301,11 @@ def rasterize_attrs_tiled_msaa_crowd(clip, tris, attrs, width, height,
     rasterize_attrs_tiled_msaa. Where a big triangle wins the merge its
     centre depth bounds all four samples."""
     s, rows = _crowd_setup(clip, tris, attrs, width, height, cull, cv, va,
-                           nocull, sample_extent=0.375)
-    sorted_rows, starts, counts, big = _bin_crowd(s, rows, width, height)
+                           nocull, sample_extent=MSAA4_EXTENT)
+    sorted_rows, starts, counts, big, boxes = _bin_crowd(
+        s, rows, width, height, _pixel_boxes(s, MSAA4_EXTENT))
     planes = raster_tiles_ms_multi(sorted_rows, starts, counts, clip.shape[0],
-                                   width, height, attrs.shape[-1])
+                                   width, height, attrs.shape[-1], boxes)
     vis, attr = _crowd_vis(planes, width, height)
     sdepth = planes[5][:, :, :height, :width]
     if not _covers_all(_crowd_e_max(width, height), width, height):

@@ -1,0 +1,259 @@
+"""The pixel boxes that let K4 and K5b skip the pixels an entry cannot
+cover (`tiled_raster._pixel_boxes`), checked on the CPU, where no kernel
+runs: the plain MSAA raster masked to the boxes must give the bits of the
+unmasked, brute-force one.
+
+(a) masked == unmasked, bit for bit, on adversarial triangle sets
+    (tests/torch_box_meshes.py), single and crowd, entries shuffled;
+(b) a search (hypothesis, and a bulk random one) for a trusted triangle
+    and a pixel outside its box that the unmasked coverage test admits;
+(c) the boxes `_bin` and `_bin_crowd` return line up with their rows;
+(d) the entry points that now carry boxes still match the reference
+    (`simple_mmd_renderer_tpu`, its Pallas kernels in interpret mode) at
+    the tolerances of tests/test_torch_msaa_window.py and
+    tests/test_torch_crowd_raster.py.
+"""
+
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+from simple_mmd_renderer_tpu_torch.render import raster
+
+from test_torch_crowd_raster import _both_attrs as _both_crowd
+from test_torch_msaa_window import _both_msaa
+from test_torch_raster import _random_mesh
+from torch_box_meshes import (KINDS, boxed_bins, screen_setup,
+                              screen_triangles)
+
+SIZES = [(256, 144), (320, 192)]
+WHOLE = 2 ** 15 - 1     # last column / row of a box that spans the range
+
+
+def _assert_same_bits(got, want):
+    for name, g, w in zip(("depth", "tri", "b1", "b2", "attr", "sdepth"),
+                          got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("size", SIZES, ids=["256x144", "320x192"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_masked_plain_equals_unmasked(kind, size):
+    w, h = size
+    t = 1500 if kind == "subpixel" else 500
+    rows, starts, counts, boxes = boxed_bins(kind, 11, t, w, h, n_attrs=1)
+    assert int(counts.sum()) > 50
+    want = tr.raster_tiles_ms_plain(rows, starts, counts, w, h, 1)
+    got = tr.raster_tiles_ms_plain(rows, starts, counts, w, h, 1,
+                                   boxes=boxes)
+    _assert_same_bits(got, want)
+    assert bool((want[5] < 1.0).any())          # some sample is covered
+    idx, _ = tr._tile_entries(starts, counts)
+    whole = int((boxes[idx, 2] == WHOLE).sum())
+    if kind == "slivers":
+        # both sides of the trust test are exercised
+        assert 0 < whole < idx.numel()
+    elif kind in ("random", "subpixel", "centres", "ties"):
+        assert whole == 0
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_masked_plain_equals_unmasked_crowd(kind):
+    w, h, n_inst = 256, 144, 3
+    rows, starts, counts, boxes = boxed_bins(kind, 23, 300, w, h, n_attrs=1,
+                                             n_inst=n_inst)
+    assert counts.shape[0] == n_inst * tr._grid(w, h)[2]
+    want = tr.raster_tiles_ms_multi_plain(rows, starts, counts, n_inst, w, h,
+                                          1)
+    got = tr.raster_tiles_ms_multi_plain(rows, starts, counts, n_inst, w, h,
+                                         1, boxes=boxes)
+    _assert_same_bits(got, want)
+    assert all(bool((want[5][i] < 1.0).any()) for i in range(n_inst))
+
+
+def test_mask_that_is_too_small_changes_the_result():
+    """The comparison can fail: boxes shrunk by two pixels lose coverage."""
+    rows, starts, counts, boxes = boxed_bins("random", 11, 300, 256, 144)
+    shrunk = boxes + torch.tensor([2, 2, -2, -2], dtype=torch.int16)
+    want = tr.raster_tiles_ms_plain(rows, starts, counts, 256, 144, 0)
+    got = tr.raster_tiles_ms_plain(rows, starts, counts, 256, 144, 0,
+                                   boxes=shrunk)
+    assert not torch.equal(got[5], want[5])
+
+
+def _covered_outside_box(xy, z, tiles=2):
+    """Per triangle, whether the unmasked coverage test (any sample, as
+    K4's loop tests it) admits a pixel outside the triangle's box, over the
+    first `tiles` tiles of a one-tile-high frame; only trusted triangles
+    count. -> (offending [T] bool, trusted [T] bool)."""
+    s = screen_setup(xy, z)
+    t = s["xy"].shape[0]
+    rows = tr._setup_rows(s, torch.arange(t))
+    boxes = tr._pixel_boxes(s, tr.MSAA4_EXTENT)
+    trusted = boxes[:, 2] != WHOLE
+    bad = torch.zeros(t, dtype=torch.bool)
+    for tile in range(tiles):
+        tile_of = torch.full((t,), tile)
+        for b in range(0, t, 1024):
+            sl = slice(b, b + 1024)
+            zb, _, _ = tr._eval_entries_ms(rows[sl], tile_of[sl], tiles)
+            covered = zb < 4.0
+            inside = tr._in_boxes(boxes[sl], tile_of[sl], tiles)
+            bad[sl] |= (covered & ~inside).flatten(1).any(1)
+    return bad & trusted & s["valid"], trusted
+
+
+coord = st.floats(-40.0, 300.0, allow_nan=False, width=32)
+small = st.floats(-1.0, 1.0, allow_nan=False, width=32)
+exponent = st.floats(-9.0, 1.7)
+
+
+@settings(max_examples=400, deadline=None, derandomize=True)
+@given(ax=coord, ay=st.floats(-20.0, 60.0, width=32), ang=st.floats(0, 6.3),
+       e_len=exponent, e_off=exponent, along=small, sign=st.booleans())
+def test_no_pixel_outside_a_trusted_box_is_covered(ax, ay, ang, e_len, e_off,
+                                                   along, sign):
+    """Hypothesis hunts a triangle (from well shaped down to slivers: an
+    edge of 1e-9 to 50 pixels and a third vertex 1e-9 to 50 pixels off it)
+    and a pixel outside its box that the coverage test admits."""
+    length, off = 10.0 ** e_len, 10.0 ** e_off * (1 if sign else -1)
+    u = np.array([np.cos(ang), np.sin(ang)])
+    n = np.array([-u[1], u[0]])
+    a = np.array([ax, ay])
+    xy = np.stack([a, a + u * length, a + u * (along * length) + n * off])
+    bad, _ = _covered_outside_box(xy[None], np.full((1, 3), 0.5))
+    assert not bool(bad.any()), xy
+
+
+def test_no_pixel_outside_a_trusted_box_is_covered_bulk():
+    """The same hunt in bulk: 24,000 slivers and 8,000 sub-pixel and
+    on-sample triangles over two tiles, at constant depth so that coverage
+    alone decides."""
+    sets = [screen_triangles("slivers", 5, 12000, 256, 32)[0],
+            screen_triangles("slivers", 6, 12000, 256, 32)[0],
+            screen_triangles("subpixel", 7, 4000, 256, 32)[0],
+            screen_triangles("samples", 8, 4000, 256, 32)[0]]
+    xy = np.concatenate(sets)
+    bad, trusted = _covered_outside_box(xy, np.full(xy.shape[:2], 0.5))
+    assert int(bad.sum()) == 0
+    # the hunt is not vacuous: the slivers fall on both sides of the trust
+    # test, nearly all the small triangles are trusted
+    n = 24000
+    assert 0.1 * n < int(trusted[:n].sum()) < 0.9 * n
+    assert float(trusted[n:].float().mean()) > 0.9
+
+
+def test_hunt_finds_a_false_cover_without_the_trust_test(monkeypatch):
+    """The bulk hunt has teeth: when every triangle is trusted, some sliver
+    covers a pixel outside its box by rounding alone."""
+    monkeypatch.setattr(tr, "BOX_TRUST", float("inf"))
+    xy = screen_triangles("slivers", 5, 12000, 256, 32)[0]
+    bad, trusted = _covered_outside_box(xy, np.full(xy.shape[:2], 0.5))
+    assert int(bad.sum()) > 0
+    assert int(trusted.sum()) > 0.9 * 12000
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["all", "compact"])
+def test_boxes_line_up_with_sorted_rows(compact):
+    rng = np.random.default_rng(3)
+    clip, tris = _random_mesh(rng, t=300)
+    clip, tris = torch.as_tensor(clip), torch.as_tensor(tris)
+    s = raster.setup(clip, tris, 320, 192, raster.CULL_BACK,
+                     sample_extent=tr.MSAA4_EXTENT)
+    rows = tr._setup_rows(s, torch.arange(300))
+    boxes = tr._pixel_boxes(s, tr.MSAA4_EXTENT)
+    assert boxes.dtype == torch.int16 and boxes.shape == (300, 4)
+    plain = tr._bin(s, rows, 320, 192, 9, compact)
+    sorted_rows, starts, counts, big, sorted_boxes = tr._bin(
+        s, rows, 320, 192, 9, compact, boxes=boxes)
+    for a, b in zip(plain, (sorted_rows, starts, counts, big)):
+        assert torch.equal(a, b)
+    assert sorted_boxes.shape == (sorted_rows.shape[0], 4)
+    idx, _ = tr._tile_entries(starts, counts)
+    assert idx.numel() > 100
+    tid = sorted_rows[idx, 10].long()
+    assert torch.equal(sorted_boxes[idx], boxes[tid])
+    # a box is the sample-widened bounding box plus one pixel of margin
+    xy = s["xy"][tid]
+    lo = torch.ceil(xy.amin(1) - 0.875).long() - 1
+    hi = torch.floor(xy.amax(1) - 0.125).long() + 1
+    b = sorted_boxes[idx].long()
+    assert torch.equal(b[:, :2], lo.clamp(min=-1))
+    assert torch.equal(b[:, 2:], hi.clamp(min=-1))
+
+
+def test_crowd_boxes_line_up_with_sorted_rows():
+    rng = np.random.default_rng(4)
+    n_inst, t, w, h = 3, 200, 256, 144
+    clip = np.stack([_random_mesh(rng, t=t)[0] for _ in range(n_inst)])
+    tris = torch.as_tensor(_random_mesh(rng, t=t)[1])
+    s, rows = tr._crowd_setup(torch.as_tensor(clip), tris, None, w, h,
+                              raster.CULL_NONE, None, None, None,
+                              tr.MSAA4_EXTENT)
+    boxes = tr._pixel_boxes(s, tr.MSAA4_EXTENT)
+    assert boxes.shape == (n_inst, t, 4)
+    plain = tr._bin_crowd(s, rows, w, h)
+    sorted_rows, starts, counts, big, sorted_boxes = tr._bin_crowd(
+        s, rows, w, h, boxes)
+    for a, b in zip(plain, (sorted_rows, starts, counts, big)):
+        assert torch.equal(a, b)
+    idx, tile = tr._tile_entries(starts, counts)
+    inst = tile // tr._grid(w, h)[2]
+    tid = sorted_rows[idx, 10].long()
+    assert torch.equal(sorted_boxes[idx], boxes[inst, tid])
+    assert len(set(inst.tolist())) == n_inst
+
+
+def test_untrusted_triangles_get_the_whole_range():
+    """Non-finite coordinates and extreme slivers are never trusted; a
+    well-shaped triangle gets its bounding box with one pixel of margin."""
+    xy = np.array([[[10.2, 5.1], [14.7, 5.3], [11.0, 9.9]],
+                   [[10.0, 5.0], [50.0, 5.0], [30.0, 5.0 + 1e-9]],
+                   [[np.nan, 5.0], [14.0, 5.0], [11.0, 9.0]],
+                   [[np.inf, 5.0], [14.0, 5.0], [11.0, 9.0]]], np.float32)
+    boxes = tr._pixel_boxes(screen_setup(xy, np.full((4, 3), 0.5)),
+                            tr.MSAA4_EXTENT)
+    assert boxes[0].tolist() == [9, 4, 15, 10]
+    for k in (1, 2, 3):
+        assert boxes[k].tolist() == [-1, -1, WHOLE, WHOLE]
+
+
+def test_msaa_entry_points_still_match_reference():
+    """Small triangles (a few pixels) through the entry points that bin the
+    boxes, against the reference: single at 256x144, crowd of 2 at
+    256x128."""
+    rng = np.random.default_rng(50)
+    clip, tris = _random_mesh(rng, t=600, size=0.04)
+    attrs = rng.normal(size=(clip.shape[0], 3)).astype(np.float32)
+    vis, _ = _both_msaa(clip, tris, attrs, 256, 144, raster.CULL_NONE, 9)
+    assert (vis.tri.numpy() >= 0).mean() > 0.02
+    clips = np.stack([_random_mesh(rng, t=300, size=0.04)[0]
+                      for _ in range(2)])
+    tris = _random_mesh(rng, t=300)[1]
+    attrs = rng.normal(size=clips.shape[:2] + (3,)).astype(np.float32)
+    got = _both_crowd(clips, tris, attrs, 256, 128, raster.CULL_NONE,
+                      msaa=True)
+    assert (got[0].tri.numpy() >= 0).mean() > 0.02
+
+
+def test_probe_variants_apply_to_the_kernel_source():
+    """scripts/probe_torch_raster_ms.py times variants of the MSAA tile
+    body made by substituting lines of csrc/tiled_raster.cu: every line it
+    names must still be in the source."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "probe_torch_raster_ms", root / "scripts" / "probe_torch_raster_ms.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    source = (root / "simple_mmd_renderer_tpu_torch" / "csrc"
+              / "tiled_raster.cu").read_text()
+    assert "base" in probe.VARIANTS
+    for name, (edits, _) in probe.VARIANTS.items():
+        for old, _ in edits:
+            assert old in source, (name, old[:60])

@@ -11,7 +11,11 @@ K1, K3, K6 and the depth/tri/b1/b2 (and K4's per-sample depth) of K2 and
 K4 must be bit-exact; K2's and K4's attributes within 1e-6 (same
 arithmetic, one IEEE division). The crowd kernels K5a, K5b and K5c are
 held the same way against their plain versions, give the same bits in two
-runs, and fold to K2, K4 and K1 on one instance's own bins.
+runs, and fold to K2, K4 and K1 on one instance's own bins. K4 and K5b,
+which evaluate an entry only inside its pixel box with integer atomics on
+shared tile state, are also held against the brute-force plain versions on
+the adversarial sets of tests/torch_box_meshes.py, on tiles of only wide
+and only small boxes, with shuffled entries, and twice for equal bits.
 """
 
 import dataclasses
@@ -27,6 +31,8 @@ from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
 from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
 from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 from simple_mmd_renderer_tpu_torch.render import raster
+
+from torch_box_meshes import KINDS, boxed_bins, screen_setup
 
 pytestmark = pytest.mark.cuda
 
@@ -350,3 +356,97 @@ def test_crowd_step_runs_on_the_card_and_matches_the_cpu(cuda):
     d = np.abs(out["cuda"][0] - out["cpu"][0])
     assert (d > 0.02).mean() < 2e-3 and d.mean() < 1 / 255
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=2e-2)
+
+
+def _assert_ms_equal(got, want):
+    for i in (0, 1, 2, 3, 5):       # depth, tri, b1, b2, sdepth
+        assert torch.equal(got[i], want[i]), i
+    assert float((got[4] - want[4]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_raster_ms_kernel_adversarial_boxes(cuda, kind):
+    """K4 with the entries' pixel boxes against the brute-force plain
+    version (which takes none), entries shuffled within their tiles; the
+    integer atomics are order-free, so a second run gives the same bits."""
+    w, h = 320, 192
+    rows, starts, counts, boxes = boxed_bins(kind, 11, 600, w, h, n_attrs=3,
+                                             device=cuda)
+    before = tr.raster_ms_launches
+    got = tr.raster_tiles_ms(rows, starts, counts, w, h, 3, boxes)
+    assert tr.raster_ms_launches == before + 1
+    want = tr.raster_tiles_ms_plain(rows, starts, counts, w, h, 3)
+    _assert_ms_equal(got, want)
+    again = tr.raster_tiles_ms(rows, starts, counts, w, h, 3, boxes)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert bool((got[5] < 1.0).any())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_raster_ms_multi_kernel_adversarial_boxes(cuda, kind):
+    """K5b the same way, over a crowd of three sets."""
+    w, h, n_inst = 256, 144, 3
+    rows, starts, counts, boxes = boxed_bins(kind, 23, 400, w, h, n_attrs=3,
+                                             n_inst=n_inst, device=cuda)
+    got = tr.raster_tiles_ms_multi(rows, starts, counts, n_inst, w, h, 3,
+                                   boxes)
+    want = tr.raster_tiles_ms_multi_plain(rows, starts, counts, n_inst, w, h,
+                                          3)
+    _assert_ms_equal(got, want)
+    again = tr.raster_tiles_ms_multi(rows, starts, counts, n_inst, w, h, 3,
+                                     boxes)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert all(bool((got[5][i] < 1.0).any()) for i in range(n_inst))
+
+
+def test_raster_ms_kernel_wide_only_and_small_only_tiles(cuda):
+    """A 256x32 frame of two tiles, each with more entries than one chunk
+    of the kernel (1,024): the left one holds only boxes wider than WIDE_BOX
+    (the warps share them), the right one only small ones (a thread each),
+    all at one depth, so that every overlap is a tie on the id rule."""
+    rng = np.random.default_rng(17)
+    n = 1400
+    corners = np.array([[-12.0, -7.0], [12.0, -7.0], [0.0, 8.0]])
+    big = (rng.uniform([20, 4], [100, 28], (n, 1, 2)) + corners
+           + rng.uniform(-3, 3, (n, 3, 2)))
+    small = (rng.uniform([130, 1], [254, 31], (n, 1, 2))
+             + rng.uniform(-0.7, 0.7, (n, 3, 2)))
+    xy = np.concatenate([big, small]).astype(np.float32)
+    s = {k: v.to(cuda) for k, v in screen_setup(
+        xy, np.full((2 * n, 3), 0.5, np.float32)).items()}
+    rows = tr._setup_rows(s, torch.arange(2 * n, device=cuda))
+    rows, starts, counts, _, boxes = tr._bin(
+        s, rows, 256, 32, 2, False, boxes=tr._pixel_boxes(s, tr.MSAA4_EXTENT))
+    assert int(counts.min()) > 1024
+    idx, tile = tr._tile_entries(starts, counts)
+    b = boxes[idx].long()
+    x0 = tile * tr.TILE_W
+    area = ((torch.minimum(b[:, 2], x0 + 127) - torch.maximum(b[:, 0], x0)
+             + 1).clamp(min=0)
+            * (b[:, 3].clamp(max=31) - b[:, 1].clamp(min=0) + 1).clamp(min=0))
+    valid = rows[idx, 9] > 0
+    assert bool((area[(tile == 0) & valid] > tr.WIDE_BOX).all())
+    assert bool((area[(tile == 1) & valid] <= tr.WIDE_BOX).all())
+    want = tr.raster_tiles_ms_plain(rows, starts, counts, 256, 32, 0)
+    _assert_ms_equal(tr.raster_tiles_ms(rows, starts, counts, 256, 32, 0,
+                                        boxes), want)
+    # and with no boxes at all: every entry wide, over its whole tile
+    _assert_ms_equal(tr.raster_tiles_ms(rows, starts, counts, 256, 32, 0),
+                     want)
+    assert bool((want[1][:, :128] >= 0).any())
+    assert bool((want[1][:, 128:] >= 0).any())
+
+
+def test_raster_ms_wrappers_reject_bad_boxes(cuda):
+    rows, starts, counts, boxes = boxed_bins("random", 1, 50, 128, 64,
+                                             device=cuda)
+    with pytest.raises(TypeError):
+        tr.raster_tiles_ms(rows, starts, counts, 128, 64, 0, boxes.int())
+    with pytest.raises(TypeError):
+        tr.raster_tiles_ms(rows, starts, counts, 128, 64, 0, boxes[:-1])
+    with pytest.raises(ValueError):
+        tr.raster_tiles_ms(rows, starts, counts, 128, 64, 0, boxes.cpu())
+    with pytest.raises(ValueError):       # rows not a multiple of 4 lanes
+        tr.raster_tiles_ms(rows[:, :13], starts, counts, 128, 64, 0, boxes)
