@@ -23,13 +23,13 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    (more entries than one shared-memory chunk, all at one depth). Depth,
    triangle ids, barycentrics and per-sample depths must be bit-exact,
    attributes within 1e-6; K6's pasted map must equal K1's over the same
-   bins. K4 and K5b get the entries' pixel boxes the frame passed them;
-   their plain versions take none and evaluate every entry over its whole
-   tile, and K4's dense tile runs with boxes and without. Prints mismatch
-   counts, both times (CUDA events) and each kernel's bound (for K4 and
-   K5b by two rules: each entry over its tile's columns, as for the
-   kernels without boxes, and over its exact box, the rule their record
-   carries).
+   bins. K2, K4, K5a and K5b get the entries' pixel boxes the frame passed
+   them (asserted); their plain versions take none and evaluate every
+   entry over its whole tile, and K2's and K4's dense tiles run with boxes
+   and without. Prints mismatch counts, both times (CUDA events) and each
+   kernel's bound (for the four raster kernels by two rules: each entry
+   over its tile's columns, as for the kernels without boxes, and over its
+   exact box, the rule their record carries).
    The crowd kernels K5c, K5a and K5b are held the same way on the
    arguments of frame 1 of the 64-instance crowd, K3 on its [64,256,256]
    batch of shadow maps, and one instance's planes must equal the
@@ -108,7 +108,7 @@ OPS_WINNER, OPS_PER_ATTR = 12, 5
 OPS_PCF = 24
 
 KERNELS = ("K1", "K2", "K3", "K4", "K6", "K5a", "K5b", "K5c")
-ROW_LANES = 11   # lanes of a setup row the depth kernels read
+ROW_LANES = 11   # lanes of a setup row that visibility reads (lanes 0-10)
 
 # the crowd: instances, frame, shadow map, motion length; timed frames per
 # path and per segment (in turns, as the flagship)
@@ -155,21 +155,21 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 def bin_work(rows, starts, counts, width, height, tile_h, lanes,
              sample_dy=(0.0,), boxes=None):
     """(bytes read, entry-pixel evaluations) of a per-tile loop, from this
-    run's bins: each real entry's lanes once, starts and counts; and each
-    entry evaluated only over the pixels of its tile that it can cover, the
-    rows holding a sample point (row + 0.5 + dy) inside the entry's y-range
-    (setup lanes 11-12), each over the tile's columns in the frame (the
-    rows carry no x-range). With the entries' pixel `boxes` (K4, K5b) the
-    columns are those of the exact box (the stored one less its margin; an
-    entry given the whole range counts its tile's columns) inside the tile
-    and the frame, and the boxes' bytes are read too: the least work,
-    neither the margin nor the kernel's split into small and wide boxes."""
+    run's bins: each real entry's first `lanes` lanes once, starts and
+    counts; and each entry evaluated only over the pixels of its tile that
+    it can cover, the rows holding a sample point (row + 0.5 + dy) inside
+    the entry's y-range (setup lanes 11-12), each over the tile's columns in
+    the frame (the rows carry no x-range). With the entries' pixel `boxes`
+    (K2, K4, K5a, K5b) the columns are those of the exact box (the stored
+    one less its margin; an entry given the whole range counts its tile's
+    columns) inside the tile and the frame: the least work, neither the
+    margin nor the kernel's split into small and wide boxes. The boxes are
+    an aid of the kernel, not an input the function needs: their bytes are
+    not counted."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     idx, tile = tr._tile_entries(starts, counts)
     n_bytes = 4 * (idx.numel() * lanes + 2 * counts.shape[0] + 1)
-    if boxes is not None:
-        n_bytes += idx.numel() * boxes.shape[1] * boxes.element_size()
     tile = tile % tr._grid(width, height, tile_h)[2]   # a crowd's global tile
     tiles_x = -(-width // tr.TILE_W)
     row0 = (tile // tiles_x) * tile_h
@@ -187,16 +187,36 @@ def bin_work(rows, starts, counts, width, height, tile_h, lanes,
     return n_bytes, int(((hi - lo + 1).clamp(min=0) * cols).sum())
 
 
+def winning_entries(tri) -> int:
+    """Distinct entries that win some pixel of a raster kernel's triangle
+    plane tri [..., pad_h, pad_w] (-1: no winner). An entry is one triangle
+    in one tile of one instance, and ids are unique within a tile."""
+    from simple_mmd_renderer_tpu_torch.ops.tiled_raster import TILE_H, TILE_W
+
+    h, w = tri.shape[-2:]
+    dev = tri.device
+    tile = ((torch.arange(h, device=dev) // TILE_H)[:, None] * (w // TILE_W)
+            + (torch.arange(w, device=dev) // TILE_W)[None, :])
+    n_inst = tri[..., 0, 0].numel()
+    inst = torch.arange(n_inst, device=dev).reshape(tri.shape[:-2] + (1, 1))
+    gtile = inst * (tile.numel() // (TILE_H * TILE_W)) + tile
+    won = tri >= 0
+    key = gtile.expand_as(tri)[won] * (int(tri.max()) + 1) + tri[won].long()
+    return int(torch.unique(key).numel())
+
+
 def raster_bound(args, out, ops_per_eval, sample_dy=(0.0,), boxes=None):
     """Bound of K2/K4 on their arguments (rows, starts, counts, width,
-    height, n_attrs): the bins in, every output plane out; with `boxes`,
-    each entry charged over its exact box (`bin_work`)."""
-    from simple_mmd_renderer_tpu_torch.ops.tiled_raster import (BASE_WIDTH,
-                                                                TILE_H)
+    height, n_attrs): of the bins, each entry's visibility lanes (0-10) and
+    the winners' payload (the 1/w plane and the attributes' planes: lanes
+    BASE_WIDTH on) once per distinct winning entry; every output plane out.
+    With `boxes`, each entry charged over its exact box (`bin_work`)."""
+    from simple_mmd_renderer_tpu_torch.ops.tiled_raster import TILE_H
 
     n_attrs = args[5]
-    lanes = BASE_WIDTH + 3 + 3 * n_attrs if n_attrs else ROW_LANES
-    n_bytes, evals = bin_work(*args[:5], TILE_H, lanes, sample_dy, boxes)
+    n_bytes, evals = bin_work(*args[:5], TILE_H, ROW_LANES, sample_dy, boxes)
+    if n_attrs:
+        n_bytes += 4 * (3 + 3 * n_attrs) * winning_entries(out[1])
     n_bytes += sum(t.numel() * t.element_size() for t in out)
     pixels = out[0].numel()
     n_ops = (evals * ops_per_eval
@@ -205,21 +225,26 @@ def raster_bound(args, out, ops_per_eval, sample_dy=(0.0,), boxes=None):
 
 
 def boxed_bound(key, args, boxes, out, ms):
-    """K4's or K5b's bound with each entry charged over its exact box (the
-    rule its record carries), printed beside the rule of the kernels without
-    boxes (the tile's columns over the entry's rows)."""
+    """The bound of K2, K4, K5a or K5b with each entry charged over its
+    exact box (the rule its record carries), printed beside the rule of the
+    kernels without boxes (the tile's columns over the entry's rows)."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
-    dy = (0.0,) + tuple(oy for _, oy in tr.MSAA4_OFFSETS)
-    rows_rule = raster_bound(args, out, OPS_RASTER_MS, dy)
-    box_rule = raster_bound(args, out, OPS_RASTER_MS, dy, boxes)
+    if key in ("K4", "K5b"):
+        ops, dy = OPS_RASTER_MS, (0.0,) + tuple(oy for _, oy
+                                              in tr.MSAA4_OFFSETS)
+    else:
+        ops, dy = OPS_RASTER, (0.0,)
+    rows_rule = raster_bound(args, out, ops, dy)
+    box_rule = raster_bound(args, out, ops, dy, boxes)
     idx, _ = tr._tile_entries(args[1], args[2])
     whole = int((boxes[idx, 2] == torch.iinfo(boxes.dtype).max).sum())
     log(f"kernels: {key} bound by the rows rule {rows_rule[0]:.4f} ms "
         f"({rows_rule[1]}; card / bound {ms / rows_rule[0]:.1f}), by the box "
         f"rule {box_rule[0]:.4f} ms ({box_rule[1]}; card / bound "
         f"{ms / box_rule[0]:.1f}); {whole} of {idx.numel()} entries carry "
-        f"the whole range as their box")
+        f"the whole range as their box, {winning_entries(out[1])} win some "
+        "pixel")
     return box_rule
 
 
@@ -349,6 +374,8 @@ def check_kernels(scene, state, results):
     k1_args, k1_out = seen["K1"]
     k2_args, k2_out = seen["K2"]
     k3_args, k3_out = seen["K3"]
+    if len(k2_args) != 7 or k2_args[6] is None:
+        raise AssertionError("the frame passed K2 no pixel boxes")
     c1, c2 = k1_args[2], k2_args[2]
     log(f"kernels: frame-1 bins (msaa=1): shadow {int(c1.sum())} entries in "
         f"{c1.shape[0]} tiles (max {int(c1.max())}), character "
@@ -386,30 +413,34 @@ def check_kernels(scene, state, results):
 
     # K2 at bench shapes (A = 3: normals)
     k2 = tr.raster_tiles(*k2_args)
-    k2p = tr.raster_tiles_plain(*k2_args)
+    k2p = tr.raster_tiles_plain(*k2_args[:6])          # brute force
     k2_bad = [mismatches(a, b, c) for a, b, c in zip(k2[:4], k2p[:4],
                                                       k2_out[:4])]
     k2_attr_err = float((k2[4] - k2p[4]).abs().max())
     k2_err = max(k2_attr_err, max(float((a.float() - b.float()).abs().max())
                                   for a, b in zip(k2[:4], k2p[:4])))
     k2_ms = cuda_ms(lambda: tr.raster_tiles(*k2_args), 20)
-    k2_plain = cuda_ms(lambda: tr.raster_tiles_plain(*k2_args), 3)
+    k2_plain = cuda_ms(lambda: tr.raster_tiles_plain(*k2_args[:6]), 3)
     log(f"kernels: K2 raster_tiles {tuple(k2[0].shape)}, {k2_args[5]} "
         f"attributes: depth/tri/b1/b2 mismatches {k2_bad}, attr max err "
         f"{k2_attr_err:.3g}, {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms")
-    k2_bound = raster_bound(k2_args, k2, OPS_RASTER)
+    k2_bound = boxed_bound("K2", k2_args[:6], k2_args[6], k2, k2_ms)
 
-    # dense tile: more entries than one chunk, all at one depth
-    rd, sd, cd, _ = dense_bins(c1.device)
+    # dense tile: more entries than one chunk, all at one depth (K2 with
+    # its boxes: small ones, a thread each; and with none, so that every
+    # entry is a wide one over its whole tile)
+    rd, sd, cd, bd = dense_bins(c1.device)
     dd = tr.depth_tiles(rd, sd, cd, 128, 64)
     ddp = tr.depth_tiles_plain(rd, sd, cd, 128, 64)
-    kd = tr.raster_tiles(rd, sd, cd, 128, 64, 3)
     kdp = tr.raster_tiles_plain(rd, sd, cd, 128, 64, 3)
-    dense_bad = [mismatches(dd, ddp)] + [mismatches(a, b)
-                                         for a, b in zip(kd[:4], kdp[:4])]
-    dense_attr = float((kd[4] - kdp[4]).abs().max())
-    log(f"kernels: dense tile ({int(cd.max())} entries in one tile): K1/K2 "
-        f"mismatches {dense_bad}, attr max err {dense_attr:.3g}")
+    dense_bad, dense_attr = [mismatches(dd, ddp)], 0.0
+    for boxes in (bd, None):
+        kd = tr.raster_tiles(rd, sd, cd, 128, 64, 3, boxes)
+        dense_bad += [mismatches(a, b) for a, b in zip(kd[:4], kdp[:4])]
+        dense_attr = max(dense_attr, float((kd[4] - kdp[4]).abs().max()))
+    log(f"kernels: dense tile ({int(cd.max())} entries in one tile): K1, "
+        f"K2 with and without boxes, mismatches {dense_bad}, attr max err "
+        f"{dense_attr:.3g}")
 
     if k1_bad or k3_bad or any(k2_bad) or any(dense_bad):
         raise AssertionError("a kernel disagrees with its plain version")
@@ -680,8 +711,10 @@ def check_kernels_crowd(crowd, results):
         f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
 
     # K5a and K5b on all instances' character bins (A = 3: normals)
-    if len(b_args) != 8 or b_args[7] is None:
-        raise AssertionError("the crowd frame passed K5b no pixel boxes")
+    for key, args in (("K5a", a_args), ("K5b", b_args)):
+        if len(args) != 8 or args[7] is None:
+            raise AssertionError(f"the crowd frame passed {key} no pixel "
+                                 "boxes")
     rec = {}
     for key, args, out, fn, plain, single in (
             ("K5a", a_args, a_out, tr.raster_tiles_multi,
@@ -703,12 +736,9 @@ def check_kernels_crowd(crowd, results):
         log(f"kernels: {key} {fn.__name__} {tuple(k[0].shape)}, {args[6]} "
             f"attributes: depth/tri/b1/b2{'/sdepth' if len(k) > 5 else ''} "
             f"mismatches {bad}, attr max err {attr_err:.3g}, instance {mid} "
-            f"vs {single.__name__} on its own bins {fold}, {ms:.4f} ms vs "
-            f"plain {plain_ms:.4f} ms")
-        if key == "K5a":
-            bnd = raster_bound(args[:3] + args[4:7], k, OPS_RASTER)
-        else:
-            bnd = boxed_bound(key, args[:3] + args[4:7], args[7], k, ms)
+            f"vs {single.__name__} on its own bins (with the same boxes) "
+            f"{fold}, {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+        bnd = boxed_bound(key, args[:3] + args[4:7], args[7], k, ms)
         rec[key] = (bad, attr_err, fold, err, ms, plain_ms, bnd)
 
     if c_bad or c_fold or k3_bad or any(any(r[0]) or r[2]

@@ -1,37 +1,52 @@
-"""Where K4's and K5b's time goes: variants of the MSAA tile body, timed.
+"""Where the raster kernels' time goes: variants of their tile bodies, timed.
 
     python3 scripts/probe_torch_raster_ms.py [--only base,no_walk,...]
 
 The machine with the card has no kernel profiler, so this script takes the
-tile body apart by building VARIANTS of `csrc/tiled_raster.cu` (the source
-with a few lines substituted, compiled beside the real library with the
-same flags) and timing each on the arguments K4 gets in frame 1 of the
-flagship scene (1920x1080, msaa=4 + shadow_window) and K5b in frame 1 of
-the 64-instance crowd at density 2.0 (256x144, msaa=4), as `chip_smoke.py`
-captures them. Some variants compute the same function another way (their
-outputs must equal the real kernel's, bit for bit); the others leave a
-phase out, give wrong pictures, and only tell what that phase costs:
+two raster tile bodies of `csrc/tiled_raster.cu` apart - the centre-sampled
+one (`raster_tile`: K2, K5a) and the MSAA one (`raster_tile_ms`: K4, K5b),
+which share their entry walks and epilogue - by building VARIANTS of the
+source (a few lines substituted, compiled beside the real library with the
+same flags) and timing each on the arguments the four kernels get in frame
+1 of their paths, as `chip_smoke.py` captures them: K2 in the flagship
+scene at msaa=1 and K4 at msaa=4 + shadow_window (1920x1080), K5a and K5b
+in the 64-instance crowd at density 2.0 (256x144, msaa=1 and msaa=4). Some
+variants compute the same function another way (their outputs must equal
+the real kernels', bit for bit); the others leave a phase out, give wrong
+pictures, and only tell what that phase costs:
 
-  base         the source as it is
-  threads_512  512 threads a block (two blocks on an SM) instead of 1,024
-  read_first   a plain read of the shared value before each atomicMin, the
-               atomic made only where it would lower it
-  cp_async     each thread's entry (row lanes 0..11 and box) staged through
-               a double buffer in shared memory with cp.async, the next
-               chunk's copy in flight while this chunk is evaluated
-  no_walk      entries loaded and set up, boxes never walked
-  no_pass2     no second pass (no winner: the epilogue gathers no row)
-  no_passes    neither pass: the clears and the output planes only
-  no_gather    both passes, but the epilogue gathers no winner's row
+  base           the source as it is
+  threads_512    512 threads a block (two blocks on an SM) instead of 1,024,
+                 in both bodies
+  read_first     a plain read of the shared value before each atomicMin, the
+                 atomic made only where it would lower it
+  scalar_gather  every kernel's epilogue reads the winner's row lane by
+                 lane (the source: the crowd kernels K5a, K5b)
+  float4_gather  every kernel's epilogue reads it with float4 loads (the
+                 source: K2, K4)
+  own_pixels     (K2, K5a) no gather: a third walk in which the entry that
+                 won a pixel writes its b1, b2 and attributes into a staging
+                 tile in shared memory (5 planes, 80 KB: three attributes,
+                 as these frames carry), stored with coalesced writes
+  no_walk        entries loaded and set up, boxes never walked
+  no_pass2       no second pass (no winner: the epilogue gathers no row)
+  no_passes      neither pass: the clears and the output planes only
+  no_gather      both passes, but the epilogue gathers no winner's row
 
-Each time is the least of 6 means of 20 launches (CUDA events); two rounds
-over all variants show drift. K4 on empty bins (every count 0) is printed
-as the floor of a launch at that frame size.
+Each time is the least of 6 means of 20 launches run back to back
+(`cuda_ms`: CUDA events, the stream held by a sleep kernel while the host
+queues the launches, so that a kernel shorter than its wrapper's Python is
+not timed at the host's pace as in `chip_smoke.cuda_ms`, whose times the
+kernels' record carries); two rounds over all variants show drift. K2 and
+K4 on empty bins (every count 0) are printed as the floor of a launch at
+that frame size. `build_variants`,
+`capture` and `use` serve scripts/tune_torch_raster_ms.py too.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import os
 import re
@@ -40,70 +55,88 @@ import sys
 
 import torch
 
-WALK = "        ms_walk_thread<PASS>(en, ty, tx, sh, ms_key(en.tid, local));"
-PASS1 = ("  ms_entries<1>(rows, boxes, row_w, start, count, ty, tx, wide_box, "
-         "sh);")
-PASS2 = PASS1.replace("<1>", "<2>")
-GENERIC_LOADS = [("__ldg(boxes + e)", "boxes[e]"), ("__ldg(r + 2)", "r[2]"),
-                 ("__ldg(r);", "r[0];"), ("__ldg(r + 1)", "r[1]")]
+# cycles of the sleep kernel that holds the stream while the host queues a
+# timed run (`cuda_ms`), about 10 ms on an H100
+PRIME_CYCLES = 20_000_000
 
-# the thread phase of ms_entries, and the same with a thread-private
-# cp.async double buffer behind the tile state
-THREAD_PHASE = """  MsEntry en;
-  for (int c0 = 0; c0 < count; c0 += MS_THREADS) {
-    if (threadIdx.x == 0) *sh.n_wide = 0;
-    __syncthreads();
-    const int local = c0 + threadIdx.x;
-    if (local < count) {
-      const int n = ms_box(boxes, start + local, ty, tx, en);
-      if (n > wide_box)
-        sh.wide[atomicAdd(sh.n_wide, 1)] = local;
-      else if (n > 0 && ms_planes(rows, row_w, start + local, en))"""
-THREAD_PHASE_CP_ASYNC = """  MsEntry en;
-  int buf = 0;
-  auto prefetch = [&](int c, int b) {
-    const int l = c + threadIdx.x;
-    if (l < count) {
-      float4* s = sh.stage + (b * MS_THREADS + threadIdx.x) * 4;
-      const float* r = rows + static_cast<size_t>(start + l) * row_w;
-      cp16(s, r); cp16(s + 1, r + 4); cp16(s + 2, r + 8);
-      cp8(s + 3, boxes + start + l);
-    }
-    asm volatile("cp.async.commit_group;");
-  };
-  prefetch(0, 0);
-  for (int c0 = 0; c0 < count; c0 += MS_THREADS, buf ^= 1) {
-    if (threadIdx.x == 0) *sh.n_wide = 0;
-    asm volatile("cp.async.wait_group 0;" ::: "memory");
-    prefetch(c0 + MS_THREADS, buf ^ 1);
-    __syncthreads();
-    const int local = c0 + threadIdx.x;
-    if (local < count) {
-      const float4* s = sh.stage + (buf * MS_THREADS + threadIdx.x) * 4;
-      const int n = ms_box(reinterpret_cast<const short4*>(s + 3), 0, ty, tx,
-                           en);
-      if (n > wide_box)
-        sh.wide[atomicAdd(sh.n_wide, 1)] = local;
-      else if (n > 0 && ms_planes(reinterpret_cast<const float*>(s), 0, 0,
-                                  en))"""
-SHARED_SIZE = ("constexpr size_t MS_SHARED =\n"
-               "    sizeof(unsigned) * (5 * TILE_PIX + MS_THREADS + 4);")
-SHARED_SIZE_CP_ASYNC = """constexpr size_t MS_STATE =
-    sizeof(unsigned) * (5 * TILE_PIX + MS_THREADS + 4);
-constexpr size_t MS_SHARED = MS_STATE + 2 * MS_THREADS * 64;
-__device__ __forceinline__ void cp16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+WALK = ("        walk_thread<MS, PASS>(en, ty, tx, sh, "
+        "tile_key(en.tid, local));")
+
+
+def _pass(ms: bool, n: int) -> str:
+    """The source's call of pass n of one body."""
+    pad = " " * (24 if ms else 25)
+    return (f"  tile_entries<{'true' if ms else 'false'}, {n}>(rows, boxes, "
+            f"row_w, start, count, ty, tx, wide_box,\n{pad}sh);")
+
+
+PASSES = {n: [(_pass(ms, n), "") for ms in (False, True)] for n in (1, 2)}
+
+# the epilogue's read of the winner's row: the VEC template argument of
+# write_winner chooses float4 loads (K2, K4) or lane by lane (K5a, K5b)
+GATHER = ("template <bool VEC>\n__device__ __forceinline__ void "
+          "write_winner(")
+
+# own_pixels: the centre body's state gains a staging tile of 5 planes, the
+# entry carries its row, and a third pass writes the winners' planes
+OWN_SHARED = ("  static constexpr size_t shared =\n"
+              "      sizeof(unsigned) * (words * TILE_PIX + threads + 4);")
+OWN_SHARED_NEW = OWN_SHARED[:-1] + " + (MS ? 0 : 5 * TILE_PIX * 4);"
+OWN_PIXEL = """// the own_pixels probe: the winner of pixel p writes its planes
+__device__ __forceinline__ void own_pixel(const Entry& en, int p, float px,
+                                          float py, const TileShared& sh,
+                                          unsigned long long key) {
+  if (key != sh.win[p]) return;
+  float* st = reinterpret_cast<float*>(sh.n_wide + 4) + p;
+  const float dx = __fsub_rn(px, en.ax);
+  const float dy = __fsub_rn(py, en.ay);
+  st[0] = __fadd_rn(__fmul_rn(en.w1x, dx), __fmul_rn(en.w1y, dy));
+  st[TILE_PIX] = __fadd_rn(__fmul_rn(en.w2x, dx), __fmul_rn(en.w2y, dy));
+  const float* q = en.row + BASE_WIDTH;
+  float den = __fadd_rn(__fadd_rn(q[0], __fmul_rn(q[1], dx)),
+                        __fmul_rn(q[2], dy));
+  den = fabsf(den) > 1e-9f ? den : 1.0f;
+  for (int a = 0; a < 3; ++a)
+    st[(2 + a) * TILE_PIX] = __fdiv_rn(
+        __fadd_rn(__fadd_rn(q[3 + 3 * a], __fmul_rn(q[4 + 3 * a], dx)),
+                  __fmul_rn(q[5 + 3 * a], dy)), den);
 }
-__device__ __forceinline__ void cp8(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src));
-}"""
 
-# name -> (substitutions, whether the outputs must equal the real kernel's)
+template <int PASS>
+__device__ __forceinline__ void centre_pixel("""
+OWN_WRITE = """  __syncthreads();
+  write_tile<false, VEC>(rows, row_w, n_attrs, start, ty, tx, sh, depth,
+                         tri, b1, b2, attr, pad_h, pad_w);"""
+OWN_WRITE_NEW = """  tile_entries<false, 3>(rows, boxes, row_w, start, count, ty, tx, wide_box,
+                         sh);
+  __syncthreads();
+  const float* st = reinterpret_cast<const float*>(sh.n_wide + 4);
+  constexpr int RPT = TILE_PIX / CENTRE_THREADS;
+  const int col = threadIdx.x % TILE_W;
+  const int row0 = (threadIdx.x / TILE_W) * RPT;
+  const size_t plane = static_cast<size_t>(pad_h) * pad_w;
+  const size_t base = static_cast<size_t>(ty * TILE_H + row0) * pad_w
+                      + tx * TILE_W + col;
+  for (int r = 0; r < RPT; ++r) {
+    const int p = (row0 + r) * TILE_W + col;
+    const size_t o = base + static_cast<size_t>(r) * pad_w;
+    const unsigned long long key = sh.win[p];
+    const bool won = key != 0ull;
+    depth[o] = __uint_as_float(sh.depth[p]);
+    tri[o] = won ? (int)(key >> 32) - 1 : -1;
+    b1[o] = won ? st[p] : 0.0f;
+    b2[o] = won ? st[TILE_PIX + p] : 0.0f;
+    for (int a = 0; a < n_attrs; ++a)
+      attr[a * plane + o] = won ? st[(2 + a) * TILE_PIX + p] : 0.0f;
+    if (n_attrs == 0) attr[o] = 0.0f;
+  }"""
+
+# name -> (substitutions, whether the outputs must equal the real kernels')
 VARIANTS = {
     "base": ([], True),
-    "threads_512": ([("constexpr int MS_THREADS = 1024;",
+    "threads_512": ([("constexpr int CENTRE_THREADS = 1024;",
+                      "constexpr int CENTRE_THREADS = 512;"),
+                     ("constexpr int MS_THREADS = 1024;",
                       "constexpr int MS_THREADS = 512;")], True),
     "read_first": ([
         ("        atomicMin(sh.sd + k * TILE_PIX + p, bits);",
@@ -112,24 +145,152 @@ VARIANTS = {
         ("      atomicMin(sh.depth + p, bits);",
          "      if (bits < sh.depth[p]) atomicMin(sh.depth + p, bits);")],
         True),
-    "cp_async": (GENERIC_LOADS + [
-        (SHARED_SIZE, SHARED_SIZE_CP_ASYNC),
-        ("  int* n_wide;\n};", "  int* n_wide;\n  float4* stage;\n};"),
-        ("  sh.n_wide = sh.wide + MS_THREADS;\n",
-         "  sh.n_wide = sh.wide + MS_THREADS;\n"
-         "  sh.stage = reinterpret_cast<float4*>(smem + MS_STATE);\n"),
-        (THREAD_PHASE, THREAD_PHASE_CP_ASYNC)], True),
+    "scalar_gather": ([(GATHER, GATHER.replace(
+        "<bool VEC>", "<bool VEC_, bool VEC = false>"))], True),
+    "float4_gather": ([("  raster_tile<false>(", "  raster_tile<true>("),
+                       ("  raster_tile_ms<false>(",
+                        "  raster_tile_ms<true>(")], True),
+    "own_pixels": ([
+        (OWN_SHARED, OWN_SHARED_NEW),
+        ("  int tid;\n  float dw1[4]", "  int tid;\n  const float* row;\n"
+         "  float dw1[4]"),
+        ("  en.tid = (int)c.z;                        // lane 10\n",
+         "  en.tid = (int)c.z;                        // lane 10\n"
+         "  en.row = rows + static_cast<size_t>(e) * row_w;\n"),
+        ("template <int PASS>\n__device__ __forceinline__ void centre_pixel(",
+         OWN_PIXEL),
+        ("  const int p = ly * TILE_W + lx;\n"
+         "  const float dx = __fsub_rn(px, en.ax);\n"
+         "  const float dy = __fsub_rn(py, en.ay);\n"
+         "  const float zp",
+         "  const int p = ly * TILE_W + lx;\n"
+         "  if (PASS == 3) {\n"
+         "    own_pixel(en, p, px, py, sh, key);\n"
+         "    return;\n"
+         "  }\n"
+         "  const float dx = __fsub_rn(px, en.ax);\n"
+         "  const float dy = __fsub_rn(py, en.ay);\n"
+         "  const float zp"),
+        (OWN_WRITE, OWN_WRITE_NEW)], True),
     # the walk behind a test no row passes, so that the loads stay
     "no_walk": ([(WALK, "        if (en.ax + en.w1x + en.w2x + en.z0 + en.zy "
-                  "+ en.dz[3] + en.dw1[2] + en.dw2[1] == 1.2345e30f)\n  "
-                  + WALK)], False),
-    "no_pass2": ([(PASS2, "")], False),
-    "no_passes": ([(PASS1, ""), (PASS2, "")], False),
+                  "== 1.2345e30f)\n  " + WALK)], False),
+    "no_pass2": (PASSES[2], False),
+    "no_passes": (PASSES[1] + PASSES[2], False),
     "no_gather": ([("    const int win = won ? start + (int)(key & "
                     "0xffffffffull) - 1 : -1;", "    const int win = -1;")],
                   False),
 }
-ENTRY_POINTS = ("smr_raster_tiles_ms", "smr_raster_tiles_ms_multi")
+ENTRY_POINTS = ("smr_raster_tiles", "smr_raster_tiles_multi",
+                "smr_raster_tiles_ms", "smr_raster_tiles_ms_multi")
+KERNEL_NAMES = ("raster_tiles_kernel", "raster_tiles_multi_kernel",
+                "raster_tiles_ms_kernel", "raster_tiles_ms_multi_kernel")
+
+
+def variant_source(source: str, name: str) -> str:
+    text = source
+    for old, new in VARIANTS[name][0]:
+        if old not in text:
+            raise RuntimeError(f"variant {name}: the source no longer holds "
+                               f"{old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(names, out="build/probe"):
+    """Compile each variant into its own library (nvcc -Xptxas -v, all at
+    once) -> {name: (ctypes handle, {kernel: (registers, spill bytes)})}."""
+    from simple_mmd_renderer_tpu_torch.ops import _build
+
+    source = (_build.CSRC / "tiled_raster.cu").read_text()
+    os.makedirs(out, exist_ok=True)
+    jobs = []
+    for name in names:
+        cu = os.path.join(out, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(variant_source(source, name))
+        so = os.path.abspath(os.path.join(out, f"{name}.so"))
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
+               cu]
+        jobs.append((name, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    built = {}
+    for name, so, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name}: nvcc failed:\n{log[-3000:]}")
+        found = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes "
+                           r"spill stores.*?Used (\d+) registers", log, re.S)
+        regs = {k: (int(r), int(sp)) for k in KERNEL_NAMES
+                for fn, sp, r in found if f"{len(k)}{k}" in fn}
+        handle = ctypes.CDLL(so)
+        for n in ENTRY_POINTS:
+            fn = getattr(handle, n)
+            fn.argtypes, fn.restype = _build.SIGNATURES[n], ctypes.c_int
+        built[name] = (handle, regs)
+    return built
+
+
+def capture():
+    """{"K2"|"K5a"|"K4"|"K5b": (wrapper, args)} from frame 1 of each path,
+    boxes included."""
+    import chip_smoke as cs
+    from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    out = {}
+    for msaa, key in ((False, "K2"), (True, "K4")):
+        scene = build_sample_scene(cs.DENSITY, cs.WIDTH, cs.HEIGHT, cs.SHADOW,
+                                   "cuda", **(cs.MSAA_PATH if msaa else {}))
+        _, _, seen = cs.capture_frame(scene.step_and_render,
+                                      scene.init_state(),
+                                      cs.path_kernels(msaa))
+        out[key] = seen[key][0]
+    crowd = cs.build_crowd(cs.DENSITY, "crowd-dense")
+    for msaa, key in ((False, "K5a"), (True, "K5b")):
+        step, state = crowd[msaa]
+        _, _, seen = cs.capture_frame(step, state, cs.crowd_kernels(msaa))
+        out[key] = seen[key][0]
+    fns = {"K2": tr.raster_tiles, "K5a": tr.raster_tiles_multi,
+           "K4": tr.raster_tiles_ms, "K5b": tr.raster_tiles_ms_multi}
+    return {k: (fns[k], out[k]) for k in fns}
+
+
+@contextlib.contextmanager
+def use(handle):
+    """The wrappers launch `handle`'s entry points inside the block."""
+    from simple_mmd_renderer_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    real = {n: getattr(lib, n) for n in ENTRY_POINTS}
+    try:
+        for n in ENTRY_POINTS:
+            setattr(lib, n, getattr(handle, n))
+        yield
+    finally:
+        for n in ENTRY_POINTS:
+            setattr(lib, n, real[n])
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` launches run back to back
+    (after one warm-up): a sleep kernel holds the stream while the host
+    queues them."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(PRIME_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def best(fn) -> float:
+    return min(cuda_ms(fn, 20) for _ in range(6))
 
 
 def main() -> int:
@@ -140,82 +301,36 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("probe_torch_raster_ms: no CUDA device", file=sys.stderr)
         return 1
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import chip_smoke as cs
-    from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
-    from simple_mmd_renderer_tpu_torch.ops import _build
-    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
-    source = (_build.CSRC / "tiled_raster.cu").read_text()
-    os.makedirs(opts.out, exist_ok=True)
-    jobs = []
-    for name in opts.only.split(","):
-        text = source
-        for old, new in VARIANTS[name][0]:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: the source no longer "
-                                   f"holds {old[:60]!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(opts.out, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        so = os.path.abspath(os.path.join(opts.out, f"{name}.so"))
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
-               cu]
-        jobs.append((name, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-
+    names = opts.only.split(",")
     print(cs.smi_name_power(), flush=True)
-    scene = build_sample_scene(cs.DENSITY, cs.WIDTH, cs.HEIGHT, cs.SHADOW,
-                               "cuda", **cs.MSAA_PATH)
-    _, _, seen = cs.capture_frame(scene.step_and_render, scene.init_state(),
-                                  cs.path_kernels(True))
-    k4 = seen["K4"][0]
-    step, state = cs.build_crowd(cs.DENSITY, "crowd-dense")[True]
-    _, _, seen = cs.capture_frame(step, state, cs.crowd_kernels(True))
-    k5b = seen["K5b"][0]
-    empty = (k4[0], k4[1] * 0, k4[2] * 0) + tuple(k4[3:])
-    want = tr.raster_tiles_ms(*k4) + tr.raster_tiles_ms_multi(*k5b)
-
-    lib = _build.lib()
-    real = {n: getattr(lib, n) for n in ENTRY_POINTS}
-    built = {}
-    for name, so, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name}: nvcc failed:\n{log[-3000:]}")
-        regs = re.findall(r"raster_tiles_ms\w*kernel.*?Used (\d+) registers",
-                          log, re.S)
-        handle = ctypes.CDLL(so)
-        for n in ENTRY_POINTS:
-            fn = getattr(handle, n)
-            fn.argtypes, fn.restype = _build.SIGNATURES[n], ctypes.c_int
-        built[name] = (handle, regs)
-
-    def best(fn):
-        return min(cs.cuda_ms(fn, 20) for _ in range(6))
-
-    try:
-        for rnd in range(2):
-            for name, (handle, regs) in built.items():
-                for n in ENTRY_POINTS:
-                    setattr(lib, n, getattr(handle, n))
-                got = tr.raster_tiles_ms(*k4) + tr.raster_tiles_ms_multi(*k5b)
-                same = all(torch.equal(a, b) for a, b in zip(got, want))
-                if VARIANTS[name][1] and not same:
-                    raise AssertionError(f"variant {name} changes the bits")
-                print(f"round {rnd}, {name}: K4 "
-                      f"{best(lambda: tr.raster_tiles_ms(*k4)):.4f} ms, K5b "
-                      f"{best(lambda: tr.raster_tiles_ms_multi(*k5b)):.4f} "
-                      f"ms, K4 on empty bins "
-                      f"{best(lambda: tr.raster_tiles_ms(*empty)):.4f} ms; "
-                      f"same bits as the real kernel: {same}; registers "
-                      f"(K5b, K4) {regs}", flush=True)
-    finally:
-        for n in ENTRY_POINTS:
-            setattr(lib, n, real[n])
+    cases = capture()
+    built = build_variants(names, opts.out)
+    want = {k: fn(*args) for k, (fn, args) in cases.items()}
+    empty = {k: (args[0], args[1] * 0, args[2] * 0) + tuple(args[3:])
+             for k, (_, args) in cases.items() if k in ("K2", "K4")}
+    for rnd in range(2):
+        for name, (handle, regs) in built.items():
+            with use(handle):
+                same = {k: all(torch.equal(a, b) for a, b in
+                               zip(fn(*args), want[k]))
+                        for k, (fn, args) in cases.items()}
+                if VARIANTS[name][1] and not all(same.values()):
+                    raise AssertionError(f"variant {name} changes the bits: "
+                                         f"{same}")
+                times = {k: best(lambda: fn(*args))
+                         for k, (fn, args) in cases.items()}
+                floors = {k: best(lambda: cases[k][0](*e))
+                          for k, e in empty.items()}
+            print(f"round {rnd}, {name}: "
+                  + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items())
+                  + "; on empty bins "
+                  + ", ".join(f"{k} {t:.4f} ms" for k, t in floors.items())
+                  + f"; same bits as the real kernels: {same}; registers, "
+                  f"spill bytes {regs}", flush=True)
     return 0
 
 

@@ -1,18 +1,25 @@
-"""K4's and K5b's time on the card against the wide-box threshold.
+"""The raster kernels' time on the card against the wide-box threshold and
+the block size of their tile bodies.
 
     python3 scripts/tune_torch_raster_ms.py [--wide 0,32,128,512,4096]
+                                            [--threads 1024,512]
 
-The MSAA tile body (`raster_tile_ms`, csrc/tiled_raster.cu) lets one thread
-walk an entry's pixel box alone when the box holds at most
-`tiled_raster.WIDE_BOX` pixels, and shares a wider box among the lanes of a
-warp. This script measures that threshold: it captures the arguments K4
-gets in frame 1 of the flagship scene (1920x1080, msaa=4 + shadow_window)
-and K5b's in frame 1 of the 64-instance crowd at density 2.0 (256x144,
-msaa=4), as `chip_smoke.py` does, holds each kernel against its brute-force
-plain version once, and then times both kernels (CUDA events, 20 launches)
-at every threshold of `--wide`, in two rounds so that drift shows. It also
-prints how large the entries' clamped boxes are (the work the kernel does)
-and times both kernels without boxes (every entry over its whole tile).
+Both raster tile bodies (`raster_tile` for K2/K5a, `raster_tile_ms` for
+K4/K5b, csrc/tiled_raster.cu) let one thread walk an entry's pixel box
+alone when the box holds at most `tiled_raster.WIDE_BOX` pixels, and share
+a wider box among the lanes of a warp. This script measures that threshold
+and the threads a block: it captures the arguments K2 and K4 get in frame 1
+of the flagship scene (1920x1080, msaa=1 and msaa=4 + shadow_window) and
+K5a's and K5b's in frame 1 of the 64-instance crowd at density 2.0
+(256x144, msaa=1 and msaa=4), as `chip_smoke.py` does, holds each kernel
+against its brute-force plain version once, and then times the four
+kernels (20 launches back to back, `probe_torch_raster_ms.cuda_ms`) at
+every threshold of `--wide`, in two rounds so that drift shows, once for
+each block size of `--threads` (1,024
+is the source as it is; 512 is its `threads_512` variant of
+scripts/probe_torch_raster_ms.py, built beside it). It also prints how
+large the entries' clamped boxes are (the work the kernels do) and times
+the kernels without boxes (every entry over its whole tile).
 """
 
 from __future__ import annotations
@@ -23,12 +30,14 @@ import sys
 
 import torch
 
+CROWD = ("K5a", "K5b")
 
-def box_sizes(args, boxes, crowd):
+
+def box_sizes(args, crowd):
     """Pixels of every real entry's box clamped to its tile."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
-    starts, counts = args[1], args[2]
+    starts, counts, boxes = args[1], args[2], args[-1]
     width, height = args[4:6] if crowd else args[3:5]
     tiles_x, _, n_tiles = tr._grid(width, height)
     idx, tile = tr._tile_entries(starts, counts)
@@ -46,35 +55,28 @@ def box_sizes(args, boxes, crowd):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--wide", default="0,16,32,64,128,256,512,1024,4096")
+    ap.add_argument("--threads", default="1024,512")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("tune_torch_raster_ms: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [os.path.dirname(here), here]
     import chip_smoke as cs
-    from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
+    import probe_torch_raster_ms as probe
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     print(cs.smi_name_power(), flush=True)
-    scene = build_sample_scene(cs.DENSITY, cs.WIDTH, cs.HEIGHT, cs.SHADOW,
-                               "cuda", **cs.MSAA_PATH)
-    _, _, seen = cs.capture_frame(scene.step_and_render, scene.init_state(),
-                                  cs.path_kernels(True))
-    k4_args = seen["K4"][0]
-    step, state = cs.build_crowd(cs.DENSITY, "crowd-dense")[True]
-    _, _, seen = cs.capture_frame(step, state, cs.crowd_kernels(True))
-    k5b_args = seen["K5b"][0]
-
-    cases = (("K4", tr.raster_tiles_ms, tr.raster_tiles_ms_plain, k4_args,
-              False),
-             ("K5b", tr.raster_tiles_ms_multi, tr.raster_tiles_ms_multi_plain,
-              k5b_args, True))
-    for key, fn, plain, args, crowd in cases:
-        got, want = fn(*args), plain(*args[:-1])
-        bad = [int((got[i] != want[i]).sum()) for i in (0, 1, 2, 3, 5)]
+    cases = probe.capture()
+    plains = {"K2": tr.raster_tiles_plain, "K5a": tr.raster_tiles_multi_plain,
+              "K4": tr.raster_tiles_ms_plain,
+              "K5b": tr.raster_tiles_ms_multi_plain}
+    for key, (fn, args) in cases.items():
+        got, want = fn(*args), plains[key](*args[:-1])
+        bad = [int((got[i] != want[i]).sum()) for i in range(len(got))
+               if i != 4]
         attr = float((got[4] - want[4]).abs().max())
-        size = box_sizes(args, args[-1], crowd).float()
+        size = box_sizes(args, key in CROWD).float()
         q = torch.quantile(size, torch.tensor([0.5, 0.9, 0.99],
                                               device=size.device))
         print(f"{key}: mismatches {bad}, attr max err {attr:.3g}; "
@@ -82,26 +84,32 @@ def main() -> int:
               f"clamped box pixels: sum {int(size.sum())}, mean "
               f"{float(size.mean()):.1f}, median {float(q[0]):.0f}, 90% "
               f"{float(q[1]):.0f}, 99% {float(q[2]):.0f}, max "
-              f"{int(size.max())}", flush=True)
+              f"{int(size.max())}, over {tr.WIDE_BOX}: "
+              f"{int((size > tr.WIDE_BOX).sum())}", flush=True)
         if any(bad) or attr > 1e-6:
             raise AssertionError(f"{key} disagrees with its plain version")
 
+    threads = [int(v) for v in opts.threads.split(",")]
+    variants = {1024: "base", 512: "threads_512"}
+    built = probe.build_variants([variants[n] for n in threads])
     default = tr.WIDE_BOX
     try:
         for rnd in range(2):
-            for wide in [int(v) for v in opts.wide.split(",")]:
-                tr.WIDE_BOX = wide
-                line = [f"round {rnd}, wide_box {wide}:"]
-                for key, fn, _, args, _ in cases:
-                    ms = cs.cuda_ms(lambda: fn(*args), 20)
-                    line.append(f"{key} {ms:.4f} ms")
-                print(" ".join(line), flush=True)
+            for n in threads:
+                with probe.use(built[variants[n]][0]):
+                    for wide in [int(v) for v in opts.wide.split(",")]:
+                        tr.WIDE_BOX = wide
+                        line = [f"round {rnd}, {n} threads, wide_box {wide}:"]
+                        for key, (fn, args) in cases.items():
+                            ms = probe.cuda_ms(lambda: fn(*args), 20)
+                            line.append(f"{key} {ms:.4f} ms")
+                        print(" ".join(line), flush=True)
     finally:
         tr.WIDE_BOX = default
-    for key, fn, _, args, _ in cases:
+    for key, (fn, args) in cases.items():
         print(f"{key} without boxes (every entry over its whole tile, "
               f"wide_box {default}): "
-              f"{cs.cuda_ms(lambda: fn(*args[:-1]), 3):.4f} ms", flush=True)
+              f"{probe.cuda_ms(lambda: fn(*args[:-1]), 3):.4f} ms", flush=True)
     return 0
 
 

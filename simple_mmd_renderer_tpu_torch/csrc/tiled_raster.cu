@@ -41,7 +41,9 @@
 // K2: the entry with the smallest zp in [0, 1] wins, a tie goes to the
 // larger triangle id (order-free, so entry order never matters); outputs
 // depth (1 where empty), tri (-1 where empty), b1 = w1, b2 = w2 and
-// attr[a] = num_a / den with den replaced by 1 where |den| <= 1e-9.
+// attr[a] = num_a / den with den replaced by 1 where |den| <= 1e-9; the
+// clear (depth 1, triangle -1) takes part in the tie rule, so an entry at
+// exactly zp = 1 wins its pixel.
 // K4: as K2, but an entry takes part where it covers any of the four
 // samples at (ox, oy) = MSAA4_OFFSETS, whose planes are the centre's plus
 // a per-entry offset (w1s = w1 + (w1x*ox + w1y*oy), likewise w2s and
@@ -59,50 +61,49 @@
 // `raster_tiles_ms_plain`), which evaluate every entry at every pixel of
 // its tile.
 //
-// Design of K1/K2/K6 and their crowd forms K5c/K5a: one block per tile; a
-// thread owns one column and consecutive rows, so each row's stores are
-// coalesced (256 threads, 16 rows of a 32-row tile or 4 of an 8-row one).
-// The block walks its entries in chunks of CHUNK rows copied cooperatively
-// into shared memory (counts are unbounded: a dense tile loops over as many
-// chunks as it needs). K2 keeps only depth, triangle id and the winning
-// entry's index per pixel and evaluates b1, b2 and the attribute planes
-// once, from the winner's row, after the loop: the same arithmetic as
-// carrying every plane through the loop, with register use flat in the
-// attribute count. K6 reads its window from the card, so its caller sizes
-// no grid from the data and needs no host synchronisation.
-// What bounds them on the H100: the per-entry plane arithmetic (about 20
+// Design of K1/K6 and their crowd form K5c (`depth_tile`): one block per
+// tile; a thread owns one column and consecutive rows, so each row's stores
+// are coalesced (256 threads, 16 rows of a 32-row tile or 4 of an 8-row
+// one). The block walks its entries in chunks of CHUNK rows copied
+// cooperatively into shared memory (counts are unbounded: a dense tile loops
+// over as many chunks as it needs). K6 reads its window from the card, so
+// its caller sizes no grid from the data and needs no host synchronisation.
+// What bounds them on the H100: the per-entry plane arithmetic (about 13
 // fp32 operations per pixel per entry), all from shared-memory broadcasts,
 // over every pixel of the tile whether the entry can reach it or not; rows
-// are read once per tile. Left for later: the pixel boxes below in
-// `raster_tile` and `depth_tile`, and a retuned tile shape.
+// are read once per tile. Left for later: the pixel boxes of the raster
+// bodies below in `depth_tile`, and a retuned tile shape.
 //
-// Design of K4 and K5b (`raster_tile_ms`): an entry is evaluated only where
-// it can cover. The binning hands each entry the box of pixels its triangle
-// can reach (`boxes`, int16 x0, y0, x1, y1 in the frame, a pixel of margin
-// included; see `_pixel_boxes` in ops/tiled_raster.py for why the margin is
-// safe and which triangles get the whole range instead). One block still
-// owns a 32x128 tile, but its running state lives in shared memory (per
-// pixel the least biased depth and four sample depths, 80 KB) and its 1,024
-// threads take ENTRIES, a chunk of 1,024 at a time: a thread reads its
-// entry's row and box straight into registers (three float4 loads and one
-// 8-byte load; no staging buffer, no barrier around a copy), clamps the box
-// to the tile and walks it, updating the pixels it covers with integer
-// atomicMin on the depths' bits. An entry whose clamped box is wider than
-// `wide_box` pixels is queued instead, and the block's 32 warps then share
-// the queue, the 32 lanes of a warp striding over one box (all the threads
-// of the block over a box of more than MS_BLOCK_BOX pixels), so that one
-// thread never holds its block up with a box of thousands of pixels. A
-// second pass over the same entries finds each pixel's winner: among the
-// entries whose candidate equals the final depth, atomicMax on (triangle
-// id, entry index) - the plain version's choice whatever the order of the
-// entries; it skips a pixel as soon as the entry's zp cannot be the pixel's
-// depth. The epilogue (un-bias, b1, b2, attributes from the winner's row)
-// is pixel-parallel with coalesced stores, as in K2. 1,024 threads (64
-// registers each: one block on an SM) measured faster than 512 (two
-// blocks): a tile's block is the unit of work, and the fullest tile's sets
-// the kernel's time.
-// What bounds K4/K5b now: with sub-pixel triangles (the crowd) a box holds
-// a dozen pixels and most of the time goes to what the kernel moves - the
+// Design of the raster bodies, K2/K5a (`raster_tile`, centre-sampled) and
+// K4/K5b (`raster_tile_ms`): an entry is evaluated only where it can cover.
+// The binning hands each entry the box of pixels its triangle can reach
+// (`boxes`, int16 x0, y0, x1, y1 in the frame, a pixel of margin included;
+// see `_pixel_boxes` in ops/tiled_raster.py for why the margin is safe and
+// which triangles get the whole range instead). One block still owns a
+// 32x128 tile, but its running state lives in shared memory (per pixel the
+// least depth and the winner's key, 48 KB, for K2; the least biased depth
+// and four sample depths, 80 KB, for K4) and its threads take ENTRIES, a
+// chunk of one per thread at a time: a thread reads its entry's row and box
+// straight into registers (three float4 loads and one 8-byte load; no
+// staging buffer, no barrier around a copy), clamps the box to the tile and
+// walks it, updating the pixels it covers with integer atomicMin on the
+// depths' bits. An entry whose clamped box is wider than `wide_box` pixels
+// is queued instead, and the block's warps then share the queue, the 32
+// lanes of a warp striding over one box (all the threads of the block over
+// a box of more than BLOCK_BOX pixels), so that one thread never holds its
+// block up with a box of thousands of pixels. A second pass over the same
+// entries finds each pixel's winner: among the entries whose candidate
+// equals the final depth, atomicMax on (triangle id, entry index) - the
+// plain version's choice whatever the order of the entries; it skips a
+// pixel as soon as the entry's zp cannot be the pixel's depth. The epilogue
+// (K4's un-bias, b1, b2, attributes from the winner's row: aligned float4
+// loads in K2/K4, lane by lane in the crowd kernels, each measured the
+// faster there) is pixel-parallel with coalesced stores. 1,024 threads a
+// block (up to 64 registers each: one block on an SM) measured faster than
+// 512 (two blocks) for all four kernels: a tile's block is the unit of
+// work, and the fullest tile's sets the kernel's time.
+// What bounds them now: with sub-pixel triangles (the crowd) a box holds a
+// dozen pixels and most of the time goes to what the kernel moves - the
 // rows, read once per pass, and the output planes; with triangles of tens
 // of pixels (the flagship) to the evaluation of the fullest tile's entries
 // on one SM and to the epilogue's gather of the winners' rows, since one
@@ -118,14 +119,13 @@ namespace {
 
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 128;
-constexpr int THREADS = 256;
-constexpr int ROWS_PER_THREAD = TILE_H * TILE_W / THREADS;  // 16
+constexpr int THREADS = 256;     // K1/K6/K5c
 constexpr int CHUNK = 256;       // entries per shared-memory chunk
 constexpr int LANES = 11;        // lanes the loop reads (0..10)
 constexpr int BASE_WIDTH = 16;   // first attribute-plane lane
 constexpr int MAX_ATTRS = 36;    // the reference's row-payload bound
+constexpr int CENTRE_THREADS = 1024;  // K2/K5a
 constexpr int MS_THREADS = 1024;  // K4/K5b
-constexpr int MS_ROWS = TILE_H * TILE_W / MS_THREADS;  // 4, in the epilogue
 
 // D3D11/OpenGL standard 4x MSAA sample offsets from the pixel centre
 __constant__ float kSampleX[4] = {-0.125f, 0.375f, -0.375f, 0.125f};
@@ -237,197 +237,59 @@ depth_tiles_win_kernel(const int* __restrict__ window,
                  depth, pad_w, sh);
 }
 
-// b1, b2 and the attributes at pixel centre (px, py), offset o, from the
-// winning entry `win` (zeros where win < 0), as K2 and K4 write them.
-__device__ __forceinline__ void write_winner(const float* __restrict__ rows,
-                                             int row_w, int n_attrs, int win,
-                                             float px, float py, size_t o,
-                                             size_t plane,
-                                             float* __restrict__ b1,
-                                             float* __restrict__ b2,
-                                             float* __restrict__ attr) {
-  float w1 = 0.0f, w2 = 0.0f;
-  if (win >= 0) {
-    const float* rw = rows + static_cast<size_t>(win) * row_w;
-    const float dx = __fsub_rn(px, rw[0]);
-    const float dy = __fsub_rn(py, rw[1]);
-    w1 = __fadd_rn(__fmul_rn(rw[2], dx), __fmul_rn(rw[3], dy));
-    w2 = __fadd_rn(__fmul_rn(rw[4], dx), __fmul_rn(rw[5], dy));
-    if (n_attrs > 0) {
-      const float* p = rw + BASE_WIDTH;
-      float den = __fadd_rn(__fadd_rn(p[0], __fmul_rn(p[1], dx)),
-                            __fmul_rn(p[2], dy));
-      den = fabsf(den) > 1e-9f ? den : 1.0f;
-      for (int a = 0; a < n_attrs; ++a) {
-        const float* q = p + 3 + 3 * a;
-        const float num = __fadd_rn(__fadd_rn(q[0], __fmul_rn(q[1], dx)),
-                                    __fmul_rn(q[2], dy));
-        attr[a * plane + o] = __fdiv_rn(num, den);
-      }
-    }
-  } else {
-    for (int a = 0; a < n_attrs; ++a) attr[a * plane + o] = 0.0f;
-  }
-  if (n_attrs == 0) attr[o] = 0.0f;
-  b1[o] = w1;
-  b2[o] = w2;
-}
-
-// One tile of K2/K5a: tile (ty, tx) of one instance's frame, whose entries
-// are [starts[gid], starts[gid] + counts[gid]); the output planes are that
-// instance's. Every thread of the block calls it.
-__device__ __forceinline__ void raster_tile(
-    const int* __restrict__ starts, const int* __restrict__ counts,
-    const float* __restrict__ rows, int row_w, int n_attrs, int gid, int ty,
-    int tx, float* __restrict__ depth, int* __restrict__ tri,
-    float* __restrict__ b1, float* __restrict__ b2, float* __restrict__ attr,
-    int pad_h, int pad_w, float* sh) {
-  const int col = threadIdx.x % TILE_W;
-  const int row0 = (threadIdx.x / TILE_W) * ROWS_PER_THREAD;
-  const float px = (float)col + ((float)(tx * TILE_W) + 0.5f);
-  const float ybase = (float)(ty * TILE_H) + 0.5f;
-
-  float d[ROWS_PER_THREAD];
-  int id[ROWS_PER_THREAD];
-  int win[ROWS_PER_THREAD];
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-    d[r] = 1.0f;
-    id[r] = -1;
-    win[r] = -1;
-  }
-
-  const int start = starts[gid];
-  const int count = counts[gid];
-  for (int c0 = 0; c0 < count; c0 += CHUNK) {
-    const int n = min(CHUNK, count - c0);
-    __syncthreads();
-    load_chunk(sh, rows, row_w, start + c0, n);
-    __syncthreads();
-    for (int e = 0; e < n; ++e) {
-      if (!(sh[9 * CHUNK + e] > 0.0f)) continue;
-      const float dx = __fsub_rn(px, sh[0 * CHUNK + e]);
-      const float ay = sh[1 * CHUNK + e];
-      const float w1dx = __fmul_rn(sh[2 * CHUNK + e], dx);
-      const float w1y = sh[3 * CHUNK + e];
-      const float w2dx = __fmul_rn(sh[4 * CHUNK + e], dx);
-      const float w2y = sh[5 * CHUNK + e];
-      const float zdx = __fadd_rn(sh[6 * CHUNK + e],
-                                  __fmul_rn(sh[7 * CHUNK + e], dx));
-      const float zy = sh[8 * CHUNK + e];
-      const int tid = (int)sh[10 * CHUNK + e];
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-        const float dy = __fsub_rn((float)(row0 + r) + ybase, ay);
-        const float w1 = __fadd_rn(w1dx, __fmul_rn(w1y, dy));
-        const float w2 = __fadd_rn(w2dx, __fmul_rn(w2y, dy));
-        const float zp = __fadd_rn(zdx, __fmul_rn(zy, dy));
-        const bool ok = (w1 >= 0.0f) && (w2 >= 0.0f)
-                        && (__fadd_rn(w1, w2) <= 1.0f) && (zp >= 0.0f)
-                        && (zp <= 1.0f);
-        if (ok && (zp < d[r] || (zp == d[r] && tid > id[r]))) {
-          d[r] = zp;
-          id[r] = tid;
-          win[r] = start + c0 + e;
-        }
-      }
-    }
-  }
-
-  const size_t plane = static_cast<size_t>(pad_h) * pad_w;
-  const size_t base = static_cast<size_t>(ty * TILE_H + row0) * pad_w
-                      + tx * TILE_W + col;
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-    const size_t o = base + static_cast<size_t>(r) * pad_w;
-    depth[o] = d[r];
-    tri[o] = id[r];
-    write_winner(rows, row_w, n_attrs, win[r], px,
-                 (float)(row0 + r) + ybase, o, plane, b1, b2, attr);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-raster_tiles_kernel(const int* __restrict__ starts,
-                    const int* __restrict__ counts,
-                    const float* __restrict__ rows, int row_w, int n_attrs,
-                    int tiles_x, float* __restrict__ depth,
-                    int* __restrict__ tri, float* __restrict__ b1,
-                    float* __restrict__ b2, float* __restrict__ attr,
-                    int pad_h, int pad_w) {
-  __shared__ float sh[LANES * CHUNK];
-  const int t = blockIdx.x;
-  const int ty = t / tiles_x;
-  raster_tile(starts, counts, rows, row_w, n_attrs, t, ty, t - ty * tiles_x,
-              depth, tri, b1, b2, attr, pad_h, pad_w, sh);
-}
-
-// K5a: block i takes tile i % inst_tiles of instance i / inst_tiles;
-// starts/counts are indexed by the global tile i, pixel coordinates come
-// from the local tile, every output plane is offset by the instance.
-__global__ void __launch_bounds__(THREADS)
-raster_tiles_multi_kernel(const int* __restrict__ starts,
-                          const int* __restrict__ counts,
-                          const float* __restrict__ rows, int row_w,
-                          int n_attrs, int inst_tiles, int tiles_x,
-                          float* __restrict__ depth, int* __restrict__ tri,
-                          float* __restrict__ b1, float* __restrict__ b2,
-                          float* __restrict__ attr, int pad_h, int pad_w) {
-  __shared__ float sh[LANES * CHUNK];
-  const int g = blockIdx.x;
-  const int inst = g / inst_tiles;
-  const int local = g - inst * inst_tiles;
-  const int ty = local / tiles_x;
-  const size_t o = static_cast<size_t>(inst) * pad_h * pad_w;
-  raster_tile(starts, counts, rows, row_w, n_attrs, g, ty,
-              local - ty * tiles_x, depth + o, tri + o, b1 + o, b2 + o,
-              attr + o * max(n_attrs, 1), pad_h, pad_w, sh);
-}
-
 // ---------------------------------------------------------------------------
-// K4/K5b: the MSAA tile body. Entries are evaluated only inside their pixel
-// boxes, in parallel, against tile state held in shared memory.
+// K2/K5a and K4/K5b: the raster tile bodies. Entries are evaluated only
+// inside their pixel boxes, in parallel, against tile state held in shared
+// memory.
 // ---------------------------------------------------------------------------
 
-// Shared memory of one K4/K5b block (dynamic, MS_SHARED bytes):
-//   depth  u32 [TILE_PIX]      bits of each pixel's least biased depth
-//   sd     u32 [4][TILE_PIX]   bits of the four per-sample depths; once they
-//                              are written out, the same bytes hold
-//   win    u64 [TILE_PIX]      (triangle id + 1) << 32 | (entry in tile + 1)
-//   wide   i32 [MS_THREADS]    this chunk's entries with wide boxes
+constexpr int TILE_PIX = TILE_H * TILE_W;   // 4096
+constexpr int BLOCK_BOX = 1024;   // pixels of the largest box one warp takes
+
+// Per body (MS: K4/K5b, else K2/K5a): threads a block, and the u32 words of
+// tile state per pixel. Shared memory of one block (dynamic, `shared`
+// bytes):
+//   depth  u32 [TILE_PIX]      bits of each pixel's least depth (K4: biased)
+//   K2:  win u64 [TILE_PIX]    (triangle id + 1) << 32 | (entry in tile + 1)
+//   K4:  sd  u32 [4][TILE_PIX] bits of the four per-sample depths; once they
+//                              are written out, the same bytes hold `win`
+//   wide   i32 [threads]       this chunk's entries with wide boxes
 //   n_wide i32
 // Every depth kept here is >= +0 (zp >= 0 is tested, -0 is folded into +0,
-// the biases are +2 and the clears 3 and 1), and the bits of non-negative
+// K4's biases are +2 and the clears 3 and 1), and the bits of non-negative
 // floats order as unsigned integers. So the state is updated with integer
 // atomicMin / atomicMax only: exact and order-free, whatever order the
-// threads arrive in, which keeps the kernel deterministic (no float atomic
+// threads arrive in, which keeps the kernels deterministic (no float atomic
 // is used anywhere).
-constexpr int TILE_PIX = TILE_H * TILE_W;   // 4096
-constexpr int MS_WARPS = MS_THREADS / 32;
-constexpr int MS_BLOCK_BOX = 1024;   // pixels of the largest box one warp takes
-constexpr size_t MS_SHARED =
-    sizeof(unsigned) * (5 * TILE_PIX + MS_THREADS + 4);
+template <bool MS>
+struct Body {
+  static constexpr int threads = MS ? MS_THREADS : CENTRE_THREADS;
+  static constexpr int words = MS ? 5 : 3;
+  static constexpr size_t shared =
+      sizeof(unsigned) * (words * TILE_PIX + threads + 4);
+};
 
-struct MsShared {
+struct TileShared {
   unsigned* depth;
-  unsigned* sd;
+  unsigned* sd;                 // K4 only
   unsigned long long* win;
   int* wide;
   int* n_wide;
 };
 
-__device__ __forceinline__ MsShared ms_shared(unsigned char* smem) {
-  MsShared sh;
+template <bool MS>
+__device__ __forceinline__ TileShared tile_shared(unsigned char* smem) {
+  TileShared sh;
   sh.depth = reinterpret_cast<unsigned*>(smem);
   sh.sd = sh.depth + TILE_PIX;
   sh.win = reinterpret_cast<unsigned long long*>(sh.sd);
-  sh.wide = reinterpret_cast<int*>(sh.sd + 4 * TILE_PIX);
-  sh.n_wide = sh.wide + MS_THREADS;
+  sh.wide = reinterpret_cast<int*>(sh.depth + Body<MS>::words * TILE_PIX);
+  sh.n_wide = sh.wide + Body<MS>::threads;
   return sh;
 }
 
-// One entry's planes in registers, with its per-sample plane offsets.
-struct MsEntry {
+// One entry's planes in registers (K4: with its per-sample plane offsets).
+struct Entry {
   float ax, ay, w1x, w1y, w2x, w2y, z0, zx, zy;
   int tid;
   float dw1[4], dw2[4], dz[4];
@@ -436,8 +298,8 @@ struct MsEntry {
 
 // Entry e's box clamped to tile (ty, tx), tile-local -> its pixel count (0
 // where it misses the tile).
-__device__ __forceinline__ int ms_box(const short4* __restrict__ boxes, int e,
-                                      int ty, int tx, MsEntry& en) {
+__device__ __forceinline__ int entry_box(const short4* __restrict__ boxes,
+                                         int e, int ty, int tx, Entry& en) {
   const short4 bx = __ldg(boxes + e);
   en.x0 = max((int)bx.x - tx * TILE_W, 0);
   en.y0 = max((int)bx.y - ty * TILE_H, 0);
@@ -447,9 +309,10 @@ __device__ __forceinline__ int ms_box(const short4* __restrict__ boxes, int e,
 }
 
 // Load the planes of entry e of `rows` (lanes 0..11 as three float4). False
-// where the entry is invalid: it covers no sample.
-__device__ __forceinline__ bool ms_planes(const float* __restrict__ rows,
-                                          int row_w, int e, MsEntry& en) {
+// where the entry is invalid: it covers nothing.
+template <bool MS>
+__device__ __forceinline__ bool entry_planes(const float* __restrict__ rows,
+                                             int row_w, int e, Entry& en) {
   const float4* r = reinterpret_cast<const float4*>(
       rows + static_cast<size_t>(e) * row_w);
   const float4 c = __ldg(r + 2);            // lanes 8..11
@@ -460,26 +323,59 @@ __device__ __forceinline__ bool ms_planes(const float* __restrict__ rows,
   en.w2x = b.x; en.w2y = b.y; en.z0 = b.z; en.zx = b.w;
   en.zy = c.x;
   en.tid = (int)c.z;                        // lane 10
+  if constexpr (MS) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    en.dw1[k] = __fadd_rn(__fmul_rn(en.w1x, kSampleX[k]),
-                          __fmul_rn(en.w1y, kSampleY[k]));
-    en.dw2[k] = __fadd_rn(__fmul_rn(en.w2x, kSampleX[k]),
-                          __fmul_rn(en.w2y, kSampleY[k]));
-    en.dz[k] = __fadd_rn(__fmul_rn(en.zx, kSampleX[k]),
-                         __fmul_rn(en.zy, kSampleY[k]));
+    for (int k = 0; k < 4; ++k) {
+      en.dw1[k] = __fadd_rn(__fmul_rn(en.w1x, kSampleX[k]),
+                            __fmul_rn(en.w1y, kSampleY[k]));
+      en.dw2[k] = __fadd_rn(__fmul_rn(en.w2x, kSampleX[k]),
+                            __fmul_rn(en.w2y, kSampleY[k]));
+      en.dz[k] = __fadd_rn(__fmul_rn(en.zx, kSampleX[k]),
+                           __fmul_rn(en.zy, kSampleY[k]));
+    }
   }
   return true;
 }
 
-// Entry `en` at tile-local pixel (lx, ly), whose centre is (px, py): the
-// arithmetic of the reference's loop, product by product. PASS 1 lowers the
-// pixel's biased depth and its sample depths; PASS 2 (the depths final)
-// raises `win` to `key` where the entry's candidate is the pixel's depth.
+// K2: entry `en` at tile-local pixel (lx, ly), whose centre is (px, py):
+// the arithmetic of the reference's loop, product by product. PASS 1 lowers
+// the pixel's depth where the entry covers the centre with 0 <= zp <= 1;
+// PASS 2 (the depth final) raises `win` to `key` where that zp is the
+// pixel's depth.
 template <int PASS>
-__device__ __forceinline__ void ms_pixel(const MsEntry& en, int lx, int ly,
+__device__ __forceinline__ void centre_pixel(const Entry& en, int lx, int ly,
+                                             float px, float py,
+                                             const TileShared& sh,
+                                             unsigned long long key) {
+  const int p = ly * TILE_W + lx;
+  const float dx = __fsub_rn(px, en.ax);
+  const float dy = __fsub_rn(py, en.ay);
+  const float zp = __fadd_rn(__fadd_rn(en.z0, __fmul_rn(en.zx, dx)),
+                             __fmul_rn(en.zy, dy));
+  // zp + 0 folds -0 into +0
+  const unsigned bits = __float_as_uint(__fadd_rn(zp, 0.0f));
+  // where the pixel's depth is not zp, the entry is not its winner
+  if (PASS == 2 && bits != sh.depth[p]) return;
+  if (!(zp >= 0.0f && zp <= 1.0f)) return;
+  const float w1 = __fadd_rn(__fmul_rn(en.w1x, dx), __fmul_rn(en.w1y, dy));
+  const float w2 = __fadd_rn(__fmul_rn(en.w2x, dx), __fmul_rn(en.w2y, dy));
+  if ((w1 >= 0.0f) && (w2 >= 0.0f) && (__fadd_rn(w1, w2) <= 1.0f)) {
+    if (PASS == 1) {
+      atomicMin(sh.depth + p, bits);
+    } else {
+      atomicMax(sh.win + p, key);
+    }
+  }
+}
+
+// K4: entry `en` at tile-local pixel (lx, ly), whose centre is (px, py).
+// PASS 1 lowers the pixel's biased depth and its sample depths; PASS 2 (the
+// depths final) raises `win` to `key` where the entry's candidate is the
+// pixel's depth.
+template <int PASS>
+__device__ __forceinline__ void ms_pixel(const Entry& en, int lx, int ly,
                                          float px, float py,
-                                         const MsShared& sh,
+                                         const TileShared& sh,
                                          unsigned long long key) {
   const int p = ly * TILE_W + lx;
   const float dx = __fsub_rn(px, en.ax);
@@ -526,92 +422,295 @@ __device__ __forceinline__ void ms_pixel(const MsEntry& en, int lx, int ly,
   }
 }
 
+template <bool MS, int PASS>
+__device__ __forceinline__ void tile_pixel(const Entry& en, int lx, int ly,
+                                           float px, float py,
+                                           const TileShared& sh,
+                                           unsigned long long key) {
+  if constexpr (MS)
+    ms_pixel<PASS>(en, lx, ly, px, py, sh, key);
+  else
+    centre_pixel<PASS>(en, lx, ly, px, py, sh, key);
+}
+
 // Entry `en` over its clamped box, by one thread alone (a small box).
-template <int PASS>
-__device__ __forceinline__ void ms_walk_thread(const MsEntry& en, int ty,
-                                               int tx, const MsShared& sh,
-                                               unsigned long long key) {
+template <bool MS, int PASS>
+__device__ __forceinline__ void walk_thread(const Entry& en, int ty, int tx,
+                                            const TileShared& sh,
+                                            unsigned long long key) {
   for (int ly = en.y0; ly <= en.y1; ++ly) {
     const float py = (float)(ty * TILE_H + ly) + 0.5f;
     for (int lx = en.x0; lx <= en.x1; ++lx)
-      ms_pixel<PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f, py, sh,
-                     key);
+      tile_pixel<MS, PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f, py,
+                           sh, key);
   }
 }
 
 // Entry `en` over its clamped box, shared by `step` threads (a wide box):
 // thread `first` of them takes the box pixels first, first + step, ... in
 // row-major order.
-template <int PASS>
-__device__ __forceinline__ void ms_walk_shared(const MsEntry& en, int first,
-                                               int step, int ty, int tx,
-                                               const MsShared& sh,
-                                               unsigned long long key) {
+template <bool MS, int PASS>
+__device__ __forceinline__ void walk_shared(const Entry& en, int first,
+                                            int step, int ty, int tx,
+                                            const TileShared& sh,
+                                            unsigned long long key) {
   const int bw = en.x1 - en.x0 + 1;
   const int n = bw * (en.y1 - en.y0 + 1);
   for (int i = first; i < n; i += step) {
     const int q = i / bw;
     const int lx = en.x0 + (i - q * bw);
     const int ly = en.y0 + q;
-    ms_pixel<PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f,
-                   (float)(ty * TILE_H + ly) + 0.5f, sh, key);
+    tile_pixel<MS, PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f,
+                         (float)(ty * TILE_H + ly) + 0.5f, sh, key);
   }
 }
 
-__device__ __forceinline__ unsigned long long ms_key(int tid, int local) {
+__device__ __forceinline__ unsigned long long tile_key(int tid, int local) {
   return (static_cast<unsigned long long>(tid + 1) << 32)
          | static_cast<unsigned>(local + 1);
 }
 
-// One pass over the tile's entries [start, start + count), a chunk of
-// MS_THREADS at a time: each thread takes one entry, walks its box itself
-// when it holds at most `wide_box` pixels and queues it otherwise. The
-// queued entries are then shared: one of at most MS_BLOCK_BOX pixels goes to
-// one warp (the warps take them in turn), its 32 lanes striding over the
+// One pass over the tile's entries [start, start + count), a chunk of one
+// entry per thread at a time: each thread takes one entry, walks its box
+// itself when it holds at most `wide_box` pixels and queues it otherwise.
+// The queued entries are then shared: one of at most BLOCK_BOX pixels goes
+// to one warp (the warps take them in turn), its 32 lanes striding over the
 // box; a larger one (up to the whole tile) to all the threads of the block.
 // All of them update the same shared state with the same order-free
-// atomics, so the split changes no bit.
-template <int PASS>
-__device__ __forceinline__ void ms_entries(const float* __restrict__ rows,
-                                           const short4* __restrict__ boxes,
-                                           int row_w, int start, int count,
-                                           int ty, int tx, int wide_box,
-                                           const MsShared& sh) {
+// atomics, so the split changes no bit. Ends with a barrier (where count >
+// 0).
+template <bool MS, int PASS>
+__device__ __forceinline__ void tile_entries(const float* __restrict__ rows,
+                                             const short4* __restrict__ boxes,
+                                             int row_w, int start, int count,
+                                             int ty, int tx, int wide_box,
+                                             const TileShared& sh) {
+  constexpr int NT = Body<MS>::threads;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  MsEntry en;
-  for (int c0 = 0; c0 < count; c0 += MS_THREADS) {
+  Entry en;
+  for (int c0 = 0; c0 < count; c0 += NT) {
     if (threadIdx.x == 0) *sh.n_wide = 0;
     __syncthreads();
     const int local = c0 + threadIdx.x;
     if (local < count) {
-      const int n = ms_box(boxes, start + local, ty, tx, en);
+      const int n = entry_box(boxes, start + local, ty, tx, en);
       if (n > wide_box)
         sh.wide[atomicAdd(sh.n_wide, 1)] = local;
-      else if (n > 0 && ms_planes(rows, row_w, start + local, en))
-        ms_walk_thread<PASS>(en, ty, tx, sh, ms_key(en.tid, local));
+      else if (n > 0 && entry_planes<MS>(rows, row_w, start + local, en))
+        walk_thread<MS, PASS>(en, ty, tx, sh, tile_key(en.tid, local));
     }
     __syncthreads();
     const int n_wide = *sh.n_wide;
     for (int i = 0; i < n_wide; ++i) {
       const int wl = sh.wide[i];
       const bool whole_block =
-          ms_box(boxes, start + wl, ty, tx, en) > MS_BLOCK_BOX;
-      if (!whole_block && i % MS_WARPS != warp) continue;
-      if (!ms_planes(rows, row_w, start + wl, en)) continue;
+          entry_box(boxes, start + wl, ty, tx, en) > BLOCK_BOX;
+      if (!whole_block && i % (NT / 32) != warp) continue;
+      if (!entry_planes<MS>(rows, row_w, start + wl, en)) continue;
       if (whole_block)
-        ms_walk_shared<PASS>(en, threadIdx.x, MS_THREADS, ty, tx, sh,
-                             ms_key(en.tid, wl));
+        walk_shared<MS, PASS>(en, threadIdx.x, NT, ty, tx, sh,
+                              tile_key(en.tid, wl));
       else
-        ms_walk_shared<PASS>(en, lane, 32, ty, tx, sh, ms_key(en.tid, wl));
+        walk_shared<MS, PASS>(en, lane, 32, ty, tx, sh, tile_key(en.tid, wl));
     }
     __syncthreads();
   }
 }
 
+__device__ __forceinline__ float plane_over(float c, float cx, float cy,
+                                            float dx, float dy, float den) {
+  return __fdiv_rn(__fadd_rn(__fadd_rn(c, __fmul_rn(cx, dx)),
+                             __fmul_rn(cy, dy)), den);
+}
+
+// b1, b2 and the attributes at pixel centre (px, py), offset o, from the
+// winning entry `win` (zeros where win < 0), as K2 and K4 write them. VEC:
+// the winner's row is read with aligned float4 loads, lanes 0..7, then from
+// lane 16 the 1/w plane and the attributes' planes (attribute a at lanes
+// 19 + 3a .. 21 + 3a), four attributes to three loads; rows are 16-byte
+// aligned and a multiple of 4 lanes (`tile_rows_ok`), so no load leaves
+// the row. Else lane by lane: the crowd kernels K5a and K5b, whose winners
+// are mostly sub-pixel entries of a pixel each, measured faster so
+// (scripts/probe_torch_raster_ms.py). Same arithmetic either way.
+template <bool VEC>
+__device__ __forceinline__ void write_winner(const float* __restrict__ rows,
+                                             int row_w, int n_attrs, int win,
+                                             float px, float py, size_t o,
+                                             size_t plane,
+                                             float* __restrict__ b1,
+                                             float* __restrict__ b2,
+                                             float* __restrict__ attr) {
+  float w1 = 0.0f, w2 = 0.0f;
+  if (win >= 0) {
+    const float* rw = rows + static_cast<size_t>(win) * row_w;
+    const float4* r = reinterpret_cast<const float4*>(rw);
+    float dx, dy;
+    if constexpr (VEC) {
+      const float4 a = __ldg(r);              // ax ay w1x w1y
+      const float4 b = __ldg(r + 1);          // w2x w2y z0 zx
+      dx = __fsub_rn(px, a.x);
+      dy = __fsub_rn(py, a.y);
+      w1 = __fadd_rn(__fmul_rn(a.z, dx), __fmul_rn(a.w, dy));
+      w2 = __fadd_rn(__fmul_rn(b.x, dx), __fmul_rn(b.y, dy));
+    } else {
+      dx = __fsub_rn(px, rw[0]);
+      dy = __fsub_rn(py, rw[1]);
+      w1 = __fadd_rn(__fmul_rn(rw[2], dx), __fmul_rn(rw[3], dy));
+      w2 = __fadd_rn(__fmul_rn(rw[4], dx), __fmul_rn(rw[5], dy));
+    }
+    if (n_attrs > 0 && VEC) {
+      const float4* q = r + BASE_WIDTH / 4;
+      const float4 h = __ldg(q);              // lanes 16..19
+      float den = __fadd_rn(__fadd_rn(h.x, __fmul_rn(h.y, dx)),
+                            __fmul_rn(h.z, dy));
+      den = fabsf(den) > 1e-9f ? den : 1.0f;
+      float c0 = h.w;          // lane 19 + 12g: attribute 4g's first lane
+      for (int g = 0; 4 * g < n_attrs; ++g) {
+        // attributes 4g .. 4g + 3 hold lanes 19 + 12g .. 30 + 12g
+        const int left = n_attrs - 4 * g;
+        const float4 u = __ldg(q + 1 + 3 * g);               // 20 + 12g ..
+        const float4 v = left > 1 ? __ldg(q + 2 + 3 * g) : u;  // 24 + 12g ..
+        const float4 w = left > 3 ? __ldg(q + 3 + 3 * g) : u;  // 28 + 12g ..
+        float* out = attr + static_cast<size_t>(4 * g) * plane + o;
+        out[0] = plane_over(c0, u.x, u.y, dx, dy, den);
+        if (left > 1) out[plane] = plane_over(u.z, u.w, v.x, dx, dy, den);
+        if (left > 2) out[2 * plane] = plane_over(v.y, v.z, v.w, dx, dy, den);
+        if (left > 3) out[3 * plane] = plane_over(w.x, w.y, w.z, dx, dy, den);
+        c0 = w.w;
+      }
+    } else if (n_attrs > 0) {
+      const float* p = rw + BASE_WIDTH;
+      float den = __fadd_rn(__fadd_rn(p[0], __fmul_rn(p[1], dx)),
+                            __fmul_rn(p[2], dy));
+      den = fabsf(den) > 1e-9f ? den : 1.0f;
+      for (int a = 0; a < n_attrs; ++a) {
+        const float* q = p + 3 + 3 * a;
+        attr[a * plane + o] = plane_over(q[0], q[1], q[2], dx, dy, den);
+      }
+    }
+  } else {
+    for (int a = 0; a < n_attrs; ++a) attr[a * plane + o] = 0.0f;
+  }
+  if (n_attrs == 0) attr[o] = 0.0f;
+  b1[o] = w1;
+  b2[o] = w2;
+}
+
+// The tile's planes from its final state: per pixel the depth (K4's
+// un-biased), the winner's triangle id (-1: nothing but the clear) and b1,
+// b2 and the attributes from the winner's row. A thread owns one column and
+// TILE_PIX / threads rows: coalesced stores. VEC as in write_winner.
+template <bool MS, bool VEC>
+__device__ __forceinline__ void write_tile(
+    const float* __restrict__ rows, int row_w, int n_attrs, int start, int ty,
+    int tx, const TileShared& sh, float* __restrict__ depth,
+    int* __restrict__ tri, float* __restrict__ b1, float* __restrict__ b2,
+    float* __restrict__ attr, int pad_h, int pad_w) {
+  constexpr int RPT = TILE_PIX / Body<MS>::threads;
+  const int col = threadIdx.x % TILE_W;
+  const int row0 = (threadIdx.x / TILE_W) * RPT;
+  const size_t plane = static_cast<size_t>(pad_h) * pad_w;
+  const size_t base = static_cast<size_t>(ty * TILE_H + row0) * pad_w
+                      + tx * TILE_W + col;
+  const float px = (float)(tx * TILE_W + col) + 0.5f;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int p = (row0 + r) * TILE_W + col;
+    const size_t o = base + static_cast<size_t>(r) * pad_w;
+    const unsigned long long key = sh.win[p];
+    const bool won = key != 0ull;
+    const float d = __uint_as_float(sh.depth[p]);
+    // K2: the clear 1.0 where nothing won
+    depth[o] = !MS ? d : (!won ? 1.0f : (d > 1.5f ? __fsub_rn(d, 2.0f) : d));
+    tri[o] = won ? (int)(key >> 32) - 1 : -1;
+    const int win = won ? start + (int)(key & 0xffffffffull) - 1 : -1;
+    write_winner<VEC>(rows, row_w, n_attrs, win, px,
+                      (float)(ty * TILE_H + row0 + r) + 0.5f, o, plane, b1,
+                      b2, attr);
+  }
+}
+
+// One tile of K2/K5a: tile (ty, tx) of one instance's frame, whose entries
+// are [starts[gid], starts[gid] + counts[gid]); the output planes are that
+// instance's. Every thread of the block calls it. VEC as in write_winner.
+template <bool VEC>
+__device__ __forceinline__ void raster_tile(
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const float* __restrict__ rows, const short4* __restrict__ boxes,
+    int row_w, int n_attrs, int gid, int ty, int tx, int wide_box,
+    float* __restrict__ depth, int* __restrict__ tri,
+    float* __restrict__ b1, float* __restrict__ b2, float* __restrict__ attr,
+    int pad_h, int pad_w, unsigned char* smem) {
+  const TileShared sh = tile_shared<false>(smem);
+  const int start = starts[gid];
+  const int count = counts[gid];
+
+  // the clear: depth 1.0 and no winner. It takes part in the tie rule like
+  // an entry, so an entry at exactly zp = 1 still wins its pixels.
+  for (int i = threadIdx.x; i < TILE_PIX; i += CENTRE_THREADS) {
+    sh.depth[i] = __float_as_uint(1.0f);
+    sh.win[i] = 0ull;
+  }
+  // (the first barrier of tile_entries orders the clears before the updates)
+  tile_entries<false, 1>(rows, boxes, row_w, start, count, ty, tx, wide_box,
+                         sh);
+  // the winning entry: among the entries whose zp equals the pixel's depth,
+  // the larger triangle id, then the larger entry index (what the plain
+  // version's max over id * span + index picks)
+  tile_entries<false, 2>(rows, boxes, row_w, start, count, ty, tx, wide_box,
+                         sh);
+  __syncthreads();
+  write_tile<false, VEC>(rows, row_w, n_attrs, start, ty, tx, sh, depth,
+                         tri, b1, b2, attr, pad_h, pad_w);
+}
+
+__global__ void __launch_bounds__(CENTRE_THREADS)
+raster_tiles_kernel(const int* __restrict__ starts,
+                    const int* __restrict__ counts,
+                    const float* __restrict__ rows,
+                    const short4* __restrict__ boxes, int row_w, int n_attrs,
+                    int tiles_x, int wide_box, float* __restrict__ depth,
+                    int* __restrict__ tri, float* __restrict__ b1,
+                    float* __restrict__ b2, float* __restrict__ attr,
+                    int pad_h, int pad_w) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int t = blockIdx.x;
+  const int ty = t / tiles_x;
+  raster_tile<true>(starts, counts, rows, boxes, row_w, n_attrs, t, ty,
+                    t - ty * tiles_x, wide_box, depth, tri, b1, b2, attr,
+                    pad_h, pad_w, tile_smem);
+}
+
+// K5a: block i takes tile i % inst_tiles of instance i / inst_tiles;
+// starts/counts are indexed by the global tile i, pixel coordinates come
+// from the local tile, every output plane is offset by the instance.
+__global__ void __launch_bounds__(CENTRE_THREADS)
+raster_tiles_multi_kernel(const int* __restrict__ starts,
+                          const int* __restrict__ counts,
+                          const float* __restrict__ rows,
+                          const short4* __restrict__ boxes, int row_w,
+                          int n_attrs, int inst_tiles, int tiles_x,
+                          int wide_box, float* __restrict__ depth,
+                          int* __restrict__ tri, float* __restrict__ b1,
+                          float* __restrict__ b2, float* __restrict__ attr,
+                          int pad_h, int pad_w) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int g = blockIdx.x;
+  const int inst = g / inst_tiles;
+  const int local = g - inst * inst_tiles;
+  const int ty = local / tiles_x;
+  const size_t o = static_cast<size_t>(inst) * pad_h * pad_w;
+  raster_tile<false>(starts, counts, rows, boxes, row_w, n_attrs, g, ty,
+                     local - ty * tiles_x, wide_box, depth + o, tri + o,
+                     b1 + o, b2 + o, attr + o * max(n_attrs, 1), pad_h, pad_w,
+                     tile_smem);
+}
+
 // One tile of K4/K5b: tile (ty, tx) of one instance's frame, whose entries
 // are [starts[gid], starts[gid] + counts[gid]); the output planes are that
-// instance's. Every thread of the block calls it.
+// instance's. Every thread of the block calls it. VEC as in write_winner.
+template <bool VEC>
 __device__ __forceinline__ void raster_tile_ms(
     const int* __restrict__ starts, const int* __restrict__ counts,
     const float* __restrict__ rows, const short4* __restrict__ boxes,
@@ -619,7 +718,8 @@ __device__ __forceinline__ void raster_tile_ms(
     float* __restrict__ depth, int* __restrict__ tri,
     float* __restrict__ b1, float* __restrict__ b2, float* __restrict__ attr,
     float* __restrict__ sdepth, int pad_h, int pad_w, unsigned char* smem) {
-  const MsShared sh = ms_shared(smem);
+  constexpr int RPT = TILE_PIX / MS_THREADS;
+  const TileShared sh = tile_shared<true>(smem);
   const int start = starts[gid];
   const int count = counts[gid];
 
@@ -628,18 +728,19 @@ __device__ __forceinline__ void raster_tile_ms(
     sh.depth[i] = __float_as_uint(3.0f);
   for (int i = threadIdx.x; i < 4 * TILE_PIX; i += MS_THREADS)
     sh.sd[i] = __float_as_uint(1.0f);
-  // (the first barrier of ms_entries orders the clears before the updates)
-  ms_entries<1>(rows, boxes, row_w, start, count, ty, tx, wide_box, sh);
+  // (the first barrier of tile_entries orders the clears before the updates)
+  tile_entries<true, 1>(rows, boxes, row_w, start, count, ty, tx, wide_box,
+                        sh);
   __syncthreads();
 
-  // a thread owns one column and MS_ROWS rows: coalesced stores
+  // the sample depths, as write_tile lays its planes out
   const int col = threadIdx.x % TILE_W;
-  const int row0 = (threadIdx.x / TILE_W) * MS_ROWS;
+  const int row0 = (threadIdx.x / TILE_W) * RPT;
   const size_t plane = static_cast<size_t>(pad_h) * pad_w;
   const size_t base = static_cast<size_t>(ty * TILE_H + row0) * pad_w
                       + tx * TILE_W + col;
 #pragma unroll
-  for (int r = 0; r < MS_ROWS; ++r) {
+  for (int r = 0; r < RPT; ++r) {
     const int p = (row0 + r) * TILE_W + col;
     const size_t o = base + static_cast<size_t>(r) * pad_w;
 #pragma unroll
@@ -652,24 +753,11 @@ __device__ __forceinline__ void raster_tile_ms(
   // depth, the larger triangle id, then the larger entry index (what the
   // plain version's max over id * span + index picks). 0: only the clear.
   for (int i = threadIdx.x; i < TILE_PIX; i += MS_THREADS) sh.win[i] = 0ull;
-  ms_entries<2>(rows, boxes, row_w, start, count, ty, tx, wide_box, sh);
+  tile_entries<true, 2>(rows, boxes, row_w, start, count, ty, tx, wide_box,
+                        sh);
   __syncthreads();
-
-  const float px = (float)(tx * TILE_W + col) + 0.5f;
-#pragma unroll
-  for (int r = 0; r < MS_ROWS; ++r) {
-    const int p = (row0 + r) * TILE_W + col;
-    const size_t o = base + static_cast<size_t>(r) * pad_w;
-    const unsigned long long key = sh.win[p];
-    const bool won = key != 0ull;
-    const float d = __uint_as_float(sh.depth[p]);
-    depth[o] = !won ? 1.0f : (d > 1.5f ? __fsub_rn(d, 2.0f) : d);
-    tri[o] = won ? (int)(key >> 32) - 1 : -1;
-    const int win = won ? start + (int)(key & 0xffffffffull) - 1 : -1;
-    write_winner(rows, row_w, n_attrs, win, px,
-                 (float)(ty * TILE_H + row0 + r) + 0.5f, o, plane, b1, b2,
-                 attr);
-  }
+  write_tile<true, VEC>(rows, row_w, n_attrs, start, ty, tx, sh, depth, tri,
+                        b1, b2, attr, pad_h, pad_w);
 }
 
 __global__ void __launch_bounds__(MS_THREADS)
@@ -682,12 +770,12 @@ raster_tiles_ms_kernel(const int* __restrict__ starts,
                        float* __restrict__ b1, float* __restrict__ b2,
                        float* __restrict__ attr, float* __restrict__ sdepth,
                        int pad_h, int pad_w) {
-  extern __shared__ __align__(16) unsigned char ms_smem[];
+  extern __shared__ __align__(16) unsigned char tile_smem[];
   const int t = blockIdx.x;
   const int ty = t / tiles_x;
-  raster_tile_ms(starts, counts, rows, boxes, row_w, n_attrs, t, ty,
-                 t - ty * tiles_x, wide_box, depth, tri, b1, b2, attr, sdepth,
-                 pad_h, pad_w, ms_smem);
+  raster_tile_ms<true>(starts, counts, rows, boxes, row_w, n_attrs, t, ty,
+                       t - ty * tiles_x, wide_box, depth, tri, b1, b2, attr,
+                       sdepth, pad_h, pad_w, tile_smem);
 }
 
 // K5b: K4 over the instance x tile grid (see raster_tiles_multi_kernel).
@@ -702,16 +790,16 @@ raster_tiles_ms_multi_kernel(const int* __restrict__ starts,
                              float* __restrict__ b2, float* __restrict__ attr,
                              float* __restrict__ sdepth, int pad_h,
                              int pad_w) {
-  extern __shared__ __align__(16) unsigned char ms_smem[];
+  extern __shared__ __align__(16) unsigned char tile_smem[];
   const int g = blockIdx.x;
   const int inst = g / inst_tiles;
   const int local = g - inst * inst_tiles;
   const int ty = local / tiles_x;
   const size_t o = static_cast<size_t>(inst) * pad_h * pad_w;
-  raster_tile_ms(starts, counts, rows, boxes, row_w, n_attrs, g, ty,
-                 local - ty * tiles_x, wide_box, depth + o, tri + o, b1 + o,
-                 b2 + o, attr + o * max(n_attrs, 1), sdepth + o * 4, pad_h,
-                 pad_w, ms_smem);
+  raster_tile_ms<false>(starts, counts, rows, boxes, row_w, n_attrs, g, ty,
+                        local - ty * tiles_x, wide_box, depth + o, tri + o,
+                        b1 + o, b2 + o, attr + o * max(n_attrs, 1),
+                        sdepth + o * 4, pad_h, pad_w, tile_smem);
 }
 
 // K5c: K1 over the instance x tile grid (see raster_tiles_multi_kernel).
@@ -750,40 +838,52 @@ extern "C" int smr_depth_tiles(const void* starts, const void* counts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// As smr_depth_tiles, plus tri: i32 [pad_h, pad_w], b1/b2: f32 [pad_h,
-// pad_w] and attr: f32 [max(n_attrs, 1), pad_h, pad_w]; rows must hold
-// BASE_WIDTH + 3 + 3 * n_attrs lanes when n_attrs > 0.
-extern "C" int smr_raster_tiles(const void* starts, const void* counts,
-                                const void* rows, int row_w, int n_attrs,
-                                int n_tiles, int tiles_x, void* depth,
-                                void* tri, void* b1, void* b2, void* attr,
-                                int pad_h, int pad_w, void* stream) {
-  if (n_tiles <= 0) return 0;
-  if (n_attrs < 0 || n_attrs > MAX_ATTRS || row_w < LANES
-      || (n_attrs > 0 && row_w < BASE_WIDTH + 3 + 3 * n_attrs))
-    return static_cast<int>(cudaErrorInvalidValue);
-  raster_tiles_kernel<<<n_tiles, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(rows), row_w, n_attrs, tiles_x,
-      static_cast<float*>(depth), static_cast<int*>(tri),
-      static_cast<float*>(b1), static_cast<float*>(b2),
-      static_cast<float*>(attr), pad_h, pad_w);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Whether K4/K5b take these rows: lanes 0..11 are read as three aligned
-// float4 loads, so a row is a multiple of 4 lanes at a 16-byte address.
-static bool ms_rows_ok(const void* rows, int row_w, int n_attrs) {
+// Whether K2/K4 and their crowd forms take these rows: lanes 0..11 and the
+// winner's planes are read as aligned float4 loads, so a row is a multiple
+// of 4 lanes at a 16-byte address.
+static bool tile_rows_ok(const void* rows, int row_w, int n_attrs) {
   return n_attrs >= 0 && n_attrs <= MAX_ATTRS && row_w >= 12
          && row_w % 4 == 0 && reinterpret_cast<size_t>(rows) % 16 == 0
          && (n_attrs == 0 || row_w >= BASE_WIDTH + 3 + 3 * n_attrs);
 }
 
-// As smr_raster_tiles (K4), plus boxes: i16 [E, 4] (each entry's first
-// column, first row, last column, last row in the frame, inclusive; the
-// kernel clamps them to the tile), wide_box: the most pixels of a clamped
-// box that one thread walks alone, and sdepth: f32 [4, pad_h, pad_w].
+// Let `kernel` take the dynamic shared memory of its body (over 48 KB).
+template <bool MS, typename Kernel>
+static cudaError_t allow_shared(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(Body<MS>::shared));
+}
+
+// K2. starts: i32 [n_tiles + 1]; counts: i32 [n_tiles]; rows: f32 [E,
+// row_w] (BASE_WIDTH + 3 + 3 * n_attrs lanes when n_attrs > 0); boxes: i16
+// [E, 4] (each entry's first column, first row, last column, last row in
+// the frame, inclusive; the kernel clamps them to the tile); wide_box: the
+// most pixels of a clamped box that one thread walks alone. Outputs depth,
+// b1, b2: f32 [pad_h, pad_w], tri: i32 [pad_h, pad_w], attr: f32
+// [max(n_attrs, 1), pad_h, pad_w].
+extern "C" int smr_raster_tiles(const void* starts, const void* counts,
+                                const void* rows, const void* boxes,
+                                int row_w, int n_attrs, int n_tiles,
+                                int tiles_x, int wide_box, void* depth,
+                                void* tri, void* b1, void* b2, void* attr,
+                                int pad_h, int pad_w, void* stream) {
+  if (n_tiles <= 0) return 0;
+  if (!tile_rows_ok(rows, row_w, n_attrs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t rc = allow_shared<false>(raster_tiles_kernel);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  raster_tiles_kernel<<<n_tiles, CENTRE_THREADS, Body<false>::shared,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(starts), static_cast<const int*>(counts),
+      static_cast<const float*>(rows), static_cast<const short4*>(boxes),
+      row_w, n_attrs, tiles_x, wide_box, static_cast<float*>(depth),
+      static_cast<int*>(tri), static_cast<float*>(b1),
+      static_cast<float*>(b2), static_cast<float*>(attr), pad_h, pad_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4: as smr_raster_tiles, plus sdepth: f32 [4, pad_h, pad_w].
 extern "C" int smr_raster_tiles_ms(const void* starts, const void* counts,
                                    const void* rows, const void* boxes,
                                    int row_w, int n_attrs, int n_tiles,
@@ -792,13 +892,11 @@ extern "C" int smr_raster_tiles_ms(const void* starts, const void* counts,
                                    void* sdepth, int pad_h, int pad_w,
                                    void* stream) {
   if (n_tiles <= 0) return 0;
-  if (!ms_rows_ok(rows, row_w, n_attrs))
+  if (!tile_rows_ok(rows, row_w, n_attrs))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t rc = cudaFuncSetAttribute(
-      raster_tiles_ms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(MS_SHARED));
+  const cudaError_t rc = allow_shared<true>(raster_tiles_ms_kernel);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  raster_tiles_ms_kernel<<<n_tiles, MS_THREADS, MS_SHARED,
+  raster_tiles_ms_kernel<<<n_tiles, MS_THREADS, Body<true>::shared,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const float*>(rows), static_cast<const short4*>(boxes),
@@ -858,19 +956,23 @@ extern "C" int smr_depth_tiles_multi(const void* starts, const void* counts,
 }
 
 extern "C" int smr_raster_tiles_multi(const void* starts, const void* counts,
-                                      const void* rows, int row_w,
-                                      int n_attrs, int n_inst, int inst_tiles,
-                                      int tiles_x, void* depth, void* tri,
+                                      const void* rows, const void* boxes,
+                                      int row_w, int n_attrs, int n_inst,
+                                      int inst_tiles, int tiles_x,
+                                      int wide_box, void* depth, void* tri,
                                       void* b1, void* b2, void* attr,
                                       int pad_h, int pad_w, void* stream) {
   if (n_inst <= 0 || inst_tiles <= 0) return 0;
-  if (n_attrs < 0 || n_attrs > MAX_ATTRS || row_w < LANES
-      || (n_attrs > 0 && row_w < BASE_WIDTH + 3 + 3 * n_attrs))
+  if (!tile_rows_ok(rows, row_w, n_attrs))
     return static_cast<int>(cudaErrorInvalidValue);
-  raster_tiles_multi_kernel<<<n_inst * inst_tiles, THREADS, 0,
+  const cudaError_t rc = allow_shared<false>(raster_tiles_multi_kernel);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  raster_tiles_multi_kernel<<<n_inst * inst_tiles, CENTRE_THREADS,
+                              Body<false>::shared,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(rows), row_w, n_attrs, inst_tiles, tiles_x,
+      static_cast<const float*>(rows), static_cast<const short4*>(boxes),
+      row_w, n_attrs, inst_tiles, tiles_x, wide_box,
       static_cast<float*>(depth), static_cast<int*>(tri),
       static_cast<float*>(b1), static_cast<float*>(b2),
       static_cast<float*>(attr), pad_h, pad_w);
@@ -887,14 +989,12 @@ extern "C" int smr_raster_tiles_ms_multi(const void* starts,
                                          void* sdepth, int pad_h, int pad_w,
                                          void* stream) {
   if (n_inst <= 0 || inst_tiles <= 0) return 0;
-  if (!ms_rows_ok(rows, row_w, n_attrs))
+  if (!tile_rows_ok(rows, row_w, n_attrs))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t rc = cudaFuncSetAttribute(
-      raster_tiles_ms_multi_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(MS_SHARED));
+  const cudaError_t rc = allow_shared<true>(raster_tiles_ms_multi_kernel);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  raster_tiles_ms_multi_kernel<<<n_inst * inst_tiles, MS_THREADS, MS_SHARED,
+  raster_tiles_ms_multi_kernel<<<n_inst * inst_tiles, MS_THREADS,
+                                 Body<true>::shared,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const float*>(rows), static_cast<const short4*>(boxes),

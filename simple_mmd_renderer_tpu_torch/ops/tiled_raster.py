@@ -21,11 +21,12 @@ goes to the larger triangle id):
    attributes) and K4 (`raster_tiles_ms`: K2 with any-sample coverage and
    per-sample depth, for 4x MSAA) — hand-written CUDA kernels in
    `csrc/tiled_raster.cu` for CUDA tensors, the plain PyTorch versions
-   (`*_plain`) for CPU tensors. Both give the same bits. K4 (and K5b)
-   evaluates an entry only inside the box of pixels its triangle can reach
-   (`_pixel_boxes`, carried into entry order by the binning); the plain
-   versions stay brute force over the whole tile, so the comparison also
-   checks the boxes.
+   (`*_plain`) for CPU tensors. Both give the same bits. K2 and K4 (and
+   their crowd forms K5a, K5b) evaluate an entry only inside the box of
+   pixels its triangle can reach (`_pixel_boxes`: at the pixel centre for
+   K2, over the MSAA samples for K4; carried into entry order by the
+   binning); the plain versions stay brute force over the whole tile, so
+   the comparison also checks the boxes.
 3. Triangles covering more than `e_max` tiles (at most BIG_TRI_CAP of them)
    are rasterized exactly by a full-frame loop (`_scan_subset`) and merged
    by depth, a big triangle winning a tie. When `e_max` covers the whole
@@ -128,15 +129,16 @@ def _setup_rows(s, tri_ids, attrs=None):
     return torch.stack(cols, dim=-1)
 
 
-# Pixel boxes (K4, K5b): the margin in pixels around a triangle's exact box,
-# and the largest conditioning G * max(1, extent) a box is trusted for
+# Pixel boxes (K2, K4 and their crowd forms): the margin in pixels around a
+# triangle's exact box, and the largest conditioning G * max(1, extent) a
+# box is trusted for
 BOX_MARGIN = 1
 BOX_TRUST = 2.0 ** 17
 _BOX_MIN, _BOX_MAX = -BOX_MARGIN, 2 ** 15 - 1
-# the most pixels of a box (clamped to its tile) that one thread of K4/K5b
-# walks alone; a wider box is shared by the lanes of a warp or, from 1,024
-# pixels on, by the whole block (scripts/tune_torch_raster_ms.py: both
-# kernels' times are flat from 128 to 1,024 and worse on either side)
+# the most pixels of a box (clamped to its tile) that one thread of K2, K4,
+# K5a or K5b walks alone; a wider box is shared by the lanes of a warp or,
+# from 1,024 pixels on, by the whole block (scripts/tune_torch_raster_ms.py:
+# K4's and K5b's times are flat from 128 to 1,024 and worse on either side)
 WIDE_BOX = 128
 
 
@@ -177,7 +179,9 @@ def _pixel_boxes(s, sample_extent=0.0):
     Every other triangle (slivers with |A| down to the 1e-12 cut, whose
     barycentric slopes reach 1e5 and more; non-finite coordinates) gets the
     whole int16 range as its box: every tile it is binned into then
-    evaluates it over all of its pixels, as a loop without boxes does."""
+    evaluates it over all of its pixels, as a loop without boxes does.
+    At extent 0 (K2, K5a: pixel centres only) the offset and its 0.375
+    terms drop out, which only tightens the bound."""
     xy = s["xy"]
     x_lo, x_hi = torch.amin(xy[..., 0], -1), torch.amax(xy[..., 0], -1)
     y_lo, y_hi = torch.amin(xy[..., 1], -1), torch.amax(xy[..., 1], -1)
@@ -195,6 +199,15 @@ def _pixel_boxes(s, sample_extent=0.0):
                          dtype=torch.float32, device=xy.device)
     box = torch.where(trusted[..., None], box, whole)
     return torch.clamp(box, _BOX_MIN, _BOX_MAX).to(torch.int16)
+
+
+def _kernel_boxes(s, sample_extent):
+    """`_pixel_boxes` where a kernel will cull with them (CUDA tensors);
+    None on the CPU, whose plain versions evaluate every entry over its
+    whole tile: the binning then gathers no boxes."""
+    if s["xy"].device.type == "cpu":
+        return None
+    return _pixel_boxes(s, sample_extent)
 
 
 def _grid(width, height, tile_h=TILE_H):
@@ -312,14 +325,17 @@ def _planes(rows, tile_of, tiles_x, tile_h=TILE_H):
     return w1, w2, zp
 
 
-def _eval_entries(rows, tile_of, tiles_x, zmax, tile_h=TILE_H):
+def _eval_entries(rows, tile_of, tiles_x, zmax, tile_h=TILE_H, boxes=None):
     """Plane evaluation of entries over their tiles -> (zm [B,TH,TW] with 2
-    where not covered, tid [B]). Same arithmetic order as the kernels."""
+    where not covered, tid [B]). Same arithmetic order as the kernels. With
+    `boxes` [B, 4] an entry covers nothing outside its box."""
     w1, w2, zp = _planes(rows, tile_of, tiles_x, tile_h)
     ok = ((w1 >= 0) & (w2 >= 0) & (w1 + w2 <= 1.0)
           & (rows[:, 9] > 0.0)[:, None, None] & (zp >= 0.0))
     if zmax:
         ok = ok & (zp <= 1.0)
+    if boxes is not None:
+        ok = ok & _in_boxes(boxes, tile_of, tiles_x)
     zm = torch.where(ok, zp, torch.full_like(zp, 2.0))
     return zm, rows[:, 10].to(torch.int64)
 
@@ -381,12 +397,17 @@ def depth_tiles_win_plain(sorted_rows, starts, counts, window, width,
 
 
 def raster_tiles_plain(sorted_rows, starts, counts, width, height, n_attrs,
-                       n_inst=None):
+                       n_inst=None, boxes=None):
     """Plain K2: per pixel the covering entry with the smallest zp in
     [0, 1] wins, a tie going to the larger triangle id (a vectorised min,
     then a max of the id among the entries at that min — order-free like
-    the kernel's fold). b1, b2 and the attribute planes are evaluated from
-    the winner's row with the kernel's arithmetic.
+    the kernel's fold); the clear (depth 1, no triangle) takes part, so an
+    entry at exactly zp = 1 wins. b1, b2 and the attribute planes are
+    evaluated from the winner's row with the kernel's arithmetic. Brute
+    force over every pixel of an entry's tile: `boxes` [E, 4] (in entry
+    order, `_pixel_boxes`) masks each entry to its box, as the kernel
+    culls; it is for checks of the boxes only, the dispatchers never pass
+    it.
 
     Returns (depth, tri, b1, b2, attr [max(A,1), pad_h, pad_w]); with
     n_inst (global tiles, see _depth_plain) each gains a leading [n_inst]."""
@@ -397,11 +418,14 @@ def raster_tiles_plain(sorted_rows, starts, counts, width, height, n_attrs,
     n = eidx.shape[0]
     blocks = [slice(b, b + _BLOCK_ENTRIES) for b in range(0, n, _BLOCK_ENTRIES)]
 
+    def entry_boxes(sl):
+        return None if boxes is None else boxes[eidx[sl]]
+
     depth = torch.ones((counts.shape[0], TILE_H, TILE_W),
                        dtype=torch.float32, device=dev)
     for sl in blocks:
         zm, _ = _eval_entries(sorted_rows[eidx[sl]], local[sl], tiles_x,
-                              zmax=True)
+                              zmax=True, boxes=entry_boxes(sl))
         _reduce_into(depth, tile_of[sl], zm, "amin")
     # winner: max triangle id among the entries at the min depth; the key
     # carries the entry index too (ids are unique within a tile)
@@ -410,7 +434,7 @@ def raster_tiles_plain(sorted_rows, starts, counts, width, height, n_attrs,
                      dtype=torch.int64, device=dev)
     for sl in blocks:
         zm, tid = _eval_entries(sorted_rows[eidx[sl]], local[sl], tiles_x,
-                                zmax=True)
+                                zmax=True, boxes=entry_boxes(sl))
         hit = zm == depth[tile_of[sl]]
         k = (tid * span + eidx[sl])[:, None, None]
         _reduce_into(key, tile_of[sl], torch.where(hit, k, -1), "amax")
@@ -596,10 +620,10 @@ def _check_bins(sorted_rows, starts, counts, width, height, min_lanes, name,
 
 
 def _check_boxes(boxes, rows, name):
-    """The entries' pixel boxes as K4/K5b take them: int16 [E, 4] beside
-    rows of a multiple of 4 lanes. None means no entry's reach is known:
-    each gets the whole range, and its tile evaluates it over all of its
-    pixels."""
+    """The entries' pixel boxes as K2, K4 and their crowd forms take them:
+    int16 [E, 4] beside rows of a multiple of 4 lanes. None means no
+    entry's reach is known: each gets the whole range, and its tile
+    evaluates it over all of its pixels."""
     n = rows.shape[0]
     if rows.shape[1] < 12 or rows.shape[1] % 4:
         raise ValueError(f"{name}: rows must hold a multiple of 4 lanes, at "
@@ -638,8 +662,12 @@ def depth_tiles(sorted_rows, starts, counts, width, height):
     return depth
 
 
-def raster_tiles(sorted_rows, starts, counts, width, height, n_attrs):
-    """K2 dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
+def raster_tiles(sorted_rows, starts, counts, width, height, n_attrs,
+                 boxes=None):
+    """K2 dispatch: plain version for CPU tensors (brute force: it ignores
+    the boxes), CUDA kernel for CUDA, which evaluates an entry only inside
+    its box (`boxes` int16 [E, 4] in entry order, from `_bin`; None: every
+    entry over its whole tile)."""
     global raster_launches
     dev = sorted_rows.device
     if dev.type == "cpu":
@@ -652,8 +680,11 @@ def raster_tiles(sorted_rows, starts, counts, width, height, n_attrs):
     rows, starts, counts = _check_bins(
         sorted_rows, starts, counts, width, height,
         BASE_WIDTH + 3 + 3 * n_attrs if n_attrs else 11, "raster_tiles")
+    boxes = _check_boxes(boxes, rows, "raster_tiles")
     tiles_x, tiles_y, n_tiles = _grid(width, height)
     pad_h, pad_w = tiles_y * TILE_H, tiles_x * TILE_W
+    if max(pad_h, pad_w) > _BOX_MAX:
+        raise ValueError("raster_tiles: frame beyond the boxes' range")
     f32 = dict(dtype=torch.float32, device=dev)
     depth = torch.empty((pad_h, pad_w), **f32)
     tri = torch.empty((pad_h, pad_w), dtype=torch.int32, device=dev)
@@ -661,10 +692,10 @@ def raster_tiles(sorted_rows, starts, counts, width, height, n_attrs):
     b2 = torch.empty((pad_h, pad_w), **f32)
     attr = torch.empty((max(n_attrs, 1), pad_h, pad_w), **f32)
     rc = _build.lib().smr_raster_tiles(
-        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(), rows.shape[1],
-        n_attrs, n_tiles, tiles_x, depth.data_ptr(), tri.data_ptr(),
-        b1.data_ptr(), b2.data_ptr(), attr.data_ptr(), pad_h, pad_w,
-        _build.stream_ptr(dev))
+        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(),
+        boxes.data_ptr(), rows.shape[1], n_attrs, n_tiles, tiles_x, WIDE_BOX,
+        depth.data_ptr(), tri.data_ptr(), b1.data_ptr(), b2.data_ptr(),
+        attr.data_ptr(), pad_h, pad_w, _build.stream_ptr(dev))
     _build.check(rc, "smr_raster_tiles")
     raster_launches += 1
     return depth, tri, b1, b2, attr
@@ -752,9 +783,10 @@ def _run_depth_kernel(sorted_rows, starts, counts, width, height):
                        height)[:height, :width]
 
 
-def _run_kernel(sorted_rows, starts, counts, width, height, n_attrs):
+def _run_kernel(sorted_rows, starts, counts, width, height, n_attrs,
+                boxes=None):
     depth, tri, b1, b2, attr = raster_tiles(sorted_rows, starts, counts,
-                                            width, height, n_attrs)
+                                            width, height, n_attrs, boxes)
     vis = raster.VisBuffer(
         depth=depth[:height, :width],
         tri=tri[:height, :width],
@@ -884,10 +916,12 @@ def rasterize_attrs_tiled(clip, tris, attrs, width, height,
     s["va"] = va
     t = tris.shape[0]
     rows = _setup_rows(s, torch.arange(t, device=clip.device), attrs)
-    sorted_rows, starts, counts, big = _bin(
-        s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T)
+    # boxes: [entry-order boxes] on the card, [] on the CPU
+    sorted_rows, starts, counts, big, *boxes = _bin(
+        s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T,
+        boxes=_kernel_boxes(s, 0.0))
     vis, attr = _run_kernel(sorted_rows, starts, counts, width, height,
-                            attrs.shape[1])
+                            attrs.shape[1], *boxes)
     if not _covers_all(e_max, width, height):
         vis, attr = _merge_big(vis, attr, clip, tris, width, height, s, big,
                                attrs)
@@ -915,11 +949,12 @@ def rasterize_attrs_tiled_msaa(clip, tris, attrs, width, height,
     s["va"] = va
     t = tris.shape[0]
     rows = _setup_rows(s, torch.arange(t, device=clip.device), attrs)
-    sorted_rows, starts, counts, big, boxes = _bin(
+    # boxes: [entry-order boxes] on the card, [] on the CPU
+    sorted_rows, starts, counts, big, *boxes = _bin(
         s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T,
-        boxes=_pixel_boxes(s, MSAA4_EXTENT))
+        boxes=_kernel_boxes(s, MSAA4_EXTENT))
     depth, tri, b1, b2, attr, sdepth = raster_tiles_ms(
-        sorted_rows, starts, counts, width, height, attrs.shape[1], boxes)
+        sorted_rows, starts, counts, width, height, attrs.shape[1], *boxes)
     vis = raster.VisBuffer(
         depth=depth[:height, :width], tri=tri[:height, :width],
         bary=torch.stack([b1[:height, :width], b2[:height, :width]], -1))
@@ -1056,12 +1091,12 @@ def depth_tiles_multi_plain(sorted_rows, starts, counts, n_inst, width,
 
 
 def raster_tiles_multi_plain(sorted_rows, starts, counts, n_inst, width,
-                             height, n_attrs):
+                             height, n_attrs, boxes=None):
     """Plain K5a: K2's order-free reduction over the instance x tile grid
     -> (depth, tri, b1, b2 [n_inst, pad_h, pad_w], attr [n_inst, max(A,1),
-    pad_h, pad_w])."""
+    pad_h, pad_w]). `boxes` as in raster_tiles_plain."""
     return raster_tiles_plain(sorted_rows, starts, counts, width, height,
-                              n_attrs, n_inst)
+                              n_attrs, n_inst, boxes)
 
 
 def raster_tiles_ms_multi_plain(sorted_rows, starts, counts, n_inst, width,
@@ -1112,8 +1147,9 @@ def depth_tiles_multi(sorted_rows, starts, counts, n_inst, width, height):
 
 
 def raster_tiles_multi(sorted_rows, starts, counts, n_inst, width, height,
-                       n_attrs):
-    """K5a dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
+                       n_attrs, boxes=None):
+    """K5a dispatch: plain version for CPU tensors, CUDA kernel for CUDA;
+    `boxes` as raster_tiles takes them (from `_bin_crowd`)."""
     global raster_multi_launches
     dev = sorted_rows.device
     if dev.type == "cpu":
@@ -1127,14 +1163,18 @@ def raster_tiles_multi(sorted_rows, starts, counts, n_inst, width, height,
         sorted_rows, starts, counts, width, height,
         BASE_WIDTH + 3 + 3 * n_attrs if n_attrs else 11,
         "raster_tiles_multi", n_inst=n_inst)
+    boxes = _check_boxes(boxes, rows, "raster_tiles_multi")
     tiles_x, _, n_tiles = _grid(width, height)
     depth, tri, b1, b2, attr = _multi_planes(n_inst, width, height, n_attrs,
                                              dev)
+    if max(depth.shape[1:]) > _BOX_MAX:
+        raise ValueError("raster_tiles_multi: frame beyond the boxes' range")
     rc = _build.lib().smr_raster_tiles_multi(
-        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(), rows.shape[1],
-        n_attrs, n_inst, n_tiles, tiles_x, depth.data_ptr(), tri.data_ptr(),
-        b1.data_ptr(), b2.data_ptr(), attr.data_ptr(), depth.shape[1],
-        depth.shape[2], _build.stream_ptr(dev))
+        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(),
+        boxes.data_ptr(), rows.shape[1], n_attrs, n_inst, n_tiles, tiles_x,
+        WIDE_BOX, depth.data_ptr(), tri.data_ptr(), b1.data_ptr(),
+        b2.data_ptr(), attr.data_ptr(), depth.shape[1], depth.shape[2],
+        _build.stream_ptr(dev))
     _build.check(rc, "smr_raster_tiles_multi")
     raster_multi_launches += 1
     return depth, tri, b1, b2, attr
@@ -1283,10 +1323,12 @@ def rasterize_attrs_tiled_crowd(clip, tris, attrs, width, height,
     pre-gathered corner tables."""
     s, rows = _crowd_setup(clip, tris, attrs, width, height, cull, cv, va,
                            nocull)
-    sorted_rows, starts, counts, big = _bin_crowd(s, rows, width, height)
+    # boxes: [entry-order boxes] on the card, [] on the CPU
+    sorted_rows, starts, counts, big, *boxes = _bin_crowd(
+        s, rows, width, height, _kernel_boxes(s, 0.0))
     vis, attr = _crowd_vis(
         raster_tiles_multi(sorted_rows, starts, counts, clip.shape[0], width,
-                           height, attrs.shape[-1]), width, height)
+                           height, attrs.shape[-1], *boxes), width, height)
     if not _covers_all(_crowd_e_max(width, height), width, height):
         vis, attr, _ = _merge_big_crowd(vis, attr, clip, tris, width, height,
                                         s, big, attrs)
@@ -1302,10 +1344,11 @@ def rasterize_attrs_tiled_msaa_crowd(clip, tris, attrs, width, height,
     centre depth bounds all four samples."""
     s, rows = _crowd_setup(clip, tris, attrs, width, height, cull, cv, va,
                            nocull, sample_extent=MSAA4_EXTENT)
-    sorted_rows, starts, counts, big, boxes = _bin_crowd(
-        s, rows, width, height, _pixel_boxes(s, MSAA4_EXTENT))
+    # boxes: [entry-order boxes] on the card, [] on the CPU
+    sorted_rows, starts, counts, big, *boxes = _bin_crowd(
+        s, rows, width, height, _kernel_boxes(s, MSAA4_EXTENT))
     planes = raster_tiles_ms_multi(sorted_rows, starts, counts, clip.shape[0],
-                                   width, height, attrs.shape[-1], boxes)
+                                   width, height, attrs.shape[-1], *boxes)
     vis, attr = _crowd_vis(planes, width, height)
     sdepth = planes[5][:, :, :height, :width]
     if not _covers_all(_crowd_e_max(width, height), width, height):

@@ -1,7 +1,10 @@
-"""The pixel boxes that let K4 and K5b skip the pixels an entry cannot
-cover (`tiled_raster._pixel_boxes`), checked on the CPU, where no kernel
-runs: the plain MSAA raster masked to the boxes must give the bits of the
-unmasked, brute-force one.
+"""The pixel boxes that let K2, K4 and their crowd forms K5a, K5b skip the
+pixels an entry cannot cover (`tiled_raster._pixel_boxes`), checked on the
+CPU, where no kernel runs: the plain rasters masked to the boxes must give
+the bits of the unmasked, brute-force ones. Each check runs at both sample
+extents the boxes are made for: the MSAA samples' 0.375 (K4, K5b; the test
+ids without a prefix) and the pixel centre's 0 (K2, K5a; ids and names
+with "centre").
 
 (a) masked == unmasked, bit for bit, on adversarial triangle sets
     (tests/torch_box_meshes.py), single and crowd, entries shuffled;
@@ -10,8 +13,8 @@ unmasked, brute-force one.
 (c) the boxes `_bin` and `_bin_crowd` return line up with their rows;
 (d) the entry points that now carry boxes still match the reference
     (`simple_mmd_renderer_tpu`, its Pallas kernels in interpret mode) at
-    the tolerances of tests/test_torch_msaa_window.py and
-    tests/test_torch_crowd_raster.py.
+    the tolerances of tests/test_torch_raster.py,
+    tests/test_torch_msaa_window.py and tests/test_torch_crowd_raster.py.
 """
 
 import importlib.util
@@ -28,12 +31,39 @@ from simple_mmd_renderer_tpu_torch.render import raster
 
 from test_torch_crowd_raster import _both_attrs as _both_crowd
 from test_torch_msaa_window import _both_msaa
+from test_torch_raster import _both_attrs as _both_single
 from test_torch_raster import _random_mesh
 from torch_box_meshes import (KINDS, boxed_bins, screen_setup,
                               screen_triangles)
 
 SIZES = [(256, 144), (320, 192)]
+SIZE_IDS = ["256x144", "320x192"]
 WHOLE = 2 ** 15 - 1     # last column / row of a box that spans the range
+MSAA, CENTRE = tr.MSAA4_EXTENT, 0.0
+
+
+def _at_both_extents(cases, ids, centre=None):
+    """pytest params: each case (a tuple) at the MSAA extent under its own
+    id, then at the centre's under "centre-" + its id (only the cases whose
+    ids are in `centre`, where given)."""
+    return ([pytest.param(*c, MSAA, id=i) for c, i in zip(cases, ids)]
+            + [pytest.param(*c, CENTRE, id="centre-" + i)
+               for c, i in zip(cases, ids) if centre is None or i in centre])
+
+
+def _plain(extent, crowd=False):
+    """The plain raster whose kernel culls with the boxes of `extent`: K4's
+    (K5b's) at the MSAA extent, K2's (K5a's) at the centre."""
+    if crowd:
+        return (tr.raster_tiles_ms_multi_plain if extent
+                else tr.raster_tiles_multi_plain)
+    return tr.raster_tiles_ms_plain if extent else tr.raster_tiles_plain
+
+
+def _some_cover(planes, extent):
+    """Whether some pixel of one frame's planes is covered: a sample depth
+    below 1 at the MSAA extent, a triangle at the centre."""
+    return bool((planes[5] < 1.0).any() if extent else (planes[1] >= 0).any())
 
 
 def _assert_same_bits(got, want):
@@ -42,18 +72,23 @@ def _assert_same_bits(got, want):
         assert torch.equal(g, w), name
 
 
-@pytest.mark.parametrize("size", SIZES, ids=["256x144", "320x192"])
-@pytest.mark.parametrize("kind", KINDS)
-def test_masked_plain_equals_unmasked(kind, size):
+# at the centre every set at one size: the sizes differ only in how the
+# tiles cut the frame, which the MSAA cases cover
+@pytest.mark.parametrize("kind,size,extent", _at_both_extents(
+    [(k, s) for k in KINDS for s in SIZES],
+    [f"{k}-{i}" for k in KINDS for i in SIZE_IDS],
+    centre=[f"{k}-{SIZE_IDS[0]}" for k in KINDS]))
+def test_masked_plain_equals_unmasked(kind, size, extent):
     w, h = size
     t = 1500 if kind == "subpixel" else 500
-    rows, starts, counts, boxes = boxed_bins(kind, 11, t, w, h, n_attrs=1)
+    rows, starts, counts, boxes = boxed_bins(kind, 11, t, w, h, n_attrs=1,
+                                             sample_extent=extent)
     assert int(counts.sum()) > 50
-    want = tr.raster_tiles_ms_plain(rows, starts, counts, w, h, 1)
-    got = tr.raster_tiles_ms_plain(rows, starts, counts, w, h, 1,
-                                   boxes=boxes)
+    plain = _plain(extent)
+    want = plain(rows, starts, counts, w, h, 1)
+    got = plain(rows, starts, counts, w, h, 1, boxes=boxes)
     _assert_same_bits(got, want)
-    assert bool((want[5] < 1.0).any())          # some sample is covered
+    assert _some_cover(want, extent)
     idx, _ = tr._tile_entries(starts, counts)
     whole = int((boxes[idx, 2] == WHOLE).sum())
     if kind == "slivers":
@@ -63,18 +98,20 @@ def test_masked_plain_equals_unmasked(kind, size):
         assert whole == 0
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_masked_plain_equals_unmasked_crowd(kind):
+@pytest.mark.parametrize("kind,extent",
+                         _at_both_extents([(k,) for k in KINDS], KINDS))
+def test_masked_plain_equals_unmasked_crowd(kind, extent):
     w, h, n_inst = 256, 144, 3
     rows, starts, counts, boxes = boxed_bins(kind, 23, 300, w, h, n_attrs=1,
-                                             n_inst=n_inst)
+                                             n_inst=n_inst,
+                                             sample_extent=extent)
     assert counts.shape[0] == n_inst * tr._grid(w, h)[2]
-    want = tr.raster_tiles_ms_multi_plain(rows, starts, counts, n_inst, w, h,
-                                          1)
-    got = tr.raster_tiles_ms_multi_plain(rows, starts, counts, n_inst, w, h,
-                                         1, boxes=boxes)
+    plain = _plain(extent, crowd=True)
+    want = plain(rows, starts, counts, n_inst, w, h, 1)
+    got = plain(rows, starts, counts, n_inst, w, h, 1, boxes=boxes)
     _assert_same_bits(got, want)
-    assert all(bool((want[5][i] < 1.0).any()) for i in range(n_inst))
+    assert all(_some_cover([p[i] for p in want], extent)
+               for i in range(n_inst))
 
 
 def test_mask_that_is_too_small_changes_the_result():
@@ -87,23 +124,29 @@ def test_mask_that_is_too_small_changes_the_result():
     assert not torch.equal(got[5], want[5])
 
 
-def _covered_outside_box(xy, z, tiles=2):
-    """Per triangle, whether the unmasked coverage test (any sample, as
-    K4's loop tests it) admits a pixel outside the triangle's box, over the
-    first `tiles` tiles of a one-tile-high frame; only trusted triangles
-    count. -> (offending [T] bool, trusted [T] bool)."""
-    s = screen_setup(xy, z)
+def _covered_outside_box(xy, z, tiles=2, extent=MSAA):
+    """Per triangle, whether the unmasked coverage test (at the MSAA extent
+    any sample, as K4's loop tests it; at the centre's, K2's) admits a pixel
+    outside the triangle's box, over the first `tiles` tiles of a
+    one-tile-high frame; only trusted triangles count. -> (offending [T]
+    bool, trusted [T] bool)."""
+    s = screen_setup(xy, z, extent)
     t = s["xy"].shape[0]
     rows = tr._setup_rows(s, torch.arange(t))
-    boxes = tr._pixel_boxes(s, tr.MSAA4_EXTENT)
+    boxes = tr._pixel_boxes(s, extent)
     trusted = boxes[:, 2] != WHOLE
     bad = torch.zeros(t, dtype=torch.bool)
     for tile in range(tiles):
         tile_of = torch.full((t,), tile)
         for b in range(0, t, 1024):
             sl = slice(b, b + 1024)
-            zb, _, _ = tr._eval_entries_ms(rows[sl], tile_of[sl], tiles)
-            covered = zb < 4.0
+            if extent:
+                zb, _, _ = tr._eval_entries_ms(rows[sl], tile_of[sl], tiles)
+                covered = zb < 4.0
+            else:
+                zm, _ = tr._eval_entries(rows[sl], tile_of[sl], tiles,
+                                         zmax=False)
+                covered = zm < 2.0
             inside = tr._in_boxes(boxes[sl], tile_of[sl], tiles)
             bad[sl] |= (covered & ~inside).flatten(1).any(1)
     return bad & trusted & s["valid"], trusted
@@ -114,39 +157,60 @@ small = st.floats(-1.0, 1.0, allow_nan=False, width=32)
 exponent = st.floats(-9.0, 1.7)
 
 
-@settings(max_examples=400, deadline=None, derandomize=True)
-@given(ax=coord, ay=st.floats(-20.0, 60.0, width=32), ang=st.floats(0, 6.3),
-       e_len=exponent, e_off=exponent, along=small, sign=st.booleans())
-def test_no_pixel_outside_a_trusted_box_is_covered(ax, ay, ang, e_len, e_off,
-                                                   along, sign):
-    """Hypothesis hunts a triangle (from well shaped down to slivers: an
-    edge of 1e-9 to 50 pixels and a third vertex 1e-9 to 50 pixels off it)
-    and a pixel outside its box that the coverage test admits."""
-    length, off = 10.0 ** e_len, 10.0 ** e_off * (1 if sign else -1)
-    u = np.array([np.cos(ang), np.sin(ang)])
-    n = np.array([-u[1], u[0]])
-    a = np.array([ax, ay])
-    xy = np.stack([a, a + u * length, a + u * (along * length) + n * off])
-    bad, _ = _covered_outside_box(xy[None], np.full((1, 3), 0.5))
-    assert not bool(bad.any()), xy
+def _hunt(extent, examples):
+    """A hypothesis hunt at `extent`, `examples` triangles long."""
+
+    @settings(max_examples=examples, deadline=None, derandomize=True)
+    @given(ax=coord, ay=st.floats(-20.0, 60.0, width=32),
+           ang=st.floats(0, 6.3), e_len=exponent, e_off=exponent,
+           along=small, sign=st.booleans())
+    def hunt(ax, ay, ang, e_len, e_off, along, sign):
+        """Hypothesis hunts a triangle (from well shaped down to slivers: an
+        edge of 1e-9 to 50 pixels and a third vertex 1e-9 to 50 pixels off
+        it) and a pixel outside its box that the coverage test admits."""
+        length, off = 10.0 ** e_len, 10.0 ** e_off * (1 if sign else -1)
+        u = np.array([np.cos(ang), np.sin(ang)])
+        n = np.array([-u[1], u[0]])
+        a = np.array([ax, ay])
+        xy = np.stack([a, a + u * length, a + u * (along * length) + n * off])
+        bad, _ = _covered_outside_box(xy[None], np.full((1, 3), 0.5),
+                                      extent=extent)
+        assert not bool(bad.any()), xy
+
+    return hunt
 
 
-def test_no_pixel_outside_a_trusted_box_is_covered_bulk():
-    """The same hunt in bulk: 24,000 slivers and 8,000 sub-pixel and
-    on-sample triangles over two tiles, at constant depth so that coverage
-    alone decides."""
-    sets = [screen_triangles("slivers", 5, 12000, 256, 32)[0],
-            screen_triangles("slivers", 6, 12000, 256, 32)[0],
-            screen_triangles("subpixel", 7, 4000, 256, 32)[0],
-            screen_triangles("samples", 8, 4000, 256, 32)[0]]
+test_no_pixel_outside_a_trusted_box_is_covered = _hunt(MSAA, 400)
+test_no_pixel_outside_a_trusted_centre_box_is_covered = _hunt(CENTRE, 200)
+
+
+def _bulk_hunt(extent, per_set):
+    """The same hunt in bulk: 2 x 3 `per_set` slivers and 2 x `per_set`
+    sub-pixel and on-sample triangles over two tiles, at constant depth so
+    that coverage alone decides."""
+    sets = [screen_triangles("slivers", 5, 3 * per_set, 256, 32)[0],
+            screen_triangles("slivers", 6, 3 * per_set, 256, 32)[0],
+            screen_triangles("subpixel", 7, per_set, 256, 32)[0],
+            screen_triangles("samples", 8, per_set, 256, 32)[0]]
     xy = np.concatenate(sets)
-    bad, trusted = _covered_outside_box(xy, np.full(xy.shape[:2], 0.5))
+    bad, trusted = _covered_outside_box(xy, np.full(xy.shape[:2], 0.5),
+                                        extent=extent)
     assert int(bad.sum()) == 0
     # the hunt is not vacuous: the slivers fall on both sides of the trust
     # test, nearly all the small triangles are trusted
-    n = 24000
+    n = 6 * per_set
     assert 0.1 * n < int(trusted[:n].sum()) < 0.9 * n
     assert float(trusted[n:].float().mean()) > 0.9
+
+
+def test_no_pixel_outside_a_trusted_box_is_covered_bulk():
+    _bulk_hunt(MSAA, 4000)
+
+
+def test_no_pixel_outside_a_trusted_centre_box_is_covered_bulk():
+    """Half the MSAA hunt's size: the centre's hypothesis hunt searches the
+    same shapes."""
+    _bulk_hunt(CENTRE, 2000)
 
 
 def test_hunt_finds_a_false_cover_without_the_trust_test(monkeypatch):
@@ -159,15 +223,16 @@ def test_hunt_finds_a_false_cover_without_the_trust_test(monkeypatch):
     assert int(trusted.sum()) > 0.9 * 12000
 
 
-@pytest.mark.parametrize("compact", [False, True], ids=["all", "compact"])
-def test_boxes_line_up_with_sorted_rows(compact):
+@pytest.mark.parametrize("compact,extent", _at_both_extents(
+    [(False,), (True,)], ["all", "compact"]))
+def test_boxes_line_up_with_sorted_rows(compact, extent):
     rng = np.random.default_rng(3)
     clip, tris = _random_mesh(rng, t=300)
     clip, tris = torch.as_tensor(clip), torch.as_tensor(tris)
     s = raster.setup(clip, tris, 320, 192, raster.CULL_BACK,
-                     sample_extent=tr.MSAA4_EXTENT)
+                     sample_extent=extent)
     rows = tr._setup_rows(s, torch.arange(300))
-    boxes = tr._pixel_boxes(s, tr.MSAA4_EXTENT)
+    boxes = tr._pixel_boxes(s, extent)
     assert boxes.dtype == torch.int16 and boxes.shape == (300, 4)
     plain = tr._bin(s, rows, 320, 192, 9, compact)
     sorted_rows, starts, counts, big, sorted_boxes = tr._bin(
@@ -181,22 +246,21 @@ def test_boxes_line_up_with_sorted_rows(compact):
     assert torch.equal(sorted_boxes[idx], boxes[tid])
     # a box is the sample-widened bounding box plus one pixel of margin
     xy = s["xy"][tid]
-    lo = torch.ceil(xy.amin(1) - 0.875).long() - 1
-    hi = torch.floor(xy.amax(1) - 0.125).long() + 1
+    lo = torch.ceil(xy.amin(1) - (0.5 + extent)).long() - 1
+    hi = torch.floor(xy.amax(1) - (0.5 - extent)).long() + 1
     b = sorted_boxes[idx].long()
     assert torch.equal(b[:, :2], lo.clamp(min=-1))
     assert torch.equal(b[:, 2:], hi.clamp(min=-1))
 
 
-def test_crowd_boxes_line_up_with_sorted_rows():
+def _crowd_boxes_line_up(extent):
     rng = np.random.default_rng(4)
     n_inst, t, w, h = 3, 200, 256, 144
     clip = np.stack([_random_mesh(rng, t=t)[0] for _ in range(n_inst)])
     tris = torch.as_tensor(_random_mesh(rng, t=t)[1])
     s, rows = tr._crowd_setup(torch.as_tensor(clip), tris, None, w, h,
-                              raster.CULL_NONE, None, None, None,
-                              tr.MSAA4_EXTENT)
-    boxes = tr._pixel_boxes(s, tr.MSAA4_EXTENT)
+                              raster.CULL_NONE, None, None, None, extent)
+    boxes = tr._pixel_boxes(s, extent)
     assert boxes.shape == (n_inst, t, 4)
     plain = tr._bin_crowd(s, rows, w, h)
     sorted_rows, starts, counts, big, sorted_boxes = tr._bin_crowd(
@@ -208,6 +272,14 @@ def test_crowd_boxes_line_up_with_sorted_rows():
     tid = sorted_rows[idx, 10].long()
     assert torch.equal(sorted_boxes[idx], boxes[inst, tid])
     assert len(set(inst.tolist())) == n_inst
+
+
+def test_crowd_boxes_line_up_with_sorted_rows():
+    _crowd_boxes_line_up(MSAA)
+
+
+def test_crowd_centre_boxes_line_up_with_sorted_rows():
+    _crowd_boxes_line_up(CENTRE)
 
 
 def test_untrusted_triangles_get_the_whole_range():
@@ -239,6 +311,24 @@ def test_msaa_entry_points_still_match_reference():
     attrs = rng.normal(size=clips.shape[:2] + (3,)).astype(np.float32)
     got = _both_crowd(clips, tris, attrs, 256, 128, raster.CULL_NONE,
                       msaa=True)
+    assert (got[0].tri.numpy() >= 0).mean() > 0.02
+
+
+def test_centre_entry_points_still_match_reference():
+    """The same through the msaa=1 entry points, which now bin centre boxes
+    (`rasterize_attrs_tiled` at 128x96, `rasterize_attrs_tiled_crowd` with
+    2 instances at 128x64), at the tolerances of tests/test_torch_raster.py
+    and tests/test_torch_crowd_raster.py."""
+    rng = np.random.default_rng(51)
+    clip, tris = _random_mesh(rng, t=300, size=0.06)
+    attrs = rng.normal(size=(clip.shape[0], 3)).astype(np.float32)
+    vis = _both_single(clip, tris, attrs, 128, 96, raster.CULL_NONE, 9)
+    assert (vis.tri.numpy() >= 0).mean() > 0.02
+    clips = np.stack([_random_mesh(rng, t=150, size=0.06)[0]
+                      for _ in range(2)])
+    tris = _random_mesh(rng, t=150)[1]
+    attrs = rng.normal(size=clips.shape[:2] + (3,)).astype(np.float32)
+    got = _both_crowd(clips, tris, attrs, 128, 64, raster.CULL_NONE)
     assert (got[0].tri.numpy() >= 0).mean() > 0.02
 
 

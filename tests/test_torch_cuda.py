@@ -11,11 +11,13 @@ K1, K3, K6 and the depth/tri/b1/b2 (and K4's per-sample depth) of K2 and
 K4 must be bit-exact; K2's and K4's attributes within 1e-6 (same
 arithmetic, one IEEE division). The crowd kernels K5a, K5b and K5c are
 held the same way against their plain versions, give the same bits in two
-runs, and fold to K2, K4 and K1 on one instance's own bins. K4 and K5b,
-which evaluate an entry only inside its pixel box with integer atomics on
-shared tile state, are also held against the brute-force plain versions on
-the adversarial sets of tests/torch_box_meshes.py, on tiles of only wide
-and only small boxes, with shuffled entries, and twice for equal bits.
+runs, and fold to K2, K4 and K1 on one instance's own bins. K2, K4, K5a
+and K5b, which evaluate an entry only inside its pixel box with integer
+atomics on shared tile state, are also held against the brute-force plain
+versions on the adversarial sets of tests/torch_box_meshes.py (boxes at
+the pixel centre for K2/K5a, over the MSAA samples for K4/K5b), on tiles
+of only wide and only small boxes, with shuffled entries, and twice for
+equal bits.
 """
 
 import dataclasses
@@ -45,7 +47,10 @@ def cuda():
 
 
 def _bins(device, t, spread, size, w, h, cull, e_max, z=(0.1, 0.9),
-          seed=0, n_attrs=3, sample_extent=0.0, tile_h=tr.TILE_H):
+          seed=0, n_attrs=3, sample_extent=0.0, tile_h=tr.TILE_H,
+          boxes=False):
+    """(rows, starts, counts, caster window) of a random mesh; with `boxes`
+    the entries' pixel boxes at `sample_extent` take the window's place."""
     rng = np.random.default_rng(seed)
     v0 = rng.uniform(-spread, spread, (t, 2))
     d1 = rng.uniform(-size, size, (t, 2))
@@ -62,6 +67,10 @@ def _bins(device, t, spread, size, w, h, cull, e_max, z=(0.1, 0.9),
     s["tris_v"] = tris
     rows = tr._setup_rows(s, torch.arange(t, device=device),
                           attrs if n_attrs else None)
+    if boxes:
+        bins = tr._bin(s, rows, w, h, e_max, t >= tr.COMPACT_MIN_T, tile_h,
+                       boxes=tr._pixel_boxes(s, sample_extent))
+        return bins[:3] + bins[4:]
     bins = tr._bin(s, rows, w, h, e_max, t >= tr.COMPACT_MIN_T, tile_h)[:3]
     return bins + (tr._caster_window(s, w, h, tile_h),)
 
@@ -359,66 +368,115 @@ def test_crowd_step_runs_on_the_card_and_matches_the_cpu(cuda):
 
 
 def _assert_ms_equal(got, want):
-    for i in (0, 1, 2, 3, 5):       # depth, tri, b1, b2, sdepth
-        assert torch.equal(got[i], want[i]), i
+    """Bit-exact planes (all but the attributes: depth, tri, b1, b2 and,
+    for K4/K5b, sdepth), attributes within 1e-6."""
+    for i in range(len(got)):
+        if i != 4:
+            assert torch.equal(got[i], want[i]), i
     assert float((got[4] - want[4]).abs().max()) <= 1e-6
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_raster_ms_kernel_adversarial_boxes(cuda, kind):
-    """K4 with the entries' pixel boxes against the brute-force plain
-    version (which takes none), entries shuffled within their tiles; the
-    integer atomics are order-free, so a second run gives the same bits."""
+# the raster kernels that cull by pixel boxes: (MSAA?, boxes' sample
+# extent, single wrapper, its plain version, crowd wrapper, its plain
+# version, the single wrapper's launch counter)
+BOXED = {
+    True: (tr.MSAA4_EXTENT, tr.raster_tiles_ms, tr.raster_tiles_ms_plain,
+           tr.raster_tiles_ms_multi, tr.raster_tiles_ms_multi_plain,
+           "raster_ms_launches"),
+    False: (0.0, tr.raster_tiles, tr.raster_tiles_plain,
+            tr.raster_tiles_multi, tr.raster_tiles_multi_plain,
+            "raster_launches"),
+}
+
+
+def _covered(planes, ms):
+    """Some pixel covered: a sample depth below 1 (K4), a triangle (K2)."""
+    return bool((planes[5] < 1.0).any() if ms else (planes[1] >= 0).any())
+
+
+def _by_kernel(ids):
+    """pytest params of (MSAA?, id): K4/K5b under their ids, K2/K5a under
+    "centre-" + id."""
+    return ([pytest.param(True, i, id=i) for i in ids]
+            + [pytest.param(False, i, id="centre-" + i) for i in ids])
+
+
+@pytest.mark.parametrize("ms,kind", _by_kernel(KINDS))
+def test_raster_ms_kernel_adversarial_boxes(cuda, ms, kind):
+    """K4 (and K2) with the entries' pixel boxes against the brute-force
+    plain version (which takes none), entries shuffled within their tiles;
+    the integer atomics are order-free, so a second run gives the same
+    bits."""
+    extent, fn, plain, _, _, counter = BOXED[ms]
     w, h = 320, 192
     rows, starts, counts, boxes = boxed_bins(kind, 11, 600, w, h, n_attrs=3,
-                                             device=cuda)
-    before = tr.raster_ms_launches
-    got = tr.raster_tiles_ms(rows, starts, counts, w, h, 3, boxes)
-    assert tr.raster_ms_launches == before + 1
-    want = tr.raster_tiles_ms_plain(rows, starts, counts, w, h, 3)
+                                             device=cuda,
+                                             sample_extent=extent)
+    before = getattr(tr, counter)
+    got = fn(rows, starts, counts, w, h, 3, boxes)
+    assert getattr(tr, counter) == before + 1
+    want = plain(rows, starts, counts, w, h, 3)
     _assert_ms_equal(got, want)
-    again = tr.raster_tiles_ms(rows, starts, counts, w, h, 3, boxes)
+    again = fn(rows, starts, counts, w, h, 3, boxes)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
-    assert bool((got[5] < 1.0).any())
+    assert _covered(got, ms)
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_raster_ms_multi_kernel_adversarial_boxes(cuda, kind):
-    """K5b the same way, over a crowd of three sets."""
+@pytest.mark.parametrize("ms,kind", _by_kernel(KINDS))
+def test_raster_ms_multi_kernel_adversarial_boxes(cuda, ms, kind):
+    """K5b (and K5a) the same way, over a crowd of three sets."""
+    extent, _, _, fn, plain, _ = BOXED[ms]
     w, h, n_inst = 256, 144, 3
     rows, starts, counts, boxes = boxed_bins(kind, 23, 400, w, h, n_attrs=3,
-                                             n_inst=n_inst, device=cuda)
-    got = tr.raster_tiles_ms_multi(rows, starts, counts, n_inst, w, h, 3,
-                                   boxes)
-    want = tr.raster_tiles_ms_multi_plain(rows, starts, counts, n_inst, w, h,
-                                          3)
+                                             n_inst=n_inst, device=cuda,
+                                             sample_extent=extent)
+    got = fn(rows, starts, counts, n_inst, w, h, 3, boxes)
+    want = plain(rows, starts, counts, n_inst, w, h, 3)
     _assert_ms_equal(got, want)
-    again = tr.raster_tiles_ms_multi(rows, starts, counts, n_inst, w, h, 3,
-                                     boxes)
+    again = fn(rows, starts, counts, n_inst, w, h, 3, boxes)
     for a, b in zip(got, again):
         assert torch.equal(a, b)
-    assert all(bool((got[5][i] < 1.0).any()) for i in range(n_inst))
+    assert all(_covered([p[i] for p in got], ms) for i in range(n_inst))
 
 
-def test_raster_ms_kernel_wide_only_and_small_only_tiles(cuda):
+def test_raster_kernel_edge_ties_the_clear(cuda):
+    """K2 with its boxes and without: entries at exactly zp = 1 equal the
+    clear's depth 1.0 and win it on the id rule (depth 1, their id), as in
+    the plain version."""
+    case = (300, 0.9, 0.25, 320, 192, raster.CULL_NONE, 9, (1.0, 1.0))
+    rows, starts, counts, boxes = _bins(cuda, *case, n_attrs=3, boxes=True)
+    want = tr.raster_tiles_plain(rows, starts, counts, 320, 192, 3)
+    won = want[1] >= 0
+    assert bool(won.any()) and bool((want[0][won] == 1.0).all())
+    for bx in (boxes, None):
+        _assert_ms_equal(tr.raster_tiles(rows, starts, counts, 320, 192, 3,
+                                         bx), want)
+
+
+def _wide_only_and_small_only_tiles(cuda, ms):
     """A 256x32 frame of two tiles, each with more entries than one chunk
     of the kernel (1,024): the left one holds only boxes wider than WIDE_BOX
     (the warps share them), the right one only small ones (a thread each),
-    all at one depth, so that every overlap is a tie on the id rule."""
+    all at one depth, so that every overlap is a tie on the id rule. K4's
+    boxes over the MSAA samples, K2's at the pixel centre."""
+    extent, fn, plain = BOXED[ms][:3]
     rng = np.random.default_rng(17)
     n = 1400
     corners = np.array([[-12.0, -7.0], [12.0, -7.0], [0.0, 8.0]])
     big = (rng.uniform([20, 4], [100, 28], (n, 1, 2)) + corners
            + rng.uniform(-3, 3, (n, 3, 2)))
+    # (at the centre, triangles of 1.5 pixels a side: most of those of 0.7
+    # hold no pixel centre and are culled)
+    jitter = 0.7 if ms else 1.5
     small = (rng.uniform([130, 1], [254, 31], (n, 1, 2))
-             + rng.uniform(-0.7, 0.7, (n, 3, 2)))
+             + rng.uniform(-jitter, jitter, (n, 3, 2)))
     xy = np.concatenate([big, small]).astype(np.float32)
     s = {k: v.to(cuda) for k, v in screen_setup(
-        xy, np.full((2 * n, 3), 0.5, np.float32)).items()}
+        xy, np.full((2 * n, 3), 0.5, np.float32), extent).items()}
     rows = tr._setup_rows(s, torch.arange(2 * n, device=cuda))
     rows, starts, counts, _, boxes = tr._bin(
-        s, rows, 256, 32, 2, False, boxes=tr._pixel_boxes(s, tr.MSAA4_EXTENT))
+        s, rows, 256, 32, 2, False, boxes=tr._pixel_boxes(s, extent))
     assert int(counts.min()) > 1024
     idx, tile = tr._tile_entries(starts, counts)
     b = boxes[idx].long()
@@ -429,24 +487,44 @@ def test_raster_ms_kernel_wide_only_and_small_only_tiles(cuda):
     valid = rows[idx, 9] > 0
     assert bool((area[(tile == 0) & valid] > tr.WIDE_BOX).all())
     assert bool((area[(tile == 1) & valid] <= tr.WIDE_BOX).all())
-    want = tr.raster_tiles_ms_plain(rows, starts, counts, 256, 32, 0)
-    _assert_ms_equal(tr.raster_tiles_ms(rows, starts, counts, 256, 32, 0,
-                                        boxes), want)
+    want = plain(rows, starts, counts, 256, 32, 0)
+    _assert_ms_equal(fn(rows, starts, counts, 256, 32, 0, boxes), want)
     # and with no boxes at all: every entry wide, over its whole tile
-    _assert_ms_equal(tr.raster_tiles_ms(rows, starts, counts, 256, 32, 0),
-                     want)
+    _assert_ms_equal(fn(rows, starts, counts, 256, 32, 0), want)
     assert bool((want[1][:, :128] >= 0).any())
     assert bool((want[1][:, 128:] >= 0).any())
 
 
-def test_raster_ms_wrappers_reject_bad_boxes(cuda):
+def test_raster_ms_kernel_wide_only_and_small_only_tiles(cuda):
+    _wide_only_and_small_only_tiles(cuda, True)
+
+
+def test_raster_kernel_wide_only_and_small_only_tiles(cuda):
+    _wide_only_and_small_only_tiles(cuda, False)
+
+
+def _reject_bad_boxes(cuda, ms):
+    extent, fn, _, multi = BOXED[ms][:4]
     rows, starts, counts, boxes = boxed_bins("random", 1, 50, 128, 64,
-                                             device=cuda)
+                                             device=cuda,
+                                             sample_extent=extent)
     with pytest.raises(TypeError):
-        tr.raster_tiles_ms(rows, starts, counts, 128, 64, 0, boxes.int())
+        fn(rows, starts, counts, 128, 64, 0, boxes.int())
     with pytest.raises(TypeError):
-        tr.raster_tiles_ms(rows, starts, counts, 128, 64, 0, boxes[:-1])
+        fn(rows, starts, counts, 128, 64, 0, boxes[:-1])
     with pytest.raises(ValueError):
-        tr.raster_tiles_ms(rows, starts, counts, 128, 64, 0, boxes.cpu())
+        fn(rows, starts, counts, 128, 64, 0, boxes.cpu())
     with pytest.raises(ValueError):       # rows not a multiple of 4 lanes
-        tr.raster_tiles_ms(rows[:, :13], starts, counts, 128, 64, 0, boxes)
+        fn(rows[:, :13], starts, counts, 128, 64, 0, boxes)
+    with pytest.raises(TypeError):        # the crowd form: one instance
+        multi(rows, starts, counts, 1, 128, 64, 0, boxes[:-1])
+    with pytest.raises(ValueError):
+        multi(rows[:, :13], starts, counts, 1, 128, 64, 0, boxes)
+
+
+def test_raster_ms_wrappers_reject_bad_boxes(cuda):
+    _reject_bad_boxes(cuda, True)
+
+
+def test_raster_wrappers_reject_bad_boxes(cuda):
+    _reject_bad_boxes(cuda, False)

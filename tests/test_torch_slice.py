@@ -181,13 +181,15 @@ def _imported_modules(tree):
 
 
 def test_port_imports_nothing_of_the_reference():
-    """No file of the port, nor chip_smoke.py or the profile script,
-    imports jax, flax or anything of `simple_mmd_renderer_tpu`."""
+    """No file of the port, nor chip_smoke.py or the port's scripts
+    (scripts/*torch*.py), imports jax, flax or anything of
+    `simple_mmd_renderer_tpu`."""
     files = sorted(glob.glob(os.path.join(
         REPO, "simple_mmd_renderer_tpu_torch", "**", "*.py"),
         recursive=True))
-    files += [os.path.join(REPO, "chip_smoke.py"),
-              os.path.join(REPO, "scripts", "profile_torch_frame.py")]
+    scripts = sorted(glob.glob(os.path.join(REPO, "scripts", "*torch*.py")))
+    assert os.path.join(REPO, "scripts", "profile_torch_frame.py") in scripts
+    files += [os.path.join(REPO, "chip_smoke.py")] + scripts
     assert len(files) > 20
     assert os.path.join(REPO, "simple_mmd_renderer_tpu_torch", "parallel",
                         "mesh.py") in files

@@ -1,11 +1,11 @@
-"""Adversarial triangle sets for the pixel boxes of the port's MSAA raster.
+"""Adversarial triangle sets for the pixel boxes of the port's rasters.
 
-Shared by tests/test_torch_boxes.py (CPU: the masked plain version against
-the unmasked one) and tests/test_torch_cuda.py (card: K4 and K5b against
-their plain versions). numpy and torch only, no JAX. Triangles are given in
-screen space, so that vertices can sit exactly on pixel centres, on sample
-points and on tile and frame edges; `screen_setup` then computes what
-`render.raster.setup` computes from clip coordinates.
+Shared by tests/test_torch_boxes.py (CPU: the masked plain versions against
+the unmasked ones) and tests/test_torch_cuda.py (card: K2, K4, K5a and K5b
+against their plain versions). numpy and torch only, no JAX. Triangles are
+given in screen space, so that vertices can sit exactly on pixel centres, on
+sample points and on tile and frame edges; `screen_setup` then computes
+what `render.raster.setup` computes from clip coordinates.
 """
 
 import numpy as np
@@ -101,11 +101,12 @@ def shuffle_within_tiles(rng, starts, counts, *per_entry):
 
 
 def boxed_bins(kind, seed, t, w, h, n_attrs=0, n_inst=None, device="cpu",
-               e_max=9):
+               e_max=9, sample_extent=tr.MSAA4_EXTENT):
     """Bins of an adversarial set with their pixel boxes -> (sorted_rows,
     starts, counts, boxes), entries shuffled within their tiles. With
     n_inst, a crowd of that many sets over one topology (`_bin_crowd`, at
-    most 6 tiles a triangle)."""
+    most 6 tiles a triangle). `sample_extent` 0.375 for the MSAA raster
+    (K4, K5b), 0 for the centre-sampled one (K2, K5a)."""
     rng = np.random.default_rng(seed + 1000)
     if n_inst is None:
         xy, z = screen_triangles(kind, seed, t, w, h)
@@ -113,7 +114,8 @@ def boxed_bins(kind, seed, t, w, h, n_attrs=0, n_inst=None, device="cpu",
         sets = [screen_triangles(kind, seed + i, t, w, h)
                 for i in range(n_inst)]
         xy, z = (np.stack([s[k] for s in sets]) for k in (0, 1))
-    s = {k: v.to(device) for k, v in screen_setup(xy, z).items()}
+    s = {k: v.to(device) for k, v in screen_setup(xy, z,
+                                                   sample_extent).items()}
     attrs = None
     if n_attrs:
         lead = () if n_inst is None else (n_inst,)
@@ -122,7 +124,7 @@ def boxed_bins(kind, seed, t, w, h, n_attrs=0, n_inst=None, device="cpu",
             rng.normal(size=lead + (t, 3, n_attrs)).astype(np.float32),
             device=device)
     rows = tr._setup_rows(s, torch.arange(t, device=device), attrs)
-    boxes = tr._pixel_boxes(s, tr.MSAA4_EXTENT)
+    boxes = tr._pixel_boxes(s, sample_extent)
     if n_inst is None:
         rows, starts, counts, _, boxes = tr._bin(s, rows, w, h, e_max, False,
                                                  boxes=boxes)
