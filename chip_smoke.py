@@ -20,21 +20,23 @@ Phases (each prints its own line; any failure raises and exits nonzero):
 3. kernels: each kernel against its plain PyTorch version on the card, on
    the very arguments the main path passed it in frame 1 of its scene
    (recorded around `Scene.step_and_render`), and K1/K2/K4 on a dense tile
-   (more entries than one shared-memory chunk, all at one depth). Depth,
+   (more entries than a block takes at once, all at one depth). Depth,
    triangle ids, barycentrics and per-sample depths must be bit-exact,
    attributes within 1e-6; K6's pasted map must equal K1's over the same
-   bins. K2, K4, K5a and K5b get the entries' pixel boxes the frame passed
-   them (asserted); their plain versions take none and evaluate every
-   entry over its whole tile, and K2's and K4's dense tiles run with boxes
-   and without. Prints mismatch counts, both times (CUDA events) and each
-   kernel's bound (for the four raster kernels by two rules: each entry
-   over its tile's columns, as for the kernels without boxes, and over its
-   exact box, the rule their record carries).
+   bins and boxes. K1, K6, K2, K4, K5a and K5b get the entries' pixel boxes
+   the frame passed them (asserted); their plain versions take none and
+   evaluate every entry over its whole tile, and K1's, K2's and K4's dense
+   tiles run with boxes and without. Prints mismatch counts, both times
+   (CUDA events; the record's host-paced, and for K1 and K6 also back to
+   back, `primed_ms`) and each kernel's bound (for the six kernels with
+   boxes by two rules: each entry over its tile's columns, as for the
+   kernels without boxes, and over its exact box, the rule their record
+   carries).
    The crowd kernels K5c, K5a and K5b are held the same way on the
    arguments of frame 1 of the 64-instance crowd, K3 on its [64,256,256]
    batch of shadow maps, and one instance's planes must equal the
-   single-instance kernel's on that instance's own bins (K5c vs K1, K5a vs
-   K2, K5b vs K4).
+   single-instance kernel's on that instance's own bins (K5c vs K1 without
+   boxes, K5a vs K2, K5b vs K4).
 4. flagship: the sample character at density 2.0, 1920x1080, 2048^2 shadow
    map, physics on, at msaa=1 and at msaa=4 + shadow_window: 3 warm-up
    frames each, then 20 timed frames of each through `Scene.rollout`, in
@@ -84,6 +86,10 @@ PATH_LABEL = {False: "msaa=1", True: "msaa=4 + shadow_window"}
 # the timed segments' paths (msaa?), in turns; FRAMES per path in all
 ORDER = (False, True, True, False)
 SEGMENT = FRAMES // 2
+
+# cycles of the sleep kernel that holds the stream while the host queues a
+# back-to-back run (`primed_ms`), about 10 ms on an H100
+PRIME_CYCLES = 20_000_000
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM3 bytes/s and
 # fp32 operations/s outside the tensor cores, the type these kernels use
@@ -141,6 +147,29 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def primed_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` launches run back to back
+    (after one warm-up): a sleep kernel holds the stream while the host
+    queues them, so that a kernel shorter than its wrapper's Python is not
+    timed at the host's pace, as `cuda_ms` times it."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(PRIME_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def back_to_back(fn) -> str:
+    """The least and the median of 6 `primed_ms` means of 20 launches."""
+    runs = sorted(primed_ms(fn, 20) for _ in range(6))
+    return f"least {runs[0]:.4f}, median {runs[3]:.4f} ms"
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -224,6 +253,20 @@ def raster_bound(args, out, ops_per_eval, sample_dy=(0.0,), boxes=None):
     return bound(n_bytes, n_ops)
 
 
+def log_rules(key, rows_rule, box_rule, ms, starts, counts, boxes,
+              tail=""):
+    """Print a kernel's bound by the rows rule beside the box rule."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    idx, _ = tr._tile_entries(starts, counts)
+    whole = int((boxes[idx, 2] == torch.iinfo(boxes.dtype).max).sum())
+    log(f"kernels: {key} bound by the rows rule {rows_rule[0]:.5f} ms "
+        f"({rows_rule[1]}; card / bound {ms / rows_rule[0]:.1f}), by the box "
+        f"rule {box_rule[0]:.5f} ms ({box_rule[1]}; card / bound "
+        f"{ms / box_rule[0]:.1f}); {whole} of {idx.numel()} entries carry "
+        f"the whole range as their box{tail}")
+
+
 def boxed_bound(key, args, boxes, out, ms):
     """The bound of K2, K4, K5a or K5b with each entry charged over its
     exact box (the rule its record carries), printed beside the rule of the
@@ -237,15 +280,23 @@ def boxed_bound(key, args, boxes, out, ms):
         ops, dy = OPS_RASTER, (0.0,)
     rows_rule = raster_bound(args, out, ops, dy)
     box_rule = raster_bound(args, out, ops, dy, boxes)
-    idx, _ = tr._tile_entries(args[1], args[2])
-    whole = int((boxes[idx, 2] == torch.iinfo(boxes.dtype).max).sum())
-    log(f"kernels: {key} bound by the rows rule {rows_rule[0]:.4f} ms "
-        f"({rows_rule[1]}; card / bound {ms / rows_rule[0]:.1f}), by the box "
-        f"rule {box_rule[0]:.4f} ms ({box_rule[1]}; card / bound "
-        f"{ms / box_rule[0]:.1f}); {whole} of {idx.numel()} entries carry "
-        f"the whole range as their box, {winning_entries(out[1])} win some "
-        "pixel")
+    log_rules(key, rows_rule, box_rule, ms, args[1], args[2], boxes,
+              f", {winning_entries(out[1])} win some pixel")
     return box_rule
+
+
+def depth_bound(key, bins, tile_h, boxes, out_bytes, ms):
+    """The bound of K1 or K6 on their bins (rows, starts, counts, width,
+    height): each real entry's lanes 0-10, starts and counts, and
+    `out_bytes` (the map, K6's window) moved; OPS_DEPTH for each pixel an
+    entry can cover, over its exact box (the rule the record carries),
+    printed beside the rows rule (its rows over its tile's columns)."""
+    rules = []
+    for bx in (None, boxes):
+        n_bytes, evals = bin_work(*bins, tile_h, ROW_LANES, boxes=bx)
+        rules.append(bound(n_bytes + out_bytes, evals * OPS_DEPTH))
+    log_rules(key, *rules, ms, bins[1], bins[2], boxes)
+    return rules[1]
 
 
 def record(results, key, name, source, line, err, ms, plain_ms, bnd):
@@ -374,6 +425,8 @@ def check_kernels(scene, state, results):
     k1_args, k1_out = seen["K1"]
     k2_args, k2_out = seen["K2"]
     k3_args, k3_out = seen["K3"]
+    if len(k1_args) != 6 or k1_args[5] is None:
+        raise AssertionError("the frame passed K1 no pixel boxes")
     if len(k2_args) != 7 or k2_args[6] is None:
         raise AssertionError("the frame passed K2 no pixel boxes")
     c1, c2 = k1_args[2], k2_args[2]
@@ -382,17 +435,19 @@ def check_kernels(scene, state, results):
         f"{int(c2.sum())} entries in {c2.shape[0]} tiles (max "
         f"{int(c2.max())})")
 
-    # K1 at bench shapes
+    # K1 at bench shapes, with the frame's boxes; the plain version is brute
+    # force
     got = tr.depth_tiles(*k1_args)
-    want = tr.depth_tiles_plain(*k1_args)
+    want = tr.depth_tiles_plain(*k1_args[:5])
     k1_bad = mismatches(got, want, k1_out)
     k1_err = float((got - want).abs().max())
     k1_ms = cuda_ms(lambda: tr.depth_tiles(*k1_args), 20)
-    k1_plain = cuda_ms(lambda: tr.depth_tiles_plain(*k1_args), 3)
+    k1_plain = cuda_ms(lambda: tr.depth_tiles_plain(*k1_args[:5]), 3)
     log(f"kernels: K1 depth_tiles {tuple(got.shape)}: mismatches {k1_bad}, "
-        f"{k1_ms:.4f} ms vs plain {k1_plain:.4f} ms")
-    n_bytes, evals = bin_work(*k1_args[:5], tr.TILE_H, ROW_LANES)
-    k1_bound = bound(n_bytes + 4 * got.numel(), evals * OPS_DEPTH)
+        f"{k1_ms:.4f} ms vs plain {k1_plain:.4f} ms; back to back "
+        f"{back_to_back(lambda: tr.depth_tiles(*k1_args))}")
+    k1_bound = depth_bound("K1", k1_args[:5], tr.TILE_H, k1_args[5],
+                           4 * got.numel(), k1_ms)
 
     # K3 at bench shapes, on the frame's shadow map
     lit = shadow_pcf.pcf_lit_map(*k3_args)
@@ -426,20 +481,21 @@ def check_kernels(scene, state, results):
         f"{k2_attr_err:.3g}, {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms")
     k2_bound = boxed_bound("K2", k2_args[:6], k2_args[6], k2, k2_ms)
 
-    # dense tile: more entries than one chunk, all at one depth (K2 with
-    # its boxes: small ones, a thread each; and with none, so that every
-    # entry is a wide one over its whole tile)
+    # dense tile: more entries than a block takes at once, all at one depth
+    # (K1 and K2 with their boxes: small ones, a thread each; and with none,
+    # so that every entry is a wide one over its whole tile)
     rd, sd, cd, bd = dense_bins(c1.device)
-    dd = tr.depth_tiles(rd, sd, cd, 128, 64)
     ddp = tr.depth_tiles_plain(rd, sd, cd, 128, 64)
     kdp = tr.raster_tiles_plain(rd, sd, cd, 128, 64, 3)
-    dense_bad, dense_attr = [mismatches(dd, ddp)], 0.0
+    dense_bad, dense_attr = [], 0.0
     for boxes in (bd, None):
+        dense_bad.append(mismatches(tr.depth_tiles(rd, sd, cd, 128, 64,
+                                                   boxes), ddp))
         kd = tr.raster_tiles(rd, sd, cd, 128, 64, 3, boxes)
         dense_bad += [mismatches(a, b) for a, b in zip(kd[:4], kdp[:4])]
         dense_attr = max(dense_attr, float((kd[4] - kdp[4]).abs().max()))
-    log(f"kernels: dense tile ({int(cd.max())} entries in one tile): K1, "
-        f"K2 with and without boxes, mismatches {dense_bad}, attr max err "
+    log(f"kernels: dense tile ({int(cd.max())} entries in one tile): K1 and "
+        f"K2 with boxes, then without, mismatches {dense_bad}, attr max err "
         f"{dense_attr:.3g}")
 
     if k1_bad or k3_bad or any(k2_bad) or any(dense_bad):
@@ -465,9 +521,12 @@ def check_kernels_msaa(scene, state, results):
                                path_kernels(True))                 # frame 1
     k6_args, k6_out = seen["K6"]
     k4_args, k4_out = seen["K4"]
+    if len(k6_args) != 8 or k6_args[7] is None:
+        raise AssertionError("the frame passed K6 no pixel boxes")
     if len(k4_args) != 7 or k4_args[6] is None:
         raise AssertionError("the frame passed K4 no pixel boxes")
     rows6, starts6, counts6, window = k6_args[:4]
+    width6, height6, tile_h6, boxes6 = k6_args[4:]
     c4 = k4_args[2]
     log(f"kernels: frame-1 bins (msaa=4, shadow window): shadow "
         f"{int(counts6.sum())} entries in {counts6.shape[0]} tiles of "
@@ -475,22 +534,31 @@ def check_kernels_msaa(scene, state, results):
         f"rows, cols) {window.tolist()}; character {int(c4.sum())} entries "
         f"in {c4.shape[0]} tiles (max {int(c4.max())})")
 
-    # K6 at bench shapes, and K1 over the same bins (32-row tiles)
+    # K6 at bench shapes with the frame's boxes (the plain version brute
+    # force), and K1 over the same bins and boxes (32-row tiles)
+    if tile_h6 != tr.TILE_H:
+        raise AssertionError(f"K6 ran on {tile_h6}-row tiles, K1 takes "
+                             f"{tr.TILE_H}")
     got = tr.depth_tiles_win(*k6_args)
-    want = tr.depth_tiles_win_plain(*k6_args)
+    want = tr.depth_tiles_win_plain(*k6_args[:7])
     k6_bad = mismatches(got, want, k6_out)
     k6_err = float((got - want).abs().max())
-    k6_vs_k1 = mismatches(got, tr.depth_tiles(rows6, starts6, counts6,
-                                              *k6_args[4:6]))
+    bins6 = (rows6, starts6, counts6, width6, height6)
+    k6_vs_k1 = mismatches(got, tr.depth_tiles(*bins6, boxes6))
     k6_ms = cuda_ms(lambda: tr.depth_tiles_win(*k6_args), 20)
-    k6_plain = cuda_ms(lambda: tr.depth_tiles_win_plain(*k6_args), 3)
+    k6_plain = cuda_ms(lambda: tr.depth_tiles_win_plain(*k6_args[:7]), 3)
     log(f"kernels: K6 depth_tiles_win {tuple(got.shape)}: mismatches "
-        f"{k6_bad}, vs K1 on the same bins {k6_vs_k1}, {k6_ms:.4f} ms vs "
-        f"plain {k6_plain:.4f} ms")
-    n_bytes, evals = bin_work(rows6, starts6, counts6, *k6_args[4:7],
-                              ROW_LANES)
-    k6_bound = bound(n_bytes + 4 * (window.numel() + got.numel()),
-                     evals * OPS_DEPTH)
+        f"{k6_bad}, vs K1 on the same bins and boxes {k6_vs_k1}, "
+        f"{k6_ms:.4f} ms vs plain {k6_plain:.4f} ms")
+    # K6's wrapper fills the map with 1.0, then the kernel writes the
+    # window's tiles; K1 on the same bins writes every tile itself
+    k6_b2b = back_to_back(lambda: tr.depth_tiles_win(*k6_args))
+    fill_b2b = back_to_back(lambda: torch.ones_like(got))
+    k1_b2b = back_to_back(lambda: tr.depth_tiles(*bins6, boxes6))
+    log(f"kernels: K6 back to back {k6_b2b}; its fill alone {fill_b2b}; K1 "
+        f"on the same bins and boxes {k1_b2b}")
+    k6_bound = depth_bound("K6", bins6, tile_h6, boxes6,
+                           4 * (window.numel() + got.numel()), k6_ms)
 
     # K4 at bench shapes (A = 3: normals)
     k4 = tr.raster_tiles_ms(*k4_args)
@@ -688,8 +756,10 @@ def check_kernels_crowd(crowd, results):
     want = tr.depth_tiles_multi_plain(*c_args)
     c_bad = mismatches(got, want, c_out)
     c_err = float((got - want).abs().max())
+    # (K1 without boxes: K5c's bins carry none, every entry over its tile)
     c_fold = mismatches(got[mid], tr.depth_tiles(
-        c_args[0], *instance_bins(c_args[1], cc, mid, s_tiles), *c_args[4:6]))
+        c_args[0], *instance_bins(c_args[1], cc, mid, s_tiles), *c_args[4:6],
+        None))
     c_ms = cuda_ms(lambda: tr.depth_tiles_multi(*c_args), 20)
     c_plain = cuda_ms(lambda: tr.depth_tiles_multi_plain(*c_args), 3)
     log(f"kernels: K5c depth_tiles_multi {tuple(got.shape)}: mismatches "

@@ -1,25 +1,36 @@
-"""Where the raster kernels' time goes: variants of their tile bodies, timed.
+"""Where the boxed kernels' time goes: variants of their tile bodies, timed.
 
     python3 scripts/probe_torch_raster_ms.py [--only base,no_walk,...]
 
 The machine with the card has no kernel profiler, so this script takes the
-two raster tile bodies of `csrc/tiled_raster.cu` apart - the centre-sampled
-one (`raster_tile`: K2, K5a) and the MSAA one (`raster_tile_ms`: K4, K5b),
-which share their entry walks and epilogue - by building VARIANTS of the
-source (a few lines substituted, compiled beside the real library with the
-same flags) and timing each on the arguments the four kernels get in frame
-1 of their paths, as `chip_smoke.py` captures them: K2 in the flagship
-scene at msaa=1 and K4 at msaa=4 + shadow_window (1920x1080), K5a and K5b
-in the 64-instance crowd at density 2.0 (256x144, msaa=1 and msaa=4). Some
+three boxed tile bodies of `csrc/tiled_raster.cu` apart - the
+centre-sampled raster (`raster_tile`: K2, K5a), the MSAA one
+(`raster_tile_ms`: K4, K5b) and the depth body (`depth_tile`: K1, K6),
+which share their entry walks (the two rasters their epilogue too) - by
+building VARIANTS of the source (a few lines substituted, compiled beside
+the real library with the same flags) and timing each on the arguments the
+six kernels get in frame 1 of their paths, as `chip_smoke.py` captures
+them: K1 and K2 in the flagship scene at msaa=1, K6 and K4 at msaa=4 +
+shadow_window (1920x1080, shadow map 2048^2), K5a and K5b in the
+64-instance crowd at density 2.0 (256x144, msaa=1 and msaa=4). Some
 variants compute the same function another way (their outputs must equal
 the real kernels', bit for bit); the others leave a phase out, give wrong
 pictures, and only tell what that phase costs:
 
   base           the source as it is
   threads_512    512 threads a block (two blocks on an SM) instead of 1,024,
-                 in both bodies
+                 in both raster bodies
+  depth_threads_512, depth_threads_1024
+                 the depth body with 512 or 1,024 threads a block instead
+                 of 256
+  depth_cluster_1, depth_cluster_2, depth_cluster_4
+                 a K1/K6 tile over a cluster of 1, 2 or 4 blocks instead of
+                 8 (1: one block a tile, no distributed shared memory)
+  depth_cluster_1_t1024
+                 one block of 1,024 threads a tile
   read_first     a plain read of the shared value before each atomicMin, the
-                 atomic made only where it would lower it
+                 atomic made only where it would lower it (the raster
+                 bodies; depth_read_first the depth body)
   scalar_gather  every kernel's epilogue reads the winner's row lane by
                  lane (the source: the crowd kernels K5a, K5b)
   float4_gather  every kernel's epilogue reads it with float4 loads (the
@@ -28,18 +39,19 @@ pictures, and only tell what that phase costs:
                  won a pixel writes its b1, b2 and attributes into a staging
                  tile in shared memory (5 planes, 80 KB: three attributes,
                  as these frames carry), stored with coalesced writes
-  no_walk        entries loaded and set up, boxes never walked
+  no_walk        entries loaded and set up, boxes never walked (every
+                 body: the small boxes, a thread each)
   no_pass2       no second pass (no winner: the epilogue gathers no row)
   no_passes      neither pass: the clears and the output planes only
   no_gather      both passes, but the epilogue gathers no winner's row
 
 Each time is the least of 6 means of 20 launches run back to back
-(`cuda_ms`: CUDA events, the stream held by a sleep kernel while the host
-queues the launches, so that a kernel shorter than its wrapper's Python is
-not timed at the host's pace as in `chip_smoke.cuda_ms`, whose times the
-kernels' record carries); two rounds over all variants show drift. K2 and
-K4 on empty bins (every count 0) are printed as the floor of a launch at
-that frame size. `build_variants`,
+(`chip_smoke.primed_ms`: CUDA events, the stream held by a sleep kernel
+while the host queues the launches, so that a kernel shorter than its
+wrapper's Python is not timed at the host's pace as in
+`chip_smoke.cuda_ms`, whose times the kernels' record carries); two rounds
+over all variants show drift. K1, K2 and K4 on empty bins (every count 0)
+are printed as the floor of a launch at that frame size. `build_variants`,
 `capture` and `use` serve scripts/tune_torch_raster_ms.py too.
 """
 
@@ -55,18 +67,15 @@ import sys
 
 import torch
 
-# cycles of the sleep kernel that holds the stream while the host queues a
-# timed run (`cuda_ms`), about 10 ms on an H100
-PRIME_CYCLES = 20_000_000
-
-WALK = ("        walk_thread<MS, PASS>(en, ty, tx, sh, "
+WALK = ("        walk_thread<KIND, PASS, TH>(en, ty, tx, sh, "
         "tile_key(en.tid, local));")
 
 
 def _pass(ms: bool, n: int) -> str:
-    """The source's call of pass n of one body."""
-    pad = " " * (24 if ms else 25)
-    return (f"  tile_entries<{'true' if ms else 'false'}, {n}>(rows, boxes, "
+    """The source's call of pass n of one raster body."""
+    kind = "MSAA" if ms else "CENTRE"
+    pad = " " * (len(kind) + 20)
+    return (f"  tile_entries<{kind}, {n}>(rows, boxes, "
             f"row_w, start, count, ty, tx, wide_box,\n{pad}sh);")
 
 
@@ -80,8 +89,8 @@ GATHER = ("template <bool VEC>\n__device__ __forceinline__ void "
 # own_pixels: the centre body's state gains a staging tile of 5 planes, the
 # entry carries its row, and a third pass writes the winners' planes
 OWN_SHARED = ("  static constexpr size_t shared =\n"
-              "      sizeof(unsigned) * (words * TILE_PIX + threads + 4);")
-OWN_SHARED_NEW = OWN_SHARED[:-1] + " + (MS ? 0 : 5 * TILE_PIX * 4);"
+              "      sizeof(unsigned) * (words * pix + threads + 4);")
+OWN_SHARED_NEW = OWN_SHARED[:-1] + " + (KIND == CENTRE ? 5 * pix * 4 : 0);"
 OWN_PIXEL = """// the own_pixels probe: the winner of pixel p writes its planes
 __device__ __forceinline__ void own_pixel(const Entry& en, int p, float px,
                                           float py, const TileShared& sh,
@@ -107,8 +116,8 @@ __device__ __forceinline__ void centre_pixel("""
 OWN_WRITE = """  __syncthreads();
   write_tile<false, VEC>(rows, row_w, n_attrs, start, ty, tx, sh, depth,
                          tri, b1, b2, attr, pad_h, pad_w);"""
-OWN_WRITE_NEW = """  tile_entries<false, 3>(rows, boxes, row_w, start, count, ty, tx, wide_box,
-                         sh);
+OWN_WRITE_NEW = """  tile_entries<CENTRE, 3>(rows, boxes, row_w, start, count, ty, tx,
+                          wide_box, sh);
   __syncthreads();
   const float* st = reinterpret_cast<const float*>(sh.n_wide + 4);
   constexpr int RPT = TILE_PIX / CENTRE_THREADS;
@@ -131,6 +140,9 @@ OWN_WRITE_NEW = """  tile_entries<false, 3>(rows, boxes, row_w, start, count, ty
     if (n_attrs == 0) attr[o] = 0.0f;
   }"""
 
+DEPTH_ATOMIC = "    atomicMin(sh.depth + ly * TILE_W + lx, bits);"
+DEPTH_CLUSTER = "constexpr int DEPTH_CLUSTER = 8;"
+
 # name -> (substitutions, whether the outputs must equal the real kernels')
 VARIANTS = {
     "base": ([], True),
@@ -138,6 +150,22 @@ VARIANTS = {
                       "constexpr int CENTRE_THREADS = 512;"),
                      ("constexpr int MS_THREADS = 1024;",
                       "constexpr int MS_THREADS = 512;")], True),
+    "depth_threads_512": ([("constexpr int DEPTH_THREADS = 256;",
+                            "constexpr int DEPTH_THREADS = 512;")], True),
+    "depth_threads_1024": ([("constexpr int DEPTH_THREADS = 256;",
+                             "constexpr int DEPTH_THREADS = 1024;")], True),
+    "depth_cluster_1": ([(DEPTH_CLUSTER, "constexpr int DEPTH_CLUSTER = 1;")],
+                        True),
+    "depth_cluster_2": ([(DEPTH_CLUSTER, "constexpr int DEPTH_CLUSTER = 2;")],
+                        True),
+    "depth_cluster_4": ([(DEPTH_CLUSTER, "constexpr int DEPTH_CLUSTER = 4;")],
+                        True),
+    "depth_cluster_1_t1024": ([
+        (DEPTH_CLUSTER, "constexpr int DEPTH_CLUSTER = 1;"),
+        ("constexpr int DEPTH_THREADS = 256;",
+         "constexpr int DEPTH_THREADS = 1024;")], True),
+    "depth_read_first": ([(DEPTH_ATOMIC, "    if (bits < sh.depth[ly * TILE_W "
+                           "+ lx])\n  " + DEPTH_ATOMIC)], True),
     "read_first": ([
         ("        atomicMin(sh.sd + k * TILE_PIX + p, bits);",
          "        if (bits < sh.sd[k * TILE_PIX + p])\n"
@@ -182,9 +210,11 @@ VARIANTS = {
                   False),
 }
 ENTRY_POINTS = ("smr_raster_tiles", "smr_raster_tiles_multi",
-                "smr_raster_tiles_ms", "smr_raster_tiles_ms_multi")
+                "smr_raster_tiles_ms", "smr_raster_tiles_ms_multi",
+                "smr_depth_tiles", "smr_depth_tiles_win")
 KERNEL_NAMES = ("raster_tiles_kernel", "raster_tiles_multi_kernel",
-                "raster_tiles_ms_kernel", "raster_tiles_ms_multi_kernel")
+                "raster_tiles_ms_kernel", "raster_tiles_ms_multi_kernel",
+                "depth_tiles_kernel", "depth_tiles_win_kernel")
 
 
 def variant_source(source: str, name: str) -> str:
@@ -233,26 +263,28 @@ def build_variants(names, out="build/probe"):
 
 
 def capture():
-    """{"K2"|"K5a"|"K4"|"K5b": (wrapper, args)} from frame 1 of each path,
-    boxes included."""
+    """{"K1"|"K2"|"K6"|"K4"|"K5a"|"K5b": (wrapper, args)} from frame 1 of
+    each path, boxes included."""
     import chip_smoke as cs
     from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     out = {}
-    for msaa, key in ((False, "K2"), (True, "K4")):
+    for msaa in (False, True):
         scene = build_sample_scene(cs.DENSITY, cs.WIDTH, cs.HEIGHT, cs.SHADOW,
                                    "cuda", **(cs.MSAA_PATH if msaa else {}))
         _, _, seen = cs.capture_frame(scene.step_and_render,
                                       scene.init_state(),
                                       cs.path_kernels(msaa))
-        out[key] = seen[key][0]
+        for key in cs.path_kernels(msaa)[:2]:     # (K6, K4) or (K1, K2)
+            out[key] = seen[key][0]
     crowd = cs.build_crowd(cs.DENSITY, "crowd-dense")
     for msaa, key in ((False, "K5a"), (True, "K5b")):
         step, state = crowd[msaa]
         _, _, seen = cs.capture_frame(step, state, cs.crowd_kernels(msaa))
         out[key] = seen[key][0]
-    fns = {"K2": tr.raster_tiles, "K5a": tr.raster_tiles_multi,
+    fns = {"K1": tr.depth_tiles, "K6": tr.depth_tiles_win,
+           "K2": tr.raster_tiles, "K5a": tr.raster_tiles_multi,
            "K4": tr.raster_tiles_ms, "K5b": tr.raster_tiles_ms_multi}
     return {k: (fns[k], out[k]) for k in fns}
 
@@ -273,24 +305,15 @@ def use(handle):
             setattr(lib, n, real[n])
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` launches run back to back
-    (after one warm-up): a sleep kernel holds the stream while the host
-    queues them."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(PRIME_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def best(fn) -> float:
-    return min(cuda_ms(fn, 20) for _ in range(6))
+    import chip_smoke as cs
+
+    return min(cs.primed_ms(fn, 20) for _ in range(6))
+
+
+def _planes(out):
+    """A kernel's output as a tuple of planes (K1, K6 give one map)."""
+    return out if isinstance(out, tuple) else (out,)
 
 
 def main() -> int:
@@ -311,12 +334,12 @@ def main() -> int:
     built = build_variants(names, opts.out)
     want = {k: fn(*args) for k, (fn, args) in cases.items()}
     empty = {k: (args[0], args[1] * 0, args[2] * 0) + tuple(args[3:])
-             for k, (_, args) in cases.items() if k in ("K2", "K4")}
+             for k, (_, args) in cases.items() if k in ("K1", "K2", "K4")}
     for rnd in range(2):
         for name, (handle, regs) in built.items():
             with use(handle):
                 same = {k: all(torch.equal(a, b) for a, b in
-                               zip(fn(*args), want[k]))
+                               zip(_planes(fn(*args)), _planes(want[k])))
                         for k, (fn, args) in cases.items()}
                 if VARIANTS[name][1] and not all(same.values()):
                     raise AssertionError(f"variant {name} changes the bits: "

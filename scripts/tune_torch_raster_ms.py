@@ -1,25 +1,27 @@
-"""The raster kernels' time on the card against the wide-box threshold and
+"""The boxed kernels' time on the card against the wide-box threshold and
 the block size of their tile bodies.
 
     python3 scripts/tune_torch_raster_ms.py [--wide 0,32,128,512,4096]
-                                            [--threads 1024,512]
+        [--variants base,threads_512]
 
-Both raster tile bodies (`raster_tile` for K2/K5a, `raster_tile_ms` for
-K4/K5b, csrc/tiled_raster.cu) let one thread walk an entry's pixel box
-alone when the box holds at most `tiled_raster.WIDE_BOX` pixels, and share
-a wider box among the lanes of a warp. This script measures that threshold
-and the threads a block: it captures the arguments K2 and K4 get in frame 1
-of the flagship scene (1920x1080, msaa=1 and msaa=4 + shadow_window) and
-K5a's and K5b's in frame 1 of the 64-instance crowd at density 2.0
-(256x144, msaa=1 and msaa=4), as `chip_smoke.py` does, holds each kernel
-against its brute-force plain version once, and then times the four
-kernels (20 launches back to back, `probe_torch_raster_ms.cuda_ms`) at
-every threshold of `--wide`, in two rounds so that drift shows, once for
-each block size of `--threads` (1,024
-is the source as it is; 512 is its `threads_512` variant of
-scripts/probe_torch_raster_ms.py, built beside it). It also prints how
-large the entries' clamped boxes are (the work the kernels do) and times
-the kernels without boxes (every entry over its whole tile).
+The boxed tile bodies (`raster_tile` for K2/K5a, `raster_tile_ms` for
+K4/K5b, `depth_tile` for K1/K6, csrc/tiled_raster.cu) let one thread walk
+an entry's pixel box alone when the box holds at most
+`tiled_raster.WIDE_BOX` pixels, and share a wider box among the lanes of a
+warp. This script measures that threshold and the
+block size: it captures the arguments K1, K2, K6 and K4 get in frame 1 of
+the flagship scene (1920x1080, shadow map 2048^2, msaa=1 and msaa=4 +
+shadow_window) and K5a's and K5b's in frame 1 of the 64-instance crowd at
+density 2.0 (256x144, msaa=1 and msaa=4), as `chip_smoke.py` does, holds
+each kernel against its brute-force plain version once, and then times
+them (20 launches back to back, `chip_smoke.primed_ms`) at every
+threshold of `--wide`, in two rounds so that drift shows, once for each
+build of `--variants` (variants of scripts/probe_torch_raster_ms.py, built
+beside the library: `base` is the source as it is, `threads_512` the
+raster bodies at 512 threads, `depth_cluster_1` the depth body without its
+cluster split ...). It also prints how large the entries' clamped boxes are (the work the
+kernels do) and times the kernels without boxes (every entry over its whole
+tile).
 """
 
 from __future__ import annotations
@@ -30,15 +32,17 @@ import sys
 
 import torch
 
-CROWD = ("K5a", "K5b")
+# the kernels whose frame size follows a leading argument (the crowd's
+# instance count, K6's window)
+SHIFTED = ("K5a", "K5b", "K6")
 
 
-def box_sizes(args, crowd):
+def box_sizes(args, shifted):
     """Pixels of every real entry's box clamped to its tile."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     starts, counts, boxes = args[1], args[2], args[-1]
-    width, height = args[4:6] if crowd else args[3:5]
+    width, height = args[4:6] if shifted else args[3:5]
     tiles_x, _, n_tiles = tr._grid(width, height)
     idx, tile = tr._tile_entries(starts, counts)
     tile = tile % n_tiles
@@ -55,7 +59,7 @@ def box_sizes(args, crowd):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--wide", default="0,16,32,64,128,256,512,1024,4096")
-    ap.add_argument("--threads", default="1024,512")
+    ap.add_argument("--variants", default="base,threads_512")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("tune_torch_raster_ms: no CUDA device", file=sys.stderr)
@@ -67,16 +71,18 @@ def main() -> int:
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     print(cs.smi_name_power(), flush=True)
-    cases = probe.capture()
-    plains = {"K2": tr.raster_tiles_plain, "K5a": tr.raster_tiles_multi_plain,
+    plains = {"K1": tr.depth_tiles_plain, "K6": tr.depth_tiles_win_plain,
+              "K2": tr.raster_tiles_plain, "K5a": tr.raster_tiles_multi_plain,
               "K4": tr.raster_tiles_ms_plain,
               "K5b": tr.raster_tiles_ms_multi_plain}
+    cases = probe.capture()
     for key, (fn, args) in cases.items():
-        got, want = fn(*args), plains[key](*args[:-1])
+        got = probe._planes(fn(*args))
+        want = probe._planes(plains[key](*args[:-1]))
         bad = [int((got[i] != want[i]).sum()) for i in range(len(got))
                if i != 4]
-        attr = float((got[4] - want[4]).abs().max())
-        size = box_sizes(args, key in CROWD).float()
+        attr = float((got[4] - want[4]).abs().max()) if len(got) > 4 else 0.0
+        size = box_sizes(args, key in SHIFTED).float()
         q = torch.quantile(size, torch.tensor([0.5, 0.9, 0.99],
                                               device=size.device))
         print(f"{key}: mismatches {bad}, attr max err {attr:.3g}; "
@@ -89,19 +95,18 @@ def main() -> int:
         if any(bad) or attr > 1e-6:
             raise AssertionError(f"{key} disagrees with its plain version")
 
-    threads = [int(v) for v in opts.threads.split(",")]
-    variants = {1024: "base", 512: "threads_512"}
-    built = probe.build_variants([variants[n] for n in threads])
+    variants = opts.variants.split(",")
+    built = probe.build_variants(variants)
     default = tr.WIDE_BOX
     try:
         for rnd in range(2):
-            for n in threads:
-                with probe.use(built[variants[n]][0]):
+            for name in variants:
+                with probe.use(built[name][0]):
                     for wide in [int(v) for v in opts.wide.split(",")]:
                         tr.WIDE_BOX = wide
-                        line = [f"round {rnd}, {n} threads, wide_box {wide}:"]
+                        line = [f"round {rnd}, {name}, wide_box {wide}:"]
                         for key, (fn, args) in cases.items():
-                            ms = probe.cuda_ms(lambda: fn(*args), 20)
+                            ms = cs.primed_ms(lambda: fn(*args), 20)
                             line.append(f"{key} {ms:.4f} ms")
                         print(" ".join(line), flush=True)
     finally:
@@ -109,7 +114,7 @@ def main() -> int:
     for key, (fn, args) in cases.items():
         print(f"{key} without boxes (every entry over its whole tile, "
               f"wide_box {default}): "
-              f"{probe.cuda_ms(lambda: fn(*args[:-1]), 3):.4f} ms", flush=True)
+              f"{cs.primed_ms(lambda: fn(*args[:-1]), 3):.4f} ms", flush=True)
     return 0
 
 

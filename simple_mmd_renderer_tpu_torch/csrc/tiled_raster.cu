@@ -15,9 +15,10 @@
 // bodies launched with `inst_tiles` over an instance x tile grid: K5a
 // (`raster_tiles_multi_kernel`) `_run_kernel_multi`, K5b
 // (`raster_tiles_ms_multi_kernel`) `_run_kernel_ms_multi` and K5c
-// (`depth_tiles_multi_kernel`) `_run_depth_kernel_multi`. Each runs the
-// tile body of K2, K4 or K1 (`raster_tile`, `raster_tile_ms`, `depth_tile`)
-// with one block per (instance, tile): block g reads the bins of the global
+// (`depth_tiles_multi_kernel`) `_run_depth_kernel_multi`. K5a and K5b run
+// the tile body of K2 or K4 (`raster_tile`, `raster_tile_ms`); K5c runs
+// `depth_tile_dense`, which takes no boxes and evaluates every entry at
+// every pixel of its tile. Each has one block per (instance, tile): block g reads the bins of the global
 // tile g, takes its pixel coordinates from the local tile g % inst_tiles
 // and writes the planes of instance g / inst_tiles, so a crowd tile gets
 // the single-instance kernel's bits on the same bins.
@@ -61,18 +62,39 @@
 // `raster_tiles_ms_plain`), which evaluate every entry at every pixel of
 // its tile.
 //
-// Design of K1/K6 and their crowd form K5c (`depth_tile`): one block per
-// tile; a thread owns one column and consecutive rows, so each row's stores
-// are coalesced (256 threads, 16 rows of a 32-row tile or 4 of an 8-row
-// one). The block walks its entries in chunks of CHUNK rows copied
-// cooperatively into shared memory (counts are unbounded: a dense tile loops
-// over as many chunks as it needs). K6 reads its window from the card, so
-// its caller sizes no grid from the data and needs no host synchronisation.
-// What bounds them on the H100: the per-entry plane arithmetic (about 13
-// fp32 operations per pixel per entry), all from shared-memory broadcasts,
-// over every pixel of the tile whether the entry can reach it or not; rows
-// are read once per tile. Left for later: the pixel boxes of the raster
-// bodies below in `depth_tile`, and a retuned tile shape.
+// Design of K1/K6 (`depth_tile`): the raster bodies' design below with one
+// word of state and one pass. The state of one TH x 128 tile (TH 32 for
+// K1, 8 or 32 for K6) is one u32 a pixel in shared memory (16 KB at 32
+// rows, 4 KB at 8), cleared to the bits of 1.0. Entries are taken one a
+// thread through the same walks (`tile_entries` with its wide-box queue):
+// where an entry covers a pixel centre with zp >= 0 it does an integer
+// atomicMin on the bits of zp + 0. There is no key, no second pass and no
+// gather; the tile is then stored with coalesced 16-byte writes. The
+// zp <= 1 test of K2 is not needed: the clear at 1.0 implies it. The planes
+// are evaluated in the order of the plain version and of the dense body
+// (`depth_tile_dense`, K5c): the same bits, except for the sign of a zero
+// depth, which the dense body's fminf can keep as -0.0 where the fold
+// stores +0.0 (the two compare equal, as `torch.equal` and the smoke run's
+// mismatch count compare).
+// At the flagship's light all the entries fall in a few dozen of the map's
+// 1,024 tiles, up to 2,189 in one, so one block a tile spent most of the
+// kernel's time on the fullest tile. A tile is therefore split over a
+// cluster of DEPTH_CLUSTER blocks: block r takes the chunks r,
+// r + DEPTH_CLUSTER, ... of the entries and lowers the state of the
+// leader (rank 0) through distributed shared memory, between two cluster
+// barriers. A tile without entries takes no state and no barrier: its
+// leader stores the clear and the other blocks leave at once. Measured on
+// the frame's arguments (scripts/probe_torch_raster_ms.py): 8 blocks of
+// 256 threads beat 1, 2 and 4 blocks and 512 or 1,024 threads. What bounds
+// them now: the launch of the 8,192 blocks, most of which leave at once,
+// and the map's store (the kernel on empty bins takes three quarters of its
+// time on the frame); the fullest tile's walks, boxes of 16.5 pixels on
+// average, come after. K6 reads its window from the card, so its caller
+// sizes no grid from the data and needs no host synchronisation; the
+// clusters past the window's tile count exit at once. `boxes` None on the
+// host side means every entry over its whole tile (each gets the whole
+// int16 range as its box). Left for later: K5c still runs the dense body
+// (`depth_tile_dense`), without boxes.
 //
 // Design of the raster bodies, K2/K5a (`raster_tile`, centre-sampled) and
 // K4/K5b (`raster_tile_ms`): an entry is evaluated only where it can cover.
@@ -113,19 +135,22 @@
 //
 // Launches on the caller's stream, never synchronises, allocates nothing.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 128;
-constexpr int THREADS = 256;     // K1/K6/K5c
-constexpr int CHUNK = 256;       // entries per shared-memory chunk
+constexpr int DENSE_THREADS = 256;  // K5c
+constexpr int CHUNK = 256;       // K5c: entries per shared-memory chunk
 constexpr int LANES = 11;        // lanes the loop reads (0..10)
 constexpr int BASE_WIDTH = 16;   // first attribute-plane lane
 constexpr int MAX_ATTRS = 36;    // the reference's row-payload bound
 constexpr int CENTRE_THREADS = 1024;  // K2/K5a
 constexpr int MS_THREADS = 1024;  // K4/K5b
+constexpr int DEPTH_THREADS = 256;  // K1/K6: threads a block
+constexpr int DEPTH_CLUSTER = 8;    // K1/K6: blocks a tile
 
 // D3D11/OpenGL standard 4x MSAA sample offsets from the pixel centre
 __constant__ float kSampleX[4] = {-0.125f, 0.375f, -0.375f, 0.125f};
@@ -136,24 +161,26 @@ __constant__ float kSampleY[4] = {-0.375f, -0.125f, 0.125f, 0.375f};
 __device__ __forceinline__ void load_chunk(float* sh,
                                            const float* __restrict__ rows,
                                            int row_w, int first, int n) {
-  for (int i = threadIdx.x; i < n * LANES; i += THREADS) {
+  for (int i = threadIdx.x; i < n * LANES; i += DENSE_THREADS) {
     const int e = i / LANES;
     const int l = i - e * LANES;
     sh[l * CHUNK + e] = rows[static_cast<size_t>(first + e) * row_w + l];
   }
 }
 
-// One tile of K1/K6: the min of zp over the tile's entries, for the TH x
-// TILE_W tile (ty, tx) of the full grid whose entries are [starts[gid],
-// starts[gid] + counts[gid]). Every thread of the block calls it.
+// One tile of K5c, by the dense body (only K5c uses it, until K5c's bins
+// carry boxes for the boxed `depth_tile`): the min of zp over the tile's
+// entries, every entry at every pixel, for the TH x TILE_W tile (ty, tx)
+// whose entries are [starts[gid], starts[gid] + counts[gid]). A thread owns
+// one column and consecutive rows, so each row's stores are coalesced; the
+// block walks its entries in chunks of CHUNK rows copied cooperatively into
+// shared memory. Every thread of the block calls it.
 template <int TH>
-__device__ __forceinline__ void depth_tile(const int* __restrict__ starts,
-                                           const int* __restrict__ counts,
-                                           const float* __restrict__ rows,
-                                           int row_w, int gid, int ty, int tx,
-                                           float* __restrict__ depth,
-                                           int pad_w, float* sh) {
-  constexpr int RPT = TH * TILE_W / THREADS;   // rows per thread
+__device__ __forceinline__ void depth_tile_dense(
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const float* __restrict__ rows, int row_w, int gid, int ty, int tx,
+    float* __restrict__ depth, int pad_w, float* sh) {
+  constexpr int RPT = TH * TILE_W / DENSE_THREADS;   // rows per thread
   const int col = threadIdx.x % TILE_W;
   const int row0 = (threadIdx.x / TILE_W) * RPT;
   const float px = (float)col + ((float)(tx * TILE_W) + 0.5f);
@@ -200,58 +227,24 @@ __device__ __forceinline__ void depth_tile(const int* __restrict__ starts,
     depth[base + static_cast<size_t>(r) * pad_w] = d[r];
 }
 
-__global__ void __launch_bounds__(THREADS)
-depth_tiles_kernel(const int* __restrict__ starts,
-                   const int* __restrict__ counts,
-                   const float* __restrict__ rows, int row_w, int tiles_x,
-                   float* __restrict__ depth, int pad_w) {
-  __shared__ float sh[LANES * CHUNK];
-  const int t = blockIdx.x;
-  const int ty = t / tiles_x;
-  depth_tile<TILE_H>(starts, counts, rows, row_w, t, ty, t - ty * tiles_x,
-                     depth, pad_w, sh);
-}
-
-// K6: block i takes tile i of the window (row-major over its tile columns);
-// the window (first tile row, first tile column, tile rows, tile columns)
-// is read on the card, so the grid covers every tile of the map and the
-// blocks past the window's tile count exit at once. Tile coordinates and
-// starts/counts are the full grid's, so a window tile gets K1's bits.
-template <int TH>
-__global__ void __launch_bounds__(THREADS)
-depth_tiles_win_kernel(const int* __restrict__ window,
-                       const int* __restrict__ starts,
-                       const int* __restrict__ counts,
-                       const float* __restrict__ rows, int row_w,
-                       int n_tiles, int tiles_x, float* __restrict__ depth,
-                       int pad_w) {
-  __shared__ float sh[LANES * CHUNK];
-  const int tw = max(window[3], 0);
-  const int i = blockIdx.x;
-  if (i >= max(window[2], 0) * tw) return;
-  const int ty = window[0] + i / tw;
-  const int tx = window[1] + i % tw;
-  if (ty < 0 || tx < 0 || tx >= tiles_x || ty * tiles_x + tx >= n_tiles)
-    return;
-  depth_tile<TH>(starts, counts, rows, row_w, ty * tiles_x + tx, ty, tx,
-                 depth, pad_w, sh);
-}
-
 // ---------------------------------------------------------------------------
-// K2/K5a and K4/K5b: the raster tile bodies. Entries are evaluated only
-// inside their pixel boxes, in parallel, against tile state held in shared
-// memory.
+// The boxed tile bodies: K2/K5a, K4/K5b and K1/K6. Entries are evaluated
+// only inside their pixel boxes, in parallel, against tile state held in
+// shared memory.
 // ---------------------------------------------------------------------------
 
 constexpr int TILE_PIX = TILE_H * TILE_W;   // 4096
 constexpr int BLOCK_BOX = 1024;   // pixels of the largest box one warp takes
 
-// Per body (MS: K4/K5b, else K2/K5a): threads a block, and the u32 words of
-// tile state per pixel. Shared memory of one block (dynamic, `shared`
-// bytes):
-//   depth  u32 [TILE_PIX]      bits of each pixel's least depth (K4: biased)
-//   K2:  win u64 [TILE_PIX]    (triangle id + 1) << 32 | (entry in tile + 1)
-//   K4:  sd  u32 [4][TILE_PIX] bits of the four per-sample depths; once they
+// The body kinds: CENTRE (K2/K5a), MSAA (K4/K5b), DEPTH (K1/K6).
+enum Kind { CENTRE, MSAA, DEPTH };
+
+// Per body kind and tile height TH (only DEPTH takes 8 as well as 32):
+// threads a block, and the u32 words of tile state per pixel. Shared memory
+// of one block (dynamic, `shared` bytes):
+//   depth  u32 [pix]           bits of each pixel's least depth (K4: biased)
+//   K2:  win u64 [pix]         (triangle id + 1) << 32 | (entry in tile + 1)
+//   K4:  sd  u32 [4][pix]      bits of the four per-sample depths; once they
 //                              are written out, the same bytes hold `win`
 //   wide   i32 [threads]       this chunk's entries with wide boxes
 //   n_wide i32
@@ -261,30 +254,34 @@ constexpr int BLOCK_BOX = 1024;   // pixels of the largest box one warp takes
 // atomicMin / atomicMax only: exact and order-free, whatever order the
 // threads arrive in, which keeps the kernels deterministic (no float atomic
 // is used anywhere).
-template <bool MS>
+template <int KIND, int TH = TILE_H>
 struct Body {
-  static constexpr int threads = MS ? MS_THREADS : CENTRE_THREADS;
-  static constexpr int words = MS ? 5 : 3;
+  static constexpr int pix = TH * TILE_W;
+  static constexpr int threads = KIND == MSAA     ? MS_THREADS
+                                 : KIND == CENTRE ? CENTRE_THREADS
+                                                  : DEPTH_THREADS;
+  static constexpr int words = KIND == MSAA ? 5 : KIND == CENTRE ? 3 : 1;
   static constexpr size_t shared =
-      sizeof(unsigned) * (words * TILE_PIX + threads + 4);
+      sizeof(unsigned) * (words * pix + threads + 4);
 };
 
 struct TileShared {
   unsigned* depth;
   unsigned* sd;                 // K4 only
-  unsigned long long* win;
+  unsigned long long* win;      // K2, K4
   int* wide;
   int* n_wide;
 };
 
-template <bool MS>
+template <int KIND, int TH = TILE_H>
 __device__ __forceinline__ TileShared tile_shared(unsigned char* smem) {
+  using B = Body<KIND, TH>;
   TileShared sh;
   sh.depth = reinterpret_cast<unsigned*>(smem);
-  sh.sd = sh.depth + TILE_PIX;
+  sh.sd = sh.depth + B::pix;
   sh.win = reinterpret_cast<unsigned long long*>(sh.sd);
-  sh.wide = reinterpret_cast<int*>(sh.depth + Body<MS>::words * TILE_PIX);
-  sh.n_wide = sh.wide + Body<MS>::threads;
+  sh.wide = reinterpret_cast<int*>(sh.depth + B::words * B::pix);
+  sh.n_wide = sh.wide + B::threads;
   return sh;
 }
 
@@ -296,15 +293,16 @@ struct Entry {
   int x0, y0, x1, y1;   // its box clamped to the tile, tile-local
 };
 
-// Entry e's box clamped to tile (ty, tx), tile-local -> its pixel count (0
-// where it misses the tile).
+// Entry e's box clamped to the TH x TILE_W tile (ty, tx), tile-local -> its
+// pixel count (0 where it misses the tile).
+template <int TH>
 __device__ __forceinline__ int entry_box(const short4* __restrict__ boxes,
                                          int e, int ty, int tx, Entry& en) {
   const short4 bx = __ldg(boxes + e);
   en.x0 = max((int)bx.x - tx * TILE_W, 0);
-  en.y0 = max((int)bx.y - ty * TILE_H, 0);
+  en.y0 = max((int)bx.y - ty * TH, 0);
   en.x1 = min((int)bx.z - tx * TILE_W, TILE_W - 1);
-  en.y1 = min((int)bx.w - ty * TILE_H, TILE_H - 1);
+  en.y1 = min((int)bx.w - ty * TH, TH - 1);
   return max(en.x1 - en.x0 + 1, 0) * max(en.y1 - en.y0 + 1, 0);
 }
 
@@ -422,34 +420,57 @@ __device__ __forceinline__ void ms_pixel(const Entry& en, int lx, int ly,
   }
 }
 
-template <bool MS, int PASS>
+// K1/K6: entry `en` at tile-local pixel (lx, ly), whose centre is (px, py),
+// in the order of the plain version and of the dense body. Lowers the
+// pixel's depth where the entry covers the centre with zp >= 0 (no zp <= 1
+// test: the clear at 1.0 implies it).
+__device__ __forceinline__ void depth_pixel(const Entry& en, int lx, int ly,
+                                            float px, float py,
+                                            const TileShared& sh) {
+  const float dx = __fsub_rn(px, en.ax);
+  const float dy = __fsub_rn(py, en.ay);
+  const float zp = __fadd_rn(__fadd_rn(en.z0, __fmul_rn(en.zx, dx)),
+                             __fmul_rn(en.zy, dy));
+  if (!(zp >= 0.0f)) return;
+  const float w1 = __fadd_rn(__fmul_rn(en.w1x, dx), __fmul_rn(en.w1y, dy));
+  const float w2 = __fadd_rn(__fmul_rn(en.w2x, dx), __fmul_rn(en.w2y, dy));
+  if ((w1 >= 0.0f) && (w2 >= 0.0f) && (__fadd_rn(w1, w2) <= 1.0f)) {
+    // zp + 0 folds -0 into +0
+    const unsigned bits = __float_as_uint(__fadd_rn(zp, 0.0f));
+    atomicMin(sh.depth + ly * TILE_W + lx, bits);
+  }
+}
+
+template <int KIND, int PASS>
 __device__ __forceinline__ void tile_pixel(const Entry& en, int lx, int ly,
                                            float px, float py,
                                            const TileShared& sh,
                                            unsigned long long key) {
-  if constexpr (MS)
+  if constexpr (KIND == MSAA)
     ms_pixel<PASS>(en, lx, ly, px, py, sh, key);
-  else
+  else if constexpr (KIND == CENTRE)
     centre_pixel<PASS>(en, lx, ly, px, py, sh, key);
+  else
+    depth_pixel(en, lx, ly, px, py, sh);
 }
 
 // Entry `en` over its clamped box, by one thread alone (a small box).
-template <bool MS, int PASS>
+template <int KIND, int PASS, int TH>
 __device__ __forceinline__ void walk_thread(const Entry& en, int ty, int tx,
                                             const TileShared& sh,
                                             unsigned long long key) {
   for (int ly = en.y0; ly <= en.y1; ++ly) {
-    const float py = (float)(ty * TILE_H + ly) + 0.5f;
+    const float py = (float)(ty * TH + ly) + 0.5f;
     for (int lx = en.x0; lx <= en.x1; ++lx)
-      tile_pixel<MS, PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f, py,
-                           sh, key);
+      tile_pixel<KIND, PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f,
+                             py, sh, key);
   }
 }
 
 // Entry `en` over its clamped box, shared by `step` threads (a wide box):
 // thread `first` of them takes the box pixels first, first + step, ... in
 // row-major order.
-template <bool MS, int PASS>
+template <int KIND, int PASS, int TH>
 __device__ __forceinline__ void walk_shared(const Entry& en, int first,
                                             int step, int ty, int tx,
                                             const TileShared& sh,
@@ -460,8 +481,8 @@ __device__ __forceinline__ void walk_shared(const Entry& en, int first,
     const int q = i / bw;
     const int lx = en.x0 + (i - q * bw);
     const int ly = en.y0 + q;
-    tile_pixel<MS, PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f,
-                         (float)(ty * TILE_H + ly) + 0.5f, sh, key);
+    tile_pixel<KIND, PASS>(en, lx, ly, (float)(tx * TILE_W + lx) + 0.5f,
+                           (float)(ty * TH + ly) + 0.5f, sh, key);
   }
 }
 
@@ -471,48 +492,53 @@ __device__ __forceinline__ unsigned long long tile_key(int tid, int local) {
 }
 
 // One pass over the tile's entries [start, start + count), a chunk of one
-// entry per thread at a time: each thread takes one entry, walks its box
-// itself when it holds at most `wide_box` pixels and queues it otherwise.
+// entry per thread at a time (the block takes chunks part, part + parts,
+// ... where `parts` blocks share the tile): each thread takes one entry,
+// walks its box itself when it holds at most `wide_box` pixels and queues
+// it otherwise.
 // The queued entries are then shared: one of at most BLOCK_BOX pixels goes
 // to one warp (the warps take them in turn), its 32 lanes striding over the
 // box; a larger one (up to the whole tile) to all the threads of the block.
 // All of them update the same shared state with the same order-free
 // atomics, so the split changes no bit. Ends with a barrier (where count >
 // 0).
-template <bool MS, int PASS>
+template <int KIND, int PASS, int TH = TILE_H>
 __device__ __forceinline__ void tile_entries(const float* __restrict__ rows,
                                              const short4* __restrict__ boxes,
                                              int row_w, int start, int count,
                                              int ty, int tx, int wide_box,
-                                             const TileShared& sh) {
-  constexpr int NT = Body<MS>::threads;
+                                             const TileShared& sh,
+                                             int part = 0, int parts = 1) {
+  constexpr int NT = Body<KIND, TH>::threads;
+  constexpr bool MS = KIND == MSAA;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   Entry en;
-  for (int c0 = 0; c0 < count; c0 += NT) {
+  for (int c0 = part * NT; c0 < count; c0 += parts * NT) {
     if (threadIdx.x == 0) *sh.n_wide = 0;
     __syncthreads();
     const int local = c0 + threadIdx.x;
     if (local < count) {
-      const int n = entry_box(boxes, start + local, ty, tx, en);
+      const int n = entry_box<TH>(boxes, start + local, ty, tx, en);
       if (n > wide_box)
         sh.wide[atomicAdd(sh.n_wide, 1)] = local;
       else if (n > 0 && entry_planes<MS>(rows, row_w, start + local, en))
-        walk_thread<MS, PASS>(en, ty, tx, sh, tile_key(en.tid, local));
+        walk_thread<KIND, PASS, TH>(en, ty, tx, sh, tile_key(en.tid, local));
     }
     __syncthreads();
     const int n_wide = *sh.n_wide;
     for (int i = 0; i < n_wide; ++i) {
       const int wl = sh.wide[i];
       const bool whole_block =
-          entry_box(boxes, start + wl, ty, tx, en) > BLOCK_BOX;
+          entry_box<TH>(boxes, start + wl, ty, tx, en) > BLOCK_BOX;
       if (!whole_block && i % (NT / 32) != warp) continue;
       if (!entry_planes<MS>(rows, row_w, start + wl, en)) continue;
       if (whole_block)
-        walk_shared<MS, PASS>(en, threadIdx.x, NT, ty, tx, sh,
-                              tile_key(en.tid, wl));
+        walk_shared<KIND, PASS, TH>(en, threadIdx.x, NT, ty, tx, sh,
+                                    tile_key(en.tid, wl));
       else
-        walk_shared<MS, PASS>(en, lane, 32, ty, tx, sh, tile_key(en.tid, wl));
+        walk_shared<KIND, PASS, TH>(en, lane, 32, ty, tx, sh,
+                                    tile_key(en.tid, wl));
     }
     __syncthreads();
   }
@@ -607,7 +633,7 @@ __device__ __forceinline__ void write_tile(
     int tx, const TileShared& sh, float* __restrict__ depth,
     int* __restrict__ tri, float* __restrict__ b1, float* __restrict__ b2,
     float* __restrict__ attr, int pad_h, int pad_w) {
-  constexpr int RPT = TILE_PIX / Body<MS>::threads;
+  constexpr int RPT = TILE_PIX / Body<MS ? MSAA : CENTRE>::threads;
   const int col = threadIdx.x % TILE_W;
   const int row0 = (threadIdx.x / TILE_W) * RPT;
   const size_t plane = static_cast<size_t>(pad_h) * pad_w;
@@ -642,7 +668,7 @@ __device__ __forceinline__ void raster_tile(
     float* __restrict__ depth, int* __restrict__ tri,
     float* __restrict__ b1, float* __restrict__ b2, float* __restrict__ attr,
     int pad_h, int pad_w, unsigned char* smem) {
-  const TileShared sh = tile_shared<false>(smem);
+  const TileShared sh = tile_shared<CENTRE>(smem);
   const int start = starts[gid];
   const int count = counts[gid];
 
@@ -653,13 +679,13 @@ __device__ __forceinline__ void raster_tile(
     sh.win[i] = 0ull;
   }
   // (the first barrier of tile_entries orders the clears before the updates)
-  tile_entries<false, 1>(rows, boxes, row_w, start, count, ty, tx, wide_box,
-                         sh);
+  tile_entries<CENTRE, 1>(rows, boxes, row_w, start, count, ty, tx, wide_box,
+                          sh);
   // the winning entry: among the entries whose zp equals the pixel's depth,
   // the larger triangle id, then the larger entry index (what the plain
   // version's max over id * span + index picks)
-  tile_entries<false, 2>(rows, boxes, row_w, start, count, ty, tx, wide_box,
-                         sh);
+  tile_entries<CENTRE, 2>(rows, boxes, row_w, start, count, ty, tx, wide_box,
+                          sh);
   __syncthreads();
   write_tile<false, VEC>(rows, row_w, n_attrs, start, ty, tx, sh, depth,
                          tri, b1, b2, attr, pad_h, pad_w);
@@ -719,7 +745,7 @@ __device__ __forceinline__ void raster_tile_ms(
     float* __restrict__ b1, float* __restrict__ b2, float* __restrict__ attr,
     float* __restrict__ sdepth, int pad_h, int pad_w, unsigned char* smem) {
   constexpr int RPT = TILE_PIX / MS_THREADS;
-  const TileShared sh = tile_shared<true>(smem);
+  const TileShared sh = tile_shared<MSAA>(smem);
   const int start = starts[gid];
   const int count = counts[gid];
 
@@ -729,7 +755,7 @@ __device__ __forceinline__ void raster_tile_ms(
   for (int i = threadIdx.x; i < 4 * TILE_PIX; i += MS_THREADS)
     sh.sd[i] = __float_as_uint(1.0f);
   // (the first barrier of tile_entries orders the clears before the updates)
-  tile_entries<true, 1>(rows, boxes, row_w, start, count, ty, tx, wide_box,
+  tile_entries<MSAA, 1>(rows, boxes, row_w, start, count, ty, tx, wide_box,
                         sh);
   __syncthreads();
 
@@ -753,7 +779,7 @@ __device__ __forceinline__ void raster_tile_ms(
   // depth, the larger triangle id, then the larger entry index (what the
   // plain version's max over id * span + index picks). 0: only the clear.
   for (int i = threadIdx.x; i < TILE_PIX; i += MS_THREADS) sh.win[i] = 0ull;
-  tile_entries<true, 2>(rows, boxes, row_w, start, count, ty, tx, wide_box,
+  tile_entries<MSAA, 2>(rows, boxes, row_w, start, count, ty, tx, wide_box,
                         sh);
   __syncthreads();
   write_tile<true, VEC>(rows, row_w, n_attrs, start, ty, tx, sh, depth, tri,
@@ -802,8 +828,101 @@ raster_tiles_ms_multi_kernel(const int* __restrict__ starts,
                         sdepth + o * 4, pad_h, pad_w, tile_smem);
 }
 
-// K5c: K1 over the instance x tile grid (see raster_tiles_multi_kernel).
-__global__ void __launch_bounds__(THREADS)
+// One tile of K1/K6: tile (ty, tx) of the TH x TILE_W grid, whose entries
+// are [starts[gid], starts[gid] + counts[gid]) with their pixel boxes. The
+// least zp >= 0 of the entries covering each pixel centre, cleared to 1.0.
+// Every thread of the tile's cluster (DEPTH_CLUSTER blocks) calls it. The
+// leader (rank 0) holds the tile's state; block r takes the chunks r,
+// r + DEPTH_CLUSTER, ... of the entries and lowers the leader's state
+// through distributed shared memory. A tile without entries needs no state
+// and no barrier: its leader stores the clear, the other blocks leave.
+template <int TH>
+__device__ __forceinline__ void depth_tile(
+    const int* __restrict__ starts, const int* __restrict__ counts,
+    const float* __restrict__ rows, const short4* __restrict__ boxes,
+    int row_w, int gid, int ty, int tx, int wide_box,
+    float* __restrict__ depth, int pad_w, unsigned char* smem) {
+  using B = Body<DEPTH, TH>;
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int count = counts[gid];
+  TileShared sh = tile_shared<DEPTH, TH>(smem);
+  const uint4* own = reinterpret_cast<const uint4*>(sh.depth);
+  if (count > 0) {
+    if (rank == 0) {
+      for (int i = threadIdx.x; i < B::pix; i += B::threads)
+        sh.depth[i] = __float_as_uint(1.0f);
+    } else {
+      sh.depth = cluster.map_shared_rank(sh.depth, 0);
+    }
+    cluster.sync();   // the clear before any update
+    tile_entries<DEPTH, 1, TH>(rows, boxes, row_w, starts[gid], count, ty,
+                               tx, wide_box, sh, rank, DEPTH_CLUSTER);
+    // every update before the store; the leader's state outlives them
+    cluster.sync();
+  }
+  if (rank != 0) return;
+  // the tile out, four pixels a thread at a time: a warp stores 512
+  // consecutive bytes of a row (pad_w is a multiple of TILE_W, the map
+  // 16-byte aligned)
+  const unsigned one = __float_as_uint(1.0f);
+  for (int i = threadIdx.x; i < B::pix / 4; i += B::threads) {
+    const int r = i / (TILE_W / 4);
+    const int c = i - r * (TILE_W / 4);
+    const size_t o = static_cast<size_t>(ty * TH + r) * pad_w
+                     + tx * TILE_W + 4 * c;
+    *reinterpret_cast<uint4*>(depth + o) =
+        count > 0 ? own[i] : make_uint4(one, one, one, one);
+  }
+}
+
+// K1: cluster t (blocks DEPTH_CLUSTER * t ...) takes tile t.
+__global__ void __cluster_dims__(DEPTH_CLUSTER, 1, 1)
+__launch_bounds__(DEPTH_THREADS)
+depth_tiles_kernel(const int* __restrict__ starts,
+                   const int* __restrict__ counts,
+                   const float* __restrict__ rows,
+                   const short4* __restrict__ boxes, int row_w, int tiles_x,
+                   int wide_box, float* __restrict__ depth, int pad_w) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int t = blockIdx.x / DEPTH_CLUSTER;
+  const int ty = t / tiles_x;
+  depth_tile<TILE_H>(starts, counts, rows, boxes, row_w, t, ty,
+                     t - ty * tiles_x, wide_box, depth, pad_w, tile_smem);
+}
+
+// K6: cluster i takes tile i of the window (row-major over its tile
+// columns); the window (first tile row, first tile column, tile rows, tile
+// columns) is read on the card, so the grid covers every tile of the map
+// and the clusters past the window's tile count exit at once. Tile
+// coordinates and starts/counts are the full grid's, so a window tile gets
+// K1's bits.
+template <int TH>
+__global__ void __cluster_dims__(DEPTH_CLUSTER, 1, 1)
+__launch_bounds__(DEPTH_THREADS)
+depth_tiles_win_kernel(const int* __restrict__ window,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ counts,
+                       const float* __restrict__ rows,
+                       const short4* __restrict__ boxes, int row_w,
+                       int n_tiles, int tiles_x, int wide_box,
+                       float* __restrict__ depth, int pad_w) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int tw = max(window[3], 0);
+  const int i = blockIdx.x / DEPTH_CLUSTER;
+  if (i >= max(window[2], 0) * tw) return;
+  const int ty = window[0] + i / tw;
+  const int tx = window[1] + i % tw;
+  if (ty < 0 || tx < 0 || tx >= tiles_x || ty * tiles_x + tx >= n_tiles)
+    return;
+  depth_tile<TH>(starts, counts, rows, boxes, row_w, ty * tiles_x + tx, ty,
+                 tx, wide_box, depth, pad_w, tile_smem);
+}
+
+// K5c: the dense body over the instance x tile grid (see
+// raster_tiles_multi_kernel).
+__global__ void __launch_bounds__(DENSE_THREADS)
 depth_tiles_multi_kernel(const int* __restrict__ starts,
                          const int* __restrict__ counts,
                          const float* __restrict__ rows, int row_w,
@@ -814,45 +933,52 @@ depth_tiles_multi_kernel(const int* __restrict__ starts,
   const int inst = g / inst_tiles;
   const int local = g - inst * inst_tiles;
   const int ty = local / tiles_x;
-  depth_tile<TILE_H>(starts, counts, rows, row_w, g, ty, local - ty * tiles_x,
-                     depth + static_cast<size_t>(inst) * pad_h * pad_w, pad_w,
-                     sh);
+  depth_tile_dense<TILE_H>(starts, counts, rows, row_w, g, ty,
+                           local - ty * tiles_x,
+                           depth + static_cast<size_t>(inst) * pad_h * pad_w,
+                           pad_w, sh);
 }
 
 }  // namespace
 
-// starts: i32 [n_tiles + 1]; counts: i32 [n_tiles]; rows: f32 [E, row_w];
-// depth: f32 [pad_h, pad_w] with pad_h = tiles_y * 32, pad_w = tiles_x * 128.
-// Returns cudaGetLastError() after the launch.
-extern "C" int smr_depth_tiles(const void* starts, const void* counts,
-                               const void* rows, int row_w, int n_tiles,
-                               int tiles_x, void* depth, int pad_w,
-                               void* stream) {
-  if (n_tiles <= 0) return 0;
-  if (row_w < LANES) return static_cast<int>(cudaErrorInvalidValue);
-  depth_tiles_kernel<<<n_tiles, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(rows), row_w, tiles_x,
-      static_cast<float*>(depth), pad_w);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Whether K2/K4 and their crowd forms take these rows: lanes 0..11 and the
-// winner's planes are read as aligned float4 loads, so a row is a multiple
-// of 4 lanes at a 16-byte address.
+// Whether the boxed bodies (K1, K2, K4, K6 and the crowd's K5a, K5b) take
+// these rows: lanes 0..11 and the winner's planes are read as aligned
+// float4 loads, so a row is a multiple of 4 lanes at a 16-byte address.
 static bool tile_rows_ok(const void* rows, int row_w, int n_attrs) {
   return n_attrs >= 0 && n_attrs <= MAX_ATTRS && row_w >= 12
          && row_w % 4 == 0 && reinterpret_cast<size_t>(rows) % 16 == 0
          && (n_attrs == 0 || row_w >= BASE_WIDTH + 3 + 3 * n_attrs);
 }
 
+// K1. starts: i32 [n_tiles + 1]; counts: i32 [n_tiles]; rows: f32 [E,
+// row_w]; boxes: i16 [E, 4] and wide_box as smr_raster_tiles takes them;
+// depth: f32 [pad_h, pad_w] with pad_h = tiles_y * 32, pad_w = tiles_x *
+// 128, at a 16-byte address. Returns cudaGetLastError() after the launch.
+// A cluster of DEPTH_CLUSTER blocks per tile; the depth bodies' shared
+// memory stays under the 48 KB default.
+extern "C" int smr_depth_tiles(const void* starts, const void* counts,
+                               const void* rows, const void* boxes,
+                               int row_w, int n_tiles, int tiles_x,
+                               int wide_box, void* depth, int pad_w,
+                               void* stream) {
+  if (n_tiles <= 0) return 0;
+  if (!tile_rows_ok(rows, row_w, 0) || reinterpret_cast<size_t>(depth) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  depth_tiles_kernel<<<n_tiles * DEPTH_CLUSTER, DEPTH_THREADS,
+                       Body<DEPTH>::shared,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(starts), static_cast<const int*>(counts),
+      static_cast<const float*>(rows), static_cast<const short4*>(boxes),
+      row_w, tiles_x, wide_box, static_cast<float*>(depth), pad_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Let `kernel` take the dynamic shared memory of its body (over 48 KB).
-template <bool MS, typename Kernel>
+template <int KIND, typename Kernel>
 static cudaError_t allow_shared(Kernel kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(Body<MS>::shared));
+                              static_cast<int>(Body<KIND>::shared));
 }
 
 // K2. starts: i32 [n_tiles + 1]; counts: i32 [n_tiles]; rows: f32 [E,
@@ -871,9 +997,9 @@ extern "C" int smr_raster_tiles(const void* starts, const void* counts,
   if (n_tiles <= 0) return 0;
   if (!tile_rows_ok(rows, row_w, n_attrs))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t rc = allow_shared<false>(raster_tiles_kernel);
+  const cudaError_t rc = allow_shared<CENTRE>(raster_tiles_kernel);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  raster_tiles_kernel<<<n_tiles, CENTRE_THREADS, Body<false>::shared,
+  raster_tiles_kernel<<<n_tiles, CENTRE_THREADS, Body<CENTRE>::shared,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const float*>(rows), static_cast<const short4*>(boxes),
@@ -894,9 +1020,9 @@ extern "C" int smr_raster_tiles_ms(const void* starts, const void* counts,
   if (n_tiles <= 0) return 0;
   if (!tile_rows_ok(rows, row_w, n_attrs))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t rc = allow_shared<true>(raster_tiles_ms_kernel);
+  const cudaError_t rc = allow_shared<MSAA>(raster_tiles_ms_kernel);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  raster_tiles_ms_kernel<<<n_tiles, MS_THREADS, Body<true>::shared,
+  raster_tiles_ms_kernel<<<n_tiles, MS_THREADS, Body<MSAA>::shared,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const float*>(rows), static_cast<const short4*>(boxes),
@@ -908,30 +1034,34 @@ extern "C" int smr_raster_tiles_ms(const void* starts, const void* counts,
 }
 
 // K6. window: i32 [4] on the card (first tile row, first tile column, tile
-// rows, tile columns); starts/counts/rows as smr_depth_tiles over
+// rows, tile columns); starts/counts/rows/boxes as smr_depth_tiles over
 // tile_h x 128 tiles (tile_h 8 or 32); depth: f32 [tiles_y * tile_h,
 // pad_w], already filled with 1.0 by the caller (only window tiles are
-// written). One block per tile of the map.
+// written). One cluster per tile of the map.
 extern "C" int smr_depth_tiles_win(const void* window, const void* starts,
                                    const void* counts, const void* rows,
-                                   int row_w, int n_tiles, int tiles_x,
-                                   int tile_h, void* depth, int pad_w,
-                                   void* stream) {
+                                   const void* boxes, int row_w, int n_tiles,
+                                   int tiles_x, int tile_h, int wide_box,
+                                   void* depth, int pad_w, void* stream) {
   if (n_tiles <= 0) return 0;
-  if (row_w < LANES || (tile_h != 8 && tile_h != 32))
+  if (!tile_rows_ok(rows, row_w, 0) || reinterpret_cast<size_t>(depth) % 16
+      || (tile_h != 8 && tile_h != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto w = static_cast<const int*>(window);
   const auto s = static_cast<const int*>(starts);
   const auto c = static_cast<const int*>(counts);
   const auto r = static_cast<const float*>(rows);
+  const auto b = static_cast<const short4*>(boxes);
   const auto d = static_cast<float*>(depth);
   if (tile_h == 32)
-    depth_tiles_win_kernel<32><<<n_tiles, THREADS, 0, st>>>(
-        w, s, c, r, row_w, n_tiles, tiles_x, d, pad_w);
+    depth_tiles_win_kernel<32><<<n_tiles * DEPTH_CLUSTER, DEPTH_THREADS,
+                                 Body<DEPTH, 32>::shared, st>>>(
+            w, s, c, r, b, row_w, n_tiles, tiles_x, wide_box, d, pad_w);
   else
-    depth_tiles_win_kernel<8><<<n_tiles, THREADS, 0, st>>>(
-        w, s, c, r, row_w, n_tiles, tiles_x, d, pad_w);
+    depth_tiles_win_kernel<8><<<n_tiles * DEPTH_CLUSTER, DEPTH_THREADS,
+                                Body<DEPTH, 8>::shared, st>>>(
+            w, s, c, r, b, row_w, n_tiles, tiles_x, wide_box, d, pad_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -947,7 +1077,7 @@ extern "C" int smr_depth_tiles_multi(const void* starts, const void* counts,
                                      int pad_h, int pad_w, void* stream) {
   if (n_inst <= 0 || inst_tiles <= 0) return 0;
   if (row_w < LANES) return static_cast<int>(cudaErrorInvalidValue);
-  depth_tiles_multi_kernel<<<n_inst * inst_tiles, THREADS, 0,
+  depth_tiles_multi_kernel<<<n_inst * inst_tiles, DENSE_THREADS, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const float*>(rows), row_w, inst_tiles, tiles_x,
@@ -965,10 +1095,10 @@ extern "C" int smr_raster_tiles_multi(const void* starts, const void* counts,
   if (n_inst <= 0 || inst_tiles <= 0) return 0;
   if (!tile_rows_ok(rows, row_w, n_attrs))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t rc = allow_shared<false>(raster_tiles_multi_kernel);
+  const cudaError_t rc = allow_shared<CENTRE>(raster_tiles_multi_kernel);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   raster_tiles_multi_kernel<<<n_inst * inst_tiles, CENTRE_THREADS,
-                              Body<false>::shared,
+                              Body<CENTRE>::shared,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const float*>(rows), static_cast<const short4*>(boxes),
@@ -991,10 +1121,10 @@ extern "C" int smr_raster_tiles_ms_multi(const void* starts,
   if (n_inst <= 0 || inst_tiles <= 0) return 0;
   if (!tile_rows_ok(rows, row_w, n_attrs))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t rc = allow_shared<true>(raster_tiles_ms_multi_kernel);
+  const cudaError_t rc = allow_shared<MSAA>(raster_tiles_ms_multi_kernel);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   raster_tiles_ms_multi_kernel<<<n_inst * inst_tiles, MS_THREADS,
-                                 Body<true>::shared,
+                                 Body<MSAA>::shared,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       static_cast<const float*>(rows), static_cast<const short4*>(boxes),

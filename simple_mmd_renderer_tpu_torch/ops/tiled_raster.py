@@ -21,12 +21,12 @@ goes to the larger triangle id):
    attributes) and K4 (`raster_tiles_ms`: K2 with any-sample coverage and
    per-sample depth, for 4x MSAA) — hand-written CUDA kernels in
    `csrc/tiled_raster.cu` for CUDA tensors, the plain PyTorch versions
-   (`*_plain`) for CPU tensors. Both give the same bits. K2 and K4 (and
-   their crowd forms K5a, K5b) evaluate an entry only inside the box of
-   pixels its triangle can reach (`_pixel_boxes`: at the pixel centre for
-   K2, over the MSAA samples for K4; carried into entry order by the
-   binning); the plain versions stay brute force over the whole tile, so
-   the comparison also checks the boxes.
+   (`*_plain`) for CPU tensors. Both give the same bits. K1, K6, K2 and K4
+   (and the crowd forms K5a, K5b of K2 and K4) evaluate an entry only
+   inside the box of pixels its triangle can reach (`_pixel_boxes`: at the
+   pixel centre for K1, K6 and K2, over the MSAA samples for K4; carried
+   into entry order by the binning); the plain versions stay brute force
+   over the whole tile, so the comparison also checks the boxes.
 3. Triangles covering more than `e_max` tiles (at most BIG_TRI_CAP of them)
    are rasterized exactly by a full-frame loop (`_scan_subset`) and merged
    by depth, a big triangle winning a tie. When `e_max` covers the whole
@@ -42,12 +42,13 @@ The crowd (`rasterize_*_crowd`, at the end of the module) rasterizes I
 instances of one topology at once: one binning over the valid triangles of
 all instances, keyed by the global tile inst * n_tiles + tile, and one
 launch of K5a (`raster_tiles_multi`), K5b (`raster_tiles_ms_multi`) or K5c
-(`depth_tiles_multi`) over the instance x tile grid, each running K2's,
-K4's or K1's tile body; oversized triangles merge per instance through the
-same capped scan. The reference bins a crowd in up to four
-validity-compacted passes of static size and merges them in draw order;
-the port compacts to the exact count, so one pass does, with the same
-result.
+(`depth_tiles_multi`) over the instance x tile grid, each running K2's or
+K4's tile body or, for K5c, a dense depth body that evaluates every entry
+over its whole tile (its bins carry no boxes). Oversized triangles merge
+per instance through the same capped scan. The reference bins a crowd in
+up to four validity-compacted passes of static size and merges them in
+draw order; the port compacts to the exact count, so one pass does, with
+the same result.
 
 Host synchronisations (for a later CUDA-graph change): the compacted
 triangle count (`nonzero`) and the big-triangle count, once per raster
@@ -129,16 +130,17 @@ def _setup_rows(s, tri_ids, attrs=None):
     return torch.stack(cols, dim=-1)
 
 
-# Pixel boxes (K2, K4 and their crowd forms): the margin in pixels around a
-# triangle's exact box, and the largest conditioning G * max(1, extent) a
-# box is trusted for
+# Pixel boxes (K1, K6, K2, K4 and the crowd forms of K2, K4): the margin in
+# pixels around a triangle's exact box, and the largest conditioning
+# G * max(1, extent) a box is trusted for
 BOX_MARGIN = 1
 BOX_TRUST = 2.0 ** 17
 _BOX_MIN, _BOX_MAX = -BOX_MARGIN, 2 ** 15 - 1
-# the most pixels of a box (clamped to its tile) that one thread of K2, K4,
-# K5a or K5b walks alone; a wider box is shared by the lanes of a warp or,
-# from 1,024 pixels on, by the whole block (scripts/tune_torch_raster_ms.py:
-# K4's and K5b's times are flat from 128 to 1,024 and worse on either side)
+# the most pixels of a box (clamped to its tile) that one thread of K1, K6,
+# K2, K4, K5a or K5b walks alone; a wider box is shared by the lanes of a
+# warp or, from 1,024 pixels on, by the whole block
+# (scripts/tune_torch_raster_ms.py: K4's and K5b's times are flat from 128
+# to 1,024 and worse on either side; K1's and K6's from 64 to 256)
 WIDE_BOX = 128
 
 
@@ -335,7 +337,7 @@ def _eval_entries(rows, tile_of, tiles_x, zmax, tile_h=TILE_H, boxes=None):
     if zmax:
         ok = ok & (zp <= 1.0)
     if boxes is not None:
-        ok = ok & _in_boxes(boxes, tile_of, tiles_x)
+        ok = ok & _in_boxes(boxes, tile_of, tiles_x, tile_h)
     zm = torch.where(ok, zp, torch.full_like(zp, 2.0))
     return zm, rows[:, 10].to(torch.int64)
 
@@ -358,11 +360,14 @@ def _untile(t, tiles_x, tiles_y, n_inst=None):
 
 
 def _depth_plain(sorted_rows, starts, counts, width, height, tile_h,
-                 n_inst=None):
+                 n_inst=None, boxes=None):
     """Per-tile min of zp over covering entries (zp >= 0) on the tile_h x
     TILE_W grid, cleared to 1. Returns depth [pad_h, pad_w]; with n_inst,
     starts/counts run over the global tile inst * n_tiles + tile and the
-    result is [n_inst, pad_h, pad_w]."""
+    result is [n_inst, pad_h, pad_w]. Brute force over every pixel of an
+    entry's tile: `boxes` [E, 4] (in entry order, `_pixel_boxes`) masks
+    each entry to its box, as the kernels cull; it is for checks of the
+    boxes only, the dispatchers never pass it."""
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile_h)
     depth = torch.ones((counts.shape[0], tile_h, TILE_W),
                        dtype=torch.float32, device=sorted_rows.device)
@@ -370,30 +375,35 @@ def _depth_plain(sorted_rows, starts, counts, width, height, tile_h,
     for b in range(0, eidx.shape[0], _BLOCK_ENTRIES):
         sl = slice(b, b + _BLOCK_ENTRIES)
         zm, _ = _eval_entries(sorted_rows[eidx[sl]], tile_of[sl] % n_tiles,
-                              tiles_x, zmax=False, tile_h=tile_h)
+                              tiles_x, zmax=False, tile_h=tile_h,
+                              boxes=None if boxes is None else boxes[eidx[sl]])
         _reduce_into(depth, tile_of[sl], zm, "amin")
     return _untile(depth, tiles_x, tiles_y, n_inst)
 
 
-def depth_tiles_plain(sorted_rows, starts, counts, width, height):
+def depth_tiles_plain(sorted_rows, starts, counts, width, height,
+                      boxes=None):
     """Plain K1: per-tile min of zp over covering entries (zp >= 0),
-    cleared to 1. Returns depth [pad_h, pad_w]."""
-    return _depth_plain(sorted_rows, starts, counts, width, height, TILE_H)
+    cleared to 1. Returns depth [pad_h, pad_w]. `boxes` as in
+    _depth_plain."""
+    return _depth_plain(sorted_rows, starts, counts, width, height, TILE_H,
+                        boxes=boxes)
 
 
 def depth_tiles_win_plain(sorted_rows, starts, counts, window, width,
-                          height, tile_h):
+                          height, tile_h, boxes=None):
     """Plain K6: K1 over the tiles of `window` (int32 [4]: first tile row,
     first tile column, tile rows, tile columns of the full tile_h x TILE_W
     grid), pasted into a map of 1.0. starts/counts are the full grid's, so
-    a window tile gets K1's bits there. Returns depth [pad_h, pad_w]."""
+    a window tile gets K1's bits there. Returns depth [pad_h, pad_w].
+    `boxes` as in _depth_plain."""
     tiles_x, _, n_tiles = _grid(width, height, tile_h)
     oy, ox, th, tw = (int(v) for v in window.tolist())
     gid = torch.arange(n_tiles, device=counts.device)
     ty, tx = gid // tiles_x, gid % tiles_x
     inside = (ty >= oy) & (ty < oy + th) & (tx >= ox) & (tx < ox + tw)
     return _depth_plain(sorted_rows, starts, torch.where(inside, counts, 0),
-                        width, height, tile_h)
+                        width, height, tile_h, boxes=boxes)
 
 
 def raster_tiles_plain(sorted_rows, starts, counts, width, height, n_attrs,
@@ -453,16 +463,17 @@ MSAA4_OFFSETS = ((-0.125, -0.375), (0.375, -0.125),
 MSAA4_EXTENT = 0.375    # the samples' farthest reach from the centre
 
 
-def _in_boxes(boxes, tile_of, tiles_x):
+def _in_boxes(boxes, tile_of, tiles_x, tile_h=TILE_H):
     """[B, TH, TW] mask of the pixels of each entry's tile (`tile_of`: the
-    tile within its own frame) that lie inside the entry's box."""
+    tile within its own frame of tile_h x TILE_W tiles) that lie inside the
+    entry's box."""
     dev = boxes.device
     ty = tile_of // tiles_x
     tx = tile_of - ty * tiles_x
     xs = (torch.arange(TILE_W, device=dev)[None, None, :]
           + (tx * TILE_W)[:, None, None])
-    ys = (torch.arange(TILE_H, device=dev)[None, :, None]
-          + (ty * TILE_H)[:, None, None])
+    ys = (torch.arange(tile_h, device=dev)[None, :, None]
+          + (ty * tile_h)[:, None, None])
     b = boxes.long()[:, :, None, None]
     return ((xs >= b[:, 0]) & (xs <= b[:, 2])
             & (ys >= b[:, 1]) & (ys <= b[:, 3]))
@@ -620,10 +631,10 @@ def _check_bins(sorted_rows, starts, counts, width, height, min_lanes, name,
 
 
 def _check_boxes(boxes, rows, name):
-    """The entries' pixel boxes as K2, K4 and their crowd forms take them:
-    int16 [E, 4] beside rows of a multiple of 4 lanes. None means no
-    entry's reach is known: each gets the whole range, and its tile
-    evaluates it over all of its pixels."""
+    """The entries' pixel boxes as K1, K6, K2, K4 and the crowd forms of K2
+    and K4 take them: int16 [E, 4] beside rows of a multiple of 4 lanes.
+    None means no entry's reach is known: each gets the whole range, and
+    its tile evaluates it over all of its pixels."""
     n = rows.shape[0]
     if rows.shape[1] < 12 or rows.shape[1] % 4:
         raise ValueError(f"{name}: rows must hold a multiple of 4 lanes, at "
@@ -640,8 +651,11 @@ def _check_boxes(boxes, rows, name):
     return boxes.contiguous()
 
 
-def depth_tiles(sorted_rows, starts, counts, width, height):
-    """K1 dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
+def depth_tiles(sorted_rows, starts, counts, width, height, boxes=None):
+    """K1 dispatch: plain version for CPU tensors (brute force: it ignores
+    the boxes), CUDA kernel for CUDA, which evaluates an entry only inside
+    its box (`boxes` int16 [E, 4] in entry order, from `_bin`; None: every
+    entry over its whole tile)."""
     global depth_launches
     dev = sorted_rows.device
     if dev.type == "cpu":
@@ -650,13 +664,16 @@ def depth_tiles(sorted_rows, starts, counts, width, height):
         raise ValueError(f"depth_tiles: unsupported device {dev}")
     rows, starts, counts = _check_bins(sorted_rows, starts, counts, width,
                                        height, 11, "depth_tiles")
+    boxes = _check_boxes(boxes, rows, "depth_tiles")
     tiles_x, tiles_y, n_tiles = _grid(width, height)
-    pad_w = tiles_x * TILE_W
-    depth = torch.empty((tiles_y * TILE_H, pad_w), dtype=torch.float32,
-                        device=dev)
+    pad_h, pad_w = tiles_y * TILE_H, tiles_x * TILE_W
+    if max(pad_h, pad_w) > _BOX_MAX:
+        raise ValueError("depth_tiles: frame beyond the boxes' range")
+    depth = torch.empty((pad_h, pad_w), dtype=torch.float32, device=dev)
     rc = _build.lib().smr_depth_tiles(
-        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(), rows.shape[1],
-        n_tiles, tiles_x, depth.data_ptr(), pad_w, _build.stream_ptr(dev))
+        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(),
+        boxes.data_ptr(), rows.shape[1], n_tiles, tiles_x, WIDE_BOX,
+        depth.data_ptr(), pad_w, _build.stream_ptr(dev))
     _build.check(rc, "smr_depth_tiles")
     depth_launches += 1
     return depth
@@ -743,8 +760,10 @@ def raster_tiles_ms(sorted_rows, starts, counts, width, height, n_attrs,
 
 
 def depth_tiles_win(sorted_rows, starts, counts, window, width, height,
-                    tile_h):
-    """K6 dispatch: plain version for CPU tensors, CUDA kernel for CUDA.
+                    tile_h, boxes=None):
+    """K6 dispatch: plain version for CPU tensors (brute force: it ignores
+    the boxes), CUDA kernel for CUDA, which evaluates an entry only inside
+    its box (`boxes` as depth_tiles takes them, over tile_h-row bins).
     `window` is an int32 [4] tensor on the rows' device (see
     depth_tiles_win_plain); the kernel reads it on the card, so sizing the
     window takes no host synchronisation. Its grid covers every tile of
@@ -765,22 +784,26 @@ def depth_tiles_win(sorted_rows, starts, counts, window, width, height,
         raise ValueError(f"depth_tiles_win: unsupported device {dev}")
     rows, starts, counts = _check_bins(sorted_rows, starts, counts, width,
                                        height, 11, "depth_tiles_win", tile_h)
+    boxes = _check_boxes(boxes, rows, "depth_tiles_win")
     tiles_x, tiles_y, n_tiles = _grid(width, height, tile_h)
-    pad_w = tiles_x * TILE_W
-    depth = torch.ones((tiles_y * tile_h, pad_w), dtype=torch.float32,
-                       device=dev)
+    pad_h, pad_w = tiles_y * tile_h, tiles_x * TILE_W
+    if max(pad_h, pad_w) > _BOX_MAX:
+        raise ValueError("depth_tiles_win: frame beyond the boxes' range")
+    depth = torch.ones((pad_h, pad_w), dtype=torch.float32, device=dev)
     rc = _build.lib().smr_depth_tiles_win(
         window.contiguous().data_ptr(), starts.data_ptr(), counts.data_ptr(),
-        rows.data_ptr(), rows.shape[1], n_tiles, tiles_x, tile_h,
-        depth.data_ptr(), pad_w, _build.stream_ptr(dev))
+        rows.data_ptr(), boxes.data_ptr(), rows.shape[1], n_tiles, tiles_x,
+        tile_h, WIDE_BOX, depth.data_ptr(), pad_w,
+        _build.stream_ptr(dev))
     _build.check(rc, "smr_depth_tiles_win")
     depth_win_launches += 1
     return depth
 
 
-def _run_depth_kernel(sorted_rows, starts, counts, width, height):
-    return depth_tiles(sorted_rows, starts, counts, width,
-                       height)[:height, :width]
+def _run_depth_kernel(sorted_rows, starts, counts, width, height,
+                      boxes=None):
+    return depth_tiles(sorted_rows, starts, counts, width, height,
+                       boxes)[:height, :width]
 
 
 def _run_kernel(sorted_rows, starts, counts, width, height, n_attrs,
@@ -889,9 +912,12 @@ def rasterize_depth_tiled(clip, tris, width, height, cull=raster.CULL_BACK,
     s = raster.setup(clip, tris, width, height, cull, cv=cv)
     t = tris.shape[0]
     rows = _setup_rows(s, torch.arange(t, device=clip.device))
-    sorted_rows, starts, counts, big = _bin(
-        s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T)
-    depth = _run_depth_kernel(sorted_rows, starts, counts, width, height)
+    # boxes: [entry-order boxes] on the card, [] on the CPU
+    sorted_rows, starts, counts, big, *boxes = _bin(
+        s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T,
+        boxes=_kernel_boxes(s, 0.0))
+    depth = _run_depth_kernel(sorted_rows, starts, counts, width, height,
+                              *boxes)
     if _covers_all(e_max, width, height):
         return depth
     sub = _big_subset(s, big)
@@ -1016,11 +1042,13 @@ def rasterize_depth_tiled_window(clip, tris, width, height,
     s = raster.setup(clip, tris, width, height, cull, cv=cv)
     t = tris.shape[0]
     rows = _setup_rows(s, torch.arange(t, device=clip.device))
-    sorted_rows, starts, counts, big = _bin(
-        s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T, tile_h)
+    # boxes: [entry-order boxes] on the card, [] on the CPU
+    sorted_rows, starts, counts, big, *boxes = _bin(
+        s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T, tile_h,
+        boxes=_kernel_boxes(s, 0.0))
     window = _caster_window(s, width, height, tile_h)
     depth = depth_tiles_win(sorted_rows, starts, counts, window, width,
-                            height, tile_h)[:height, :width]
+                            height, tile_h, *boxes)[:height, :width]
     if _covers_all(e_max, width, height, tile_h):
         return depth
     sub = _big_subset(s, big)

@@ -1,20 +1,24 @@
-"""The pixel boxes that let K2, K4 and their crowd forms K5a, K5b skip the
-pixels an entry cannot cover (`tiled_raster._pixel_boxes`), checked on the
-CPU, where no kernel runs: the plain rasters masked to the boxes must give
-the bits of the unmasked, brute-force ones. Each check runs at both sample
-extents the boxes are made for: the MSAA samples' 0.375 (K4, K5b; the test
-ids without a prefix) and the pixel centre's 0 (K2, K5a; ids and names
-with "centre").
+"""The pixel boxes that let K1, K6, K2, K4 and the crowd forms K5a, K5b of
+K2, K4 skip the pixels an entry cannot cover (`tiled_raster._pixel_boxes`),
+checked on the CPU, where no kernel runs: the plain rasters masked to the
+boxes must give the bits of the unmasked, brute-force ones. Each check runs
+at both sample extents the boxes are made for: the MSAA samples' 0.375 (K4,
+K5b; the test ids without a prefix) and the pixel centre's 0 (K2, K5a; ids
+and names with "centre"; the depth rasters K1 and K6 take the centre's
+boxes too: ids with "k1-" and "k6-").
 
 (a) masked == unmasked, bit for bit, on adversarial triangle sets
-    (tests/torch_box_meshes.py), single and crowd, entries shuffled;
+    (tests/torch_box_meshes.py), single and crowd, entries shuffled; the
+    depth rasters over 32-row bins (K1, K6) and 8-row bins (K6);
 (b) a search (hypothesis, and a bulk random one) for a trusted triangle
     and a pixel outside its box that the unmasked coverage test admits;
-(c) the boxes `_bin` and `_bin_crowd` return line up with their rows;
+(c) the boxes `_bin` (at tile heights 32 and 8) and `_bin_crowd` return
+    line up with their rows;
 (d) the entry points that now carry boxes still match the reference
     (`simple_mmd_renderer_tpu`, its Pallas kernels in interpret mode) at
     the tolerances of tests/test_torch_raster.py,
-    tests/test_torch_msaa_window.py and tests/test_torch_crowd_raster.py.
+    tests/test_torch_msaa_window.py and tests/test_torch_crowd_raster.py
+    (the depth entry points, K1's and K6's, are held there).
 """
 
 import importlib.util
@@ -72,23 +76,49 @@ def _assert_same_bits(got, want):
         assert torch.equal(g, w), name
 
 
+def _depth_plain_for(tile_h):
+    """The plain depth raster over tile_h-row bins, as the kernel that takes
+    them runs it: K1's at 32 rows, K6's over a window of the whole grid at
+    8. -> fn(rows, starts, counts, w, h, boxes=None)."""
+    if tile_h == tr.TILE_H:
+        return tr.depth_tiles_plain
+
+    def k6(rows, starts, counts, w, h, boxes=None):
+        tiles_x, tiles_y, _ = tr._grid(w, h, tile_h)
+        window = torch.tensor([0, 0, tiles_y, tiles_x], dtype=torch.int32)
+        return tr.depth_tiles_win_plain(rows, starts, counts, window, w, h,
+                                        tile_h, boxes=boxes)
+    return k6
+
+
 # at the centre every set at one size: the sizes differ only in how the
-# tiles cut the frame, which the MSAA cases cover
-@pytest.mark.parametrize("kind,size,extent", _at_both_extents(
-    [(k, s) for k in KINDS for s in SIZES],
+# tiles cut the frame, which the MSAA cases cover; the depth rasters (tile_h
+# given) at the centre's extent over 32-row (K1) and 8-row (K6) bins
+@pytest.mark.parametrize("kind,size,tile_h,extent", _at_both_extents(
+    [(k, s, None) for k in KINDS for s in SIZES],
     [f"{k}-{i}" for k in KINDS for i in SIZE_IDS],
-    centre=[f"{k}-{SIZE_IDS[0]}" for k in KINDS]))
-def test_masked_plain_equals_unmasked(kind, size, extent):
+    centre=[f"{k}-{SIZE_IDS[0]}" for k in KINDS])
+    + [pytest.param(k, SIZES[0], th, CENTRE, id=f"{name}-{k}")
+       for th, name in ((32, "k1"), (8, "k6-tile8")) for k in KINDS])
+def test_masked_plain_equals_unmasked(kind, size, tile_h, extent):
     w, h = size
     t = 1500 if kind == "subpixel" else 500
     rows, starts, counts, boxes = boxed_bins(kind, 11, t, w, h, n_attrs=1,
-                                             sample_extent=extent)
+                                             sample_extent=extent,
+                                             tile_h=tile_h or tr.TILE_H)
     assert int(counts.sum()) > 50
-    plain = _plain(extent)
-    want = plain(rows, starts, counts, w, h, 1)
-    got = plain(rows, starts, counts, w, h, 1, boxes=boxes)
-    _assert_same_bits(got, want)
-    assert _some_cover(want, extent)
+    if tile_h is None:
+        plain = _plain(extent)
+        want = plain(rows, starts, counts, w, h, 1)
+        got = plain(rows, starts, counts, w, h, 1, boxes=boxes)
+        _assert_same_bits(got, want)
+        assert _some_cover(want, extent)
+    else:
+        plain = _depth_plain_for(tile_h)
+        want = plain(rows, starts, counts, w, h)
+        assert torch.equal(plain(rows, starts, counts, w, h, boxes=boxes),
+                           want)
+        assert bool((want < 1.0).any())
     idx, _ = tr._tile_entries(starts, counts)
     whole = int((boxes[idx, 2] == WHOLE).sum())
     if kind == "slivers":
@@ -223,9 +253,12 @@ def test_hunt_finds_a_false_cover_without_the_trust_test(monkeypatch):
     assert int(trusted.sum()) > 0.9 * 12000
 
 
-@pytest.mark.parametrize("compact,extent", _at_both_extents(
-    [(False,), (True,)], ["all", "compact"]))
-def test_boxes_line_up_with_sorted_rows(compact, extent):
+# 32-row bins at both extents; 8-row ones (K6's) at the centre's
+@pytest.mark.parametrize("compact,tile_h,extent", _at_both_extents(
+    [(False, 32), (True, 32)], ["all", "compact"])
+    + [pytest.param(c, 8, CENTRE, id=f"centre-{i}-tile8")
+       for c, i in ((False, "all"), (True, "compact"))])
+def test_boxes_line_up_with_sorted_rows(compact, tile_h, extent):
     rng = np.random.default_rng(3)
     clip, tris = _random_mesh(rng, t=300)
     clip, tris = torch.as_tensor(clip), torch.as_tensor(tris)
@@ -234,9 +267,9 @@ def test_boxes_line_up_with_sorted_rows(compact, extent):
     rows = tr._setup_rows(s, torch.arange(300))
     boxes = tr._pixel_boxes(s, extent)
     assert boxes.dtype == torch.int16 and boxes.shape == (300, 4)
-    plain = tr._bin(s, rows, 320, 192, 9, compact)
+    plain = tr._bin(s, rows, 320, 192, 9, compact, tile_h)
     sorted_rows, starts, counts, big, sorted_boxes = tr._bin(
-        s, rows, 320, 192, 9, compact, boxes=boxes)
+        s, rows, 320, 192, 9, compact, tile_h, boxes=boxes)
     for a, b in zip(plain, (sorted_rows, starts, counts, big)):
         assert torch.equal(a, b)
     assert sorted_boxes.shape == (sorted_rows.shape[0], 4)

@@ -11,13 +11,15 @@ K1, K3, K6 and the depth/tri/b1/b2 (and K4's per-sample depth) of K2 and
 K4 must be bit-exact; K2's and K4's attributes within 1e-6 (same
 arithmetic, one IEEE division). The crowd kernels K5a, K5b and K5c are
 held the same way against their plain versions, give the same bits in two
-runs, and fold to K2, K4 and K1 on one instance's own bins. K2, K4, K5a
-and K5b, which evaluate an entry only inside its pixel box with integer
-atomics on shared tile state, are also held against the brute-force plain
-versions on the adversarial sets of tests/torch_box_meshes.py (boxes at
-the pixel centre for K2/K5a, over the MSAA samples for K4/K5b), on tiles
-of only wide and only small boxes, with shuffled entries, and twice for
-equal bits.
+runs, and fold to K2, K4 and K1 on one instance's own bins. K1, K6, K2,
+K4, K5a and K5b, which evaluate an entry only inside its pixel box with
+integer atomics on shared tile state, are also held against the
+brute-force plain versions on the adversarial sets of
+tests/torch_box_meshes.py (boxes at the pixel centre for K1/K6/K2/K5a,
+over the MSAA samples for K4/K5b), on tiles of only wide and only small
+boxes, with shuffled entries, and twice for equal bits; K6's map must
+equal K1's on the same bins and boxes, and over 8-row bins K1's over
+32-row bins of the same mesh.
 """
 
 import dataclasses
@@ -50,7 +52,8 @@ def _bins(device, t, spread, size, w, h, cull, e_max, z=(0.1, 0.9),
           seed=0, n_attrs=3, sample_extent=0.0, tile_h=tr.TILE_H,
           boxes=False):
     """(rows, starts, counts, caster window) of a random mesh; with `boxes`
-    the entries' pixel boxes at `sample_extent` take the window's place."""
+    (rows, starts, counts, the entries' pixel boxes at `sample_extent`,
+    caster window)."""
     rng = np.random.default_rng(seed)
     v0 = rng.uniform(-spread, spread, (t, 2))
     d1 = rng.uniform(-size, size, (t, 2))
@@ -67,12 +70,13 @@ def _bins(device, t, spread, size, w, h, cull, e_max, z=(0.1, 0.9),
     s["tris_v"] = tris
     rows = tr._setup_rows(s, torch.arange(t, device=device),
                           attrs if n_attrs else None)
+    window = tr._caster_window(s, w, h, tile_h)
     if boxes:
         bins = tr._bin(s, rows, w, h, e_max, t >= tr.COMPACT_MIN_T, tile_h,
                        boxes=tr._pixel_boxes(s, sample_extent))
-        return bins[:3] + bins[4:]
+        return bins[:3] + bins[4:] + (window,)
     bins = tr._bin(s, rows, w, h, e_max, t >= tr.COMPACT_MIN_T, tile_h)[:3]
-    return bins + (tr._caster_window(s, w, h, tile_h),)
+    return bins + (window,)
 
 
 CASES = [
@@ -236,6 +240,45 @@ def test_depth_win_kernel_bit_exact(cuda, case, tile_h):
         assert torch.equal(got, tr.depth_tiles(rows, starts, counts, w, h))
 
 
+@pytest.mark.parametrize("case", CASES, ids=["random", "compacted", "dense"])
+def test_depth_kernels_with_boxes_bit_exact(cuda, case):
+    """K1 and K6 with the centre boxes the shadow pass bins: equal to the
+    brute-force plain versions (the dense case: more entries in a tile than
+    a block takes at once, every overlap a z-tie) and to themselves without
+    boxes (None: every entry over its whole tile); K6 over the casters'
+    window of 32-row bins equal to K1 on the same bins and boxes, and over
+    8-row bins equal to K1 over 32-row bins of the same mesh (e_max covers
+    either grid, so no triangle is left to the big-triangle merge)."""
+    t, spread, size, w, h, cull, _, z = case
+    e_max = tr._grid(w, h, 8)[2]
+    rows, starts, counts, boxes, window = _bins(
+        cuda, t, spread, size, w, h, cull, e_max, z, n_attrs=0, boxes=True)
+    before = (tr.depth_launches, tr.depth_win_launches)
+    k1 = tr.depth_tiles(rows, starts, counts, w, h, boxes)
+    k6 = tr.depth_tiles_win(rows, starts, counts, window, w, h, 32, boxes)
+    assert (tr.depth_launches, tr.depth_win_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert torch.equal(k1, tr.depth_tiles_plain(rows, starts, counts, w, h))
+    assert torch.equal(k6, tr.depth_tiles_win_plain(rows, starts, counts,
+                                                    window, w, h, 32))
+    assert torch.equal(k1, tr.depth_tiles(rows, starts, counts, w, h))
+    assert torch.equal(k6, tr.depth_tiles_win(rows, starts, counts, window,
+                                              w, h, 32))
+    assert torch.equal(k6, k1)
+    assert bool((k1 < 1.0).any())
+    if spread < 0.1:      # the dense case: tiles beyond a block's chunk
+        assert int(counts.max()) > 1024
+    rows, starts, counts, boxes, window = _bins(
+        cuda, t, spread, size, w, h, cull, e_max, z, n_attrs=0, tile_h=8,
+        boxes=True)
+    k6 = tr.depth_tiles_win(rows, starts, counts, window, w, h, 8, boxes)
+    assert torch.equal(k6, tr.depth_tiles_win_plain(rows, starts, counts,
+                                                    window, w, h, 8))
+    assert torch.equal(k6, tr.depth_tiles_win(rows, starts, counts, window,
+                                              w, h, 8))
+    assert torch.equal(k6[:h, :w], k1[:h, :w])
+
+
 def test_default_device_is_cuda(cuda):
     """The entry points run on the card unless asked for the CPU."""
     scene = build_sample_scene(0.25, 64, 48, 64, n_frames=30, fps_keys=10,
@@ -369,49 +412,97 @@ def test_crowd_step_runs_on_the_card_and_matches_the_cpu(cuda):
 
 def _assert_ms_equal(got, want):
     """Bit-exact planes (all but the attributes: depth, tri, b1, b2 and,
-    for K4/K5b, sdepth), attributes within 1e-6."""
+    for K4/K5b, sdepth; the depth kernels' maps), attributes within 1e-6."""
     for i in range(len(got)):
         if i != 4:
             assert torch.equal(got[i], want[i]), i
-    assert float((got[4] - want[4]).abs().max()) <= 1e-6
+    if len(got) > 4:
+        assert float((got[4] - want[4]).abs().max()) <= 1e-6
 
 
-# the raster kernels that cull by pixel boxes: (MSAA?, boxes' sample
-# extent, single wrapper, its plain version, crowd wrapper, its plain
-# version, the single wrapper's launch counter)
+def _whole_window(w, h, tile_h):
+    """K6's window over every tile of the grid."""
+    tiles_x, tiles_y, _ = tr._grid(w, h, tile_h)
+    return torch.tensor([0, 0, tiles_y, tiles_x], dtype=torch.int32,
+                        device="cuda")
+
+
+def _depth_pair(rows, starts, counts, w, h, n_attrs, boxes=None):
+    """K1 and K6 (over the whole window) on the same 32-row bins."""
+    del n_attrs
+    return (tr.depth_tiles(rows, starts, counts, w, h, boxes),
+            tr.depth_tiles_win(rows, starts, counts, _whole_window(w, h, 32),
+                               w, h, 32, boxes))
+
+
+def _depth_pair_plain(rows, starts, counts, w, h, n_attrs):
+    want = tr.depth_tiles_plain(rows, starts, counts, w, h)
+    return want, want
+
+
+def _k6_tile8(rows, starts, counts, w, h, n_attrs, boxes=None):
+    del n_attrs
+    return (tr.depth_tiles_win(rows, starts, counts, _whole_window(w, h, 8),
+                               w, h, 8, boxes),)
+
+
+def _k6_tile8_plain(rows, starts, counts, w, h, n_attrs):
+    del n_attrs
+    return (tr.depth_tiles_win_plain(rows, starts, counts,
+                                     _whole_window(w, h, 8), w, h, 8),)
+
+
+# the kernels that cull by pixel boxes: (boxes' sample extent, single
+# wrapper, its plain version, crowd wrapper, its plain version, the single
+# wrapper's launch counter, tile height of the bins). The depth kernels
+# take (rows, starts, counts, w, h, n_attrs, boxes) too, n_attrs unused,
+# and give a tuple of maps: "depth" K1 and K6 on 32-row bins (the plain
+# version's map twice), "depth8" K6 on 8-row bins.
 BOXED = {
     True: (tr.MSAA4_EXTENT, tr.raster_tiles_ms, tr.raster_tiles_ms_plain,
            tr.raster_tiles_ms_multi, tr.raster_tiles_ms_multi_plain,
-           "raster_ms_launches"),
+           "raster_ms_launches", tr.TILE_H),
     False: (0.0, tr.raster_tiles, tr.raster_tiles_plain,
             tr.raster_tiles_multi, tr.raster_tiles_multi_plain,
-            "raster_launches"),
+            "raster_launches", tr.TILE_H),
+    "depth": (0.0, _depth_pair, _depth_pair_plain, None, None,
+              "depth_launches", tr.TILE_H),
+    "depth8": (0.0, _k6_tile8, _k6_tile8_plain, None, None,
+               "depth_win_launches", 8),
 }
+DEPTH_KERNELS = ("depth", "depth8")
 
 
 def _covered(planes, ms):
-    """Some pixel covered: a sample depth below 1 (K4), a triangle (K2)."""
+    """Some pixel covered: a sample depth below 1 (K4), a triangle (K2), a
+    depth below 1 (K1, K6)."""
+    if ms in DEPTH_KERNELS:
+        return bool((planes[0] < 1.0).any())
     return bool((planes[5] < 1.0).any() if ms else (planes[1] >= 0).any())
 
 
-def _by_kernel(ids):
-    """pytest params of (MSAA?, id): K4/K5b under their ids, K2/K5a under
-    "centre-" + id."""
+def _by_kernel(ids, depth=False):
+    """pytest params of (kernel, id): K4/K5b under their ids, K2/K5a under
+    "centre-" + id; with `depth`, K1 and K6 on 32-row bins under "depth-"
+    + id and K6 on 8-row bins under "depth8-" + id."""
     return ([pytest.param(True, i, id=i) for i in ids]
-            + [pytest.param(False, i, id="centre-" + i) for i in ids])
+            + [pytest.param(False, i, id="centre-" + i) for i in ids]
+            + [pytest.param(k, i, id=f"{k}-{i}") for k in DEPTH_KERNELS
+               for i in ids if depth])
 
 
-@pytest.mark.parametrize("ms,kind", _by_kernel(KINDS))
+@pytest.mark.parametrize("ms,kind", _by_kernel(KINDS, depth=True))
 def test_raster_ms_kernel_adversarial_boxes(cuda, ms, kind):
-    """K4 (and K2) with the entries' pixel boxes against the brute-force
-    plain version (which takes none), entries shuffled within their tiles;
-    the integer atomics are order-free, so a second run gives the same
-    bits."""
-    extent, fn, plain, _, _, counter = BOXED[ms]
+    """K4 (and K2, K1, K6) with the entries' pixel boxes against the
+    brute-force plain version (which takes none), entries shuffled within
+    their tiles; the integer atomics are order-free, so a second run gives
+    the same bits."""
+    extent, fn, plain, _, _, counter, tile_h = BOXED[ms]
     w, h = 320, 192
     rows, starts, counts, boxes = boxed_bins(kind, 11, 600, w, h, n_attrs=3,
                                              device=cuda,
-                                             sample_extent=extent)
+                                             sample_extent=extent,
+                                             tile_h=tile_h)
     before = getattr(tr, counter)
     got = fn(rows, starts, counts, w, h, 3, boxes)
     assert getattr(tr, counter) == before + 1
@@ -426,7 +517,7 @@ def test_raster_ms_kernel_adversarial_boxes(cuda, ms, kind):
 @pytest.mark.parametrize("ms,kind", _by_kernel(KINDS))
 def test_raster_ms_multi_kernel_adversarial_boxes(cuda, ms, kind):
     """K5b (and K5a) the same way, over a crowd of three sets."""
-    extent, _, _, fn, plain, _ = BOXED[ms]
+    extent, _, _, fn, plain = BOXED[ms][:5]
     w, h, n_inst = 256, 144, 3
     rows, starts, counts, boxes = boxed_bins(kind, 23, 400, w, h, n_attrs=3,
                                              n_inst=n_inst, device=cuda,
@@ -445,7 +536,8 @@ def test_raster_kernel_edge_ties_the_clear(cuda):
     clear's depth 1.0 and win it on the id rule (depth 1, their id), as in
     the plain version."""
     case = (300, 0.9, 0.25, 320, 192, raster.CULL_NONE, 9, (1.0, 1.0))
-    rows, starts, counts, boxes = _bins(cuda, *case, n_attrs=3, boxes=True)
+    rows, starts, counts, boxes, _ = _bins(cuda, *case, n_attrs=3,
+                                           boxes=True)
     want = tr.raster_tiles_plain(rows, starts, counts, 320, 192, 3)
     won = want[1] >= 0
     assert bool(won.any()) and bool((want[0][won] == 1.0).all())
@@ -456,10 +548,12 @@ def test_raster_kernel_edge_ties_the_clear(cuda):
 
 def _wide_only_and_small_only_tiles(cuda, ms):
     """A 256x32 frame of two tiles, each with more entries than one chunk
-    of the kernel (1,024): the left one holds only boxes wider than WIDE_BOX
-    (the warps share them), the right one only small ones (a thread each),
-    all at one depth, so that every overlap is a tie on the id rule. K4's
-    boxes over the MSAA samples, K2's at the pixel centre."""
+    of the kernel (1,024; the depth kernels' 256, so that a tile's entries
+    spread over six blocks of its cluster): the left one holds only
+    boxes wider than WIDE_BOX (the warps share them), the right one only
+    small ones (a thread each), all at one depth, so that every overlap is
+    a tie on the id rule. K4's boxes over the MSAA samples, K2's, K1's and
+    K6's at the pixel centre."""
     extent, fn, plain = BOXED[ms][:3]
     rng = np.random.default_rng(17)
     n = 1400
@@ -468,7 +562,7 @@ def _wide_only_and_small_only_tiles(cuda, ms):
            + rng.uniform(-3, 3, (n, 3, 2)))
     # (at the centre, triangles of 1.5 pixels a side: most of those of 0.7
     # hold no pixel centre and are culled)
-    jitter = 0.7 if ms else 1.5
+    jitter = 0.7 if extent else 1.5
     small = (rng.uniform([130, 1], [254, 31], (n, 1, 2))
              + rng.uniform(-jitter, jitter, (n, 3, 2)))
     xy = np.concatenate([big, small]).astype(np.float32)
@@ -491,8 +585,8 @@ def _wide_only_and_small_only_tiles(cuda, ms):
     _assert_ms_equal(fn(rows, starts, counts, 256, 32, 0, boxes), want)
     # and with no boxes at all: every entry wide, over its whole tile
     _assert_ms_equal(fn(rows, starts, counts, 256, 32, 0), want)
-    assert bool((want[1][:, :128] >= 0).any())
-    assert bool((want[1][:, 128:] >= 0).any())
+    cover = want[0] < 1.0 if ms in DEPTH_KERNELS else want[1] >= 0
+    assert bool(cover[:, :128].any()) and bool(cover[:, 128:].any())
 
 
 def test_raster_ms_kernel_wide_only_and_small_only_tiles(cuda):
@@ -503,11 +597,17 @@ def test_raster_kernel_wide_only_and_small_only_tiles(cuda):
     _wide_only_and_small_only_tiles(cuda, False)
 
 
+def test_depth_kernels_wide_only_and_small_only_tiles(cuda):
+    """K1 and K6 on the 32-row tiles above."""
+    _wide_only_and_small_only_tiles(cuda, "depth")
+
+
 def _reject_bad_boxes(cuda, ms):
     extent, fn, _, multi = BOXED[ms][:4]
     rows, starts, counts, boxes = boxed_bins("random", 1, 50, 128, 64,
                                              device=cuda,
-                                             sample_extent=extent)
+                                             sample_extent=extent,
+                                             tile_h=BOXED[ms][6])
     with pytest.raises(TypeError):
         fn(rows, starts, counts, 128, 64, 0, boxes.int())
     with pytest.raises(TypeError):
@@ -516,6 +616,8 @@ def _reject_bad_boxes(cuda, ms):
         fn(rows, starts, counts, 128, 64, 0, boxes.cpu())
     with pytest.raises(ValueError):       # rows not a multiple of 4 lanes
         fn(rows[:, :13], starts, counts, 128, 64, 0, boxes)
+    if multi is None:
+        return
     with pytest.raises(TypeError):        # the crowd form: one instance
         multi(rows, starts, counts, 1, 128, 64, 0, boxes[:-1])
     with pytest.raises(ValueError):
@@ -528,3 +630,8 @@ def test_raster_ms_wrappers_reject_bad_boxes(cuda):
 
 def test_raster_wrappers_reject_bad_boxes(cuda):
     _reject_bad_boxes(cuda, False)
+
+
+@pytest.mark.parametrize("kernel", DEPTH_KERNELS)
+def test_depth_wrappers_reject_bad_boxes(cuda, kernel):
+    _reject_bad_boxes(cuda, kernel)

@@ -1,8 +1,8 @@
 """Adversarial triangle sets for the pixel boxes of the port's rasters.
 
 Shared by tests/test_torch_boxes.py (CPU: the masked plain versions against
-the unmasked ones) and tests/test_torch_cuda.py (card: K2, K4, K5a and K5b
-against their plain versions). numpy and torch only, no JAX. Triangles are
+the unmasked ones) and tests/test_torch_cuda.py (card: K1, K6, K2, K4, K5a
+and K5b against their plain versions). numpy and torch only, no JAX. Triangles are
 given in screen space, so that vertices can sit exactly on pixel centres, on
 sample points and on tile and frame edges; `screen_setup` then computes
 what `render.raster.setup` computes from clip coordinates.
@@ -101,12 +101,14 @@ def shuffle_within_tiles(rng, starts, counts, *per_entry):
 
 
 def boxed_bins(kind, seed, t, w, h, n_attrs=0, n_inst=None, device="cpu",
-               e_max=9, sample_extent=tr.MSAA4_EXTENT):
+               e_max=9, sample_extent=tr.MSAA4_EXTENT, tile_h=tr.TILE_H):
     """Bins of an adversarial set with their pixel boxes -> (sorted_rows,
     starts, counts, boxes), entries shuffled within their tiles. With
     n_inst, a crowd of that many sets over one topology (`_bin_crowd`, at
     most 6 tiles a triangle). `sample_extent` 0.375 for the MSAA raster
-    (K4, K5b), 0 for the centre-sampled one (K2, K5a)."""
+    (K4, K5b), 0 for the centre-sampled one and the depth rasters (K2,
+    K5a, K1, K6). `tile_h`: the single binning's tile height (K6 also takes
+    8)."""
     rng = np.random.default_rng(seed + 1000)
     if n_inst is None:
         xy, z = screen_triangles(kind, seed, t, w, h)
@@ -127,7 +129,7 @@ def boxed_bins(kind, seed, t, w, h, n_attrs=0, n_inst=None, device="cpu",
     boxes = tr._pixel_boxes(s, sample_extent)
     if n_inst is None:
         rows, starts, counts, _, boxes = tr._bin(s, rows, w, h, e_max, False,
-                                                 boxes=boxes)
+                                                 tile_h, boxes=boxes)
     else:
         rows, starts, counts, _, boxes = tr._bin_crowd(s, rows, w, h, boxes)
     rows, boxes = shuffle_within_tiles(rng, starts.cpu(), counts.cpu(), rows,
