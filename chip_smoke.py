@@ -23,20 +23,20 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    (more entries than a block takes at once, all at one depth). Depth,
    triangle ids, barycentrics and per-sample depths must be bit-exact,
    attributes within 1e-6; K6's pasted map must equal K1's over the same
-   bins and boxes. K1, K6, K2, K4, K5a and K5b get the entries' pixel boxes
-   the frame passed them (asserted); their plain versions take none and
-   evaluate every entry over its whole tile, and K1's, K2's and K4's dense
-   tiles run with boxes and without. Prints mismatch counts, both times
-   (CUDA events; the record's host-paced, and for K1 and K6 also back to
-   back, `primed_ms`) and each kernel's bound (for the six kernels with
-   boxes by two rules: each entry over its tile's columns, as for the
-   kernels without boxes, and over its exact box, the rule their record
-   carries).
+   bins and boxes. K1, K6, K2, K4, K5a, K5b and K5c get the entries' pixel
+   boxes the frame passed them (asserted); their plain versions take none
+   and evaluate every entry over its whole tile, and K1's, K2's, K4's and
+   K5c's dense tiles run with boxes and without. Prints mismatch counts,
+   both times (CUDA events; the record's host-paced, and for K1, K6, K5c
+   and K3 also back to back, `primed_ms`) and each kernel's bound (for the
+   seven kernels with boxes by two rules: each entry over its tile's
+   columns, as for the kernels without boxes, and over its exact box, the
+   rule their record carries).
    The crowd kernels K5c, K5a and K5b are held the same way on the
    arguments of frame 1 of the 64-instance crowd, K3 on its [64,256,256]
    batch of shadow maps, and one instance's planes must equal the
-   single-instance kernel's on that instance's own bins (K5c vs K1 without
-   boxes, K5a vs K2, K5b vs K4).
+   single-instance kernel's on that instance's own bins with the same
+   boxes (K5c vs K1, K5a vs K2, K5b vs K4).
 4. flagship: the sample character at density 2.0, 1920x1080, 2048^2 shadow
    map, physics on, at msaa=1 and at msaa=4 + shadow_window: 3 warm-up
    frames each, then 20 timed frames of each through `Scene.rollout`, in
@@ -166,10 +166,28 @@ def primed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def back_to_back(fn) -> str:
-    """The least and the median of 6 `primed_ms` means of 20 launches."""
-    runs = sorted(primed_ms(fn, 20) for _ in range(6))
+def back_to_back_runs(fn) -> list[float]:
+    """6 `primed_ms` means of 20 launches, least first."""
+    return sorted(primed_ms(fn, 20) for _ in range(6))
+
+
+def back_to_back(fn, runs=None) -> str:
+    """The least and the median of 6 `primed_ms` means of 20 launches (or
+    of `runs`, as back_to_back_runs gives them)."""
+    runs = runs or back_to_back_runs(fn)
     return f"least {runs[0]:.4f}, median {runs[3]:.4f} ms"
+
+
+def pcf_line(label, fn, bnd) -> str:
+    """K3's time back to back beside its bound; a card / bound under 1
+    means the maps stayed in the 50 MB L2 cache between the launches (the
+    bound counts them read from device memory)."""
+    runs = back_to_back_runs(fn)
+    ratio = runs[0] / bnd[0]
+    note = (" (under 1: the maps stay in the L2 cache from one launch to the "
+            "next)" if ratio < 1 else "")
+    return (f"kernels: {label} back to back {back_to_back(fn, runs)}; bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]}), card / bound {ratio:.2f}{note}")
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -189,10 +207,11 @@ def bin_work(rows, starts, counts, width, height, tile_h, lanes,
     it can cover, the rows holding a sample point (row + 0.5 + dy) inside
     the entry's y-range (setup lanes 11-12), each over the tile's columns in
     the frame (the rows carry no x-range). With the entries' pixel `boxes`
-    (K2, K4, K5a, K5b) the columns are those of the exact box (the stored
-    one less its margin; an entry given the whole range counts its tile's
-    columns) inside the tile and the frame: the least work, neither the
-    margin nor the kernel's split into small and wide boxes. The boxes are
+    (K1, K2, K4, K6 and the crowd's K5a, K5b, K5c) the columns are those of
+    the exact box (the stored one less its margin; an entry given the whole
+    range counts its tile's columns) inside the tile and the frame: the
+    least work, neither the margin nor the kernel's split into small and
+    wide boxes. The boxes are
     an aid of the kernel, not an input the function needs: their bytes are
     not counted."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
@@ -286,9 +305,10 @@ def boxed_bound(key, args, boxes, out, ms):
 
 
 def depth_bound(key, bins, tile_h, boxes, out_bytes, ms):
-    """The bound of K1 or K6 on their bins (rows, starts, counts, width,
-    height): each real entry's lanes 0-10, starts and counts, and
-    `out_bytes` (the map, K6's window) moved; OPS_DEPTH for each pixel an
+    """The bound of K1, K6 or K5c on their bins (rows, starts, counts,
+    width, height; K5c's over the global tiles of its instances): each real
+    entry's lanes 0-10, starts and counts, and `out_bytes` (the map or
+    maps, K6's window) moved; OPS_DEPTH for each pixel an
     entry can cover, over its exact box (the rule the record carries),
     printed beside the rows rule (its rows over its tile's columns)."""
     rules = []
@@ -465,6 +485,8 @@ def check_kernels(scene, state, results):
         f"{sorted(k3_groups)[5]:.4f}, max {max(k3_groups):.4f} ms")
     k3_bound = bound(4 * (k3_args[0].numel() + k3_args[1].numel()
                           + lit.numel()), lit.numel() * OPS_PCF)
+    log(pcf_line(f"K3 pcf_lit_map {tuple(lit.shape)}",
+                 lambda: shadow_pcf.pcf_lit_map(*k3_args), k3_bound))
 
     # K2 at bench shapes (A = 3: normals)
     k2 = tr.raster_tiles(*k2_args)
@@ -751,22 +773,42 @@ def check_kernels_crowd(crowd, results):
         f"{int(cb.sum())} (max {int(cb.max())}) at msaa=4")
     mid = n_inst // 2       # the instance whose fold is checked
 
-    # K5c on all instances' shadow bins
+    # K5c on all instances' shadow bins, with the frame's boxes; the plain
+    # version is brute force
+    if len(c_args) != 7 or c_args[6] is None:
+        raise AssertionError("the crowd frame passed K5c no pixel boxes")
+    c_boxes = c_args[6]
     got = tr.depth_tiles_multi(*c_args)
-    want = tr.depth_tiles_multi_plain(*c_args)
+    want = tr.depth_tiles_multi_plain(*c_args[:6])
     c_bad = mismatches(got, want, c_out)
     c_err = float((got - want).abs().max())
-    # (K1 without boxes: K5c's bins carry none, every entry over its tile)
+    # one instance's map against K1 on its own bins with the same boxes
     c_fold = mismatches(got[mid], tr.depth_tiles(
         c_args[0], *instance_bins(c_args[1], cc, mid, s_tiles), *c_args[4:6],
-        None))
+        c_boxes))
     c_ms = cuda_ms(lambda: tr.depth_tiles_multi(*c_args), 20)
-    c_plain = cuda_ms(lambda: tr.depth_tiles_multi_plain(*c_args), 3)
+    c_plain = cuda_ms(lambda: tr.depth_tiles_multi_plain(*c_args[:6]), 3)
     log(f"kernels: K5c depth_tiles_multi {tuple(got.shape)}: mismatches "
-        f"{c_bad}, instance {mid} vs K1 on its own bins {c_fold}, "
-        f"{c_ms:.4f} ms vs plain {c_plain:.4f} ms")
-    n_bytes, evals = bin_work(*c_args[:3], *c_args[4:6], tr.TILE_H, ROW_LANES)
-    c_bound = bound(n_bytes + 4 * got.numel(), evals * OPS_DEPTH)
+        f"{c_bad}, instance {mid} vs K1 on its own bins with the same boxes "
+        f"{c_fold}, {c_ms:.4f} ms vs plain {c_plain:.4f} ms; back to back "
+        f"{back_to_back(lambda: tr.depth_tiles_multi(*c_args))}")
+    c_bins = c_args[:3] + c_args[4:6]
+    c_bound = depth_bound("K5c", c_bins, tr.TILE_H, c_boxes, 4 * got.numel(),
+                          c_ms)
+
+    # K5c on a dense crowd of two instances, each the dense tile's bins,
+    # with boxes (small ones, a thread each) and without (every entry wide,
+    # over its whole tile)
+    rd, sd, cd, bd = dense_bins(cc.device)
+    n = int(sd[-1])
+    rd2, bd2 = torch.cat([rd[:n], rd[:n]]), torch.cat([bd[:n], bd[:n]])
+    sd2, cd2 = torch.cat([sd[:-1], sd + n]), torch.cat([cd, cd])
+    want = tr.depth_tiles_multi_plain(rd2, sd2, cd2, 2, 128, 64)
+    c_dense = [mismatches(tr.depth_tiles_multi(rd2, sd2, cd2, 2, 128, 64,
+                                               bx), want)
+               for bx in (bd2, None)]
+    log(f"kernels: dense tile ({int(cd.max())} entries in one tile, two "
+        f"instances): K5c with and without boxes, mismatches {c_dense}")
 
     # K3 on the crowd's batch of shadow maps
     lit = shadow_pcf.pcf_lit_map(*k3_args)
@@ -779,6 +821,8 @@ def check_kernels_crowd(crowd, results):
     log(f"kernels: K3 pcf_lit_map on the crowd's maps {tuple(lit.shape)}: "
         f"mismatches {k3_bad}, {k3_ms:.4f} ms vs plain {k3_plain:.4f} ms, "
         f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+    log(pcf_line(f"K3 pcf_lit_map on the crowd's maps {tuple(lit.shape)}",
+                 lambda: shadow_pcf.pcf_lit_map(*k3_args), k3_bound))
 
     # K5a and K5b on all instances' character bins (A = 3: normals)
     for key, args in (("K5a", a_args), ("K5b", b_args)):
@@ -811,8 +855,8 @@ def check_kernels_crowd(crowd, results):
         bnd = boxed_bound(key, args[:3] + args[4:7], args[7], k, ms)
         rec[key] = (bad, attr_err, fold, err, ms, plain_ms, bnd)
 
-    if c_bad or c_fold or k3_bad or any(any(r[0]) or r[2]
-                                        for r in rec.values()):
+    if c_bad or c_fold or any(c_dense) or k3_bad or any(
+            any(r[0]) or r[2] for r in rec.values()):
         raise AssertionError("a crowd kernel disagrees with its plain "
                              "version or with the single-instance kernel")
     if not all(r[1] <= 1e-6 for r in rec.values()):

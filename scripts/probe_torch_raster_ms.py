@@ -1,23 +1,28 @@
-"""Where the boxed kernels' time goes: variants of their tile bodies, timed.
+"""Where the hand-written kernels' time goes: variants of their sources,
+timed.
 
     python3 scripts/probe_torch_raster_ms.py [--only base,no_walk,...]
+        [--parent DIR]
 
 The machine with the card has no kernel profiler, so this script takes the
 three boxed tile bodies of `csrc/tiled_raster.cu` apart - the
 centre-sampled raster (`raster_tile`: K2, K5a), the MSAA one
-(`raster_tile_ms`: K4, K5b) and the depth body (`depth_tile`: K1, K6),
-which share their entry walks (the two rasters their epilogue too) - by
-building VARIANTS of the source (a few lines substituted, compiled beside
-the real library with the same flags) and timing each on the arguments the
-six kernels get in frame 1 of their paths, as `chip_smoke.py` captures
-them: K1 and K2 in the flagship scene at msaa=1, K6 and K4 at msaa=4 +
-shadow_window (1920x1080, shadow map 2048^2), K5a and K5b in the
-64-instance crowd at density 2.0 (256x144, msaa=1 and msaa=4). Some
-variants compute the same function another way (their outputs must equal
-the real kernels', bit for bit); the others leave a phase out, give wrong
-pictures, and only tell what that phase costs:
+(`raster_tile_ms`: K4, K5b) and the depth body (`depth_tile`: K1, K6,
+K5c), which share their entry walks (the two rasters their epilogue too) -
+and the PCF stencil of `csrc/shadow_pcf.cu` (K3), by building VARIANTS of a
+source (a few lines substituted, compiled beside the real library with the
+same flags) and timing each on the arguments the kernels get in frame 1 of
+their paths, as `chip_smoke.py` captures them: K1, K2 and K3 in the
+flagship scene at msaa=1, K6 and K4 at msaa=4 + shadow_window (1920x1080,
+shadow map 2048^2), K5c, K5a and K3 (its [64,256,256] batch of maps,
+"K3crowd") in the 64-instance crowd at density 2.0 at msaa=1 (256x144,
+shadow maps 256^2), K5b at msaa=4. A variant of one source times only the
+kernels of that source. Some variants compute the same function another
+way (their outputs must equal the real kernels', bit for bit); the others
+leave a phase out, give wrong pictures, and only tell what that phase
+costs:
 
-  base           the source as it is
+  base           the sources as they are
   threads_512    512 threads a block (two blocks on an SM) instead of 1,024,
                  in both raster bodies
   depth_threads_512, depth_threads_1024
@@ -28,6 +33,9 @@ pictures, and only tell what that phase costs:
                  8 (1: one block a tile, no distributed shared memory)
   depth_cluster_1_t1024
                  one block of 1,024 threads a tile
+  crowd_cluster_1, crowd_cluster_2, crowd_cluster_4, crowd_cluster_8
+                 a K5c tile over a cluster of 1, 2, 4 or 8 blocks (one of
+                 them is the source's CROWD_DEPTH_CLUSTER)
   read_first     a plain read of the shared value before each atomicMin, the
                  atomic made only where it would lower it (the raster
                  bodies; depth_read_first the depth body)
@@ -44,14 +52,24 @@ pictures, and only tell what that phase costs:
   no_pass2       no second pass (no winner: the epilogue gathers no row)
   no_passes      neither pass: the clears and the output planes only
   no_gather      both passes, but the epilogue gathers no winner's row
+  pcf_rows_4, pcf_rows_16, pcf_rows_32
+                 K3 with strips of 4, 16 or 32 rows a thread (PCF_ROWS)
+  pcf_warps_x_1, pcf_warps_x_4, pcf_warps_y_2, pcf_warps_y_8
+                 K3 blocks of 1 or 4 warps across, 2 or 8 strips down
+  pcf_scalar     K3 with one column a thread (the variant the launcher
+                 takes for S not a multiple of 4 or unaligned maps) at
+                 every shape
+  parent         (with --parent DIR) K3 as the checkout DIR builds it:
+                 `DIR/simple_mmd_renderer_tpu_torch/csrc/shadow_pcf.cu`,
+                 whose entry point takes the same arguments
 
 Each time is the least of 6 means of 20 launches run back to back
 (`chip_smoke.primed_ms`: CUDA events, the stream held by a sleep kernel
 while the host queues the launches, so that a kernel shorter than its
 wrapper's Python is not timed at the host's pace as in
 `chip_smoke.cuda_ms`, whose times the kernels' record carries); two rounds
-over all variants show drift. K1, K2 and K4 on empty bins (every count 0)
-are printed as the floor of a launch at that frame size. `build_variants`,
+over all variants show drift. K1, K2, K4 and K5c on empty bins (every count
+0) are printed as the floor of a launch at that frame size. `build_variants`,
 `capture` and `use` serve scripts/tune_torch_raster_ms.py too.
 """
 
@@ -142,6 +160,7 @@ OWN_WRITE_NEW = """  tile_entries<CENTRE, 3>(rows, boxes, row_w, start, count, t
 
 DEPTH_ATOMIC = "    atomicMin(sh.depth + ly * TILE_W + lx, bits);"
 DEPTH_CLUSTER = "constexpr int DEPTH_CLUSTER = 8;"
+CROWD_CLUSTER = "constexpr int CROWD_DEPTH_CLUSTER = 1;"
 
 # name -> (substitutions, whether the outputs must equal the real kernels')
 VARIANTS = {
@@ -164,6 +183,9 @@ VARIANTS = {
         (DEPTH_CLUSTER, "constexpr int DEPTH_CLUSTER = 1;"),
         ("constexpr int DEPTH_THREADS = 256;",
          "constexpr int DEPTH_THREADS = 1024;")], True),
+    **{f"crowd_cluster_{n}": ([(CROWD_CLUSTER, "constexpr int "
+                                 f"CROWD_DEPTH_CLUSTER = {n};")], True)
+       for n in (1, 2, 4, 8)},
     "depth_read_first": ([(DEPTH_ATOMIC, "    if (bits < sh.depth[ly * TILE_W "
                            "+ lx])\n  " + DEPTH_ATOMIC)], True),
     "read_first": ([
@@ -209,17 +231,57 @@ VARIANTS = {
                     "0xffffffffull) - 1 : -1;", "    const int win = -1;")],
                   False),
 }
-ENTRY_POINTS = ("smr_raster_tiles", "smr_raster_tiles_multi",
-                "smr_raster_tiles_ms", "smr_raster_tiles_ms_multi",
-                "smr_depth_tiles", "smr_depth_tiles_win")
-KERNEL_NAMES = ("raster_tiles_kernel", "raster_tiles_multi_kernel",
-                "raster_tiles_ms_kernel", "raster_tiles_ms_multi_kernel",
-                "depth_tiles_kernel", "depth_tiles_win_kernel")
+# K3's variants, of csrc/shadow_pcf.cu
+PCF_SELECT = "  const bool vec = s % 4 == 0"
+PCF_VARIANTS = {
+    **{f"pcf_rows_{n}": ([("constexpr int PCF_ROWS = 8;",
+                           f"constexpr int PCF_ROWS = {n};")], True)
+       for n in (4, 16, 32)},
+    **{f"pcf_warps_{axis}_{n}": ([(f"constexpr int PCF_WARPS_{axis.upper()} "
+                                   f"= {was};",
+                                   f"constexpr int PCF_WARPS_{axis.upper()} "
+                                   f"= {n};")], True)
+       for axis, was, ns in (("x", 2, (1, 4)), ("y", 4, (2, 8)))
+       for n in ns},
+    "pcf_scalar": ([(PCF_SELECT, "  const bool vec = false && s % 4 == 0")],
+                   True),
+}
+
+# per source: its variants, the entry points a variant library replaces,
+# the kernels whose registers are reported, the captured cases it times
+SOURCES = {
+    "tiled_raster.cu": (
+        VARIANTS,
+        ("smr_raster_tiles", "smr_raster_tiles_multi", "smr_raster_tiles_ms",
+         "smr_raster_tiles_ms_multi", "smr_depth_tiles",
+         "smr_depth_tiles_win", "smr_depth_tiles_multi"),
+        ("raster_tiles_kernel", "raster_tiles_multi_kernel",
+         "raster_tiles_ms_kernel", "raster_tiles_ms_multi_kernel",
+         "depth_tiles_kernel", "depth_tiles_win_kernel",
+         "depth_tiles_multi_kernel"),
+        ("K1", "K2", "K6", "K4", "K5c", "K5a", "K5b")),
+    "shadow_pcf.cu": (
+        PCF_VARIANTS, ("smr_pcf_lit_map",), ("pcf_lit_map_kernel",),
+        ("K3", "K3crowd")),
+}
+
+
+def source_of(name: str) -> str | None:
+    """The source file variant `name` edits (None: base, every source)."""
+    if name == "base":
+        return None
+    if name == "parent":
+        return "shadow_pcf.cu"
+    return next(src for src, (vs, *_) in SOURCES.items() if name in vs)
 
 
 def variant_source(source: str, name: str) -> str:
+    """`source` (the text of the file variant `name` edits) with the
+    variant's substitutions."""
     text = source
-    for old, new in VARIANTS[name][0]:
+    if name == "base":
+        return text
+    for old, new in SOURCES[source_of(name)][0][name][0]:
         if old not in text:
             raise RuntimeError(f"variant {name}: the source no longer holds "
                                f"{old[:60]!r}")
@@ -227,46 +289,62 @@ def variant_source(source: str, name: str) -> str:
     return text
 
 
-def build_variants(names, out="build/probe"):
+def build_variants(names, out="build/probe", parent=None):
     """Compile each variant into its own library (nvcc -Xptxas -v, all at
-    once) -> {name: (ctypes handle, {kernel: (registers, spill bytes)})}."""
+    once; `base` from every source; `parent` from the checkout `parent`'s
+    shadow_pcf.cu) -> {name: (ctypes handles, {kernel: (registers, spill
+    bytes)})}."""
     from simple_mmd_renderer_tpu_torch.ops import _build
 
-    source = (_build.CSRC / "tiled_raster.cu").read_text()
     os.makedirs(out, exist_ok=True)
     jobs = []
     for name in names:
-        cu = os.path.join(out, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(variant_source(source, name))
-        so = os.path.abspath(os.path.join(out, f"{name}.so"))
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", so,
-               cu]
-        jobs.append((name, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        src = source_of(name)
+        for file in SOURCES if src is None else (src,):
+            if name == "parent":
+                text = open(os.path.join(parent, "simple_mmd_renderer_tpu_"
+                                         "torch", "csrc", file)).read()
+            else:
+                text = (_build.CSRC / file).read_text()
+                if src is not None:
+                    text = variant_source(text, name)
+            stem = f"{name}_{file[:-3]}"
+            cu = os.path.join(out, f"{stem}.cu")
+            with open(cu, "w") as f:
+                f.write(text)
+            so = os.path.abspath(os.path.join(out, f"{stem}.so"))
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                   so, cu]
+            jobs.append((name, file, so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
     built = {}
-    for name, so, proc in jobs:
+    for name, file, so, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name}: nvcc failed:\n{log[-3000:]}")
+        _, entries, kernels, _ = SOURCES[file]
         found = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes "
                            r"spill stores.*?Used (\d+) registers", log, re.S)
-        regs = {k: (int(r), int(sp)) for k in KERNEL_NAMES
+        regs = {k: (int(r), int(sp)) for k in kernels
                 for fn, sp, r in found if f"{len(k)}{k}" in fn}
         handle = ctypes.CDLL(so)
-        for n in ENTRY_POINTS:
+        for n in entries:
             fn = getattr(handle, n)
             fn.argtypes, fn.restype = _build.SIGNATURES[n], ctypes.c_int
-        built[name] = (handle, regs)
+        handles, all_regs = built.setdefault(name, ({}, {}))
+        handles[file] = handle
+        all_regs.update(regs)
     return built
 
 
-def capture():
-    """{"K1"|"K2"|"K6"|"K4"|"K5a"|"K5b": (wrapper, args)} from frame 1 of
-    each path, boxes included."""
+def capture(pcf=False):
+    """{"K1"|"K2"|"K6"|"K4"|"K5c"|"K5a"|"K5b": (wrapper, args)} from frame
+    1 of each path, boxes included; with `pcf` also K3's: "K3" on the
+    msaa=1 flagship's map, "K3crowd" on the crowd's batch of maps."""
     import chip_smoke as cs
     from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
+    from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     out = {}
@@ -278,30 +356,41 @@ def capture():
                                       cs.path_kernels(msaa))
         for key in cs.path_kernels(msaa)[:2]:     # (K6, K4) or (K1, K2)
             out[key] = seen[key][0]
+        if not msaa:
+            out["K3"] = seen["K3"][0]
     crowd = cs.build_crowd(cs.DENSITY, "crowd-dense")
     for msaa, key in ((False, "K5a"), (True, "K5b")):
         step, state = crowd[msaa]
         _, _, seen = cs.capture_frame(step, state, cs.crowd_kernels(msaa))
         out[key] = seen[key][0]
+        if not msaa:
+            out["K5c"] = seen["K5c"][0]
+            out["K3crowd"] = seen["K3"][0]
     fns = {"K1": tr.depth_tiles, "K6": tr.depth_tiles_win,
            "K2": tr.raster_tiles, "K5a": tr.raster_tiles_multi,
-           "K4": tr.raster_tiles_ms, "K5b": tr.raster_tiles_ms_multi}
+           "K4": tr.raster_tiles_ms, "K5b": tr.raster_tiles_ms_multi,
+           "K5c": tr.depth_tiles_multi}
+    if pcf:
+        fns.update(K3=shadow_pcf.pcf_lit_map, K3crowd=shadow_pcf.pcf_lit_map)
     return {k: (fns[k], out[k]) for k in fns}
 
 
 @contextlib.contextmanager
-def use(handle):
-    """The wrappers launch `handle`'s entry points inside the block."""
+def use(handles):
+    """The wrappers launch the entry points of `handles` ({source file:
+    library}, as build_variants gives them) inside the block."""
     from simple_mmd_renderer_tpu_torch.ops import _build
 
     lib = _build.lib()
-    real = {n: getattr(lib, n) for n in ENTRY_POINTS}
+    names = [n for file in handles for n in SOURCES[file][1]]
+    real = {n: getattr(lib, n) for n in names}
     try:
-        for n in ENTRY_POINTS:
-            setattr(lib, n, getattr(handle, n))
+        for file, handle in handles.items():
+            for n in SOURCES[file][1]:
+                setattr(lib, n, getattr(handle, n))
         yield
     finally:
-        for n in ENTRY_POINTS:
+        for n in names:
             setattr(lib, n, real[n])
 
 
@@ -312,14 +401,17 @@ def best(fn) -> float:
 
 
 def _planes(out):
-    """A kernel's output as a tuple of planes (K1, K6 give one map)."""
+    """A kernel's output as a tuple of planes (K1, K6, K5c, K3 give one
+    map)."""
     return out if isinstance(out, tuple) else (out,)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", default=",".join(VARIANTS))
+    ap.add_argument("--only", default=",".join([*VARIANTS, *PCF_VARIANTS]))
     ap.add_argument("--out", default="build/probe")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose K3 is timed as variant `parent`")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_torch_raster_ms: no CUDA device", file=sys.stderr)
@@ -328,26 +420,33 @@ def main() -> int:
         os.path.abspath(__file__))))
     import chip_smoke as cs
 
-    names = opts.only.split(",")
+    names = list(dict.fromkeys(opts.only.split(",")))
+    if opts.parent:
+        names.append("parent")
     print(cs.smi_name_power(), flush=True)
-    cases = capture()
-    built = build_variants(names, opts.out)
+    cases = capture(pcf=True)
+    built = build_variants(names, opts.out, opts.parent)
     want = {k: fn(*args) for k, (fn, args) in cases.items()}
     empty = {k: (args[0], args[1] * 0, args[2] * 0) + tuple(args[3:])
-             for k, (_, args) in cases.items() if k in ("K1", "K2", "K4")}
+             for k, (_, args) in cases.items()
+             if k in ("K1", "K2", "K4", "K5c")}
     for rnd in range(2):
-        for name, (handle, regs) in built.items():
-            with use(handle):
+        for name, (handles, regs) in built.items():
+            src = source_of(name)
+            mine = {k: v for k, v in cases.items()
+                    if src is None or k in SOURCES[src][3]}
+            exact = name in ("base", "parent") or SOURCES[src][0][name][1]
+            with use(handles):
                 same = {k: all(torch.equal(a, b) for a, b in
                                zip(_planes(fn(*args)), _planes(want[k])))
-                        for k, (fn, args) in cases.items()}
-                if VARIANTS[name][1] and not all(same.values()):
+                        for k, (fn, args) in mine.items()}
+                if exact and not all(same.values()):
                     raise AssertionError(f"variant {name} changes the bits: "
                                          f"{same}")
                 times = {k: best(lambda: fn(*args))
-                         for k, (fn, args) in cases.items()}
+                         for k, (fn, args) in mine.items()}
                 floors = {k: best(lambda: cases[k][0](*e))
-                          for k, e in empty.items()}
+                          for k, e in empty.items() if k in mine}
             print(f"round {rnd}, {name}: "
                   + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items())
                   + "; on empty bins "

@@ -14,14 +14,16 @@ fps_keys=5)`, clocks 7 frames apart) at 256x144 with a 256^2 shadow map,
 stepped and rendered by `parallel.mesh.crowd_step_fn`.
 Prints, per pass label (the `pass_scope` ranges: anim, pre_physics,
 physics, post_physics, deform, shadow, ground, character, shade), the host
-time and the device kernel time per frame, the kernel launches and host <->
-device copies per frame, and the device busy share of the profiled window.
+time, the device kernel time and the kernel launches per frame; then the
+frame's kernel launches and host <-> device copies, and the device busy
+share of the profiled window.
 The full `key_averages()` table goes to DIR/profile_frame.txt.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import os
 import sys
 import time
@@ -108,6 +110,17 @@ def main() -> int:
               f"msaa={args.msaa}")
     print(f"frame (no profiler): {plain_ms:.3f} ms; profiled: "
           f"{1000 * wall / n:.3f} ms/frame over {n} frames")
+    # the kernel launches inside each pass's host ranges
+    raw = prof.events()
+    starts = sorted(e.time_range.start for e in raw
+                    if e.name == "cudaLaunchKernel")
+    in_pass = dict.fromkeys(PASSES, 0)
+    cpu = torch.autograd.DeviceType.CPU
+    for e in raw:
+        if e.name in in_pass and e.device_type == cpu:
+            in_pass[e.name] += (
+                bisect.bisect_right(starts, e.time_range.end)
+                - bisect.bisect_left(starts, e.time_range.start))
     # a pass label appears twice (its host range and its device
     # annotation); the host range carries both the host time and the
     # device time of the kernels launched inside it
@@ -119,7 +132,7 @@ def main() -> int:
         e = max(rows, key=lambda r: r.cpu_time_total)
         print(f"pass {name}: host {e.cpu_time_total / 1000 / n:.3f} "
               f"ms/frame, device kernels {dev_us(e) / 1000 / n:.3f} "
-              f"ms/frame")
+              f"ms/frame, {in_pass[name] / n:.0f} kernel launches/frame")
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     copies = sum(e.count for e in events if e.key == "cudaMemcpyAsync")
     # device-side events: kernels and copies (one stream, no overlap),

@@ -5,14 +5,15 @@ the block size of their tile bodies.
         [--variants base,threads_512]
 
 The boxed tile bodies (`raster_tile` for K2/K5a, `raster_tile_ms` for
-K4/K5b, `depth_tile` for K1/K6, csrc/tiled_raster.cu) let one thread walk
+K4/K5b, `depth_tile` for K1/K6/K5c, csrc/tiled_raster.cu) let one thread walk
 an entry's pixel box alone when the box holds at most
 `tiled_raster.WIDE_BOX` pixels, and share a wider box among the lanes of a
 warp. This script measures that threshold and the
 block size: it captures the arguments K1, K2, K6 and K4 get in frame 1 of
 the flagship scene (1920x1080, shadow map 2048^2, msaa=1 and msaa=4 +
-shadow_window) and K5a's and K5b's in frame 1 of the 64-instance crowd at
-density 2.0 (256x144, msaa=1 and msaa=4), as `chip_smoke.py` does, holds
+shadow_window) and K5c's, K5a's and K5b's in frame 1 of the 64-instance
+crowd at density 2.0 (256x144, msaa=1 and msaa=4), as `chip_smoke.py` does,
+holds
 each kernel against its brute-force plain version once, and then times
 them (20 launches back to back, `chip_smoke.primed_ms`) at every
 threshold of `--wide`, in two rounds so that drift shows, once for each
@@ -34,7 +35,7 @@ import torch
 
 # the kernels whose frame size follows a leading argument (the crowd's
 # instance count, K6's window)
-SHIFTED = ("K5a", "K5b", "K6")
+SHIFTED = ("K5a", "K5b", "K5c", "K6")
 
 
 def box_sizes(args, shifted):
@@ -74,7 +75,8 @@ def main() -> int:
     plains = {"K1": tr.depth_tiles_plain, "K6": tr.depth_tiles_win_plain,
               "K2": tr.raster_tiles_plain, "K5a": tr.raster_tiles_multi_plain,
               "K4": tr.raster_tiles_ms_plain,
-              "K5b": tr.raster_tiles_ms_multi_plain}
+              "K5b": tr.raster_tiles_ms_multi_plain,
+              "K5c": tr.depth_tiles_multi_plain}
     cases = probe.capture()
     for key, (fn, args) in cases.items():
         got = probe._planes(fn(*args))

@@ -13,9 +13,10 @@ this module needs neither JAX nor the reference package:
   reference's ModelStatic / MotionArrays / PhysicsStatic / AppConfig -> the
   port's.
 - `sim_state_to_torch` / `sim_state_to_numpy`: a SimState (time + the
-  physics leaves pos, quat, vel, omega) into torch tensors on a device and
-  back to NumPy, so a test can start both packages from one `init_state`
-  and compare them frame by frame. A crowd state (`parallel.mesh.
+  physics leaves pos, quat, vel, omega) into torch tensors on a device (by
+  default the card, as every entry point) and back to NumPy, so a test can
+  start both packages from one `init_state` and compare them frame by
+  frame. A crowd state (`parallel.mesh.
   crowd_init`: every leaf with a leading instance axis) converts the same
   way.
 """
@@ -33,6 +34,7 @@ from .core.anim import MotionArrays
 from .core.physics import PhysicsState, PhysicsStatic
 from .core.scene import SimState
 from .formats import pmx as _pmx
+from .utils.device import resolve_device
 
 PHYSICS_LEAVES = ("pos", "quat", "vel", "omega")
 
@@ -83,8 +85,12 @@ def app_config(cfg) -> _config.AppConfig:
     return _port(cfg, _config.AppConfig)
 
 
-def sim_state_to_torch(state, device="cpu") -> SimState:
-    """Reference SimState (JAX or NumPy leaves) -> port SimState."""
+def sim_state_to_torch(state, device="cuda") -> SimState:
+    """Reference SimState (JAX or NumPy leaves) -> port SimState on
+    `device` (the card unless the caller asks for another device; no card
+    raises, as every entry point does)."""
+    device = resolve_device(device)
+
     def t(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
     return SimState(

@@ -15,13 +15,13 @@
 // bodies launched with `inst_tiles` over an instance x tile grid: K5a
 // (`raster_tiles_multi_kernel`) `_run_kernel_multi`, K5b
 // (`raster_tiles_ms_multi_kernel`) `_run_kernel_ms_multi` and K5c
-// (`depth_tiles_multi_kernel`) `_run_depth_kernel_multi`. K5a and K5b run
-// the tile body of K2 or K4 (`raster_tile`, `raster_tile_ms`); K5c runs
-// `depth_tile_dense`, which takes no boxes and evaluates every entry at
-// every pixel of its tile. Each has one block per (instance, tile): block g reads the bins of the global
-// tile g, takes its pixel coordinates from the local tile g % inst_tiles
-// and writes the planes of instance g / inst_tiles, so a crowd tile gets
-// the single-instance kernel's bits on the same bins.
+// (`depth_tiles_multi_kernel`) `_run_depth_kernel_multi`. K5a, K5b and K5c
+// run the tile body of K2, K4 or K1 (`raster_tile`, `raster_tile_ms`,
+// `depth_tile`). Each has one block (K5c: one cluster) per (instance,
+// tile): block g reads the bins of the global tile g, takes its pixel
+// coordinates from the local tile g % inst_tiles and writes the planes of
+// instance g / inst_tiles, so a crowd tile gets the single-instance
+// kernel's bits on the same bins and boxes.
 //
 // Input is the binning's output: setup rows sorted by tile, so that tile t
 // owns the contiguous entries [starts[t], starts[t] + counts[t]) of `rows`
@@ -62,39 +62,40 @@
 // `raster_tiles_ms_plain`), which evaluate every entry at every pixel of
 // its tile.
 //
-// Design of K1/K6 (`depth_tile`): the raster bodies' design below with one
-// word of state and one pass. The state of one TH x 128 tile (TH 32 for
-// K1, 8 or 32 for K6) is one u32 a pixel in shared memory (16 KB at 32
-// rows, 4 KB at 8), cleared to the bits of 1.0. Entries are taken one a
-// thread through the same walks (`tile_entries` with its wide-box queue):
-// where an entry covers a pixel centre with zp >= 0 it does an integer
-// atomicMin on the bits of zp + 0. There is no key, no second pass and no
-// gather; the tile is then stored with coalesced 16-byte writes. The
-// zp <= 1 test of K2 is not needed: the clear at 1.0 implies it. The planes
-// are evaluated in the order of the plain version and of the dense body
-// (`depth_tile_dense`, K5c): the same bits, except for the sign of a zero
-// depth, which the dense body's fminf can keep as -0.0 where the fold
-// stores +0.0 (the two compare equal, as `torch.equal` and the smoke run's
-// mismatch count compare).
-// At the flagship's light all the entries fall in a few dozen of the map's
-// 1,024 tiles, up to 2,189 in one, so one block a tile spent most of the
-// kernel's time on the fullest tile. A tile is therefore split over a
-// cluster of DEPTH_CLUSTER blocks: block r takes the chunks r,
-// r + DEPTH_CLUSTER, ... of the entries and lowers the state of the
-// leader (rank 0) through distributed shared memory, between two cluster
-// barriers. A tile without entries takes no state and no barrier: its
-// leader stores the clear and the other blocks leave at once. Measured on
-// the frame's arguments (scripts/probe_torch_raster_ms.py): 8 blocks of
-// 256 threads beat 1, 2 and 4 blocks and 512 or 1,024 threads. What bounds
-// them now: the launch of the 8,192 blocks, most of which leave at once,
-// and the map's store (the kernel on empty bins takes three quarters of its
-// time on the frame); the fullest tile's walks, boxes of 16.5 pixels on
-// average, come after. K6 reads its window from the card, so its caller
-// sizes no grid from the data and needs no host synchronisation; the
-// clusters past the window's tile count exit at once. `boxes` None on the
-// host side means every entry over its whole tile (each gets the whole
-// int16 range as its box). Left for later: K5c still runs the dense body
-// (`depth_tile_dense`), without boxes.
+// Design of K1/K6/K5c (`depth_tile`): the raster bodies' design below with
+// one word of state and one pass. The state of one TH x 128 tile (TH 32
+// for K1 and K5c, 8 or 32 for K6) is one u32 a pixel in shared memory (16
+// KB at 32 rows, 4 KB at 8), cleared to the bits of 1.0. Entries are taken
+// one a thread through the same walks (`tile_entries` with its wide-box
+// queue): where an entry covers a pixel centre with zp >= 0 it does an
+// integer atomicMin on the bits of zp + 0. There is no key, no second pass
+// and no gather; the tile is then stored with coalesced 16-byte writes.
+// The zp <= 1 test of K2 is not needed: the clear at 1.0 implies it. The
+// planes are evaluated in the order of the plain version, so the bits are
+// its bits, except for the sign of a zero depth: the fold stores +0.0
+// where the plain version's min may keep -0.0 (the two compare equal, as
+// `torch.equal` and the smoke run's mismatch count compare).
+// A tile is split over a cluster of CLUSTER blocks (a template argument):
+// block r takes the chunks r, r + CLUSTER, ... of the entries and lowers
+// the state of the leader (rank 0) through distributed shared memory,
+// between two cluster barriers. A tile without entries takes no state and
+// no barrier: its leader stores the clear and the other blocks leave at
+// once. K1 and K6 take DEPTH_CLUSTER = 8: at the flagship's light all the
+// entries fall in a few dozen of the map's 1,024 tiles, up to 2,189 in one,
+// and 8 blocks of 256 threads beat 1, 2 and 4 blocks and 512 or 1,024
+// threads (scripts/probe_torch_raster_ms.py). K5c takes
+// CROWD_DEPTH_CLUSTER = 1, one block a tile: the crowd's entries spread
+// over its 64 maps' 1,024 tiles, some 70 a tile, where a cluster's launch
+// and barriers cost more than they share (the same script on the crowd's
+// frame-1 bins: 1, 2, 4 and 8 blocks 0.0124, 0.0136, 0.0180 and 0.0299 ms
+// back to back on an H100). What bounds them now: the launch of the
+// blocks, most of which leave at once or hold a chunk or less, and the
+// maps' store (K5c on empty bins takes half its time on the frame's); the
+// fullest tile's walks come after. K6 reads
+// its window from the card, so its caller sizes no grid from the data and
+// needs no host synchronisation; the clusters past the window's tile count
+// exit at once. `boxes` None on the host side means every entry over its
+// whole tile (each gets the whole int16 range as its box).
 //
 // Design of the raster bodies, K2/K5a (`raster_tile`, centre-sampled) and
 // K4/K5b (`raster_tile_ms`): an entry is evaluated only where it can cover.
@@ -142,101 +143,28 @@ namespace {
 
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 128;
-constexpr int DENSE_THREADS = 256;  // K5c
-constexpr int CHUNK = 256;       // K5c: entries per shared-memory chunk
-constexpr int LANES = 11;        // lanes the loop reads (0..10)
 constexpr int BASE_WIDTH = 16;   // first attribute-plane lane
 constexpr int MAX_ATTRS = 36;    // the reference's row-payload bound
 constexpr int CENTRE_THREADS = 1024;  // K2/K5a
 constexpr int MS_THREADS = 1024;  // K4/K5b
-constexpr int DEPTH_THREADS = 256;  // K1/K6: threads a block
+constexpr int DEPTH_THREADS = 256;  // K1/K6/K5c: threads a block
 constexpr int DEPTH_CLUSTER = 8;    // K1/K6: blocks a tile
+constexpr int CROWD_DEPTH_CLUSTER = 1;   // K5c: blocks a tile
 
 // D3D11/OpenGL standard 4x MSAA sample offsets from the pixel centre
 __constant__ float kSampleX[4] = {-0.125f, 0.375f, -0.375f, 0.125f};
 __constant__ float kSampleY[4] = {-0.375f, -0.125f, 0.125f, 0.375f};
 
-// Copy lanes [0, LANES) of rows [first, first + n) into shared memory,
-// lane-major (lane l of entry e at sh[l * CHUNK + e]).
-__device__ __forceinline__ void load_chunk(float* sh,
-                                           const float* __restrict__ rows,
-                                           int row_w, int first, int n) {
-  for (int i = threadIdx.x; i < n * LANES; i += DENSE_THREADS) {
-    const int e = i / LANES;
-    const int l = i - e * LANES;
-    sh[l * CHUNK + e] = rows[static_cast<size_t>(first + e) * row_w + l];
-  }
-}
-
-// One tile of K5c, by the dense body (only K5c uses it, until K5c's bins
-// carry boxes for the boxed `depth_tile`): the min of zp over the tile's
-// entries, every entry at every pixel, for the TH x TILE_W tile (ty, tx)
-// whose entries are [starts[gid], starts[gid] + counts[gid]). A thread owns
-// one column and consecutive rows, so each row's stores are coalesced; the
-// block walks its entries in chunks of CHUNK rows copied cooperatively into
-// shared memory. Every thread of the block calls it.
-template <int TH>
-__device__ __forceinline__ void depth_tile_dense(
-    const int* __restrict__ starts, const int* __restrict__ counts,
-    const float* __restrict__ rows, int row_w, int gid, int ty, int tx,
-    float* __restrict__ depth, int pad_w, float* sh) {
-  constexpr int RPT = TH * TILE_W / DENSE_THREADS;   // rows per thread
-  const int col = threadIdx.x % TILE_W;
-  const int row0 = (threadIdx.x / TILE_W) * RPT;
-  const float px = (float)col + ((float)(tx * TILE_W) + 0.5f);
-  const float ybase = (float)(ty * TH) + 0.5f;
-
-  float d[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) d[r] = 1.0f;
-
-  const int start = starts[gid];
-  const int count = counts[gid];
-  for (int c0 = 0; c0 < count; c0 += CHUNK) {
-    const int n = min(CHUNK, count - c0);
-    __syncthreads();
-    load_chunk(sh, rows, row_w, start + c0, n);
-    __syncthreads();
-    for (int e = 0; e < n; ++e) {
-      if (!(sh[9 * CHUNK + e] > 0.0f)) continue;
-      const float dx = __fsub_rn(px, sh[0 * CHUNK + e]);
-      const float ay = sh[1 * CHUNK + e];
-      const float w1dx = __fmul_rn(sh[2 * CHUNK + e], dx);
-      const float w1y = sh[3 * CHUNK + e];
-      const float w2dx = __fmul_rn(sh[4 * CHUNK + e], dx);
-      const float w2y = sh[5 * CHUNK + e];
-      const float zdx = __fadd_rn(sh[6 * CHUNK + e],
-                                  __fmul_rn(sh[7 * CHUNK + e], dx));
-      const float zy = sh[8 * CHUNK + e];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float dy = __fsub_rn((float)(row0 + r) + ybase, ay);
-        const float w1 = __fadd_rn(w1dx, __fmul_rn(w1y, dy));
-        const float w2 = __fadd_rn(w2dx, __fmul_rn(w2y, dy));
-        const float zp = __fadd_rn(zdx, __fmul_rn(zy, dy));
-        const bool ok = (w1 >= 0.0f) && (w2 >= 0.0f)
-                        && (__fadd_rn(w1, w2) <= 1.0f) && (zp >= 0.0f);
-        if (ok) d[r] = fminf(d[r], zp);
-      }
-    }
-  }
-  const size_t base = static_cast<size_t>(ty * TH + row0) * pad_w
-                      + tx * TILE_W + col;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    depth[base + static_cast<size_t>(r) * pad_w] = d[r];
-}
-
 // ---------------------------------------------------------------------------
-// The boxed tile bodies: K2/K5a, K4/K5b and K1/K6. Entries are evaluated
-// only inside their pixel boxes, in parallel, against tile state held in
-// shared memory.
+// The boxed tile bodies: K2/K5a, K4/K5b and K1/K6/K5c. Entries are
+// evaluated only inside their pixel boxes, in parallel, against tile state
+// held in shared memory.
 // ---------------------------------------------------------------------------
 
 constexpr int TILE_PIX = TILE_H * TILE_W;   // 4096
 constexpr int BLOCK_BOX = 1024;   // pixels of the largest box one warp takes
 
-// The body kinds: CENTRE (K2/K5a), MSAA (K4/K5b), DEPTH (K1/K6).
+// The body kinds: CENTRE (K2/K5a), MSAA (K4/K5b), DEPTH (K1/K6/K5c).
 enum Kind { CENTRE, MSAA, DEPTH };
 
 // Per body kind and tile height TH (only DEPTH takes 8 as well as 32):
@@ -420,8 +348,8 @@ __device__ __forceinline__ void ms_pixel(const Entry& en, int lx, int ly,
   }
 }
 
-// K1/K6: entry `en` at tile-local pixel (lx, ly), whose centre is (px, py),
-// in the order of the plain version and of the dense body. Lowers the
+// K1/K6/K5c: entry `en` at tile-local pixel (lx, ly), whose centre is
+// (px, py), in the order of the plain version. Lowers the
 // pixel's depth where the entry covers the centre with zp >= 0 (no zp <= 1
 // test: the clear at 1.0 implies it).
 __device__ __forceinline__ void depth_pixel(const Entry& en, int lx, int ly,
@@ -828,15 +756,15 @@ raster_tiles_ms_multi_kernel(const int* __restrict__ starts,
                         sdepth + o * 4, pad_h, pad_w, tile_smem);
 }
 
-// One tile of K1/K6: tile (ty, tx) of the TH x TILE_W grid, whose entries
-// are [starts[gid], starts[gid] + counts[gid]) with their pixel boxes. The
-// least zp >= 0 of the entries covering each pixel centre, cleared to 1.0.
-// Every thread of the tile's cluster (DEPTH_CLUSTER blocks) calls it. The
-// leader (rank 0) holds the tile's state; block r takes the chunks r,
-// r + DEPTH_CLUSTER, ... of the entries and lowers the leader's state
-// through distributed shared memory. A tile without entries needs no state
-// and no barrier: its leader stores the clear, the other blocks leave.
-template <int TH>
+// One tile of K1/K6/K5c: tile (ty, tx) of the TH x TILE_W grid, whose
+// entries are [starts[gid], starts[gid] + counts[gid]) with their pixel
+// boxes. The least zp >= 0 of the entries covering each pixel centre,
+// cleared to 1.0. Every thread of the tile's cluster (CLUSTER blocks) calls
+// it. The leader (rank 0) holds the tile's state; block r takes the chunks
+// r, r + CLUSTER, ... of the entries and lowers the leader's state through
+// distributed shared memory. A tile without entries needs no state and no
+// barrier: its leader stores the clear, the other blocks leave.
+template <int TH, int CLUSTER>
 __device__ __forceinline__ void depth_tile(
     const int* __restrict__ starts, const int* __restrict__ counts,
     const float* __restrict__ rows, const short4* __restrict__ boxes,
@@ -858,7 +786,7 @@ __device__ __forceinline__ void depth_tile(
     }
     cluster.sync();   // the clear before any update
     tile_entries<DEPTH, 1, TH>(rows, boxes, row_w, starts[gid], count, ty,
-                               tx, wide_box, sh, rank, DEPTH_CLUSTER);
+                               tx, wide_box, sh, rank, CLUSTER);
     // every update before the store; the leader's state outlives them
     cluster.sync();
   }
@@ -888,8 +816,9 @@ depth_tiles_kernel(const int* __restrict__ starts,
   extern __shared__ __align__(16) unsigned char tile_smem[];
   const int t = blockIdx.x / DEPTH_CLUSTER;
   const int ty = t / tiles_x;
-  depth_tile<TILE_H>(starts, counts, rows, boxes, row_w, t, ty,
-                     t - ty * tiles_x, wide_box, depth, pad_w, tile_smem);
+  depth_tile<TILE_H, DEPTH_CLUSTER>(starts, counts, rows, boxes, row_w, t,
+                                    ty, t - ty * tiles_x, wide_box, depth,
+                                    pad_w, tile_smem);
 }
 
 // K6: cluster i takes tile i of the window (row-major over its tile
@@ -916,33 +845,39 @@ depth_tiles_win_kernel(const int* __restrict__ window,
   const int tx = window[1] + i % tw;
   if (ty < 0 || tx < 0 || tx >= tiles_x || ty * tiles_x + tx >= n_tiles)
     return;
-  depth_tile<TH>(starts, counts, rows, boxes, row_w, ty * tiles_x + tx, ty,
-                 tx, wide_box, depth, pad_w, tile_smem);
+  depth_tile<TH, DEPTH_CLUSTER>(starts, counts, rows, boxes, row_w,
+                                ty * tiles_x + tx, ty, tx, wide_box, depth,
+                                pad_w, tile_smem);
 }
 
-// K5c: the dense body over the instance x tile grid (see
-// raster_tiles_multi_kernel).
-__global__ void __launch_bounds__(DENSE_THREADS)
+// K5c: K1's body over the instance x tile grid: cluster g (blocks
+// CROWD_DEPTH_CLUSTER * g ...) reads the bins of the global tile g, takes
+// its pixel coordinates from the local tile g % inst_tiles and writes the
+// map of instance g / inst_tiles (see raster_tiles_multi_kernel), so a
+// crowd tile gets K1's bits on the same bins and boxes.
+__global__ void __cluster_dims__(CROWD_DEPTH_CLUSTER, 1, 1)
+__launch_bounds__(DEPTH_THREADS)
 depth_tiles_multi_kernel(const int* __restrict__ starts,
                          const int* __restrict__ counts,
-                         const float* __restrict__ rows, int row_w,
-                         int inst_tiles, int tiles_x,
+                         const float* __restrict__ rows,
+                         const short4* __restrict__ boxes, int row_w,
+                         int inst_tiles, int tiles_x, int wide_box,
                          float* __restrict__ depth, int pad_h, int pad_w) {
-  __shared__ float sh[LANES * CHUNK];
-  const int g = blockIdx.x;
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int g = blockIdx.x / CROWD_DEPTH_CLUSTER;
   const int inst = g / inst_tiles;
   const int local = g - inst * inst_tiles;
   const int ty = local / tiles_x;
-  depth_tile_dense<TILE_H>(starts, counts, rows, row_w, g, ty,
-                           local - ty * tiles_x,
-                           depth + static_cast<size_t>(inst) * pad_h * pad_w,
-                           pad_w, sh);
+  depth_tile<TILE_H, CROWD_DEPTH_CLUSTER>(
+      starts, counts, rows, boxes, row_w, g, ty, local - ty * tiles_x,
+      wide_box, depth + static_cast<size_t>(inst) * pad_h * pad_w, pad_w,
+      tile_smem);
 }
 
 }  // namespace
 
-// Whether the boxed bodies (K1, K2, K4, K6 and the crowd's K5a, K5b) take
-// these rows: lanes 0..11 and the winner's planes are read as aligned
+// Whether the boxed bodies (K1, K2, K4, K6 and the crowd's K5a, K5b, K5c)
+// take these rows: lanes 0..11 and the winner's planes are read as aligned
 // float4 loads, so a row is a multiple of 4 lanes at a 16-byte address.
 static bool tile_rows_ok(const void* rows, int row_w, int n_attrs) {
   return n_attrs >= 0 && n_attrs <= MAX_ATTRS && row_w >= 12
@@ -1067,21 +1002,27 @@ extern "C" int smr_depth_tiles_win(const void* window, const void* starts,
 
 // K5c, K5a, K5b: the crowd launchers. starts: i32 [n_inst * inst_tiles + 1]
 // and counts: i32 [n_inst * inst_tiles] over the global tile
-// inst * inst_tiles + tile; every output gains a leading instance axis:
+// inst * inst_tiles + tile; boxes and wide_box as the single-instance
+// launchers take them; every output gains a leading instance axis:
 // depth/tri/b1/b2 [n_inst, pad_h, pad_w], attr [n_inst, max(n_attrs, 1),
 // pad_h, pad_w], sdepth [n_inst, 4, pad_h, pad_w]. One block per
-// (instance, tile).
+// (instance, tile) for K5a and K5b; one cluster of CROWD_DEPTH_CLUSTER
+// blocks for K5c, whose depth must lie at a 16-byte address.
 extern "C" int smr_depth_tiles_multi(const void* starts, const void* counts,
-                                     const void* rows, int row_w, int n_inst,
-                                     int inst_tiles, int tiles_x, void* depth,
+                                     const void* rows, const void* boxes,
+                                     int row_w, int n_inst, int inst_tiles,
+                                     int tiles_x, int wide_box, void* depth,
                                      int pad_h, int pad_w, void* stream) {
   if (n_inst <= 0 || inst_tiles <= 0) return 0;
-  if (row_w < LANES) return static_cast<int>(cudaErrorInvalidValue);
-  depth_tiles_multi_kernel<<<n_inst * inst_tiles, DENSE_THREADS, 0,
+  if (!tile_rows_ok(rows, row_w, 0) || reinterpret_cast<size_t>(depth) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  depth_tiles_multi_kernel<<<n_inst * inst_tiles * CROWD_DEPTH_CLUSTER,
+                             DEPTH_THREADS, Body<DEPTH>::shared,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(starts), static_cast<const int*>(counts),
-      static_cast<const float*>(rows), row_w, inst_tiles, tiles_x,
-      static_cast<float*>(depth), pad_h, pad_w);
+      static_cast<const float*>(rows), static_cast<const short4*>(boxes),
+      row_w, inst_tiles, tiles_x, wide_box, static_cast<float*>(depth),
+      pad_h, pad_w);
   return static_cast<int>(cudaGetLastError());
 }
 

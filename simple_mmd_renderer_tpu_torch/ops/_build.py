@@ -47,7 +47,8 @@ SIGNATURES = {
                             _P, _P, _P, _I, _I, _P],
     "smr_depth_tiles_win": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
                             _P],
-    "smr_depth_tiles_multi": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    "smr_depth_tiles_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                              _I, _P],
     "smr_raster_tiles_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                                _P, _P, _P, _P, _I, _I, _P],
     "smr_raster_tiles_ms_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,

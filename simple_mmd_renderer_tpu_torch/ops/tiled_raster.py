@@ -22,11 +22,11 @@ goes to the larger triangle id):
    per-sample depth, for 4x MSAA) — hand-written CUDA kernels in
    `csrc/tiled_raster.cu` for CUDA tensors, the plain PyTorch versions
    (`*_plain`) for CPU tensors. Both give the same bits. K1, K6, K2 and K4
-   (and the crowd forms K5a, K5b of K2 and K4) evaluate an entry only
-   inside the box of pixels its triangle can reach (`_pixel_boxes`: at the
-   pixel centre for K1, K6 and K2, over the MSAA samples for K4; carried
-   into entry order by the binning); the plain versions stay brute force
-   over the whole tile, so the comparison also checks the boxes.
+   (and the crowd forms K5a, K5b, K5c of K2, K4 and K1) evaluate an entry
+   only inside the box of pixels its triangle can reach (`_pixel_boxes`: at
+   the pixel centre for K1, K6, K2 and K5c, over the MSAA samples for K4;
+   carried into entry order by the binning); the plain versions stay brute
+   force over the whole tile, so the comparison also checks the boxes.
 3. Triangles covering more than `e_max` tiles (at most BIG_TRI_CAP of them)
    are rasterized exactly by a full-frame loop (`_scan_subset`) and merged
    by depth, a big triangle winning a tie. When `e_max` covers the whole
@@ -42,9 +42,8 @@ The crowd (`rasterize_*_crowd`, at the end of the module) rasterizes I
 instances of one topology at once: one binning over the valid triangles of
 all instances, keyed by the global tile inst * n_tiles + tile, and one
 launch of K5a (`raster_tiles_multi`), K5b (`raster_tiles_ms_multi`) or K5c
-(`depth_tiles_multi`) over the instance x tile grid, each running K2's or
-K4's tile body or, for K5c, a dense depth body that evaluates every entry
-over its whole tile (its bins carry no boxes). Oversized triangles merge
+(`depth_tiles_multi`) over the instance x tile grid, each running K2's,
+K4's or K1's tile body on the crowd's boxed bins. Oversized triangles merge
 per instance through the same capped scan. The reference bins a crowd in
 up to four validity-compacted passes of static size and merges them in
 draw order; the port compacts to the exact count, so one pass does, with
@@ -130,14 +129,14 @@ def _setup_rows(s, tri_ids, attrs=None):
     return torch.stack(cols, dim=-1)
 
 
-# Pixel boxes (K1, K6, K2, K4 and the crowd forms of K2, K4): the margin in
+# Pixel boxes (K1, K6, K2, K4 and the crowd forms of K2, K4, K1): the margin in
 # pixels around a triangle's exact box, and the largest conditioning
 # G * max(1, extent) a box is trusted for
 BOX_MARGIN = 1
 BOX_TRUST = 2.0 ** 17
 _BOX_MIN, _BOX_MAX = -BOX_MARGIN, 2 ** 15 - 1
 # the most pixels of a box (clamped to its tile) that one thread of K1, K6,
-# K2, K4, K5a or K5b walks alone; a wider box is shared by the lanes of a
+# K2, K4, K5a, K5b or K5c walks alone; a wider box is shared by the lanes of a
 # warp or, from 1,024 pixels on, by the whole block
 # (scripts/tune_torch_raster_ms.py: K4's and K5b's times are flat from 128
 # to 1,024 and worse on either side; K1's and K6's from 64 to 256)
@@ -631,8 +630,8 @@ def _check_bins(sorted_rows, starts, counts, width, height, min_lanes, name,
 
 
 def _check_boxes(boxes, rows, name):
-    """The entries' pixel boxes as K1, K6, K2, K4 and the crowd forms of K2
-    and K4 take them: int16 [E, 4] beside rows of a multiple of 4 lanes.
+    """The entries' pixel boxes as K1, K6, K2, K4 and the crowd forms of K2,
+    K4 and K1 take them: int16 [E, 4] beside rows of a multiple of 4 lanes.
     None means no entry's reach is known: each gets the whole range, and
     its tile evaluates it over all of its pixels."""
     n = rows.shape[0]
@@ -1111,11 +1110,11 @@ def _bin_crowd(s, rows, width, height, boxes=None):
 
 
 def depth_tiles_multi_plain(sorted_rows, starts, counts, n_inst, width,
-                            height):
+                            height, boxes=None):
     """Plain K5c: K1's per-tile min over the instance x tile grid ->
-    depth [n_inst, pad_h, pad_w]."""
+    depth [n_inst, pad_h, pad_w]. `boxes` as in _depth_plain."""
     return _depth_plain(sorted_rows, starts, counts, width, height, TILE_H,
-                        n_inst)
+                        n_inst, boxes)
 
 
 def raster_tiles_multi_plain(sorted_rows, starts, counts, n_inst, width,
@@ -1149,8 +1148,10 @@ def _multi_planes(n_inst, width, height, n_attrs, dev, sdepth=False):
     return out
 
 
-def depth_tiles_multi(sorted_rows, starts, counts, n_inst, width, height):
-    """K5c dispatch: plain version for CPU tensors, CUDA kernel for CUDA."""
+def depth_tiles_multi(sorted_rows, starts, counts, n_inst, width, height,
+                      boxes=None):
+    """K5c dispatch: plain version for CPU tensors, CUDA kernel for CUDA;
+    `boxes` as depth_tiles takes them (from `_bin_crowd`)."""
     global depth_multi_launches
     dev = sorted_rows.device
     if dev.type == "cpu":
@@ -1161,14 +1162,17 @@ def depth_tiles_multi(sorted_rows, starts, counts, n_inst, width, height):
     rows, starts, counts = _check_bins(sorted_rows, starts, counts, width,
                                        height, 11, "depth_tiles_multi",
                                        n_inst=n_inst)
+    boxes = _check_boxes(boxes, rows, "depth_tiles_multi")
     tiles_x, tiles_y, n_tiles = _grid(width, height)
     pad_h, pad_w = tiles_y * TILE_H, tiles_x * TILE_W
+    if max(pad_h, pad_w) > _BOX_MAX:
+        raise ValueError("depth_tiles_multi: frame beyond the boxes' range")
     depth = torch.empty((n_inst, pad_h, pad_w), dtype=torch.float32,
                         device=dev)
     rc = _build.lib().smr_depth_tiles_multi(
-        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(), rows.shape[1],
-        n_inst, n_tiles, tiles_x, depth.data_ptr(), pad_h, pad_w,
-        _build.stream_ptr(dev))
+        starts.data_ptr(), counts.data_ptr(), rows.data_ptr(),
+        boxes.data_ptr(), rows.shape[1], n_inst, n_tiles, tiles_x, WIDE_BOX,
+        depth.data_ptr(), pad_h, pad_w, _build.stream_ptr(dev))
     _build.check(rc, "smr_depth_tiles_multi")
     depth_multi_launches += 1
     return depth
@@ -1395,9 +1399,11 @@ def rasterize_depth_tiled_crowd(clip, tris, width, height,
     pre-gathered corner clip coords."""
     s, rows = _crowd_setup(clip, tris, None, width, height, cull, cv, None,
                            None)
-    sorted_rows, starts, counts, big = _bin_crowd(s, rows, width, height)
+    # boxes: [entry-order boxes] on the card, [] on the CPU
+    sorted_rows, starts, counts, big, *boxes = _bin_crowd(
+        s, rows, width, height, _kernel_boxes(s, 0.0))
     depth = depth_tiles_multi(sorted_rows, starts, counts, clip.shape[0],
-                              width, height)[:, :height, :width]
+                              width, height, *boxes)[:, :height, :width]
     if _covers_all(_crowd_e_max(width, height), width, height):
         return depth
     return _merge_big_depth_crowd(depth, width, height, s, big)

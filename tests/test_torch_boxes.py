@@ -34,6 +34,7 @@ from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 from simple_mmd_renderer_tpu_torch.render import raster
 
 from test_torch_crowd_raster import _both_attrs as _both_crowd
+from test_torch_crowd_raster import _both_depth as _both_depth_crowd
 from test_torch_msaa_window import _both_msaa
 from test_torch_raster import _both_attrs as _both_single
 from test_torch_raster import _random_mesh
@@ -128,14 +129,28 @@ def test_masked_plain_equals_unmasked(kind, size, tile_h, extent):
         assert whole == 0
 
 
-@pytest.mark.parametrize("kind,extent",
-                         _at_both_extents([(k,) for k in KINDS], KINDS))
-def test_masked_plain_equals_unmasked_crowd(kind, extent):
+# the crowd rasters at both extents; the crowd's depth raster K5c (ids
+# "k5c-...") at the centre's
+@pytest.mark.parametrize("kind,depth,extent", _at_both_extents(
+    [(k, False) for k in KINDS], KINDS)
+    + [pytest.param(k, True, CENTRE, id=f"k5c-{k}") for k in KINDS])
+def test_masked_plain_equals_unmasked_crowd(kind, depth, extent):
     w, h, n_inst = 256, 144, 3
     rows, starts, counts, boxes = boxed_bins(kind, 23, 300, w, h, n_attrs=1,
                                              n_inst=n_inst,
                                              sample_extent=extent)
     assert counts.shape[0] == n_inst * tr._grid(w, h)[2]
+    if depth:
+        want = tr.depth_tiles_multi_plain(rows, starts, counts, n_inst, w, h)
+        assert torch.equal(tr.depth_tiles_multi_plain(
+            rows, starts, counts, n_inst, w, h, boxes=boxes), want)
+        assert all(bool((want[i] < 1.0).any()) for i in range(n_inst))
+        idx, _ = tr._tile_entries(starts, counts)
+        whole = int((boxes[idx, 2] == WHOLE).sum())
+        if kind == "slivers":
+            # both sides of the trust test are exercised
+            assert 0 < whole < idx.numel()
+        return
     plain = _plain(extent, crowd=True)
     want = plain(rows, starts, counts, n_inst, w, h, 1)
     got = plain(rows, starts, counts, n_inst, w, h, 1, boxes=boxes)
@@ -366,17 +381,79 @@ def test_centre_entry_points_still_match_reference():
 
 
 def test_probe_variants_apply_to_the_kernel_source():
-    """scripts/probe_torch_raster_ms.py times variants of the MSAA tile
-    body made by substituting lines of csrc/tiled_raster.cu: every line it
-    names must still be in the source."""
+    """scripts/probe_torch_raster_ms.py times variants of the tile bodies
+    and of K3 made by substituting lines of csrc/tiled_raster.cu and
+    csrc/shadow_pcf.cu: every line it names must still be in its source,
+    and each variant must change it (but the one of K5c's cluster sizes
+    that is the source's own)."""
     root = pathlib.Path(__file__).resolve().parent.parent
     spec = importlib.util.spec_from_file_location(
         "probe_torch_raster_ms", root / "scripts" / "probe_torch_raster_ms.py")
     probe = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(probe)
-    source = (root / "simple_mmd_renderer_tpu_torch" / "csrc"
-              / "tiled_raster.cu").read_text()
     assert "base" in probe.VARIANTS
-    for name, (edits, _) in probe.VARIANTS.items():
-        for old, _ in edits:
-            assert old in source, (name, old[:60])
+    assert set(probe.SOURCES) == {"tiled_raster.cu", "shadow_pcf.cu"}
+    same = []
+    for file, (variants, *_) in probe.SOURCES.items():
+        source = (root / "simple_mmd_renderer_tpu_torch" / "csrc"
+                  / file).read_text()
+        for name, (edits, _) in variants.items():
+            assert probe.source_of(name) == (None if name == "base"
+                                             else file)
+            for old, _ in edits:
+                assert old in source, (name, old[:60])
+            if probe.variant_source(source, name) == source:
+                same.append(name)
+    assert len(same) == 2 and "base" in same, same
+    assert [n for n in same if n.startswith("crowd_cluster_")]
+
+
+def test_crowd_depth_entry_point_bins_centre_boxes(monkeypatch):
+    """`rasterize_depth_tiled_crowd` (the crowd's shadow maps, K5c) bins the
+    centre boxes and hands them to `depth_tiles_multi` in entry order.
+    `_kernel_boxes` gives them only for CUDA tensors, so here it is made to
+    give them on the CPU: the dispatcher then receives int16 [E, 4] boxes
+    that mask the brute-force plain version to its own bits, and the
+    entry point's result is the one it gives without them."""
+    rng = np.random.default_rng(52)
+    clips = torch.as_tensor(np.stack([_random_mesh(rng, t=150, size=0.06)[0]
+                                      for _ in range(2)]))
+    tris = torch.as_tensor(_random_mesh(rng, t=150)[1])
+    want = tr.rasterize_depth_tiled_crowd(clips, tris, 128, 64,
+                                          raster.CULL_NONE)
+    extents, seen = [], {}
+    real_multi = tr.depth_tiles_multi
+
+    def boxes_here(s, sample_extent):
+        extents.append(sample_extent)
+        return tr._pixel_boxes(s, sample_extent)
+
+    def spy(*args):
+        seen["args"] = args
+        return real_multi(*args)
+
+    monkeypatch.setattr(tr, "_kernel_boxes", boxes_here)
+    monkeypatch.setattr(tr, "depth_tiles_multi", spy)
+    got = tr.rasterize_depth_tiled_crowd(clips, tris, 128, 64,
+                                         raster.CULL_NONE)
+    assert extents == [0.0]
+    rows, starts, counts, n_inst, w, h, boxes = seen["args"]
+    assert boxes.dtype == torch.int16 and boxes.shape == (rows.shape[0], 4)
+    plain = tr.depth_tiles_multi_plain(rows, starts, counts, n_inst, w, h)
+    assert torch.equal(tr.depth_tiles_multi_plain(
+        rows, starts, counts, n_inst, w, h, boxes=boxes), plain)
+    assert torch.equal(got, want)
+    assert bool((want < 1.0).any())
+
+
+def test_depth_crowd_entry_point_still_matches_reference():
+    """Small triangles (a few pixels) through `rasterize_depth_tiled_crowd`,
+    which bins centre boxes for K5c, against the reference's tiled crowd
+    depth raster: a crowd of 2 at 256x128, at the tolerance of
+    tests/test_torch_crowd_raster.py."""
+    rng = np.random.default_rng(53)
+    clips = np.stack([_random_mesh(rng, t=300, size=0.04)[0]
+                      for _ in range(2)])
+    tris = _random_mesh(rng, t=300)[1]
+    got = _both_depth_crowd(clips, tris, 256, 128, raster.CULL_NONE)
+    assert (got.numpy() < 1.0).mean() > 0.02

@@ -207,3 +207,24 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cuda'"):
         make()
+
+
+def test_state_converter_defaults_to_the_card(monkeypatch):
+    """`convert.sim_state_to_torch` carries a reference state onto the card
+    unless asked for another device; with no card it raises naming the
+    argument, and device="cpu" converts on the CPU."""
+    import types
+
+    import torch
+
+    ref_state = types.SimpleNamespace(
+        time=np.zeros((2,), np.float32),
+        physics=types.SimpleNamespace(**{
+            k: np.ones((2, 3, 4 if k == "quat" else 3), np.float32)
+            for k in convert.PHYSICS_LEAVES}))
+    state = convert.sim_state_to_torch(ref_state, device="cpu")
+    assert state.time.device.type == "cpu"
+    assert state.physics.quat.shape == (2, 3, 4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        convert.sim_state_to_torch(ref_state)

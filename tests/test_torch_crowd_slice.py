@@ -32,7 +32,7 @@ def test_crowd_step_fn_end_to_end_two_frames(msaa):
     ref = ref_scene(msaa=msaa)
     port = port_scene(ref)
     ref_state = ref_par.crowd_init(ref, N, phase_frames=7.0)
-    state = convert.sim_state_to_torch(ref_state)
+    state = convert.sim_state_to_torch(ref_state, device="cpu")
     ref_step = jax.jit(ref_par.crowd_step_fn(ref))
     step = par.crowd_step_fn(port)
     for frame in range(2):
@@ -62,7 +62,7 @@ def test_supersample_fallback_renders_instance_by_instance(capsys):
     assert "msaa_supersample" in err
 
     ref_state = ref_par.crowd_init(ref, 2, phase_frames=7.0)
-    state, got = step(convert.sim_state_to_torch(ref_state))
+    state, got = step(convert.sim_state_to_torch(ref_state, device="cpu"))
     _, want = jax.jit(ref_par.crowd_step_fn(ref))(ref_state)
     _assert_frames_close(got.numpy(), np.asarray(want), "supersample")
 

@@ -106,7 +106,7 @@ def test_crowd_state_round_trips_through_convert(scenes):
     with a leading [I], from the reference's state and back."""
     ref, port = scenes
     ref_state = ref_par.crowd_init(ref, 3)
-    state = convert.sim_state_to_torch(ref_state)
+    state = convert.sim_state_to_torch(ref_state, device="cpu")
     assert state.time.shape == (3,) and state.time.dtype == torch.float32
     assert state.physics.quat.shape == (3, port.phys.n_bodies, 4)
     back = convert.sim_state_to_numpy(state)
@@ -124,7 +124,7 @@ def test_crowd_step_matches_reference_three_frames(scenes):
     ref, port = scenes
     n = 3
     ref_state = ref_par.crowd_init(ref, n, phase_frames=7.0)
-    state = convert.sim_state_to_torch(ref_state)
+    state = convert.sim_state_to_torch(ref_state, device="cpu")
     ref_step = jax.jit(ref_par.crowd_step_fn(ref, render=False))
     step = par.crowd_step_fn(port, render=False)
     ik = _ik_driven_bodies(ref.static, ref.phys_static)

@@ -12,14 +12,15 @@ K4 must be bit-exact; K2's and K4's attributes within 1e-6 (same
 arithmetic, one IEEE division). The crowd kernels K5a, K5b and K5c are
 held the same way against their plain versions, give the same bits in two
 runs, and fold to K2, K4 and K1 on one instance's own bins. K1, K6, K2,
-K4, K5a and K5b, which evaluate an entry only inside its pixel box with
-integer atomics on shared tile state, are also held against the
+K4, K5a, K5b and K5c, which evaluate an entry only inside its pixel box
+with integer atomics on shared tile state, are also held against the
 brute-force plain versions on the adversarial sets of
-tests/torch_box_meshes.py (boxes at the pixel centre for K1/K6/K2/K5a,
-over the MSAA samples for K4/K5b), on tiles of only wide and only small
-boxes, with shuffled entries, and twice for equal bits; K6's map must
-equal K1's on the same bins and boxes, and over 8-row bins K1's over
-32-row bins of the same mesh.
+tests/torch_box_meshes.py (boxes at the pixel centre for
+K1/K6/K2/K5a/K5c, over the MSAA samples for K4/K5b), on tiles of only wide
+and only small boxes, with shuffled entries, and twice for equal bits;
+K6's map must equal K1's on the same bins and boxes, and over 8-row bins
+K1's over 32-row bins of the same mesh. K3 runs at sizes whose rows are
+and are not a multiple of four columns, on maps at an unaligned base too.
 """
 
 import dataclasses
@@ -112,16 +113,45 @@ def test_raster_kernel_bit_exact(cuda, case, n_attrs):
     assert float((got[4] - want[4]).abs().max()) <= 1e-6
 
 
-@pytest.mark.parametrize("s,b", [(256, 1), (200, 2)])
+PCF_CASES = ([(s, b) for s in (1, 3, 5, 130, 256, 2048) for b in (1, 3)]
+             + [(256, 64), (200, 2)])
+
+
+@pytest.mark.parametrize("s,b", PCF_CASES)
 def test_pcf_kernel_bit_exact(cuda, s, b):
-    rng = np.random.default_rng(s)
+    """K3 against its plain version, bit for bit, one launch each: random
+    maps with exact ties zref == depth, zero columns and rows at the edges
+    (the edge-clamped taps), and the same maps at a base 4 bytes past a
+    16-byte boundary (a view of a larger buffer: the one-column variant,
+    as for S not a multiple of 4)."""
+    rng = np.random.default_rng(s + b)
     maps = torch.as_tensor(rng.random((b, s, s), np.float32), device=cuda)
     params = torch.tensor([0.5, 1e-3, -2e-3], dtype=torch.float32,
                           device=cuda)
-    before = shadow_pcf.launches
-    got = shadow_pcf.pcf_lit_map(maps, params)
-    assert shadow_pcf.launches == before + 1
-    assert torch.equal(got, shadow_pcf.pcf_lit_map_plain(maps, params))
+    # the reference depth in the plain version's order, planted as the
+    # depth of a quarter of the texels: ties on their own taps
+    col = torch.arange(s, dtype=torch.float32, device=cuda)[None, :]
+    row = torch.arange(s, dtype=torch.float32, device=cuda)[:, None]
+    zref = (params[0] + params[1] * col + params[2] * row).expand(b, s, s)
+    tie = torch.as_tensor(rng.random((b, s, s)) < 0.25, device=cuda)
+    maps = torch.where(tie, zref, maps)
+    maps[:, :, 0] = 0.0
+    maps[:, -1, :] = 0.0
+    if b > 1:
+        maps[1:, 0, :] = 0.0
+        maps[1:, :, -1] = 0.0
+    want = shadow_pcf.pcf_lit_map_plain(maps, params)
+    if s > 1:      # (a map of one texel is all edge: zero, unlit)
+        assert bool((want > 0).any()) and bool((want < 1).any())
+    buf = torch.empty(b * s * s + 4, dtype=torch.float32, device=cuda)
+    shifted = buf[1:1 + b * s * s].view(b, s, s)
+    shifted.copy_(maps)
+    assert shifted.data_ptr() % 16 == 4
+    for m in (maps, shifted):
+        before = shadow_pcf.launches
+        got = shadow_pcf.pcf_lit_map(m, params)
+        assert shadow_pcf.launches == before + 1
+        assert torch.equal(got, want)
 
 
 def test_kernels_on_empty_bins(cuda):
@@ -145,6 +175,14 @@ def test_kernels_on_empty_bins(cuda):
     want = tr.raster_tiles_ms_plain(rows, starts, counts, 256, 128, 0)
     for g, p in zip(got, want):
         assert torch.equal(g, p)
+    # K5c over two instances of the empty bins, with and without boxes
+    starts2, counts2 = torch.cat([starts[:-1], starts]), counts.repeat(2)
+    want = tr.depth_tiles_multi_plain(rows, starts2, counts2, 2, 256, 128)
+    assert bool((want == 1.0).all())
+    boxes = torch.zeros((rows.shape[0], 4), dtype=torch.int16, device=cuda)
+    for bx in (boxes, None):
+        assert torch.equal(tr.depth_tiles_multi(rows, starts2, counts2, 2,
+                                                256, 128, bx), want)
     window = tr._caster_window(s, 256, 128, 32)
     assert window.tolist()[2:] == [0, 0]
     win = tr.depth_tiles_win(rows, starts, counts, window, 256, 128, 32)
@@ -294,8 +332,9 @@ def test_default_device_is_cuda(cuda):
 
 def _crowd_bins(device, n_inst, t, spread, size, w, h, z, sample_extent=0.0,
                 seed=5):
-    """Bins of n_inst random meshes over one topology (crowd binning); the
-    last instance lies behind the camera and bins nothing."""
+    """Bins of n_inst random meshes over one topology (crowd binning) ->
+    (rows, starts, counts, the entries' pixel boxes at `sample_extent`);
+    the last instance lies behind the camera and bins nothing."""
     rng = np.random.default_rng(seed)
     v0 = rng.uniform(-spread, spread, (n_inst, t, 2))
     d1 = rng.uniform(-size, size, (n_inst, t, 2))
@@ -311,7 +350,8 @@ def _crowd_bins(device, n_inst, t, spread, size, w, h, z, sample_extent=0.0,
         np.float32), device=device)
     s, rows = tr._crowd_setup(clip, tris, attrs, w, h, raster.CULL_NONE, None,
                               None, None, sample_extent)
-    return tr._bin_crowd(s, rows, w, h)[:3]
+    bins = tr._bin_crowd(s, rows, w, h, tr._pixel_boxes(s, sample_extent))
+    return bins[:3] + bins[4:]
 
 
 CROWD_CASES = [
@@ -324,14 +364,18 @@ CROWD_CASES = [
 @pytest.mark.parametrize("case", CROWD_CASES, ids=["random", "dense"])
 def test_crowd_kernels_bit_exact_and_fold(cuda, case):
     """K5a, K5b, K5c against their plain versions (the dense case: several
-    shared-memory chunks per tile, every overlap a z-tie), the same bits
-    in two runs, and instance i's planes equal to K2's, K4's and K1's on
-    that instance's own bins."""
+    chunks of entries per tile, every overlap a z-tie), the same bits in
+    two runs, and instance i's planes equal to K2's, K4's and K1's on that
+    instance's own bins. K5c with the boxes of `_bin_crowd` (at the
+    centre, and at the MSAA extent: wider, still safe) against the plain
+    version with and without them and against itself without them, and
+    instance i's map equal to K1's on its bins with the same boxes."""
     n_inst, t, spread, size, w, h, z = case
     n_tiles = tr._grid(w, h)[2]
     for ms in (False, True):
-        rows, starts, counts = _crowd_bins(cuda, n_inst, t, spread, size, w,
-                                           h, z, 0.375 if ms else 0.0)
+        rows, starts, counts, boxes = _crowd_bins(cuda, n_inst, t, spread,
+                                                  size, w, h, z,
+                                                  0.375 if ms else 0.0)
         if t >= 2000:
             assert int(counts.max()) > 256
         assert int(counts[-n_tiles:].sum()) == 0
@@ -355,12 +399,18 @@ def test_crowd_kernels_bit_exact_and_fold(cuda, case):
         assert bool((got[1][0] >= 0).any()) and bool((got[1][-1] < 0).all())
 
         before = tr.depth_multi_launches
-        depth = tr.depth_tiles_multi(rows, starts, counts, n_inst, w, h)
+        depth = tr.depth_tiles_multi(rows, starts, counts, n_inst, w, h,
+                                     boxes)
         assert tr.depth_multi_launches == before + 1
-        assert torch.equal(depth, tr.depth_tiles_multi_plain(
-            rows, starts, counts, n_inst, w, h))
+        want = tr.depth_tiles_multi_plain(rows, starts, counts, n_inst, w, h)
+        assert torch.equal(depth, want)
+        assert torch.equal(want, tr.depth_tiles_multi_plain(
+            rows, starts, counts, n_inst, w, h, boxes=boxes))
+        assert torch.equal(depth, tr.depth_tiles_multi(rows, starts, counts,
+                                                       n_inst, w, h, boxes))
         assert torch.equal(depth, tr.depth_tiles_multi(rows, starts, counts,
                                                        n_inst, w, h))
+        assert bool((depth[0] < 1.0).any()) and bool((depth[-1] == 1.0).all())
         for i in range(n_inst):
             sl = slice(i * n_tiles, (i + 1) * n_tiles)
             st_i = torch.cat([starts[sl], starts[sl][-1:] + counts[sl][-1:]])
@@ -368,12 +418,12 @@ def test_crowd_kernels_bit_exact_and_fold(cuda, case):
             for a, b in zip(got, one):
                 assert torch.equal(a[i], b), (ms, i)
             assert torch.equal(depth[i], tr.depth_tiles(
-                rows, st_i, counts[sl].contiguous(), w, h))
+                rows, st_i, counts[sl].contiguous(), w, h, boxes))
 
 
 def test_crowd_wrappers_reject_bad_inputs(cuda):
     rows, starts, counts = _crowd_bins(cuda, 2, 50, 0.9, 0.25, 128, 64,
-                                       (0.1, 0.9))
+                                       (0.1, 0.9))[:3]
     with pytest.raises(ValueError):      # bins of 2 instances, asked for 3
         tr.depth_tiles_multi(rows, starts, counts, 3, 128, 64)
     with pytest.raises(ValueError):
@@ -440,6 +490,17 @@ def _depth_pair_plain(rows, starts, counts, w, h, n_attrs):
     return want, want
 
 
+def _k5c(rows, starts, counts, n_inst, w, h, n_attrs, boxes=None):
+    """K5c as the crowd rasters are called (n_attrs unused)."""
+    del n_attrs
+    return (tr.depth_tiles_multi(rows, starts, counts, n_inst, w, h, boxes),)
+
+
+def _k5c_plain(rows, starts, counts, n_inst, w, h, n_attrs):
+    del n_attrs
+    return (tr.depth_tiles_multi_plain(rows, starts, counts, n_inst, w, h),)
+
+
 def _k6_tile8(rows, starts, counts, w, h, n_attrs, boxes=None):
     del n_attrs
     return (tr.depth_tiles_win(rows, starts, counts, _whole_window(w, h, 8),
@@ -457,7 +518,7 @@ def _k6_tile8_plain(rows, starts, counts, w, h, n_attrs):
 # wrapper's launch counter, tile height of the bins). The depth kernels
 # take (rows, starts, counts, w, h, n_attrs, boxes) too, n_attrs unused,
 # and give a tuple of maps: "depth" K1 and K6 on 32-row bins (the plain
-# version's map twice), "depth8" K6 on 8-row bins.
+# version's map twice) and the crowd's K5c, "depth8" K6 on 8-row bins.
 BOXED = {
     True: (tr.MSAA4_EXTENT, tr.raster_tiles_ms, tr.raster_tiles_ms_plain,
            tr.raster_tiles_ms_multi, tr.raster_tiles_ms_multi_plain,
@@ -465,7 +526,7 @@ BOXED = {
     False: (0.0, tr.raster_tiles, tr.raster_tiles_plain,
             tr.raster_tiles_multi, tr.raster_tiles_multi_plain,
             "raster_launches", tr.TILE_H),
-    "depth": (0.0, _depth_pair, _depth_pair_plain, None, None,
+    "depth": (0.0, _depth_pair, _depth_pair_plain, _k5c, _k5c_plain,
               "depth_launches", tr.TILE_H),
     "depth8": (0.0, _k6_tile8, _k6_tile8_plain, None, None,
                "depth_win_launches", 8),
@@ -475,23 +536,24 @@ DEPTH_KERNELS = ("depth", "depth8")
 
 def _covered(planes, ms):
     """Some pixel covered: a sample depth below 1 (K4), a triangle (K2), a
-    depth below 1 (K1, K6)."""
+    depth below 1 (K1, K6, K5c)."""
     if ms in DEPTH_KERNELS:
         return bool((planes[0] < 1.0).any())
     return bool((planes[5] < 1.0).any() if ms else (planes[1] >= 0).any())
 
 
-def _by_kernel(ids, depth=False):
+def _by_kernel(ids, depth=DEPTH_KERNELS):
     """pytest params of (kernel, id): K4/K5b under their ids, K2/K5a under
-    "centre-" + id; with `depth`, K1 and K6 on 32-row bins under "depth-"
-    + id and K6 on 8-row bins under "depth8-" + id."""
+    "centre-" + id; then the depth kernels of `depth`: "depth" (K1 and K6
+    on 32-row bins; the crowd's K5c) under "depth-" + id, "depth8" (K6 on
+    8-row bins) under "depth8-" + id."""
     return ([pytest.param(True, i, id=i) for i in ids]
             + [pytest.param(False, i, id="centre-" + i) for i in ids]
-            + [pytest.param(k, i, id=f"{k}-{i}") for k in DEPTH_KERNELS
-               for i in ids if depth])
+            + [pytest.param(k, i, id=f"{k}-{i}") for k in depth
+               for i in ids])
 
 
-@pytest.mark.parametrize("ms,kind", _by_kernel(KINDS, depth=True))
+@pytest.mark.parametrize("ms,kind", _by_kernel(KINDS))
 def test_raster_ms_kernel_adversarial_boxes(cuda, ms, kind):
     """K4 (and K2, K1, K6) with the entries' pixel boxes against the
     brute-force plain version (which takes none), entries shuffled within
@@ -514,9 +576,9 @@ def test_raster_ms_kernel_adversarial_boxes(cuda, ms, kind):
     assert _covered(got, ms)
 
 
-@pytest.mark.parametrize("ms,kind", _by_kernel(KINDS))
+@pytest.mark.parametrize("ms,kind", _by_kernel(KINDS, depth=("depth",)))
 def test_raster_ms_multi_kernel_adversarial_boxes(cuda, ms, kind):
-    """K5b (and K5a) the same way, over a crowd of three sets."""
+    """K5b (and K5a, K5c) the same way, over a crowd of three sets."""
     extent, _, _, fn, plain = BOXED[ms][:5]
     w, h, n_inst = 256, 144, 3
     rows, starts, counts, boxes = boxed_bins(kind, 23, 400, w, h, n_attrs=3,

@@ -67,7 +67,7 @@ def compare_slice(ref, n_frames):
                  convert.motion_arrays(ref.motion),
                  convert.app_config(ref.config), device="cpu")
     ref_state = ref.init_state()
-    state = convert.sim_state_to_torch(ref_state)
+    state = convert.sim_state_to_torch(ref_state, device="cpu")
     ik_bodies = _ik_driven_bodies(ref.static, ref.phys_static)
     assert 0 < ik_bodies.sum() < ref.phys_static.n_bodies
     step = jax.jit(ref.step_and_render)
