@@ -37,24 +37,45 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    batch of shadow maps, and one instance's planes must equal the
    single-instance kernel's on that instance's own bins with the same
    boxes (K5c vs K1, K5a vs K2, K5b vs K4).
-4. flagship: the sample character at density 2.0, 1920x1080, 2048^2 shadow
+4. compiled: the step of every path (pose + physics + deform: the CCD
+   loop's fixed, masked iteration count, `Scene.step_pose(...,
+   capturable=True)`) captured as one CUDA graph (`Scene.captured_step`)
+   and replayed (`Scene.jit_step(render=False)`), capture and replays
+   under `torch.cuda.set_sync_debug_mode("error")`; the replays must equal
+   the eager step (early exit) bit for bit, every state leaf, pose field,
+   position and normal, over 8 frames of the flagship msaa=1 path and of
+   the dense crowd (whose msaa=1 and msaa=4 paths share one graph: the
+   step reads no render setting) and 2 frames of the msaa=4 + window
+   flagship and of the light crowd. Prints the capture's seconds, the
+   eager step's and the replay's ms/frame, and the CCD iterations the
+   eager step ran per IK group against the fixed count. Then under
+   torch.profiler one eager frame of the flagship msaa=1 path, one
+   compiled frame of it (`rollout` of one frame: the state copied in and
+   out) and one of the dense crowd at msaa=1 (`crowd_step_fn`): host
+   launch calls and device kernels a frame.
+5. flagship: the sample character at density 2.0, 1920x1080, 2048^2 shadow
    map, physics on, at msaa=1 and at msaa=4 + shadow_window: 3 warm-up
-   frames each, then 20 timed frames of each through `Scene.rollout`, in
-   turns (segments of 10 frames: msaa=1, msaa=4, msaa=4, msaa=1, so that
-   drift over the call falls on both paths alike), every kernel's launch
-   counter reset just before each segment and read just after. The frames
-   must be finite, the checksums must advance, the path's kernels must
-   each launch once a frame and the other path's never, and the character
-   must cover a plausible share of the frame. Prints ms/frame and fps.
-5. crowd: 64 instances (`crowd_init(scene, 64)`, clocks 7 frames apart)
+   frames each, then 20 timed frames of each through the compiled
+   `Scene.rollout` (a replay and the eager render a frame), in turns
+   (segments of 10 frames: msaa=1, msaa=4, msaa=4, msaa=1, so that drift
+   over the call falls on both paths alike), and between them one eager
+   segment of 5 frames of msaa=1 (`Scene.step_and_render`) for
+   comparison; every
+   kernel's launch counter reset just before each segment and read just
+   after. The frames must be finite, the checksums must advance, the
+   path's kernels must each launch once a frame and the other path's
+   never, and the character must cover a plausible share of the frame.
+   Prints ms/frame and fps.
+6. crowd: 64 instances (`crowd_init(scene, 64)`, clocks 7 frames apart)
    of the density-2.0 character with `sample_motion(120, fps_keys=5)` at
-   256x144, shadow 256^2, physics on: 3 warm-up frames, then 8 timed frames
-   at msaa=1 and 8 at msaa=4 in turns (segments of 4), the counters checked
-   per segment as above; then the density-0.5 crowd at msaa=4. The frames
-   must be finite [64,144,256,3], their checksums must advance, and
-   instance 0 must differ from instance 1. Prints ms per crowd frame and
-   instance-frames per second.
-6. parity: a small scene rendered on the card and on the CPU (plain
+   256x144, shadow 256^2, physics on, through `crowd_step_fn` (a replay of
+   the crowd's compiled step and the eager fused render a crowd frame): 3
+   warm-up frames, then 8 timed frames at msaa=1 and 8 at msaa=4 in turns
+   (segments of 4), the counters checked per segment as above; then the
+   density-0.5 crowd at msaa=4. The frames must be finite [64,144,256,3],
+   their checksums must advance, and instance 0 must differ from instance
+   1. Prints ms per crowd frame and instance-frames per second.
+7. parity: a small scene rendered on the card and on the CPU (plain
    versions) must agree (fewer than 2e-3 of pixels off by more than 0.02,
    mean absolute difference below 1/255), at msaa=1 and at msaa=4 with the
    windowed shadow map; and a crowd of 4 at msaa=1 and at msaa=4.
@@ -83,9 +104,14 @@ WIDTH, HEIGHT, SHADOW, DENSITY = 1920, 1080, 2048, 2.0
 WARMUP, FRAMES = 3, 20
 MSAA_PATH = dict(msaa=4, shadow_window=True)
 PATH_LABEL = {False: "msaa=1", True: "msaa=4 + shadow_window"}
-# the timed segments' paths (msaa?), in turns; FRAMES per path in all
-ORDER = (False, True, True, False)
+# the timed flagship segments (msaa?, compiled?), in turns: FRAMES per path
+# compiled, and one eager segment of msaa=1 among them for comparison
+ORDER = ((False, True), (True, True), (False, False), (True, True),
+         (False, True))
 SEGMENT = FRAMES // 2
+EAGER_SEGMENT = SEGMENT // 2     # the eager segment's frames
+# the compiled phase's frames: replays held bit-equal to the eager step
+COMPILED_FRAMES, COMPILED_FRAMES_SHORT = 8, 2
 
 # cycles of the sleep kernel that holds the stream while the host queues a
 # back-to-back run (`primed_ms`), about 10 ms on an H100
@@ -121,10 +147,15 @@ ROW_LANES = 11   # lanes of a setup row that visibility reads (lanes 0-10)
 CROWD_N, CROWD_W, CROWD_H, CROWD_SHADOW, CROWD_MOTION = 64, 256, 144, 256, 120
 CROWD_FRAMES, CROWD_SEGMENT = 8, 4
 CROWD_LABEL = {False: "msaa=1", True: "msaa=4"}
+CROWD_ORDER = (False, True, True, False)     # the segments' paths (msaa?)
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of output behind the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def smi_name_power() -> str:
@@ -627,22 +658,137 @@ def check_kernels_msaa(scene, state, results):
            "tiled_raster.py:1156", k6_err, k6_ms, k6_plain, k6_bound)
 
 
-def time_segment(scene, state, msaa: bool):
-    """SEGMENT frames of one path through `Scene.rollout`, every launch
-    counter reset just before and read just after: -> (state', ms/frame,
-    counts). The frames must be finite and advance, and the path's kernels
-    must each launch once a frame and the other path's never."""
-    label = PATH_LABEL[msaa]
+def eager_steps(scene, state, n: int):
+    """n frames of the eager step (`Scene.step_pose`, the CCD loop's early
+    exit) from `state` -> (the frames' outputs, ms/frame, the CCD
+    iterations each IK group ran in each frame: [(loop, chains,
+    iterations), ...] a frame). The iterations are counted from the
+    masked FK updates of the chains' targets, one per free link an
+    iteration."""
+    from simple_mmd_renderer_tpu_torch.core import pose as pose_mod
+    from simple_mmd_renderer_tpu_torch.core.model import FIX_ALL
+
+    solve, fk = pose_mod._solve_ik_group, pose_mod._fk_bones
+    groups, masked = [], [0]
+
+    def fk_spy(*args, active=None, **kw):
+        masked[0] += active is not None
+        return fk(*args, active=active, **kw)
+
+    def solve_spy(static, pose, seg, *args, **kw):
+        masked[0] = 0
+        out = solve(static, pose, seg, *args, **kw)
+        free = sum(f != FIX_ALL for f in seg.fix_types)
+        groups[-1].append((seg.loop, seg.links.shape[0], masked[0] // free))
+        return out
+
+    frames = []
+    pose_mod._solve_ik_group, pose_mod._fk_bones = solve_spy, fk_spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            groups.append([])
+            frames.append(scene.step_pose(state))
+            state = frames[-1][0]
+        torch.cuda.synchronize()
+    finally:
+        pose_mod._solve_ik_group, pose_mod._fk_bones = solve, fk
+    return frames, 1000.0 * (time.perf_counter() - t0) / n, groups
+
+
+def check_compiled(label, scene, state, n: int) -> None:
+    """The path's step captured (`Scene.captured_step`: the warm-up and the
+    capture run under the sync debug mode "error") and replayed n times
+    under that mode; each replay must equal the eager step's frame bit for
+    bit. Prints the capture's seconds, both steps' ms/frame and the eager
+    CCD iterations."""
+    from simple_mmd_renderer_tpu_torch.utils.graph import (shape_key,
+                                                           sync_errors,
+                                                           tree_leaves)
+
+    eager, eager_ms, iters = eager_steps(scene, state, n)
+    shared = shape_key(state) in scene._graphs
+    t0 = time.perf_counter()
+    scene.captured_step(state)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    step = scene.jit_step(render=False)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    with sync_errors():
+        s = state
+        for want in eager:
+            got = step(s)
+            for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+                bad += (a != b).sum()
+            s = got[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sync_errors():
+        for _ in range(n):
+            s = step(s)[0]
+    torch.cuda.synchronize()
+    replay_ms = 1000.0 * (time.perf_counter() - t0) / n
+    bad = int(bad)
+    same = all(frame == iters[0] for frame in iters)
+    log(f"compiled ({label}): capture {capture_s:.3f} s"
+        f"{' (the graph already existed)' if shared else ''}; {n} replays "
+        f"vs {n} eager steps: mismatches {bad} over "
+        f"{len(tree_leaves(eager[0]))} leaves a frame; step {eager_ms:.3f} "
+        f"ms/frame eager, {replay_ms:.3f} ms/frame replayed; eager CCD "
+        f"(loop, chains, iterations run) per group and frame "
+        f"{iters[0] if same else iters}{' in every frame' if same else ''}")
+    if bad:
+        raise AssertionError(f"the compiled step ({label}) differs from the "
+                             "eager step")
+
+
+def launch_profile(label, frames, state, n: int):
+    """`frames` (state -> state' after n frames) under torch.profiler ->
+    state'; prints the host launch calls and device kernels a frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_mmd_renderer_tpu_torch.utils.profiling import launch_counts
+
+    torch.cuda.synchronize()
+    # the CUDA activity alone records the runtime's launch calls and the
+    # device's kernels, without the operators' host events
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state = frames(state)
+        torch.cuda.synchronize()
+    host, kernels, busy_us = launch_counts(prof.events())
+    calls = ", ".join(f"{k} {v / n:g}" for k, v in host.items())
+    log(f"launches ({label}): per frame over {n}, host launch calls "
+        f"{sum(host.values()) / n:g} ({calls}), device kernels "
+        f"{kernels / n:g}, device busy {busy_us / 1000 / n:.3f} ms")
+    return state
+
+
+def time_segment(scene, state, msaa: bool, compiled: bool):
+    """SEGMENT frames of one path through the compiled `Scene.rollout`, or
+    EAGER_SEGMENT eagerly (`Scene.step_and_render`), every launch counter
+    reset just before and read just after: -> (state', ms/frame, counts).
+    The frames must be finite and advance, and the path's kernels must
+    each launch once a frame and the other path's never."""
+    label = PATH_LABEL[msaa] + ("" if compiled else ", eager")
+    frames = SEGMENT if compiled else EAGER_SEGMENT
     reset_counters()
     t0 = time.perf_counter()
-    state, sums = scene.rollout(state, SEGMENT)
+    if compiled:
+        state, sums = scene.rollout(state, frames)
+    else:
+        sums = []
+        for _ in range(frames):
+            state, image = scene.step_and_render(state)
+            sums.append(image.mean())
+        sums = torch.stack(sums)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counters()
 
     sums = sums.cpu().numpy()
-    ms = 1000.0 * dt / SEGMENT
-    log(f"flagship ({label}): segment of {SEGMENT} frames, {ms:.3f} "
+    ms = 1000.0 * dt / frames
+    log(f"flagship ({label}): segment of {frames} frames, {ms:.3f} "
         f"ms/frame; launches {counts}; checksums "
         f"{sums.min():.5f}..{sums.max():.5f}")
     if not np.isfinite(sums).all():
@@ -651,9 +797,9 @@ def time_segment(scene, state, msaa: bool):
         raise AssertionError("frames did not advance")
     mine = path_kernels(msaa)
     for k, n in counts.items():
-        want = SEGMENT if k in mine else 0
+        want = frames if k in mine else 0
         if n != want:
-            raise AssertionError(f"{k} launched {n} times in {SEGMENT} "
+            raise AssertionError(f"{k} launched {n} times in {frames} "
                                  f"frames ({label}), expected {want}")
     return state, ms, counts
 
@@ -667,21 +813,26 @@ def run_flagships(scenes, results):
         states[msaa], _ = scene.rollout(state, WARMUP)
     torch.cuda.synchronize()
 
-    seg_ms = {msaa: [] for msaa in scenes}
+    seg_ms = {key: [] for key in ORDER}
     launches = {msaa: dict.fromkeys(KERNELS, 0) for msaa in scenes}
-    for msaa in ORDER:
+    for msaa, compiled in ORDER:
         states[msaa], ms, counts = time_segment(scenes[msaa][0],
-                                                states[msaa], msaa)
-        seg_ms[msaa].append(ms)
-        for k, n in counts.items():
-            launches[msaa][k] += n
+                                                states[msaa], msaa, compiled)
+        seg_ms[msaa, compiled].append(ms)
+        if compiled:            # the main path's launches
+            for k, n in counts.items():
+                launches[msaa][k] += n
 
+    eager = seg_ms[False, False]
+    log(f"flagship ({PATH_LABEL[False]}, eager): {EAGER_SEGMENT} frames: "
+        f"{sum(eager) / len(eager):.3f} ms/frame")
     for msaa in (False, True):
         label, mine = PATH_LABEL[msaa], path_kernels(msaa)
-        ms = sum(seg_ms[msaa]) / len(seg_ms[msaa])
-        log(f"flagship ({label}): {FRAMES} frames at {WIDTH}x{HEIGHT}, "
-            f"shadow {SHADOW}: {ms:.3f} ms/frame, {1000.0 / ms:.3f} fps "
-            f"(segments {', '.join(f'{t:.3f}' for t in seg_ms[msaa])}); "
+        ms = sum(seg_ms[msaa, True]) / len(seg_ms[msaa, True])
+        log(f"flagship ({label}, compiled): {FRAMES} frames at "
+            f"{WIDTH}x{HEIGHT}, shadow {SHADOW}: {ms:.3f} ms/frame, "
+            f"{1000.0 / ms:.3f} fps (segments "
+            f"{', '.join(f'{t:.3f}' for t in seg_ms[msaa, True])}); "
             f"launches {launches[msaa]}")
         # each kernel's launches are read from the path that carries it in
         # the record (K3 runs on both; its record is the msaa=1 path's)
@@ -720,9 +871,9 @@ def with_render(scene, **render):
 
 
 def build_crowd(density, label):
-    """{msaa?: (step function, crowd state)} of CROWD_N instances of the
-    sample character at `density`: one scene's tables, two render
-    configs."""
+    """(scene, {msaa?: (step function, crowd state)}) of CROWD_N instances
+    of the sample character at `density`: one scene's tables (and compiled
+    step), two render configs."""
     t0 = time.perf_counter()
     scene = build_sample_scene(density, CROWD_W, CROWD_H, CROWD_SHADOW,
                                "cuda", n_frames=CROWD_MOTION, fps_keys=5)
@@ -735,7 +886,7 @@ def build_crowd(density, label):
         f"{scene.phys.n_joints} joints; clocks "
         f"{float(crowd[False][1].time[1] * scene.config.fps):.1f} frames "
         f"apart; built in {time.perf_counter() - t0:.2f} s")
-    return crowd
+    return scene, crowd
 
 
 def instance_bins(starts, counts, i, n_tiles):
@@ -871,6 +1022,13 @@ def check_kernels_crowd(crowd, results):
     record(results, "K5c", "K5c depth_tiles_multi (crowd shadow depth)",
            "tiled_raster.cu", "tiled_raster.py:2072", c_err, c_ms, c_plain,
            c_bound)
+
+
+def crowd_frames(step, state, n: int):
+    """n crowd frames of `step` (a `crowd_step_fn`) -> state'."""
+    for _ in range(n):
+        state, _ = step(state)
+    return state
 
 
 def time_crowd_segment(step, state, msaa: bool, label: str):
@@ -1037,16 +1195,37 @@ def main() -> int:
             f"{scene.phys.n_joints} joints; built in "
             f"{time.perf_counter() - t0:.2f} s")
 
-    dense = build_crowd(DENSITY, "crowd-dense")
+    dense_scene, dense = build_crowd(DENSITY, "crowd-dense")
 
     results: dict = {}
     check_kernels(*scenes[False], results)
     check_kernels_msaa(*scenes[True], results)
+    check_compiled("flagship msaa=1", *scenes[False], COMPILED_FRAMES)
+    check_compiled("flagship msaa=4 + shadow_window", *scenes[True],
+                   COMPILED_FRAMES_SHORT)
+    check_compiled("crowd-dense, both paths", dense_scene, dense[False][1],
+                   COMPILED_FRAMES)
     check_kernels_crowd(dense, results)
+
+    # a frame of each kind (the compiled paths share their step's graph
+    # layout: the msaa=4 flagship's and the light crowd's are these)
+    scene, state = scenes[False]
+    launch_profile("flagship msaa=1, eager",
+                   lambda s: scene.step_and_render(s)[0], state, 1)
+    launch_profile("flagship msaa=1, compiled",
+                   lambda s: scene.rollout(s, 1)[0], state, 1)
+    launch_profile("crowd-dense msaa=1, compiled",
+                   lambda s: crowd_frames(dense[False][0], s, 1),
+                   dense[False][1], 1)
+
     run_flagships(scenes, results)
-    run_crowd(dense, "crowd-dense", ORDER, results)
-    del dense
-    run_crowd(build_crowd(0.5, "crowd-bench"), "crowd-bench", (True, True))
+    run_crowd(dense, "crowd-dense", CROWD_ORDER, results)
+    del dense, dense_scene
+    bench_scene, bench = build_crowd(0.5, "crowd-bench")
+    check_compiled("crowd-bench", bench_scene, bench[True][1],
+                   COMPILED_FRAMES_SHORT)
+    run_crowd(bench, "crowd-bench", (True, True))
+    del bench, bench_scene
     check_parity(msaa=False)
     check_parity(msaa=True)
     check_parity_crowd(msaa=False)

@@ -319,6 +319,8 @@ class PhysicsTables(nn.Module):
                      box_pairs=bb.astype(np.int64))
         for name, arr in extra.items():
             self.register_buffer(name, torch.as_tensor(arr, device=device))
+        self.register_buffer("corner_signs", torch.as_tensor(_CORNER_SIGNS,
+                                                             device=device))
         self.strict_ids = [i for i in range(ps.n_bodies)
                            if ps.strict[i] and ps.writeback[i]]
 
@@ -350,7 +352,7 @@ class CrowdPhysicsTables:
                "j_qa", "j_ta", "j_qb", "j_tb", "j_lin_lo", "j_lin_hi",
                "j_ang_lo", "j_ang_hi", "j_k_lin", "j_k_ang")
     SHARED = ("s_joint_a", "s_joint_b", "s_pair_a", "s_pair_b", "has_box",
-              "has_cap", "strict_ids", "host", "device")
+              "has_cap", "strict_ids", "host", "device", "corner_signs")
 
     def __init__(self, ps: PhysicsTables, n_inst: int, n_bones: int):
         self.n_inst = n_inst
@@ -385,11 +387,12 @@ def _incidence_sum(ps, s, rows, groups):
 
 
 def _vec(values, like):
-    """Small constant vector on `like`'s device (no host copy per call)."""
+    """Small constant vector on `like`'s device, made there by fills (no
+    host copy: `out[i] = v` would copy a host scalar and synchronise)."""
     out = torch.zeros(len(values), dtype=torch.float32, device=like.device)
     for i, v in enumerate(values):
         if v:
-            out[i] = v
+            out[i].fill_(float(v))
     return out
 
 
@@ -500,15 +503,16 @@ _NO_CONTACT = -1e9   # inactive-slot depth: stays negative under any motion
 # Jacobi rounds of the post-solve contact velocity pass
 VELOCITY_PASS_ITERS = 4
 
+# a box's corners in units of its half extents (`PhysicsTables.corner_signs`)
 _CORNER_SIGNS = np.asarray(
     [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
     np.float32)  # [8,3]
 
 
-def _box_box_manifold(xi, qi, di, xj, qj, dj):
-    """SAT + corner manifold for box-box pairs (vectorized over K) ->
-    (point [K,4,3], normal [K,4,3] oriented j->i, depth [K,4]), deepest
-    slot first, signed."""
+def _box_box_manifold(xi, qi, di, xj, qj, dj, corners):
+    """SAT + corner manifold for box-box pairs (vectorized over K; `corners`
+    the [8,3] corner signs) -> (point [K,4,3], normal [K,4,3] oriented
+    j->i, depth [K,4]), deepest slot first, signed."""
     ri = m3.quat_to_mat3(qi)            # [K,3,3], columns = local axes
     rj = m3.quat_to_mat3(qj)
     d = xi - xj
@@ -533,7 +537,6 @@ def _box_box_manifold(xi, qi, di, xj, qj, dj):
     axis = unit[torch.arange(k, device=xi.device), k_min]
     axis = axis * torch.where(torch.sum(axis * d, -1) >= 0, 1.0, -1.0)[:, None]
 
-    corners = torch.as_tensor(_CORNER_SIGNS, device=xi.device)
     cj_w = xj[:, None, :] + torch.einsum(
         "kab,knb->kna", rj, corners[None] * dj[:, None, :])       # [K,8,3]
     ci_w = xi[:, None, :] + torch.einsum(
@@ -616,7 +619,7 @@ def pair_contacts(ps: PhysicsTables, pos, quat):
 
     bb = ps.box_pairs
     pm, nm, dm = _box_box_manifold(xi[bb], qi[bb], di[bb],
-                                   xj[bb], qj[bb], dj[bb])
+                                   xj[bb], qj[bb], dj[bb], ps.corner_signs)
     k = depth1.shape[0]
     depth = torch.cat([depth1[:, None], torch.full(
         (k, PAIR_MANIFOLD - 1), _NO_CONTACT, dtype=torch.float32,
@@ -650,8 +653,7 @@ def ground_contacts(ps: PhysicsTables, pos, quat):
               torch.where(is_sph[:, None], d_sph,
                           torch.full_like(d_sph, _NO_CONTACT))]
     if ps.has_box:
-        corners = torch.as_tensor(_CORNER_SIGNS, device=pos.device)
-        local = corners[None, :, :] * dims[:, None, :]
+        local = ps.corner_signs[None, :, :] * dims[:, None, :]
         world = m3.quat_rotate(quat[:, None, :], local) + pos[:, None, :]
         cand_p.insert(0, world)
         cand_d.insert(0, torch.where(is_box[:, None], -world[..., 1],
@@ -951,14 +953,19 @@ def _contact_pass(ps: PhysicsTables, pos, quat, cfg, dt, cache,
     return pos, quat
 
 
+def gravity(cfg, like):
+    """The world gravity vector [3] of a PhysicsConfig on `like`'s device,
+    made there (no host copy, so a CUDA graph can hold it)."""
+    return _vec(cfg.gravity_direction, like) * cfg.gravity_strength \
+        * cfg.world_scale
+
+
 def physics_substep(ps: PhysicsTables, state: PhysicsState, target_pos,
-                    target_quat, cfg, dt):
+                    target_quat, cfg, dt, g):
+    """One substep of `dt` seconds under gravity `g` [3] (`gravity`)."""
     inv_m = ps.inv_mass
     dyn = (inv_m > 0)[:, None]
 
-    g = (torch.as_tensor(np.asarray(cfg.gravity_direction, np.float32),
-                         device=inv_m.device)
-         * cfg.gravity_strength * cfg.world_scale)
     vel = state.vel + g[None, :] * dt
     vel = vel * torch.pow(1.0 - ps.lin_damp, dt)[:, None]
     omega = state.omega * torch.pow(1.0 - ps.ang_damp, dt)[:, None]
@@ -1096,9 +1103,10 @@ def physics_react(static: ModelTables, ps: PhysicsTables,
     target_pos, target_quat = body_targets(ps, pose)
     sub_dt = 1.0 / cfg.substep_hz
     n_sub = min(max(1, round(cfg.dt * cfg.substep_hz)), cfg.max_substeps)
+    g = gravity(cfg, target_pos)
     for _ in range(n_sub):
         state = physics_substep(ps, state, target_pos, target_quat, cfg,
-                                sub_dt)
+                                sub_dt, g)
 
     # Synchronize: skin[bone] = W_body @ rest_frame^-1 for the write-back
     # bodies (at most one per bone by construction)
@@ -1125,7 +1133,9 @@ def physics_react(static: ModelTables, ps: PhysicsTables,
         local[:, :3, 3] = local[:, :3, 3] + _mv(skin_b[:, :3, :3], rest)
         if parent >= 0:
             parent_world = pose.world[static.instance_rows(parent)]
-            local = torch.linalg.inv(parent_world) @ local
+            # inv_ex: inv's values without its host check of `info`
+            local = torch.linalg.inv_ex(parent_world,
+                                        check_errors=False)[0] @ local
         local = local.clone()
         local[:, :3, 3] = pose.total_trans[rows] + static.local_offset[rows]
         world_b = (parent_world @ local) if parent >= 0 else local

@@ -6,9 +6,13 @@ path is not ported yet). The rig program (FK levels, IK groups) comes from
 `ModelTables`; per-frame inputs are the sampled bone poses and morph rates.
 Functions are pure: each returns a new PoseArrays.
 
-The CCD loop's early exit (every chain converged) is a Python loop that
-reads a device flag once per iteration — a host synchronisation that a
-later CUDA-graph change will want to remove.
+The CCD loop's early exit (every chain converged) reads a device flag
+once per iteration, a host synchronisation. The posing functions take
+`capturable=True` for the form a CUDA graph can hold (`Scene.jit_step`):
+every one of the group's `loop` iterations runs, masked by `active`. A
+chain that has converged is frozen either way (`done` only grows and every
+write is `torch.where(active, new, old)`), so both forms give the same
+bits.
 
 A crowd is posed by the same functions on the rig's instance-major view
 (`ModelTables.crowd(n)`, see `CrowdModelTables`): the state then holds
@@ -209,11 +213,13 @@ def _limit_euler(euler, emin, emax, mirror: bool):
 
 
 def _solve_ik_group(static: ModelTables, pose: PoseArrays, seg, anim_rot,
-                    anim_trans, morph_rot, morph_trans) -> PoseArrays:
+                    anim_trans, morph_rot, morph_trans,
+                    capturable: bool = False) -> PoseArrays:
     """CCD IK batched over a group of independent same-shaped chains
     (`seg`: an IKSegment). The link loop is unrolled per iteration; the
     iteration loop exits when every chain has converged (the reference's
-    early return)."""
+    early return), or with `capturable` runs all `seg.loop` iterations
+    with converged chains frozen (no host read)."""
     g = seg.links.shape[0]
     nl = seg.n_links
     dev = seg.links.device
@@ -244,7 +250,7 @@ def _solve_ik_group(static: ModelTables, pose: PoseArrays, seg, anim_rot,
     world, total_rot, ik_rot = pose.world, pose.total_rot, pose.ik_rot
     pre_ik_rot = pose.pre_ik_rot
     for i in range(loop):
-        if not bool((~done).any()):   # host sync: every chain converged
+        if not capturable and not bool((~done).any()):   # host sync
             break
         active = ~done                                              # [G]
         mirror = i < ikt
@@ -327,7 +333,8 @@ def _solve_ik_group(static: ModelTables, pose: PoseArrays, seg, anim_rot,
 
 
 def _run_segments(static: ModelTables, pose: PoseArrays, segments,
-                  anim_rot, anim_trans, morph_rot, morph_trans) -> PoseArrays:
+                  anim_rot, anim_trans, morph_rot, morph_trans,
+                  capturable: bool = False) -> PoseArrays:
     for seg in segments:
         if seg.kind == "fk":
             for level in seg.levels:
@@ -337,7 +344,7 @@ def _run_segments(static: ModelTables, pose: PoseArrays, segments,
             pose = _fk_bones(static, pose, seg.goal_bones, anim_rot,
                              anim_trans, morph_rot, morph_trans)
             pose = _solve_ik_group(static, pose, seg, anim_rot, anim_trans,
-                                   morph_rot, morph_trans)
+                                   morph_rot, morph_trans, capturable)
     return pose
 
 
@@ -355,21 +362,23 @@ def _update_skin(static: ModelTables, pose: PoseArrays, bones) -> PoseArrays:
 
 
 def pre_physics_posing(static: ModelTables, anim_rot, anim_trans,
-                       morph_rates) -> PoseArrays:
+                       morph_rates, capturable: bool = False) -> PoseArrays:
     """PrePhysicsPosing: clear, morphs, FK+IK over pre-physics bones,
-    skinning matrices for those bones."""
+    skinning matrices for those bones (`capturable`: `_solve_ik_group`)."""
     pose = init_pose(static)
     vertex_offsets, morph_rot, morph_trans, leaf = apply_morphs(static,
                                                                 morph_rates)
     pose = pose.replace(vertex_offsets=vertex_offsets, leaf_rates=leaf)
     pose = _run_segments(static, pose, static.pre_segments,
-                         anim_rot, anim_trans, morph_rot, morph_trans)
+                         anim_rot, anim_trans, morph_rot, morph_trans,
+                         capturable)
     return _update_skin(static, pose, static.pre_bones)
 
 
 def post_physics_posing(static: ModelTables, pose: PoseArrays, anim_rot,
-                        anim_trans, morph_rates) -> PoseArrays:
-    """PostPhysicsPosing."""
+                        anim_trans, morph_rates,
+                        capturable: bool = False) -> PoseArrays:
+    """PostPhysicsPosing (`capturable`: `_solve_ik_group`)."""
     if static.n_morphs:
         _, morph_rot, morph_trans, _ = apply_morphs(static, morph_rates)
     else:
@@ -377,7 +386,8 @@ def post_physics_posing(static: ModelTables, pose: PoseArrays, anim_rot,
         morph_trans = torch.zeros((static.n_bones, 3), dtype=torch.float32,
                                   device=static.device)
     pose = _run_segments(static, pose, static.post_segments,
-                         anim_rot, anim_trans, morph_rot, morph_trans)
+                         anim_rot, anim_trans, morph_rot, morph_trans,
+                         capturable)
     return _update_skin(static, pose, static.post_bones)
 
 

@@ -17,6 +17,14 @@ A crowd state (`parallel.mesh.crowd_init`: every leaf with a leading
 instance axis, `time` [I]) goes through the same `step_pose`: the stages
 run once, on the instance-major views of the rig and physics tables, so a
 crowd step makes about the launches of a single step, whatever I.
+
+The compiled step (`jit_step`, `rollout`, `jit_rollout`; the reference's
+`jax.jit` and `lax.scan`) is `step_pose(state, capturable=True)` captured
+on the card as one CUDA graph per state shape (`utils.graph.CapturedStep`,
+kept by the scene and dropped when `.to()` moves it): one replay a frame,
+pose + physics + deform, with no host synchronisation. The render after it
+stays eager. On a CPU scene the same capturable step runs eagerly on the
+same buffers.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from torch import nn
 from ..config import AppConfig, RenderConfig
 from ..render.pipeline import render_frame
 from ..utils.device import resolve_device
+from ..utils.graph import CapturedStep, shape_key, tree_map
 from ..utils.profiling import pass_scope
 from . import anim as anim_mod
 from . import physics as phys_mod
@@ -70,6 +79,12 @@ class Scene(nn.Module):
         self.phys = PhysicsTables(phys_static, device)
         self.motion = (MotionTables(motion, device) if motion is not None
                        else None)
+        self._graphs: dict = {}      # shape_key(state) -> CapturedStep
+
+    def _apply(self, fn, *args, **kwargs):
+        # the graphs hold the tables' old addresses: moving drops them
+        self._graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     @property
     def device(self):
@@ -88,7 +103,7 @@ class Scene(nn.Module):
         dev = self.device
         b = self.rig.n_bones
         rot = torch.zeros(lead + (b, 4), dtype=torch.float32, device=dev)
-        rot[..., 3] = 1.0
+        rot[..., 3].fill_(1.0)
         trans = torch.zeros(lead + (b, 3), dtype=torch.float32, device=dev)
         rates = torch.zeros(lead + (self.rig.n_morphs,), dtype=torch.float32,
                             device=dev)
@@ -102,11 +117,13 @@ class Scene(nn.Module):
         frame = torch.floor(time * self.config.fps)
         return anim_mod.sample_motion(self.motion, frame)
 
-    def step_pose(self, state: SimState):
+    def step_pose(self, state: SimState, capturable: bool = False):
         """One animation+physics frame -> (state', pose, positions, normals)
         with the deformed vertices in MMD units. A crowd state (time [I])
         steps all instances at once, each at its own clock, and returns
-        every leaf with the leading instance axis."""
+        every leaf with the leading instance axis. `capturable` runs the
+        form a CUDA graph holds (the CCD loop's fixed, masked iteration
+        count instead of its early exit: the same bits)."""
         static, phys = self.rig, self.phys
         cfg = self.config
         time = state.time + float(np.float32(1.0 / cfg.fps))
@@ -126,7 +143,7 @@ class Scene(nn.Module):
                 for f in dataclasses.fields(physics)})
         with pass_scope("pre_physics"):
             pose = pose_mod.pre_physics_posing(static, anim_rot, anim_trans,
-                                               rates)
+                                               rates, capturable)
         if self.motion is not None and cfg.physics.enabled \
                 and self.phys.n_bodies:
             with pass_scope("physics"):
@@ -134,7 +151,7 @@ class Scene(nn.Module):
                     static, phys, physics, pose, cfg.physics)
         with pass_scope("post_physics"):
             pose = pose_mod.post_physics_posing(static, pose, anim_rot,
-                                                anim_trans, rates)
+                                                anim_trans, rates, capturable)
         with pass_scope("deform"):
             positions, normals = pose_mod.deform(static, pose,
                                                  sdef=cfg.sdef_true)
@@ -148,24 +165,78 @@ class Scene(nn.Module):
     def step_and_render(self, state: SimState, width=None, height=None):
         """One frame -> (state', image [H,W,3])."""
         state, _, positions, normals = self.step_pose(state)
-        image = render_frame(self.rig, positions, normals, self.config.render,
-                             width=width, height=height)
-        return state, image
+        return state, self._render(positions, normals, width, height)
+
+    def captured_step(self, state: SimState) -> CapturedStep:
+        """The compiled step for states shaped like `state` (a single
+        scene's or a crowd's of I instances), captured at the first call
+        for that shape."""
+        key = shape_key(state)
+        if key not in self._graphs:
+            self._graphs[key] = CapturedStep(
+                lambda s: self.step_pose(s, capturable=True), state)
+        return self._graphs[key]
+
+    def replay_step(self, state: SimState):
+        """One compiled frame from `state` -> (state', pose, positions,
+        normals), the graph's own tensors: the next replay of this shape
+        overwrites them. `state` itself is only read."""
+        step = self.captured_step(state)
+        step.load(state)
+        return step.replay()
+
+    def _render(self, positions, normals, width, height):
+        return render_frame(self.rig, positions, normals, self.config.render,
+                            width=width, height=height)
+
+    def jit_step(self, render: bool = True, width=None, height=None,
+                 donate: bool = True):
+        """The compiled per-frame function (the reference's `jax.jit` of
+        `step_pose` / `step_and_render`): state -> (state', pose, positions,
+        normals) with `render=False`, one CUDA-graph replay; state ->
+        (state', image) with `render=True`, the replay and then the eager
+        `render_frame`.
+
+        `donate=True` is the counterpart of the reference's buffer
+        donation: the function returns the graph's own tensors (state' is
+        its input buffer), which the next call overwrites; pass a returned
+        state straight back in, or copy what must outlive the next call.
+        `donate=False` returns copies. The argument state is never written
+        either way."""
+        def keep(out):
+            return out if donate else tree_map(torch.clone, out)
+
+        if not render:
+            return lambda state: keep(self.replay_step(state))
+
+        def step(state):
+            state, _, positions, normals = self.replay_step(state)
+            return keep(state), self._render(positions, normals, width,
+                                             height)
+        return step
 
     def rollout(self, state: SimState, n_frames: int, render: bool = True,
                 width=None, height=None):
-        """N frames -> (state', per-frame checksums [N]): image.mean() per
-        frame when rendering, positions.mean() otherwise."""
+        """N compiled frames -> (state', per-frame checksums [N]):
+        image.mean() per frame when rendering, positions.mean() otherwise.
+        The state stays in the graph's buffers from one replay to the next
+        (written back inside the graph); with `render=False` nothing is
+        read on the host between the first replay and the last. state' is a
+        copy."""
+        step = self.captured_step(state)
+        step.load(state)
         sums = []
         for _ in range(n_frames):
-            if render:
-                state, image = self.step_and_render(state, width=width,
-                                                    height=height)
-                sums.append(image.mean())
-            else:
-                state, _, positions, _ = self.step_pose(state)
-                sums.append(positions.mean())
-        return state, torch.stack(sums)
+            state, _, positions, normals = step.replay()
+            sums.append(self._render(positions, normals, width, height).mean()
+                        if render else positions.mean())
+        return tree_map(torch.clone, state), torch.stack(sums)
+
+    def jit_rollout(self, n_frames: int, render: bool = True, width=None,
+                    height=None):
+        """state -> rollout(state, n_frames, ...) on the compiled step."""
+        return lambda state: self.rollout(state, n_frames, render=render,
+                                          width=width, height=height)
 
 
 def build_sample_scene(density=2.0, width=1920, height=1080, shadow=2048,

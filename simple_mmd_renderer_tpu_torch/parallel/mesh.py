@@ -8,7 +8,9 @@ gets the instance axis from `jax.vmap(scene.step_pose)`; here
 instance-major rows (`core.model.CrowdModelTables`,
 `core.physics.CrowdPhysicsTables`), and `render.pipeline.
 crowd_render_frame` rasterizes all instances in one binning and one kernel
-launch per pass.
+launch per pass. The reference jits the crowd step; here `crowd_step_fn`
+replays the scene's compiled step (`Scene.jit_step`: one CUDA graph for
+the crowd's shape, one replay a crowd frame) and renders eagerly after it.
 
 The reference's multi-device entry points (`make_mesh`, `shard_crowd`,
 `crowd_jit`, `frame_jit`, `band_transform`) are not ported yet.
@@ -50,18 +52,23 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
     pose, positions, normals) without rendering, state -> (state', images
     [I,H,W,3]) with it.
 
-    Posing and physics always run batched (`Scene.step_pose` on the crowd
-    state). Rendering goes through the fused multi-instance frame when the
-    config allows it (`crowd_render_supported`); the supersampled MSAA,
-    which it does not cover, renders instance by instance through
-    `render_frame`, with a one-line notice once per process."""
+    Posing and physics always run batched, as one replay of the scene's
+    compiled step on the crowd state (`Scene.jit_step(render=False,
+    donate=False)`; on a CPU scene the same capturable step, eagerly). Its
+    outputs are copies, so that steps of several crowds may share the
+    scene's graph. Rendering goes through the
+    fused multi-instance frame when the config allows it
+    (`crowd_render_supported`); the supersampled MSAA, which it does not
+    cover, renders instance by instance through `render_frame`, with a
+    one-line notice once per process."""
+    pose_step = scene.jit_step(render=False, donate=False)
     if not render:
-        return scene.step_pose
+        return pose_step
 
     cfg_r = scene.config.render
     if crowd_render_supported(cfg_r):
         def step(state):
-            state, _, positions, normals = scene.step_pose(state)
+            state, _, positions, normals = pose_step(state)
             images = crowd_render_frame(scene.rig, positions, normals, cfg_r,
                                         width, height)
             return state, images
@@ -81,7 +88,7 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
     from ..render.pipeline import render_frame
 
     def step_fallback(state):
-        state, _, positions, normals = scene.step_pose(state)
+        state, _, positions, normals = pose_step(state)
         images = torch.stack([
             render_frame(scene.rig, positions[i], normals[i], cfg_r,
                          width=width, height=height)

@@ -18,7 +18,7 @@ EPS = 1e-8  # mmd_math_const_eps in the reference (mmd.hxx)
 
 def quat_identity(shape=(), device=None):
     q = torch.zeros(tuple(shape) + (4,), dtype=torch.float32, device=device)
-    q[..., 3] = 1.0
+    q[..., 3].fill_(1.0)    # a fill on the device: no host scalar copied in
     return q
 
 

@@ -697,3 +697,109 @@ def test_raster_wrappers_reject_bad_boxes(cuda):
 @pytest.mark.parametrize("kernel", DEPTH_KERNELS)
 def test_depth_wrappers_reject_bad_boxes(cuda, kernel):
     _reject_bad_boxes(cuda, kernel)
+
+
+# ---------------------------------------------------------------------------
+# The compiled frame step: one CUDA-graph replay of pose + physics + deform
+# ---------------------------------------------------------------------------
+
+COMPILED_FRAMES = 8
+
+
+def _compiled_scene(kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+
+    if kind == "flagship":      # density 2.0, 1920x1080, 2048^2, msaa=1
+        scene = build_sample_scene()
+        return scene, scene.init_state()
+    scene = build_sample_scene(2.0, 256, 144, 256, n_frames=120, fps_keys=5)
+    return scene, mesh.crowd_init(scene, 64)
+
+
+@pytest.mark.parametrize("kind", ["flagship", "crowd"])
+def test_compiled_step_replays_equal_eager_steps(kind):
+    """Capture and 8 replays under torch.cuda.set_sync_debug_mode("error")
+    give the eager step's bits, frame by frame: every state leaf, pose
+    field, position and normal; the flagship and the 64-instance crowd of
+    the flagship character."""
+    from simple_mmd_renderer_tpu_torch.utils.graph import (sync_errors,
+                                                           tree_leaves)
+
+    scene, state = _compiled_scene(kind)
+    eager, s = [], state
+    for _ in range(COMPILED_FRAMES):
+        eager.append(scene.step_pose(s))
+        s = eager[-1][0]
+    step = scene.jit_step(render=False)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    with sync_errors():
+        s = state
+        for want in eager:
+            got = step(s)
+            for a, b in zip(tree_leaves(got), tree_leaves(want),
+                            strict=True):
+                bad += (a != b).sum()
+            s = got[0]
+    assert int(bad) == 0
+    assert len(scene._graphs) == 1
+
+
+def test_compiled_rollout_checksums_equal_the_eager_loop():
+    """`rollout(render=True)` (replays, each followed by the eager render)
+    gives the eager frames' checksums bit for bit."""
+    scene, state = _compiled_scene("flagship")
+    s, sums = state, []
+    for _ in range(3):
+        s, image = scene.step_and_render(s)
+        sums.append(image.mean())
+    final, got = scene.rollout(state, 3)
+    assert torch.equal(got, torch.stack(sums))
+    assert torch.equal(final.physics.pos, s.physics.pos)
+
+
+def test_moving_a_scene_drops_its_graphs(cuda):
+    from simple_mmd_renderer_tpu_torch.utils.graph import tree_leaves, tree_map
+
+    scene = build_sample_scene(0.25, 64, 48, 64, n_frames=30, fps_keys=10,
+                               solver_iterations=2)
+    state = scene.init_state()
+    first = scene.jit_step(render=False, donate=False)(state)
+    assert scene._graphs
+    scene.to("cpu")
+    assert not scene._graphs
+    on_cpu = scene.jit_step(render=False)(tree_map(torch.Tensor.cpu, state))
+    assert on_cpu[2].device.type == "cpu"
+    scene.to("cuda")
+    assert not scene._graphs
+    again = scene.jit_step(render=False, donate=False)(state)
+    for a, b in zip(tree_leaves(first), tree_leaves(again)):
+        assert torch.equal(a, b)
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A step that reads the host while it is being captured makes the
+    capture raise; nothing runs it eagerly instead, and no graph is kept."""
+    from simple_mmd_renderer_tpu_torch.core import physics as phys_mod
+
+    scene = build_sample_scene(0.25, 64, 48, 64, n_frames=30, fps_keys=10,
+                               solver_iterations=2)
+    state = scene.init_state()
+    react, calls = phys_mod.physics_react, []
+
+    def reads_the_host(static, ps, st, *args):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            float(st.pos.sum())
+        return react(static, ps, st, *args)
+
+    monkeypatch.setattr(phys_mod, "physics_react", reads_the_host)
+    with pytest.raises(RuntimeError):
+        scene.jit_step(render=False)(state)
+    assert calls == [False, True]       # the warm-up, then the capture
+    assert not scene._graphs
+    monkeypatch.undo()
+    got = scene.jit_step(render=False)(state)
+    want = scene.step_pose(state)
+    assert torch.equal(got[2], want[2])
