@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Three main paths are driven: the flagship frame at msaa=1 (shadow K1,
-character K2, ground PCF K3), the frame the reference app renders, at
-msaa=4 with the windowed shadow map (shadow K6, character K4, ground K3),
-and the crowd: 64 instances of the flagship character stepped and rendered
-by one batched program (`parallel.mesh.crowd_step_fn`: shadow maps K5c,
-ground K3 over the batch of maps, characters K5a at msaa=1 or K5b at
-msaa=4).
+The main paths driven: the flagship frame at msaa=1 (shadow K1, character
+K2, ground PCF K3), the frame the reference app renders, at msaa=4 with
+the windowed shadow map (shadow K6, character K4, ground K3), the textured
+rows of `bench.py` (the 2-part procedural textures at 1920x1080 msaa=1
+and at 1280x720 msaa=4, the 16-part realistic set with 6 mip levels and
+the resident mini-atlas at 1920x1080: K1, K2 or K4, K3 and the albedo
+pass), and the crowd: 64 instances of the flagship character stepped and
+rendered by one batched program (`parallel.mesh.crowd_step_fn`: shadow
+maps K5c, ground K3 over the batch of maps, characters K5a at msaa=1 or
+K5b at msaa=4), textured in the light crowd.
 
 Phases (each prints its own line; any failure raises and exits nonzero):
 
@@ -36,7 +39,10 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    arguments of frame 1 of the 64-instance crowd, K3 on its [64,256,256]
    batch of shadow maps, and one instance's planes must equal the
    single-instance kernel's on that instance's own bins with the same
-   boxes (K5c vs K1, K5a vs K2, K5b vs K4).
+   boxes (K5c vs K1, K5a vs K2, K5b vs K4). K2 and K4 also run at A = 5
+   (the UVs as attributes 3-4: `albedo_window=False`) on the textured
+   paths' frame-1 arguments, and K5a and K5b on the textured light
+   crowd's, every plane bit-exact, the attributes within 1e-6.
 4. compiled: the step of every path (pose + physics + deform: the CCD
    loop's fixed, masked iteration count, `Scene.step_pose(...,
    capturable=True)`) captured as one CUDA graph (`Scene.captured_step`)
@@ -53,19 +59,22 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    compiled frame of it (`rollout` of one frame: the state copied in and
    out) and one of the dense crowd at msaa=1 (`crowd_step_fn`): host
    launch calls and device kernels a frame.
-5. flagship: the sample character at density 2.0, 1920x1080, 2048^2 shadow
-   map, physics on, at msaa=1 and at msaa=4 + shadow_window: 3 warm-up
-   frames each, then 20 timed frames of each through the compiled
-   `Scene.rollout` (a replay and the eager render a frame), in turns
-   (segments of 10 frames: msaa=1, msaa=4, msaa=4, msaa=1, so that drift
-   over the call falls on both paths alike), and between them one eager
-   segment of 5 frames of msaa=1 (`Scene.step_and_render`) for
-   comparison; every
-   kernel's launch counter reset just before each segment and read just
-   after. The frames must be finite, the checksums must advance, the
-   path's kernels must each launch once a frame and the other path's
-   never, and the character must cover a plausible share of the frame.
-   Prints ms/frame and fps.
+5. flagship: the sample character at density 2.0, shadow 2048^2, physics
+   on, on every path (ORDER): 3 warm-up frames each, then 20 timed frames
+   of each through the compiled `Scene.rollout` (a replay and the eager
+   render a frame), in turns (segments of 10 frames, the order reversed
+   halfway, so that drift over the call falls on all paths alike), and
+   among them one eager segment of 5 frames of msaa=1
+   (`Scene.step_and_render`) for comparison; every kernel's launch counter
+   reset just before each segment and read just after. The frames must be
+   finite, the checksums must advance, the path's kernels must each launch
+   once a frame and every other kernel never, and the character must cover
+   a plausible share of the frame. Prints ms/frame and fps. The 16-part
+   path is built first, alone: its host packing seconds, its atlas and
+   its device memory (allocated before and after, the peak over a frame).
+   Then the albedo pass (`pass_scope("albedo")`) of each textured path
+   under torch.profiler: host and device ms a frame, its byte bound and its
+   operators by device time.
 6. crowd: 64 instances (`crowd_init(scene, 64)`, clocks 7 frames apart)
    of the density-2.0 character with `sample_motion(120, fps_keys=5)` at
    256x144, shadow 256^2, physics on, through `crowd_step_fn` (a replay of
@@ -74,11 +83,14 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    (segments of 4), the counters checked per segment as above; then the
    density-0.5 crowd at msaa=4. The frames must be finite [64,144,256,3],
    their checksums must advance, and instance 0 must differ from instance
-   1. Prints ms per crowd frame and instance-frames per second.
+   1. Prints ms per crowd frame and instance-frames per second. The
+   light crowd samples the 2-part textures.
 7. parity: a small scene rendered on the card and on the CPU (plain
    versions) must agree (fewer than 2e-3 of pixels off by more than 0.02,
    mean absolute difference below 1/255), at msaa=1 and at msaa=4 with the
-   windowed shadow map; and a crowd of 4 at msaa=1 and at msaa=4.
+   windowed shadow map, textured (16 parts with mips and the resident
+   mini-atlas at msaa=1; the UVs through K4 at msaa=4); and a crowd of 4
+   at msaa=1 and at msaa=4, untextured and textured.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -96,6 +108,8 @@ import time
 import numpy as np
 import torch
 
+from simple_mmd_renderer_tpu_torch.app.sample import (realistic_texture_sizes,
+                                                      sample_textures)
 from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
 from simple_mmd_renderer_tpu_torch.parallel.mesh import (crowd_init,
                                                          crowd_step_fn)
@@ -103,11 +117,22 @@ from simple_mmd_renderer_tpu_torch.parallel.mesh import (crowd_init,
 WIDTH, HEIGHT, SHADOW, DENSITY = 1920, 1080, 2048, 2.0
 WARMUP, FRAMES = 3, 20
 MSAA_PATH = dict(msaa=4, shadow_window=True)
-PATH_LABEL = {False: "msaa=1", True: "msaa=4 + shadow_window"}
-# the timed flagship segments (msaa?, compiled?), in turns: FRAMES per path
+# the textures of `bench.py`'s textured rows: the 2-part set, and the
+# realistic 16-part set with 6 mip levels and the resident mini-atlas
+TEX2 = (1024, 256)
+TEX16 = dict(textures=realistic_texture_sizes(16), n_parts=16,
+             texture_mips=6, texture_resident=1)
+# the flagship paths (the sample character at DENSITY, shadow SHADOW,
+# WIDTH x HEIGHT unless named): untextured at msaa=1 and at msaa=4 +
+# shadow_window, and the textured rows of `bench.py`
+M1, M4 = "msaa=1", "msaa=4 + shadow_window"
+T1, T4 = "textured", "textured + msaa=4, 1280x720"
+T16 = "textured 16 parts, resident mips"
+# the timed flagship segments (path, compiled?), in turns: FRAMES per path
 # compiled, and one eager segment of msaa=1 among them for comparison
-ORDER = ((False, True), (True, True), (False, False), (True, True),
-         (False, True))
+ORDER = ((M1, True), (M4, True), (T1, True), (T4, True), (T16, True),
+         (M1, False), (T16, True), (T4, True), (T1, True), (M4, True),
+         (M1, True))
 SEGMENT = FRAMES // 2
 EAGER_SEGMENT = SEGMENT // 2     # the eager segment's frames
 # the compiled phase's frames: replays held bit-equal to the eager step
@@ -386,8 +411,12 @@ def read_counters() -> dict:
             "K5c": tr.depth_multi_launches}
 
 
-def path_kernels(msaa: bool) -> tuple[str, ...]:
-    return ("K6", "K4", "K3") if msaa else ("K1", "K2", "K3")
+def path_kernels(cfg) -> tuple[str, ...]:
+    """The kernels a single frame of render config `cfg` launches (the
+    shadow window applies to maps of at least 1024^2)."""
+    return ("K6" if cfg.shadow_window and cfg.shadow_map_size >= 1024
+            else "K1",
+            "K4" if cfg.msaa >= 4 else "K2", "K3")
 
 
 def crowd_kernels(msaa: bool) -> tuple[str, ...]:
@@ -472,7 +501,7 @@ def check_kernels(scene, state, results):
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     _, _, seen = capture_frame(scene.step_and_render, state,
-                               path_kernels(False))                # frame 1
+                               path_kernels(scene.config.render))  # frame 1
     k1_args, k1_out = seen["K1"]
     k2_args, k2_out = seen["K2"]
     k3_args, k3_out = seen["K3"]
@@ -571,7 +600,7 @@ def check_kernels_msaa(scene, state, results):
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
     _, _, seen = capture_frame(scene.step_and_render, state,
-                               path_kernels(True))                 # frame 1
+                               path_kernels(scene.config.render))  # frame 1
     k6_args, k6_out = seen["K6"]
     k4_args, k4_out = seen["K4"]
     if len(k6_args) != 8 or k6_args[7] is None:
@@ -764,13 +793,15 @@ def launch_profile(label, frames, state, n: int):
     return state
 
 
-def time_segment(scene, state, msaa: bool, compiled: bool):
-    """SEGMENT frames of one path through the compiled `Scene.rollout`, or
-    EAGER_SEGMENT eagerly (`Scene.step_and_render`), every launch counter
-    reset just before and read just after: -> (state', ms/frame, counts).
-    The frames must be finite and advance, and the path's kernels must
-    each launch once a frame and the other path's never."""
-    label = PATH_LABEL[msaa] + ("" if compiled else ", eager")
+def time_segment(paths, name, compiled: bool, note=""):
+    """SEGMENT frames of flagship path `name` through the compiled
+    `Scene.rollout`, or EAGER_SEGMENT eagerly (`Scene.step_and_render`),
+    every launch counter reset just before and read just after: -> (ms/frame,
+    counts). The frames must be finite and advance, and the path's kernels
+    must each launch once a frame and every other kernel never."""
+    path = paths[name]
+    scene, state = path["scene"], path["state"]
+    label = name + ("" if compiled else ", eager") + note
     frames = SEGMENT if compiled else EAGER_SEGMENT
     reset_counters()
     t0 = time.perf_counter()
@@ -785,6 +816,7 @@ def time_segment(scene, state, msaa: bool, compiled: bool):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counters()
+    path["state"] = state
 
     sums = sums.cpu().numpy()
     ms = 1000.0 * dt / frames
@@ -795,70 +827,141 @@ def time_segment(scene, state, msaa: bool, compiled: bool):
         raise AssertionError("non-finite frames")
     if not (np.abs(np.diff(sums)) > 0).any():
         raise AssertionError("frames did not advance")
-    mine = path_kernels(msaa)
+    mine = path_kernels(scene.config.render)
     for k, n in counts.items():
         want = frames if k in mine else 0
         if n != want:
             raise AssertionError(f"{k} launched {n} times in {frames} "
                                  f"frames ({label}), expected {want}")
-    return state, ms, counts
+    return ms, counts
 
 
-def run_flagships(scenes, results):
-    """Both paths warmed up, then timed in turns (ORDER), so that drift
-    over the call falls on both alike; then each path's next frame is
+def run_flagships(paths, results):
+    """Every path warmed up, then timed in turns (ORDER), so that drift
+    over the call falls on all alike; then each path's next frame is
     checked for shape, finite values and character coverage."""
-    states = {}
-    for msaa, (scene, state) in scenes.items():
-        states[msaa], _ = scene.rollout(state, WARMUP)
+    for path in paths.values():
+        path["state"], _ = path["scene"].rollout(path["state"], WARMUP)
     torch.cuda.synchronize()
 
     seg_ms = {key: [] for key in ORDER}
-    launches = {msaa: dict.fromkeys(KERNELS, 0) for msaa in scenes}
-    for msaa, compiled in ORDER:
-        states[msaa], ms, counts = time_segment(scenes[msaa][0],
-                                                states[msaa], msaa, compiled)
-        seg_ms[msaa, compiled].append(ms)
+    launches = {name: dict.fromkeys(KERNELS, 0) for name in paths}
+    for name, compiled in ORDER:
+        ms, counts = time_segment(paths, name, compiled)
+        seg_ms[name, compiled].append(ms)
         if compiled:            # the main path's launches
             for k, n in counts.items():
-                launches[msaa][k] += n
+                launches[name][k] += n
 
-    eager = seg_ms[False, False]
-    log(f"flagship ({PATH_LABEL[False]}, eager): {EAGER_SEGMENT} frames: "
+    eager = seg_ms[M1, False]
+    log(f"flagship ({M1}, eager): {EAGER_SEGMENT} frames: "
         f"{sum(eager) / len(eager):.3f} ms/frame")
-    for msaa in (False, True):
-        label, mine = PATH_LABEL[msaa], path_kernels(msaa)
-        ms = sum(seg_ms[msaa, True]) / len(seg_ms[msaa, True])
-        log(f"flagship ({label}, compiled): {FRAMES} frames at "
-            f"{WIDTH}x{HEIGHT}, shadow {SHADOW}: {ms:.3f} ms/frame, "
+    for name, path in paths.items():
+        scene = path["scene"]
+        cfg = scene.config.render
+        mine = path_kernels(cfg)
+        ms = sum(seg_ms[name, True]) / len(seg_ms[name, True])
+        log(f"flagship ({name}, compiled): {FRAMES} frames at "
+            f"{cfg.width}x{cfg.height}, shadow {SHADOW}: {ms:.3f} ms/frame, "
             f"{1000.0 / ms:.3f} fps (segments "
-            f"{', '.join(f'{t:.3f}' for t in seg_ms[msaa, True])}); "
-            f"launches {launches[msaa]}")
-        # each kernel's launches are read from the path that carries it in
-        # the record (K3 runs on both; its record is the msaa=1 path's)
-        for k in mine:
-            results[k].setdefault("launches", launches[msaa][k])
+            f"{', '.join(f'{t:.3f}' for t in seg_ms[name, True])}); "
+            f"launches {launches[name]}")
+        # each kernel's launches are read from the untextured path that
+        # carries it in the record (K3 runs on all; its record is the
+        # msaa=1 path's)
+        if name in (M1, M4):
+            for k in mine:
+                results[k].setdefault("launches", launches[name][k])
 
         # the next frame's image and character coverage (the share of the
         # frame where K2 found a triangle; at msaa=4 where K4 covered any
         # sample)
-        _, image, seen = capture_frame(scenes[msaa][0].step_and_render,
-                                       states[msaa], mine)
-        if msaa:
-            sdepth = seen["K4"][1][5][:, :HEIGHT, :WIDTH]
+        _, image, seen = capture_frame(scene.step_and_render, path["state"],
+                                       mine)
+        h, w = cfg.height, cfg.width
+        if cfg.msaa >= 4:
+            sdepth = seen["K4"][1][5][:, :h, :w]
             cover = float((sdepth < 1.0).any(0).float().mean())
         else:
-            tri = seen["K2"][1][1][:HEIGHT, :WIDTH]
+            tri = seen["K2"][1][1][:h, :w]
             cover = float((tri >= 0).float().mean())
-        log(f"flagship ({label}): image {tuple(image.shape)}, finite "
+        log(f"flagship ({name}): image {tuple(image.shape)}, finite "
             f"{bool(torch.isfinite(image).all())}, character covers "
             f"{100 * cover:.2f}% of the frame")
-        if tuple(image.shape) != (HEIGHT, WIDTH, 3) or \
+        if tuple(image.shape) != (h, w, 3) or \
                 not bool(torch.isfinite(image).all()):
             raise AssertionError("bad frame")
         if not 0.01 < cover < 0.6:
             raise AssertionError(f"implausible character coverage "
                                  f"{cover:.4f}")
+
+
+def albedo_profile(paths, n=3):
+    """The albedo pass (`pass_scope("albedo")`) of n compiled frames of each
+    textured path under torch.profiler (CPU and CUDA activities): its host
+    ms and the device ms of the kernels launched inside it, a frame, beside
+    its bound: every pixel's triangle id (4 B) and barycentrics (8 B) read,
+    its 48-byte row and 16-byte texel gathered, its albedo (12 B) written,
+    and on the resident path each part's slot copied (read and written)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_mmd_renderer_tpu_torch.render import pipeline
+
+    for name in (T1, T4, T16):
+        path = paths[name]
+        scene = path["scene"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            path["state"], _ = scene.rollout(path["state"], n)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.key == "albedo"]
+        if not rows:
+            raise AssertionError(f"no albedo pass in the profile of {name}")
+        e = max(rows, key=lambda r: r.cpu_time_total)
+        dev_us = e.device_time_total
+        ops = albedo_ops(prof.events())
+        cfg = scene.config.render
+        n_bytes = cfg.width * cfg.height * (4 + 8 + 48 + 16 + 12)
+        atlas = scene.packed_atlas()
+        if name == T16:
+            slot = pipeline.resident_slot_size(atlas.sizes.shape[0])
+            n_bytes += 2 * atlas.sizes.shape[0] * slot * slot * 16
+        bnd = bound(n_bytes, 0)
+        log(f"albedo ({name}): host {e.cpu_time_total / 1000 / n:.3f} "
+            f"ms/frame, device {dev_us / 1000 / n:.4f} ms/frame over {n} "
+            f"compiled frames; bound {bnd[0]:.4f} ms ({n_bytes / 1e6:.1f} "
+            f"MB a frame); atlas {tuple(atlas.data.shape)} "
+            f"{atlas.data.dtype}, {atlas.data.numel() * 4 / 1e6:.1f} MB; "
+            f"{sum(n for n, _ in ops.values()) / n:g} ops with device "
+            f"time a frame, by device time: " + ", ".join(
+                f"{op} {us / 1000 / n:.3f} ms ({k / n:g})"
+                for op, (k, us) in sorted(ops.items(),
+                                          key=lambda kv: -kv[1][1])[:8]))
+
+
+def albedo_ops(events) -> dict:
+    """{op name: (calls, device us)} of the operators inside the profile's
+    `albedo` ranges that ran device work of their own."""
+    from torch.autograd import DeviceType
+
+    def inside(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == "albedo":
+                return True
+            p = p.cpu_parent
+        return False
+
+    ops = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        us = e.self_device_time_total
+        if us and inside(e):
+            k, t = ops.get(e.name, (0, 0.0))
+            ops[e.name] = (k + 1, t + us)
+    return ops
 
 
 def with_render(scene, **render):
@@ -870,20 +973,64 @@ def with_render(scene, **render):
     return other
 
 
-def build_crowd(density, label):
+def with_textures(scene, sizes, **render):
+    """`with_render`'s copy of `scene` (the same step graph) that samples
+    the procedural textures of edges `sizes` (one per material part)."""
+    other = with_render(scene, **render)
+    other.part_textures = sample_textures(sizes)
+    return other
+
+
+def check_kernel_a5(label, key, step, state, kernels):
+    """Kernel `key` (K2, K4, K5a or K5b) at A = 5 (the UVs riding the raster
+    as attributes 3-4) on its arguments of frame 1 of `step` from `state`
+    (whose kernels are `kernels`), against its plain version: every plane
+    bit-exact, the attributes within 1e-6 (their mismatches printed)."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    fn, plain, n_args = {
+        "K2": (tr.raster_tiles, tr.raster_tiles_plain, 6),
+        "K4": (tr.raster_tiles_ms, tr.raster_tiles_ms_plain, 6),
+        "K5a": (tr.raster_tiles_multi, tr.raster_tiles_multi_plain, 7),
+        "K5b": (tr.raster_tiles_ms_multi, tr.raster_tiles_ms_multi_plain, 7),
+    }[key]
+    _, _, seen = capture_frame(step, state, kernels)
+    args, out = seen[key]
+    if args[n_args - 1] != 5:
+        raise AssertionError(f"{key} ran with {args[n_args - 1]} attributes, "
+                             "expected 5")
+    k = fn(*args)
+    kp = plain(*args[:n_args])                     # brute force
+    exact = [i for i in range(len(k)) if i != 4]   # all planes but attr
+    bad = [mismatches(k[i], kp[i], out[i]) for i in exact]
+    attr_bad = mismatches(k[4], kp[4], out[4])
+    attr_err = float((k[4] - kp[4]).abs().max())
+    ms = cuda_ms(lambda: fn(*args), 20)
+    log(f"kernels: {key} at A = 5 ({label}) {tuple(k[0].shape)}, "
+        f"{int(args[2].sum())} entries: depth/tri/b1/b2"
+        f"{'/sdepth' if len(k) > 5 else ''} mismatches {bad}, attribute "
+        f"mismatches {attr_bad} (max err {attr_err:.3g}), {ms:.4f} ms")
+    if any(bad) or attr_err > 1e-6:
+        raise AssertionError(f"{key} at A = 5 disagrees with its plain "
+                             "version")
+
+
+def build_crowd(density, label, textures=None):
     """(scene, {msaa?: (step function, crowd state)}) of CROWD_N instances
-    of the sample character at `density`: one scene's tables (and compiled
-    step), two render configs."""
+    of the sample character at `density`, with the procedural textures of
+    edges `textures` if given: one scene's tables (and compiled step), two
+    render configs."""
     t0 = time.perf_counter()
     scene = build_sample_scene(density, CROWD_W, CROWD_H, CROWD_SHADOW,
-                               "cuda", n_frames=CROWD_MOTION, fps_keys=5)
+                               "cuda", n_frames=CROWD_MOTION, fps_keys=5,
+                               textures=textures)
     crowd = {msaa: (crowd_step_fn(with_render(scene, msaa=4 if msaa else 1)),
                     crowd_init(scene, CROWD_N)) for msaa in (False, True)}
     rig = scene.rig
     log(f"scene ({label}): {CROWD_N} instances of {rig.n_vertices} verts, "
         f"{rig.triangles.shape[0]} tris ({CROWD_N * rig.triangles.shape[0]} "
         f"per frame), {rig.n_bones} bones, {scene.phys.n_bodies} bodies, "
-        f"{scene.phys.n_joints} joints; clocks "
+        f"{scene.phys.n_joints} joints; textures {textures}; clocks "
         f"{float(crowd[False][1].time[1] * scene.config.fps):.1f} frames "
         f"apart; built in {time.perf_counter() - t0:.2f} s")
     return scene, crowd
@@ -1108,15 +1255,16 @@ def run_crowd(crowd, label, paths, results=None):
                     results[k].setdefault("launches", launches[msaa][k])
 
 
-def check_parity_crowd(msaa: bool):
-    """A crowd of 4 (density 0.25) on the card vs the same crowd on the
-    CPU, frame 2."""
+def check_parity_crowd(msaa: bool, textures=None):
+    """A crowd of 4 (density 0.25; with the procedural textures of edges
+    `textures` if given) on the card vs the same crowd on the CPU, frame
+    2."""
     imgs = []
     for dev in ("cuda", "cpu"):
         scene = build_sample_scene(0.25, CROWD_W, CROWD_H, CROWD_SHADOW, dev,
                                    n_frames=60, fps_keys=10,
                                    solver_iterations=4,
-                                   msaa=4 if msaa else 1)
+                                   msaa=4 if msaa else 1, textures=textures)
         step, state = crowd_step_fn(scene), crowd_init(scene, 4)
         reset_counters()
         for _ in range(2):
@@ -1129,21 +1277,24 @@ def check_parity_crowd(msaa: bool):
     d = np.abs(imgs[0] - imgs[1])
     frac = max(float((d[i] > 0.02).mean()) for i in range(4))
     mad = max(float(d[i].mean()) for i in range(4))
-    log(f"parity (crowd of 4, {CROWD_LABEL[msaa]}): {CROWD_W}x{CROWD_H} "
+    log(f"parity (crowd of 4, {CROWD_LABEL[msaa]}"
+        f"{f', textures {textures}' if textures else ''}): {CROWD_W}x{CROWD_H} "
         f"frame 2, shadow {CROWD_SHADOW}, card vs CPU, worst instance: "
         f"|d|>0.02 fraction {frac:.3g}, mean abs diff {mad:.3g}")
     if not (frac < 2e-3 and mad < 1 / 255):
         raise AssertionError("card and CPU crowd frames disagree")
 
 
-def check_parity(msaa: bool):
+def check_parity(msaa: bool, **textured):
     """Small scene on the card vs the same scene on the CPU. At msaa=4 the
-    shadow map is 1024^2, the least size the window applies to."""
+    shadow map is 1024^2, the least size the window applies to. `textured`
+    passes build_sample_scene's texture settings."""
     shadow, extra = (1024, MSAA_PATH) if msaa else (256, {})
     imgs = []
     for dev in ("cuda", "cpu"):
         scene = build_sample_scene(0.5, 256, 192, shadow, dev, n_frames=90,
-                                   fps_keys=10, solver_iterations=4, **extra)
+                                   fps_keys=10, solver_iterations=4, **extra,
+                                   **textured)
         state = scene.init_state()
         reset_counters()
         for _ in range(2):
@@ -1151,15 +1302,80 @@ def check_parity(msaa: bool):
         imgs.append(image.cpu().numpy())
         counts = read_counters()
         want = 2 if dev == "cuda" else 0
-        if any(counts[k] != want for k in path_kernels(msaa)):
+        if any(counts[k] != want
+               for k in path_kernels(scene.config.render)):
             raise AssertionError(f"parity on {dev}: launches {counts}")
     d = np.abs(imgs[0] - imgs[1])
     frac, mad = float((d > 0.02).mean()), float(d.mean())
-    log(f"parity ({'msaa=4, shadow window' if msaa else 'msaa=1'}): 256x192 "
+    log(f"parity ({'msaa=4, shadow window' if msaa else 'msaa=1'}"
+        f"{f', {textured}' if textured else ''}): 256x192 "
         f"frame 2, shadow {shadow}, card vs CPU: |d|>0.02 fraction "
         f"{frac:.3g}, mean abs diff {mad:.3g}")
     if not (frac < 2e-3 and mad < 1 / 255):
         raise AssertionError("card and CPU frames disagree")
+
+
+def build_paths() -> dict:
+    """The flagship paths {name: {"scene", "state"}}: M1 and M4 built by
+    build_sample_scene, T1 and T4 copies of M1's scene (the same step
+    graph) with the 2-part textures, T16 built with the 16-part textures,
+    its mips and resident mini-atlas; prints the 16-part path's host
+    packing time, its atlas and its device memory."""
+    paths = {}
+    for name, extra in ((M1, {}), (M4, MSAA_PATH)):
+        t0 = time.perf_counter()
+        scene = build_sample_scene(DENSITY, WIDTH, HEIGHT, SHADOW, "cuda",
+                                   **extra)
+        paths[name] = {"scene": scene}
+        rig = scene.rig
+        log(f"scene ({name}): "
+            f"{rig.positions.shape[0]} verts, {rig.triangles.shape[0]} "
+            f"tris, {rig.n_bones} bones, {scene.phys.n_bodies} bodies, "
+            f"{scene.phys.n_joints} joints; built in "
+            f"{time.perf_counter() - t0:.2f} s")
+    paths[T1] = {"scene": with_textures(paths[M1]["scene"], TEX2)}
+    paths[T4] = {"scene": with_textures(paths[M1]["scene"], TEX2, msaa=4,
+                                        width=1280, height=720)}
+    for name in (T1, T4):
+        t0 = time.perf_counter()
+        atlas = paths[name]["scene"].packed_atlas()
+        torch.cuda.synchronize()
+        log(f"scene ({name}): textures {TEX2}, atlas "
+            f"{tuple(atlas.data.shape)} {atlas.data.dtype} packed in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    scene = build_sample_scene(DENSITY, WIDTH, HEIGHT, SHADOW, "cuda",
+                               **TEX16)
+    t1 = time.perf_counter()
+    atlas = scene.packed_atlas()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    mem1 = torch.cuda.memory_allocated()
+    peaks, before = [], []
+    state = scene.init_state()
+    for _ in range(2):          # the first frame captures the step's graph
+        before.append(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = scene.rollout(state, 1)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+    paths[T16] = {"scene": scene}
+    log(f"scene ({T16}): textures {TEX16['textures']}, built in "
+        f"{t1 - t0:.2f} s, atlas {tuple(atlas.data.shape)} "
+        f"{atlas.data.dtype} ({atlas.n_mips} levels) packed in {t2 - t1:.2f} "
+        f"s, {atlas.data.numel() * 4 / 1e6:.1f} MB; device memory allocated "
+        f"{mem0 / 1e9:.3f} GB before the scene, {mem1 / 1e9:.3f} GB after it "
+        f"and its atlas; peak {peaks[0] / 1e9:.3f} GB over its first frame "
+        f"(the step's capture included), {peaks[1] / 1e9:.3f} GB over the "
+        f"next, {(peaks[1] - mem1) / 1e9:.3f} GB above the scene's own, "
+        f"{(peaks[1] - before[1]) / 1e9:.3f} GB above what was allocated "
+        f"before that frame (the frame's temporaries; the step's graph "
+        f"holds {(before[1] - mem1) / 1e9:.3f} GB)")
+    for path in paths.values():
+        path["state"] = path["scene"].init_state()
+    return paths
 
 
 def main() -> int:
@@ -1182,34 +1398,28 @@ def main() -> int:
     log(f"build: {', '.join(p.name for p in libs)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    scenes = {}
-    for msaa in (False, True):
-        t0 = time.perf_counter()
-        scene = build_sample_scene(DENSITY, WIDTH, HEIGHT, SHADOW, "cuda",
-                                   **(MSAA_PATH if msaa else {}))
-        scenes[msaa] = (scene, scene.init_state())
-        rig = scene.rig
-        log(f"scene ({PATH_LABEL[msaa]}): "
-            f"{rig.positions.shape[0]} verts, {rig.triangles.shape[0]} "
-            f"tris, {rig.n_bones} bones, {scene.phys.n_bodies} bodies, "
-            f"{scene.phys.n_joints} joints; built in "
-            f"{time.perf_counter() - t0:.2f} s")
-
+    paths = build_paths()
     dense_scene, dense = build_crowd(DENSITY, "crowd-dense")
 
     results: dict = {}
-    check_kernels(*scenes[False], results)
-    check_kernels_msaa(*scenes[True], results)
-    check_compiled("flagship msaa=1", *scenes[False], COMPILED_FRAMES)
-    check_compiled("flagship msaa=4 + shadow_window", *scenes[True],
-                   COMPILED_FRAMES_SHORT)
+    check_kernels(paths[M1]["scene"], paths[M1]["state"], results)
+    check_kernels_msaa(paths[M4]["scene"], paths[M4]["state"], results)
+    for name, key in ((T1, "K2"), (T4, "K4")):
+        scene = with_render(paths[name]["scene"], albedo_window=False)
+        check_kernel_a5(f"{name}, albedo_window=False", key,
+                        scene.step_and_render, paths[name]["state"],
+                        path_kernels(scene.config.render))
+    check_compiled("flagship msaa=1", paths[M1]["scene"], paths[M1]["state"],
+                   COMPILED_FRAMES)
+    check_compiled("flagship msaa=4 + shadow_window", paths[M4]["scene"],
+                   paths[M4]["state"], COMPILED_FRAMES_SHORT)
     check_compiled("crowd-dense, both paths", dense_scene, dense[False][1],
                    COMPILED_FRAMES)
     check_kernels_crowd(dense, results)
 
     # a frame of each kind (the compiled paths share their step's graph
     # layout: the msaa=4 flagship's and the light crowd's are these)
-    scene, state = scenes[False]
+    scene, state = paths[M1]["scene"], paths[M1]["state"]
     launch_profile("flagship msaa=1, eager",
                    lambda s: scene.step_and_render(s)[0], state, 1)
     launch_profile("flagship msaa=1, compiled",
@@ -1218,18 +1428,28 @@ def main() -> int:
                    lambda s: crowd_frames(dense[False][0], s, 1),
                    dense[False][1], 1)
 
-    run_flagships(scenes, results)
+    run_flagships(paths, results)
+    albedo_profile(paths)
     run_crowd(dense, "crowd-dense", CROWD_ORDER, results)
-    del dense, dense_scene
-    bench_scene, bench = build_crowd(0.5, "crowd-bench")
+    del dense, dense_scene, paths
+    bench_scene, bench = build_crowd(0.5, "crowd-bench", TEX2)
+    for msaa, key in ((False, "K5a"), (True, "K5b")):
+        step, state = bench[msaa]
+        check_kernel_a5(f"textured crowd-bench, {CROWD_LABEL[msaa]}", key,
+                        step, state, crowd_kernels(msaa))
     check_compiled("crowd-bench", bench_scene, bench[True][1],
                    COMPILED_FRAMES_SHORT)
     run_crowd(bench, "crowd-bench", (True, True))
     del bench, bench_scene
     check_parity(msaa=False)
     check_parity(msaa=True)
+    check_parity(False, textures=(64, 32, 16, 8) * 4, n_parts=16,
+                 texture_mips=4)
+    check_parity(True, textures=(64, 16), albedo_window=False)
     check_parity_crowd(msaa=False)
     check_parity_crowd(msaa=True)
+    check_parity_crowd(False, (64, 16))
+    check_parity_crowd(True, (64, 16))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -7,10 +7,10 @@ names, leg IK chains with knee limits, append twist bones, tube/sphere mesh
 (~10-40k verts by density), vertex/bone/group morphs, kinematic body colliders
 and dynamic hair+skirt rigid-body chains with 6DOF spring joints.
 
-The port's own copy of `sample_character` and `sample_motion` from
-`simple_mmd_renderer_tpu/app/sample.py` (the procedural textures come with
-the textured slice). `core.scene.build_sample_scene` builds the flagship
-scene from them.
+The port's own copy of `sample_character`, `sample_motion`,
+`realistic_texture_sizes` and `sample_textures` from
+`simple_mmd_renderer_tpu/app/sample.py`. `core.scene.build_sample_scene`
+builds the flagship scene from them.
 """
 
 from __future__ import annotations
@@ -385,3 +385,35 @@ def sample_motion(length: int = 120, fps_keys: int = 5) -> V.VmdMotion:
     data = write_vmd("sample_dance", keys, morphs)
     return V.parse_vmd(data)
 
+
+def realistic_texture_sizes(n_parts: int = 16) -> tuple:
+    """A realistic PMX texture-size mix: body/face at 2048^2, clothing at
+    1024^2, accessories smaller (the 2-part set under-represents a real
+    model's part count and texel budget)."""
+    pattern = (2048, 2048, 1024, 1024, 1024, 512, 512, 512,
+               256, 256, 1024, 128, 512, 64, 2048, 256)
+    return tuple(pattern[i % len(pattern)] for i in range(n_parts))
+
+
+def sample_textures(sizes=(1024, 256)) -> list[np.ndarray]:
+    """Procedural per-part diffuse textures for the sample character — one
+    per material part, deliberately different sizes so the shelf-packed
+    atlas path (render.pipeline._albedo_atlas) is exercised. The reference
+    binds a real texture per part (main.cpp:2093-2146); this is the
+    texture-benching stand-in for models whose textures ship as files."""
+    out = []
+    for p, size in enumerate(sizes):
+        ys = (np.arange(size, dtype=F) + 0.5) / size
+        xs = (np.arange(size, dtype=F) + 0.5) / size
+        yy = ys[:, None]
+        xx = xs[None, :]
+        checker = ((np.floor(xx * 16) + np.floor(yy * 16)) % 2).astype(F)
+        r = 0.92 - 0.28 * checker - 0.05 * p
+        g = 0.72 + 0.20 * xx * (1.0 - checker) + 0.05 * p
+        b = 0.82 - 0.30 * yy
+        rgb = np.clip(np.stack(np.broadcast_arrays(r, g, b), -1), 0.0, 1.0)
+        # quantize to the 8-bit grid: these stand in for PNG textures, and
+        # 8-bit-exact sources take the u32-packed fast atlas path (floats
+        # off the grid route through the exact f32x12 atlas instead)
+        out.append((np.round(rgb * 255.0) / 255.0).astype(F))
+    return out

@@ -12,6 +12,9 @@ this module needs neither JAX nor the reference package:
 - `model_static`, `motion_arrays`, `physics_static`, `app_config`: the
   reference's ModelStatic / MotionArrays / PhysicsStatic / AppConfig -> the
   port's.
+- `packed_atlas`: the reference's PackedAtlas (its texture atlas, mip
+  tables included) -> the port's on a device, so that both packages can
+  sample one atlas.
 - `sim_state_to_torch` / `sim_state_to_numpy`: a SimState (time + the
   physics leaves pos, quat, vel, omega) into torch tensors on a device (by
   default the card, as every entry point) and back to NumPy, so a test can
@@ -34,6 +37,7 @@ from .core.anim import MotionArrays
 from .core.physics import PhysicsState, PhysicsStatic
 from .core.scene import SimState
 from .formats import pmx as _pmx
+from .render.pipeline import PackedAtlas
 from .utils.device import resolve_device
 
 PHYSICS_LEAVES = ("pos", "quat", "vel", "omega")
@@ -83,6 +87,25 @@ def app_config(cfg) -> _config.AppConfig:
     """Reference AppConfig -> the port's, with its nested RenderConfig and
     PhysicsConfig."""
     return _port(cfg, _config.AppConfig)
+
+
+def packed_atlas(atlas, device="cuda") -> PackedAtlas:
+    """Reference PackedAtlas -> the port's on `device`. The reference's
+    bit-packed uint32 words are below 2^24, so they become int32 exactly."""
+    device = resolve_device(device)
+
+    def t(x, dtype):
+        return (None if x is None else
+                torch.as_tensor(np.asarray(x).astype(dtype), device=device))
+    data = np.asarray(atlas.data)
+    return PackedAtlas(
+        data=t(data, np.int32 if atlas.eight_bit else np.float32),
+        offsets=t(atlas.offsets, np.int32), sizes=t(atlas.sizes, np.float32),
+        eight_bit=bool(atlas.eight_bit),
+        mip_offsets=t(atlas.mip_offsets, np.int32),
+        mip_sizes=t(atlas.mip_sizes, np.float32), n_mips=int(atlas.n_mips),
+        mip_meta=tuple(tuple(tuple(int(v) for v in lv) for lv in part)
+                       for part in atlas.mip_meta))
 
 
 def sim_state_to_torch(state, device="cuda") -> SimState:

@@ -605,7 +605,7 @@ def _occurrence_passes(targets: np.ndarray) -> list[np.ndarray]:
 class ModelTables(nn.Module):
     """Device tables of a ModelStatic (see the module docstring)."""
 
-    ARRAYS = ("positions", "normals", "triangles", "skin_bones",
+    ARRAYS = ("positions", "normals", "uvs", "triangles", "skin_bones",
               "skin_weights", "bone_rest", "bone_parent", "local_offset",
               "append_parent", "append_ratio", "append_rotate",
               "append_translate", "is_ik_link", "morph_expand", "vm_morph",
@@ -619,6 +619,16 @@ class ModelTables(nn.Module):
         self.n_bones = static.n_bones
         self.n_morphs = static.n_morphs
         register_arrays(self, static, self.ARRAYS, device)
+        # parts are contiguous triangle ranges from their first triangle
+        # (reader/pmx_reader_impl.inl:185-189): the first triangles (int32,
+        # as the triangle ids they are searched with) and each triangle's part
+        part_base = np.asarray(static.part_base, np.int32)
+        tri_part = np.searchsorted(part_base, np.arange(len(static.triangles)),
+                                   side="right") - 1
+        self.register_buffer("part_base", torch.as_tensor(part_base,
+                                                          device=device))
+        self.register_buffer("tri_part", torch.as_tensor(
+            np.maximum(tri_part, 0).astype(np.int64), device=device))
         if static.skin_weight_dense is not None:
             register_arrays(self, static, ("skin_weight_dense",), device)
         else:
@@ -723,8 +733,9 @@ class CrowdModelTables:
 
     PER_BONE = ("bone_rest", "local_offset", "append_ratio", "append_rotate",
                 "append_translate", "is_ik_link")
-    SHARED = ("positions", "normals", "triangles", "skin_bones",
-              "skin_weights", "skin_weight_dense", "morph_expand")
+    SHARED = ("positions", "normals", "uvs", "triangles", "part_base",
+              "tri_part", "skin_bones", "skin_weights", "skin_weight_dense",
+              "morph_expand")
 
     def __init__(self, rig: ModelTables, n_inst: int):
         b, n = rig.n_bones, rig.n_vertices

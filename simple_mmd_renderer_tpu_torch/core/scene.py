@@ -25,6 +25,10 @@ kept by the scene and dropped when `.to()` moves it): one replay a frame,
 pose + physics + deform, with no host synchronisation. The render after it
 stays eager. On a CPU scene the same capturable step runs eagerly on the
 same buffers.
+
+Per-part textures (`part_textures`, NumPy [h,w,3] each) are packed once
+into a device atlas (`packed_atlas`, rebuilt when the list or one of its
+textures is replaced) that every render of the scene samples.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 from torch import nn
 
 from ..config import AppConfig, RenderConfig
-from ..render.pipeline import render_frame
+from ..render.pipeline import build_packed_atlas, render_frame
 from ..utils.device import resolve_device
 from ..utils.graph import CapturedStep, shape_key, tree_map
 from ..utils.profiling import pass_scope
@@ -71,10 +75,13 @@ def _per_instance(obj, n_inst):
 class Scene(nn.Module):
     def __init__(self, static: ModelStatic, phys_static: PhysicsStatic,
                  motion: MotionArrays | None = None,
-                 config: AppConfig | None = None, device="cuda"):
+                 config: AppConfig | None = None,
+                 part_textures: list | None = None, device="cuda"):
         super().__init__()
         device = resolve_device(device)
         self.config = config if config is not None else AppConfig()
+        self.part_textures = part_textures
+        self._atlas_src = self._atlas = None
         self.rig = ModelTables(static, device)
         self.phys = PhysicsTables(phys_static, device)
         self.motion = (MotionTables(motion, device) if motion is not None
@@ -82,13 +89,33 @@ class Scene(nn.Module):
         self._graphs: dict = {}      # shape_key(state) -> CapturedStep
 
     def _apply(self, fn, *args, **kwargs):
-        # the graphs hold the tables' old addresses: moving drops them
+        # the graphs hold the tables' old addresses and the atlas lies on
+        # the old device: moving drops them
         self._graphs.clear()
+        self._atlas_src = self._atlas = None
         return super()._apply(fn, *args, **kwargs)
 
     @property
     def device(self):
         return self.rig.device
+
+    def packed_atlas(self):
+        """The scene's texture atlas (render.pipeline.PackedAtlas, with
+        `texture_mips` levels) on its device, or None without textures;
+        packed at the first call and kept. Replacing the list or one of its
+        textures in place (`scene.part_textures[i] = new`) packs it anew,
+        as does a change of `texture_mips`."""
+        if self.part_textures is None:
+            return None
+        mips = int(self.config.render.texture_mips)
+        key = (id(self.part_textures),
+               tuple(id(t) for t in self.part_textures), mips)
+        if self._atlas_src != key:
+            self._atlas = build_packed_atlas(self.part_textures,
+                                             mip_levels=mips,
+                                             device=self.device)
+            self._atlas_src = key
+        return self._atlas
 
     def init_state(self) -> SimState:
         pose = self._neutral_pose()
@@ -162,10 +189,12 @@ class Scene(nn.Module):
             normals = normals.reshape(n_inst, -1, 3)
         return SimState(time=time, physics=physics), pose, positions, normals
 
-    def step_and_render(self, state: SimState, width=None, height=None):
-        """One frame -> (state', image [H,W,3])."""
+    def step_and_render(self, state: SimState, width=None, height=None,
+                        atlas=None):
+        """One frame -> (state', image [H,W,3]). Textures sample `atlas`,
+        by default the scene's own (`packed_atlas`)."""
         state, _, positions, normals = self.step_pose(state)
-        return state, self._render(positions, normals, width, height)
+        return state, self._render(positions, normals, width, height, atlas)
 
     def captured_step(self, state: SimState) -> CapturedStep:
         """The compiled step for states shaped like `state` (a single
@@ -185,9 +214,12 @@ class Scene(nn.Module):
         step.load(state)
         return step.replay()
 
-    def _render(self, positions, normals, width, height):
+    def _render(self, positions, normals, width, height, atlas=None):
+        if atlas is None:
+            atlas = self.packed_atlas()
         return render_frame(self.rig, positions, normals, self.config.render,
-                            width=width, height=height)
+                            part_textures=self.part_textures, width=width,
+                            height=height, atlas=atlas)
 
     def jit_step(self, render: bool = True, width=None, height=None,
                  donate: bool = True):
@@ -195,7 +227,7 @@ class Scene(nn.Module):
         `step_pose` / `step_and_render`): state -> (state', pose, positions,
         normals) with `render=False`, one CUDA-graph replay; state ->
         (state', image) with `render=True`, the replay and then the eager
-        `render_frame`.
+        `render_frame` (on the scene's atlas, `packed_atlas`).
 
         `donate=True` is the counterpart of the reference's buffer
         donation: the function returns the graph's own tensors (state' is
@@ -208,17 +240,19 @@ class Scene(nn.Module):
 
         if not render:
             return lambda state: keep(self.replay_step(state))
+        atlas = self.packed_atlas()
 
         def step(state):
             state, _, positions, normals = self.replay_step(state)
             return keep(state), self._render(positions, normals, width,
-                                             height)
+                                             height, atlas)
         return step
 
     def rollout(self, state: SimState, n_frames: int, render: bool = True,
-                width=None, height=None):
+                width=None, height=None, atlas=None):
         """N compiled frames -> (state', per-frame checksums [N]):
-        image.mean() per frame when rendering, positions.mean() otherwise.
+        image.mean() per frame when rendering (textures from `atlas`, by
+        default the scene's), positions.mean() otherwise.
         The state stays in the graph's buffers from one replay to the next
         (written back inside the graph); with `render=False` nothing is
         read on the host between the first replay and the last. state' is a
@@ -228,39 +262,55 @@ class Scene(nn.Module):
         sums = []
         for _ in range(n_frames):
             state, _, positions, normals = step.replay()
-            sums.append(self._render(positions, normals, width, height).mean()
+            sums.append(self._render(positions, normals, width, height,
+                                     atlas).mean()
                         if render else positions.mean())
         return tree_map(torch.clone, state), torch.stack(sums)
 
     def jit_rollout(self, n_frames: int, render: bool = True, width=None,
                     height=None):
-        """state -> rollout(state, n_frames, ...) on the compiled step."""
+        """state -> rollout(state, n_frames, ...) on the compiled step and
+        the scene's atlas."""
+        atlas = self.packed_atlas() if render else None
         return lambda state: self.rollout(state, n_frames, render=render,
-                                          width=width, height=height)
+                                          width=width, height=height,
+                                          atlas=atlas)
 
 
 def build_sample_scene(density=2.0, width=1920, height=1080, shadow=2048,
                        device="cuda", n_frames=240, fps_keys=5,
-                       solver_iterations=None, msaa=1,
-                       shadow_window=False) -> Scene:
-    """The procedural sample character and motion as a port Scene: no
-    skybox, no textures. The defaults are the flagship frame (density 2.0,
+                       solver_iterations=None, msaa=1, shadow_window=False,
+                       textures=None, n_parts=2, texture_mips=0,
+                       texture_resident=1, albedo_window=True) -> Scene:
+    """The procedural sample character and motion as a port Scene, with no
+    skybox. The defaults are the flagship frame (density 2.0,
     sample_motion(240, fps_keys=5), 1920x1080, 2048^2 shadow map, physics on
-    with the default solver iterations, msaa=1); `msaa=4,
+    with the default solver iterations, msaa=1, no textures); `msaa=4,
     shadow_window=True` is the frame the reference app renders (native
-    per-sample MSAA, the windowed shadow raster)."""
-    from ..app.sample import sample_character, sample_motion
+    per-sample MSAA, the windowed shadow raster).
+
+    `textures`: the edges of procedural per-part textures
+    (`app.sample.sample_textures`, e.g. (1024, 256) or
+    `realistic_texture_sizes(16)` with `n_parts=16`), one per material part
+    of the character (`n_parts`); `texture_mips`, `texture_resident` and
+    `albedo_window` set the RenderConfig's fields of those names."""
+    from ..app.sample import sample_character, sample_motion, sample_textures
     from .model import build_model
 
     device = resolve_device(device)
-    static = build_model(sample_character(density=density))
+    static = build_model(sample_character(density=density, n_parts=n_parts))
     motion = anim_mod.bind_motion(static, sample_motion(n_frames,
                                                         fps_keys=fps_keys))
     cfg = AppConfig()
     cfg.render = RenderConfig(width=width, height=height,
                               shadow_map_size=shadow, show_skybox=False,
-                              msaa=msaa, shadow_window=shadow_window)
+                              msaa=msaa, shadow_window=shadow_window,
+                              texture_mips=texture_mips,
+                              texture_resident=texture_resident,
+                              albedo_window=albedo_window)
     if solver_iterations is not None:
         cfg.physics.solver_iterations = solver_iterations
+    part_textures = (sample_textures(tuple(textures)) if textures is not None
+                     else None)
     return Scene(static, phys_mod.build_physics(static), motion, cfg,
-                 device=device)
+                 part_textures, device=device)

@@ -25,7 +25,8 @@ import torch
 
 from ..core.physics import PhysicsState
 from ..core.scene import Scene, SimState
-from ..render.pipeline import crowd_render_frame, crowd_render_supported
+from ..render.pipeline import (build_packed_atlas, crowd_render_frame,
+                               crowd_render_supported, render_frame)
 
 
 def crowd_init(scene: Scene, n: int, phase_frames: float = 7.0) -> SimState:
@@ -47,10 +48,17 @@ _FALLBACK_NOTICED: set = set()
 
 
 def crowd_step_fn(scene: Scene, render: bool = True, width=None,
-                  height=None):
+                  height=None, atlas_arg: bool = False):
     """Per-frame crowd function over the instance axis: state -> (state',
     pose, positions, normals) without rendering, state -> (state', images
     [I,H,W,3]) with it.
+
+    With textures (`scene.part_textures`) every instance samples one
+    shared atlas: with `atlas_arg=True` the one the caller passes, state,
+    atlas -> (state', images) (e.g. `scene.packed_atlas()`, whose mip
+    chain selects each triangle's level per instance); else one packed
+    from the scene's textures without mips when the function is made (the
+    atlas the reference's jitted step holds as a constant).
 
     Posing and physics always run batched, as one replay of the scene's
     compiled step on the crowd state (`Scene.jit_step(render=False,
@@ -66,13 +74,21 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
         return pose_step
 
     cfg_r = scene.config.render
+    textures = scene.part_textures
+    own = (None if atlas_arg or textures is None
+           else build_packed_atlas(textures, device=scene.device))
+
+    def bind(step):
+        return step if atlas_arg else (lambda state: step(state, own))
+
     if crowd_render_supported(cfg_r):
-        def step(state):
+        def step(state, atlas=None):
             state, _, positions, normals = pose_step(state)
             images = crowd_render_frame(scene.rig, positions, normals, cfg_r,
-                                        width, height)
+                                        width, height, part_textures=textures,
+                                        atlas=atlas)
             return state, images
-        return step
+        return bind(step)
 
     reasons = [r for r, on in (
         ("msaa_supersample", bool(cfg_r.msaa >= 4 and cfg_r.msaa_supersample)),
@@ -85,13 +101,12 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
               f"by: {', '.join(reasons) or 'unknown config'})",
               file=sys.stderr)
 
-    from ..render.pipeline import render_frame
-
-    def step_fallback(state):
+    def step_fallback(state, atlas=None):
         state, _, positions, normals = pose_step(state)
         images = torch.stack([
             render_frame(scene.rig, positions[i], normals[i], cfg_r,
-                         width=width, height=height)
+                         part_textures=textures, width=width, height=height,
+                         atlas=atlas)
             for i in range(positions.shape[0])])
         return state, images
-    return step_fallback
+    return bind(step_fallback)

@@ -1,19 +1,24 @@
 """Frame pipeline: shadow pass -> ground -> character -> shading.
 
-Port of the single-character subset of `simple_mmd_renderer_tpu/render/
-pipeline.py`: `build_matrices`, `ground_pass` (with its row0/rows halo),
+Port of `simple_mmd_renderer_tpu/render/pipeline.py` less the skybox,
+edges, double-sided materials, MMD toon/sphere maps and extended morphs:
+`build_matrices`, `ground_pass` (with its row0/rows halo),
 `unproject_depth`, `upsample_bilinear_int`, `_tiled_e_max`, `shadow_pass`
-(with the caster window) and `render_frame` for the untextured frame with
-no skybox, at msaa=1 or msaa=4 (native per-sample MSAA with a coverage
-resolve, or 2x2 supersampling with `msaa_supersample`). The rasterizer is
-the binned tile raster (`ops/tiled_raster.py`) on every device; its
-kernels (K1/K6 shadow depth, K2/K4 character) and the ground's PCF kernel
-(K3) run as hand-written CUDA on the card.
+(with the caster window), the textures (the shelf-packed atlas with its
+mip chain, `PackedAtlas`, deferred-UV albedo from the visibility buffer,
+the resident mini-atlas) and `render_frame`, at msaa=1 or msaa=4 (native
+per-sample MSAA with a coverage resolve, or 2x2 supersampling with
+`msaa_supersample`). The rasterizer is the binned tile raster
+(`ops/tiled_raster.py`) on every device; its kernels (K1/K6 shadow depth,
+K2/K4 character) and the ground's PCF kernel (K3) run as hand-written CUDA
+on the card. The albedo pass is gathers (plain PyTorch), as it is XLA
+gathers in the reference.
 
 `crowd_render_frame` is the multi-instance frame: one binning and one
 kernel launch for all instances' shadow maps (K5c) and character rasters
-(K5a, or K5b at msaa=4), K3 over the batch of shadow maps, and the
-camera-shared ground computed once.
+(K5a, or K5b at msaa=4), K3 over the batch of shadow maps, the
+camera-shared ground computed once, and the albedo of every instance from
+one shared atlas.
 
 Options outside the slice raise NotImplementedError naming the option.
 """
@@ -22,9 +27,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.profiling import pass_scope
 from . import camera as cam
 from . import raster
@@ -180,6 +188,506 @@ def shadow_pass(verts_m, tris_flipped, light_mvp, size, window=False,
                                  compact=compact, cv=cv)
 
 
+# ---------------------------------------------------------------------------
+# textures: the packed atlas, its mip chain, the resident mini-atlas and the
+# albedo samplers. Host packing is NumPy (the reference's code); sampling is
+# gathers on the device tensors of a PackedAtlas.
+# ---------------------------------------------------------------------------
+
+def _tri_part(static, pn):
+    """[T] part id per triangle (`ModelTables.tri_part`) for an atlas of
+    `pn` parts."""
+    return torch.clamp(static.tri_part, max=pn - 1)
+
+
+def character_albedo(static, tri, uv_px, part_textures, atlas=None):
+    """Per-part diffuse texture lookup (main.cpp:2093-2146: one draw and
+    bind per part) from the triangle-id image `tri` [..., H, W] and the
+    per-pixel UVs [..., H, W, 2]. Any real texture (or a given `atlas`)
+    routes through the packed atlas (`_albedo_atlas`); flat-colour-only
+    parts keep the gather-free broadcast, part by part."""
+    real = [p for p, t in enumerate(part_textures)
+            if t.shape[0] > 1 or t.shape[1] > 1]
+    if atlas is not None or len(real) >= 1:
+        return _albedo_atlas(static, tri, uv_px, part_textures, atlas)
+
+    albedo = torch.ones(tri.shape + (3,), dtype=torch.float32,
+                        device=tri.device)
+    host = static.host
+    for p in range(len(host.part_base)):
+        base = int(host.part_base[p])
+        count = int(host.part_count[p])
+        if count == 0:
+            continue
+        mask = (tri >= base) & (tri < base + count)
+        # fills, not a copy from the host: no synchronisation
+        color = torch.stack([torch.full(tri.shape, float(c),
+                                        dtype=torch.float32,
+                                        device=tri.device)
+                             for c in part_textures[p][0, 0, :3]], -1)
+        albedo = torch.where(mask[..., None], color, albedo)
+    return albedo
+
+
+def _pack_atlas(part_textures):
+    """Shelf-pack per-part textures into ONE [H, W, 12] packed atlas (host
+    side): each texel carries its own colour plus the +x, +y and +x+y
+    neighbours (wrapped within the part, so repeat-wrap bilinear stays exact
+    at part edges), so one gather fetches all four bilinear taps. Memory is
+    the sum of the texture areas plus the shelves' slack.
+
+    Returns (atlas [H,W,12] f32, offsets [P,2] (y,x), sizes [P,2] (h,w))."""
+    pn = len(part_textures)
+    sizes = np.array([(t.shape[0], t.shape[1]) for t in part_textures],
+                     np.int64)
+    atlas_w = max(int(sizes[:, 1].max()), 1)
+    order = np.argsort(-sizes[:, 0], kind="stable")  # tall shelves first
+    offsets = np.zeros((pn, 2), np.int64)
+    shelf_y, shelf_h, x = 0, 0, 0
+    for p in order:
+        h, w = int(sizes[p, 0]), int(sizes[p, 1])
+        if x + w > atlas_w:
+            shelf_y += shelf_h
+            x, shelf_h = 0, 0
+        offsets[p] = (shelf_y, x)
+        x += w
+        shelf_h = max(shelf_h, h)
+    atlas = np.zeros((shelf_y + shelf_h, atlas_w, 12), np.float32)
+    for p, t in enumerate(part_textures):
+        y0, x0 = offsets[p]
+        t3 = np.asarray(t[..., :3], np.float32)
+        xr = np.roll(t3, -1, 1)          # +x neighbour, wrapped in-part
+        yr = np.roll(t3, -1, 0)          # +y
+        xyr = np.roll(xr, -1, 0)         # +x+y
+        atlas[y0:y0 + t.shape[0], x0:x0 + t.shape[1]] = np.concatenate(
+            [t3, xr, yr, xyr], -1)
+    return atlas, offsets.astype(np.float32), sizes.astype(np.float32)
+
+
+@dataclass
+class PackedAtlas:
+    """Device form of the shelf-packed texture atlas (`build_packed_atlas`).
+
+    `data` is [H,W,4] int32 of bit-packed RGB888 2x2 neighbourhoods (the
+    reference's uint32 words: each is below 2^24, so int32 holds it exactly
+    and `&` and `>>` read it) when every source texel sits on the 8-bit
+    grid, else [H,W,12] float32. With a mip chain (`n_mips` > 1) every
+    level of every part is packed into the same atlas; `mip_offsets`,
+    `mip_sizes` and the host tuple `mip_meta` ((oy, ox, h, w) per part and
+    level) address them."""
+    data: torch.Tensor
+    offsets: torch.Tensor                     # [P,2] i32 (y,x)
+    sizes: torch.Tensor                       # [P,2] f32 (h,w)
+    eight_bit: bool = True
+    mip_offsets: torch.Tensor | None = None   # [P,L,2] i32 (y,x)
+    mip_sizes: torch.Tensor | None = None     # [P,L,2] f32 (h,w)
+    n_mips: int = 0
+    mip_meta: tuple = ()
+
+
+def _downsample2(t):
+    """One mip step: 2x2 box filter (odd trailing row/col dropped), never
+    below 1 texel per axis."""
+    h, w = t.shape[:2]
+    if h > 1:
+        t = 0.5 * (t[0:2 * (h // 2):2] + t[1:2 * (h // 2):2])
+    if w > 1:
+        t = 0.5 * (t[:, 0:2 * (w // 2):2] + t[:, 1:2 * (w // 2):2])
+    return t
+
+
+def build_packed_atlas(part_textures, mip_levels: int = 0, device="cuda") \
+        -> PackedAtlas | None:
+    """Host-side packing -> PackedAtlas on `device` (the card unless the
+    caller asks for another device); None when every part is a flat 1x1
+    colour, which keeps the gather-free broadcast path.
+
+    mip_levels > 1 packs a box-filtered mip chain of every part into the
+    same shelf atlas (+~33% texels) for per-triangle level selection in
+    affine_uv_part_rows; 8-bit sources keep their levels quantized to the
+    8-bit grid so the bit-packing stays exact."""
+    if part_textures is None or not any(
+            t.shape[0] > 1 or t.shape[1] > 1 for t in part_textures):
+        return None
+    device = resolve_device(device)
+    pn = len(part_textures)
+    entries = [np.asarray(t, np.float32) for t in part_textures]
+    src8 = all(
+        np.abs(e * 255.0 - np.round(e * 255.0)).max() < 1e-3
+        for e in entries)
+    mip_index = None
+    if mip_levels and int(mip_levels) > 1:
+        L = int(mip_levels)
+        mip_index = np.zeros((pn, L), np.int64)
+        for p in range(pn):
+            mip_index[p, 0] = p
+            cur = entries[p]
+            for lv in range(1, L):
+                if cur.shape[0] > 1 or cur.shape[1] > 1:
+                    cur = _downsample2(cur)
+                    if src8:
+                        cur = np.round(cur * 255.0) / 255.0
+                    entries.append(cur)
+                    mip_index[p, lv] = len(entries) - 1
+                else:
+                    mip_index[p, lv] = mip_index[p, lv - 1]
+    atlas, offsets, sizes = _pack_atlas(entries)
+    scaled = atlas * 255.0
+    eight_bit = bool(np.abs(scaled - np.round(scaled)).max() < 1e-3)
+    if eight_bit:
+        q8 = np.clip(scaled + 0.5, 0, 255).astype(np.int32)
+        data = (q8[..., 0::3] | (q8[..., 1::3] << 8)
+                | (q8[..., 2::3] << 16))             # [H,W,4] i32 < 2^24
+    else:
+        data = atlas                                  # [H,W,12] f32
+    del atlas, scaled
+
+    def dev(x):
+        return torch.as_tensor(x, device=device)
+
+    mo = ms = None
+    meta = ()
+    if mip_index is not None:
+        mo = dev(offsets[mip_index].astype(np.int32))      # [P,L,2]
+        ms = dev(sizes[mip_index])                         # [P,L,2]
+        oi = offsets[mip_index].astype(np.int64)
+        si = sizes[mip_index].astype(np.int64)
+        meta = tuple(tuple((int(oi[p, l, 0]), int(oi[p, l, 1]),
+                            int(si[p, l, 0]), int(si[p, l, 1]))
+                           for l in range(oi.shape[1]))
+                     for p in range(pn))
+    return PackedAtlas(data=dev(data),
+                       offsets=dev(offsets[:pn].astype(np.int32)),
+                       sizes=dev(sizes[:pn]), eight_bit=eight_bit,
+                       mip_offsets=mo, mip_sizes=ms,
+                       n_mips=int(mip_levels) if mip_index is not None
+                       else 0, mip_meta=meta)
+
+
+def _albedo_atlas(static, tri, uv_px, part_textures, atlas=None):
+    """Single-pass atlas sampling: the part of each pixel from its
+    triangle id (a search of the parts' first triangles), then full
+    bilinear filtering from one gather a pixel (`_atlas_bilinear`). Built
+    from `part_textures` (no mips) when no `atlas` is given."""
+    pn = len(part_textures)
+    if atlas is None:
+        atlas = build_packed_atlas(part_textures, device=tri.device)
+
+    cov = tri >= 0
+    tri = torch.clamp(tri, min=0).contiguous()
+    pid = torch.clamp(torch.searchsorted(static.part_base, tri,
+                                         right=True) - 1, 0, pn - 1)
+    size = _take_rows(atlas.sizes.flip(-1), pid)      # [.., 2] (w, h)
+    uv = uv_px * size - 0.5                           # u and v at once
+    x0 = torch.floor(uv)
+    f = uv - x0
+    # repeat wrap within the part's own extent (a floor-mod: negative texel
+    # indices wrap from the far edge), then shift into the atlas
+    xy = (torch.remainder(x0.to(torch.int32),
+                          torch.clamp(size.to(torch.int32), min=1))
+          + _take_rows(atlas.offsets.flip(-1), pid))
+    # uncovered pixels are masked downstream: their address is texel 0
+    xy = torch.where(cov[..., None], xy, 0)
+    return _atlas_bilinear(atlas, xy[..., 0], xy[..., 1], f[..., 0:1],
+                           f[..., 1:2])
+
+
+def _atlas_bilinear(atlas, xm, ym, fx, fy):
+    """Bilinear filter from the neighbourhood-packed atlas: one gather a
+    pixel (the texel's 2x2 neighbourhood rides its row), then 3 lerps."""
+    atlas_w = atlas.data.shape[1]
+    idx = ym.to(torch.int64) * atlas_w + xm
+    if atlas.eight_bit:
+        # a word's bytes are R, G, B, 0 (little-endian, on the host and
+        # the card alike): one conversion unpacks all four corners
+        q = _take_rows(atlas.data.reshape(-1, 4), idx)  # c00 c10 c01 c11
+        c = q.view(torch.uint8).reshape(q.shape + (4,))[..., :3] \
+            .to(torch.float32) * (1.0 / 255.0)   # [.., 4, 3]
+    else:
+        c = _take_rows(atlas.data.reshape(-1, 12), idx).reshape(
+            idx.shape + (4, 3))
+    gx = 1 - fx
+    top = c[..., 0, :] * gx + c[..., 1, :] * fx
+    bot = c[..., 2, :] * gx + c[..., 3, :] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def resident_slot_size(n_parts, budget_bytes=20 << 20):
+    """Slot edge (a multiple of 128, 128-512) of the resident mini-atlas:
+    P slots of 16 B texels within `budget_bytes` (the reference's sizing)."""
+    s = int(math.sqrt(budget_bytes / (16.0 * max(n_parts, 1)))) // 128 * 128
+    return max(min(s, 512), 128)
+
+
+def resident_fit_levels(atlas, slot):
+    """[P] i32: each part's first mip level that fits a slot x slot window,
+    or None when some part's chain never fits (texture_mips too shallow
+    for this slot). Host data, from the atlas layout."""
+    metas = np.asarray(atlas.mip_meta, np.int64)      # [P,L,4] oy,ox,h,w
+    L = atlas.n_mips
+    fit = []
+    for p in range(metas.shape[0]):
+        f = next((lv for lv in range(L)
+                  if metas[p, lv, 2] <= slot and metas[p, lv, 3] <= slot),
+                 None)
+        if f is None:
+            return None
+        fit.append(f)
+    return np.asarray(fit, np.int32)
+
+
+def _fit_levels(atlas, slot):
+    """`resident_fit_levels` at `slot` on the atlas's device, from its level
+    sizes: a part's levels shrink, so its first level that fits is the
+    count of those that do not."""
+    return (atlas.mip_sizes > slot).any(-1).sum(-1)
+
+
+def build_resident_atlas(atlas, need_level, slot):
+    """Per-frame resident mip atlas: for each part, ONE level (the most
+    detailed level any of its triangles needs this frame, `need_level` [P]
+    i32 on the device, clamped to the first level that fits a slot x slot
+    window) copied out of the big mip atlas into a [P*slot, slot, lanes]
+    mini table. The copy is one gather: each slot's rows and columns are
+    its clamped start plus an arange, so the window stays in bounds
+    without padding the big atlas and nothing is read on the host; the
+    residual (start - clamped start) rides into the per-part offsets.
+
+    Returns (mini PackedAtlas, off_xy [P,2] f32 (x,y) part origins inside
+    the mini table, sz_hw [P,2] f32 resident level sizes)."""
+    P = len(atlas.mip_meta)
+    L = atlas.n_mips
+    data = atlas.data
+    hd, wd, lanes = data.shape
+    slot = min(int(slot), hd, wd)   # small atlases: window within bounds
+    metas = np.asarray(atlas.mip_meta, np.int64)      # [P,L,4] oy,ox,h,w
+    fit = resident_fit_levels(atlas, slot)
+    if fit is None:
+        raise ValueError(
+            f"texture_resident: some parts have no mip level that fits "
+            f"the {slot}px resident slot — raise RenderConfig.texture_mips "
+            f"so every part's chain reaches <= {slot}px (largest texture "
+            f"{int(metas[:, 0, 2:].max())}px needs "
+            f">= {int(np.ceil(np.log2(metas[:, 0, 2:].max() / slot))) + 1} "
+            f"levels)")
+    dev = data.device
+    parts = torch.arange(P, device=dev)
+    rl = torch.clamp(torch.maximum(need_level.to(torch.int64),
+                                   _fit_levels(atlas, slot)), 0, L - 1)
+    oy = atlas.mip_offsets[parts, rl, 0].to(torch.int64)
+    ox = atlas.mip_offsets[parts, rl, 1].to(torch.int64)
+    hh = atlas.mip_sizes[parts, rl, 0]
+    ww = atlas.mip_sizes[parts, rl, 1]
+    cy = torch.clamp(oy, 0, hd - slot)
+    cx = torch.clamp(ox, 0, wd - slot)
+    r = torch.arange(slot, device=dev)
+    ys = (cy[:, None] + r)[:, :, None]                # [P,slot,1]
+    xs = (cx[:, None] + r)[:, None, :]                # [P,1,slot]
+    mini = data[ys, xs].reshape(P * slot, slot, lanes)
+    off = torch.stack([ox - cx, parts * slot + (oy - cy)], -1)   # (x, y)
+    mini_atlas = PackedAtlas(data=mini, offsets=atlas.offsets,
+                             sizes=atlas.sizes, eight_bit=atlas.eight_bit)
+    return (mini_atlas, off.to(torch.float32),
+            torch.stack([hh, ww], -1).to(torch.float32))
+
+
+def _take_rows(table, idx):
+    """table [N, C] at int64 idx [...] -> [..., C]: a row gather along
+    dim 0 (`index_select`, not the general advanced-indexing kernel)."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(
+        idx.shape + table.shape[1:])
+
+
+def _rows_at(rows, tri):
+    """Per-pixel rows of a per-triangle table: rows [T, C] at tri [..., H,
+    W], or per instance rows [I, T, C] at tri [I, H, W] (instance i's
+    pixels read its own table). Uncovered pixels (tri < 0) read row 0."""
+    tri = torch.clamp(tri, min=0).to(torch.int64)
+    if rows.dim() == 3:
+        n_inst, t = rows.shape[:2]
+        inst = torch.arange(n_inst, device=tri.device) * t
+        tri = tri + inst.reshape((n_inst,) + (1,) * (tri.dim() - 1))
+        rows = rows.reshape(n_inst * t, rows.shape[2])
+    return _take_rows(rows, tri)
+
+
+def affine_uv_rows(uvs, tris):
+    """Per-triangle affine UV plane rows [T, 8]: (u0, v0, du1, dv1, du2,
+    dv2, 0, 0) — uv(pixel) = (u0, v0) + b1*(du1, dv1) + b2*(du2, dv2) from
+    the visibility buffer's screen barycentrics. See uv_from_vis."""
+    g = uvs[tris.to(torch.int64)]                     # [T,3,2]
+    pad = torch.zeros(tris.shape[:1] + (2,), dtype=torch.float32,
+                      device=uvs.device)
+    return torch.cat([g[:, 0], g[:, 1] - g[:, 0], g[:, 2] - g[:, 0], pad], -1)
+
+
+def _tri_mip_levels(g, sz0, screen_xy, tris, L):
+    """Per-triangle mip level [..., T] from the UV-area / screen-area ratio
+    (isotropic sqrt(texels per pixel)): g [..., T,3,2] UVs, sz0 [T,2]
+    level-0 (w,h) texels, screen_xy [..., V,2] pixel positions (a leading
+    instance axis passes through)."""
+    d1t = (g[..., 1, :] - g[..., 0, :]) * sz0
+    d2t = (g[..., 2, :] - g[..., 0, :]) * sz0
+    s = screen_xy[..., tris.to(torch.int64), :]       # [..., T,3,2] px
+    e1 = s[..., 1, :] - s[..., 0, :]
+    e2 = s[..., 2, :] - s[..., 0, :]
+    area_px = torch.abs(e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0])
+    area_tx = torch.abs(d1t[..., 0] * d2t[..., 1] - d1t[..., 1] * d2t[..., 0])
+    rho2 = area_tx / torch.clamp(area_px, min=1e-12)
+    lvl = torch.clamp(torch.floor(0.5 * torch.log2(torch.clamp(rho2,
+                                                               min=1e-20))),
+                      0, L - 1).to(torch.int32)
+    # degenerate screen triangles (<= a pixel) take the smallest level
+    return torch.where(area_px < 1e-9, L - 1, lvl)
+
+
+def affine_uv_part_rows(uvs, tris, atlas, static, screen_xy=None,
+                        resident=None):
+    """[..., T, 12] texel-space affine UV rows with each triangle's atlas
+    placement baked in: (u0, v0, du1, dv1, du2, dv2, ox, oy, tw, th, 0, 0),
+    all in atlas texels. The triangle -> part mapping is static, so the
+    per-part offset and size tables are gathered once a frame per triangle
+    here, not per pixel in the sampler.
+
+    With `screen_xy` ([..., V,2] pixel positions) and a mip-chain atlas
+    (n_mips > 1), each triangle's mip level is selected here too, from the
+    ratio of its UV-space to its screen-space area, and the row addresses
+    that level's region of the atlas. With `resident` = (off_xy [P,2] f32
+    (x,y), sz_hw [P,2] f32) from build_resident_atlas, rows instead address
+    each part's slot in the resident mini-atlas. `uvs` [..., V, 2] and
+    `screen_xy` may carry a leading instance axis (the crowd)."""
+    g = uvs[..., tris.to(torch.int64), :]             # [..., T,3,2]
+    pid = _tri_part(static, atlas.sizes.shape[0])
+    d1u = g[..., 1, :] - g[..., 0, :]
+    d2u = g[..., 2, :] - g[..., 0, :]
+    if resident is not None:
+        roff, rsz = resident
+        off_xy = roff[pid].to(torch.float32)          # [T,2] (x,y)
+        sz_wh = rsz[pid].flip(-1).to(torch.float32)   # (w,h)
+    elif atlas.n_mips > 1 and screen_xy is not None:
+        L = atlas.n_mips
+        sz0 = atlas.sizes[pid].flip(-1)               # [T,2] (w,h) level 0
+        lvl = _tri_mip_levels(g, sz0, screen_xy, tris, L)
+        idx = pid * L + lvl                           # [..., T]
+        off_xy = atlas.mip_offsets.reshape(-1, 2)[idx].flip(-1) \
+            .to(torch.float32)
+        sz_wh = atlas.mip_sizes.reshape(-1, 2)[idx].flip(-1)
+    else:
+        sz_wh = atlas.sizes[pid].flip(-1)             # [T,2] f32 (w,h)
+        off_xy = atlas.offsets[pid].flip(-1).to(torch.float32)
+    u0 = g[..., 0, :] * sz_wh
+    d1 = d1u * sz_wh
+    d2 = d2u * sz_wh
+    lead = u0.shape[:-1]
+    off_xy = off_xy.expand(lead + (2,))
+    sz_wh = sz_wh.expand(lead + (2,))
+    pad = torch.zeros(lead + (2,), dtype=torch.float32, device=uvs.device)
+    return torch.cat([u0, d1, d2, off_xy, sz_wh, pad], -1)
+
+
+def _albedo_rows(atlas, tri, bary, rows):
+    """Deferred-UV atlas sampling from fused rows (affine_uv_part_rows):
+    one 48-byte row gather and one atlas gather a pixel, no per-pixel part
+    tables. Pixels with no coverage (tri < 0) are masked downstream, so
+    their atlas address is pinned to texel 0. Per-instance rows [I, T, 12]
+    sample instance i's pixels of tri [I, H, W] with its own rows."""
+    cov = tri >= 0
+    r = _rows_at(rows, tri)                           # [.., 12] gather
+    # u and v at once: (u0, v0) + b1 * (du1, dv1) + b2 * (du2, dv2) - 0.5
+    uv = (r[..., 0:2] + bary[..., 0:1] * r[..., 2:4]
+          + bary[..., 1:2] * r[..., 4:6] - 0.5)
+    x0 = torch.floor(uv)
+    f = uv - x0
+    size = torch.clamp(r[..., 8:10].to(torch.int32), min=1)
+    xy = torch.remainder(x0.to(torch.int32), size) \
+        + r[..., 6:8].to(torch.int32)
+    xy = torch.where(cov[..., None], xy, 0)
+    return _atlas_bilinear(atlas, xy[..., 0], xy[..., 1], f[..., 0:1],
+                           f[..., 1:2])
+
+
+def uv_from_vis(tri, bary, uv_rows):
+    """Per-pixel UVs from the visibility buffer: one row gather a pixel
+    (affine_uv_rows) instead of two attribute channels through the raster
+    kernel. Interpolation is affine in screen space."""
+    r = _rows_at(uv_rows, tri)                        # [.., 8] gather
+    b1 = bary[..., 0]
+    b2 = bary[..., 1]
+    return torch.stack([r[..., 0] + b1 * r[..., 2] + b2 * r[..., 4],
+                        r[..., 1] + b1 * r[..., 3] + b2 * r[..., 5]], -1)
+
+
+def character_albedo_windowed(static, tri, uv_px, part_textures,
+                              atlas=None, bary=None, uv_rows=None):
+    """The reference's `character_albedo` restricted to the character's
+    screen box, with the same output wherever it is read (covered pixels,
+    `char_mask`).
+
+    The reference picks the box's size from a static ladder under
+    `lax.switch` because gathers cost a TPU ~5 ns each. Here a box size
+    would need a host read, so every pixel is sampled, the uncovered ones
+    at texel 0 (as the reference's own full-frame path does).
+
+    With `bary` + `uv_rows`, per-pixel UVs are reconstructed from the
+    visibility buffer and `uv_px` may be None. 12-column rows
+    (affine_uv_part_rows) carry the atlas placement too and sample via
+    `_albedo_rows`; 8-column rows (affine_uv_rows) give plain UVs
+    (uv_from_vis)."""
+    if uv_rows is not None and atlas is not None and uv_rows.shape[-1] == 12:
+        return _albedo_rows(atlas, tri, bary, uv_rows)
+    if uv_rows is not None:
+        uv_px = uv_from_vis(tri, bary, uv_rows)
+    return character_albedo(static, tri, uv_px, part_textures, atlas)
+
+
+def _frame_albedo(static, cfg, part_textures, atlas, vis, uv_px, uvs, tris,
+                  clip, width, height):
+    """The single frame's albedo pass (reference `render_frame`
+    l.1277-1350): deferred UVs from the visibility buffer with
+    `albedo_window` (per-triangle mip levels and the resident mini-atlas
+    where the config asks for them), else the UVs the raster carried."""
+    if not cfg.albedo_window:
+        return character_albedo(static, vis.tri, uv_px, part_textures, atlas)
+    atl = atlas if atlas is not None else build_packed_atlas(
+        part_textures, mip_levels=cfg.texture_mips, device=tris.device)
+    screen = None
+    if atl is not None and atl.n_mips > 1 and cfg.texture_mips > 1:
+        screen, _, _ = raster.screen_from_clip(clip, width, height)
+    fit = None
+    if screen is not None and cfg.texture_resident and atl.mip_meta:
+        pn = atl.sizes.shape[0]
+        slot = (resident_slot_size(pn) if int(cfg.texture_resident) == 1
+                else int(cfg.texture_resident))
+        slot = min(int(slot), atl.data.shape[0], atl.data.shape[1])
+        # a chain that never fits the slot skips the resident path
+        fit = resident_fit_levels(atl, slot)
+    if fit is None:
+        rows = (affine_uv_part_rows(uvs, tris, atl, static, screen_xy=screen)
+                if atl is not None else affine_uv_rows(uvs, tris))
+        return character_albedo_windowed(static, vis.tri, None, part_textures,
+                                         atl, bary=vis.bary, uv_rows=rows)
+
+    # the resident mini-atlas, with an exact fallback: where some part needs
+    # a finer level than its slot holds (magnification), the frame samples
+    # the big atlas instead
+    pid = _tri_part(static, pn)
+    sz0 = atl.sizes[pid].flip(-1)
+    lvl = _tri_mip_levels(uvs[tris.to(torch.int64)], sz0, screen, tris,
+                          atl.n_mips)
+    nl = torch.full((pn,), torch.iinfo(torch.int32).max, dtype=torch.int32,
+                    device=lvl.device).scatter_reduce(0, pid, lvl, "amin")
+    # one host read a frame (listed with the render's host syncs in ROADMAP)
+    if bool(torch.any(nl < _fit_levels(atl, slot))):
+        rows = affine_uv_part_rows(uvs, tris, atl, static, screen_xy=screen)
+        return character_albedo_windowed(static, vis.tri, None, part_textures,
+                                         atl, bary=vis.bary, uv_rows=rows)
+    mini, roff, rsz = build_resident_atlas(atl, nl, slot)
+    rows = affine_uv_part_rows(uvs, tris, atl, static, screen_xy=screen,
+                               resident=(roff, rsz))
+    return character_albedo_windowed(static, vis.tri, None, part_textures,
+                                     mini, bary=vis.bary, uv_rows=rows)
+
+
 def _background(cfg, mats, shadow_map, lead, width, height, dev):
     """Clear colour and shadowed ground -> (color [*lead, H, W, 3],
     ground_depth [H, W]). `shadow_map` is [S, S] for one frame (lead ()) or
@@ -221,19 +729,19 @@ def _background(cfg, mats, shadow_map, lead, width, height, dev):
             ground_depth
 
 
-def _composite(cfg, mats, color, vis, attr_px, sdepth, ground_depth, width,
-               height):
-    """Shade the character once per pixel from the visibility buffer and
-    lay it over `color`: by the depth test against the ground, or with
-    per-sample depths (`sdepth` [..., 4, H, W]) by coverage. Leading
-    instance axes pass through."""
+def _composite(cfg, mats, color, vis, nrm_px, albedo, sdepth, ground_depth,
+               width, height):
+    """Shade the character once per pixel from the visibility buffer, its
+    normals and its albedo (None: white) and lay it over `color`: by the
+    depth test against the ground, or with per-sample depths (`sdepth`
+    [..., 4, H, W]) by coverage. Leading instance axes pass through."""
     dev = vis.depth.device
     char_mask = (vis.tri >= 0) & (vis.depth <= ground_depth)
     world_px = unproject_depth(vis.depth, mats["proj"] @ mats["view"],
                                width, height)
-    nrm_px = attr_px[..., 0:3]
-    albedo = torch.ones(vis.depth.shape + (3,), dtype=torch.float32,
-                        device=dev)
+    if albedo is None:
+        albedo = torch.ones(vis.depth.shape + (3,), dtype=torch.float32,
+                            device=dev)
     with pass_scope("shade"):
         char_color = shade.shade_character(
             albedo, nrm_px, world_px, _f32(cfg.camera_pos, dev), cfg)
@@ -248,12 +756,11 @@ def _composite(cfg, mats, color, vis, attr_px, sdepth, ground_depth, width,
     return torch.clamp(color, 0.0, 1.0)
 
 
-def _check_slice(cfg, part_textures, cubemap, uv_offsets, part_color,
-                 mmd_maps, proj_transform):
+def _check_slice(cfg, cubemap, uv_offsets, part_color, mmd_maps,
+                 proj_transform):
     """Raise NotImplementedError for every option outside the ported
     slice."""
     unsupported = [
-        ("part_textures", part_textures is not None),
         ("show_skybox", bool(cfg.show_skybox) and cubemap is not None),
         ("show_edges", bool(cfg.show_edges)),
         ("double_sided", bool(cfg.double_sided)),
@@ -270,15 +777,18 @@ def _check_slice(cfg, part_textures, cubemap, uv_offsets, part_color,
 
 def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
                  cubemap=None, width=None, height=None, uv_offsets=None,
-                 part_color=None, mmd_maps=None, proj_transform=None):
+                 part_color=None, mmd_maps=None, atlas=None,
+                 proj_transform=None):
     """Full main-pass image, [H,W,3] float32 in [0,1], on the device of
     `positions_mmd`.
 
-    static: the model's device tables (core.model.ModelTables); only
-    `triangles` is read. positions_mmd/normals: deformed vertices from
-    core.pose.deform (MMD units)."""
-    _check_slice(cfg, part_textures, cubemap, uv_offsets, part_color,
-                 mmd_maps, proj_transform)
+    static: the model's device tables (core.model.ModelTables).
+    positions_mmd/normals: deformed vertices from core.pose.deform (MMD
+    units). part_textures: per-part [h,w,3] textures (NumPy), sampled
+    through `atlas` (a PackedAtlas, e.g. `Scene.packed_atlas()`), or
+    through one packed here from `part_textures` when none is given."""
+    _check_slice(cfg, cubemap, uv_offsets, part_color, mmd_maps,
+                 proj_transform)
     dev = positions_mmd.device
     width = width or cfg.width
     height = height or cfg.height
@@ -289,13 +799,20 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
         sub = dataclasses.replace(cfg, msaa=1, shadow_lookup_downsample=max(
             2 * cfg.shadow_lookup_downsample, 2))
         big = render_frame(static, positions_mmd, normals, sub,
-                           width=2 * width, height=2 * height)
+                           part_textures=part_textures, width=2 * width,
+                           height=2 * height, atlas=atlas)
         return big.reshape(height, 2, width, 2, 3).mean(dim=(1, 3))
     mats = build_matrices(cfg, aspect=width / height, device=dev)
 
     verts_m = positions_mmd * cfg.mmd_to_meter
     tris = static.triangles.flip(-1)              # winding flip at upload
+    # deferred UV: with albedo_window the UVs are rebuilt from the
+    # visibility buffer (uv_from_vis), else they ride the raster as
+    # attributes 3-4
+    defer_uv = part_textures is not None and cfg.albedo_window
     attrs = normals
+    if part_textures is not None and not defer_uv:
+        attrs = torch.cat([normals, static.uvs], -1)
 
     # per-corner vertex table shared by the shadow and character rasters:
     # one 3T-row gather of [pos | attrs], transformed per pass
@@ -329,8 +846,14 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
                 clip, tris, attrs, width, height, raster.CULL_BACK,
                 _tiled_e_max(width, height), cfg.compact_bin, cv=cv,
                 va=corner_va)
-    return _composite(cfg, mats, color, vis, attr_px, sdepth, ground_depth,
-                      width, height)
+    albedo = None
+    if part_textures is not None:
+        with pass_scope("albedo"):
+            albedo = _frame_albedo(static, cfg, part_textures, atlas, vis,
+                                   None if defer_uv else attr_px[..., 3:5],
+                                   static.uvs, tris, clip, width, height)
+    return _composite(cfg, mats, color, vis, attr_px[..., 0:3], albedo,
+                      sdepth, ground_depth, width, height)
 
 
 def crowd_render_supported(cfg, part_textures=None, cubemap=None,
@@ -352,14 +875,15 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
     axis [I,N,3]; one binning sort and one kernel launch cover all
     instances' shadow maps, and one more their character rasters. Work the
     instances share through the camera (ground geometry, the ground's
-    light-space positions) is computed once. -> [I,H,W,3]."""
+    light-space positions) is computed once. Per-part textures sample the
+    shared atlas per instance, the UVs riding the raster as attributes 3-4;
+    a mip-chain atlas selects each triangle's level from its own instance's
+    screen footprint (`texture_resident` is ignored here, as in the
+    reference: the mip atlas is sampled directly). -> [I,H,W,3]."""
     from ..ops.tiled_raster import (rasterize_attrs_tiled_crowd,
                                     rasterize_attrs_tiled_msaa_crowd,
                                     rasterize_depth_tiled_crowd)
-    _check_slice(cfg, part_textures, cubemap, uv_offsets, part_color,
-                 mmd_maps, None)
-    if atlas is not None:
-        raise NotImplementedError("atlas")
+    _check_slice(cfg, cubemap, uv_offsets, part_color, mmd_maps, None)
     if not crowd_render_supported(cfg):
         raise NotImplementedError("msaa_supersample")
     dev = positions_mmd.device
@@ -370,6 +894,10 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
     verts_m = positions_mmd * cfg.mmd_to_meter
     tris = static.triangles.flip(-1)              # winding flip at upload
     attrs = normals
+    uvs = None
+    if part_textures is not None:
+        uvs = static.uvs.expand((n_inst,) + static.uvs.shape)
+        attrs = torch.cat([normals, uvs], -1)
 
     # per-corner vertex tables shared by the shadow and character rasters:
     # one [I*T*3]-row gather of [pos | attrs], transformed per pass
@@ -401,5 +929,19 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
             vis, attr_px = rasterize_attrs_tiled_crowd(
                 clip, tris, attrs, width, height, raster.CULL_BACK, cv=cv,
                 va=corner_va)
-    return _composite(cfg, mats, color, vis, attr_px, sdepth, ground_depth,
-                      width, height)
+    albedo = None
+    if part_textures is not None:
+        with pass_scope("albedo"):
+            if atlas is not None and atlas.n_mips > 1:
+                # per-instance fused UV/placement rows [I, T, 12]: each
+                # triangle's mip level from its instance's screen footprint
+                screen, _, _ = raster.screen_from_clip(clip, width, height)
+                rows = affine_uv_part_rows(uvs, tris, atlas, static,
+                                           screen_xy=screen)
+                albedo = _albedo_rows(atlas, vis.tri, vis.bary, rows)
+            else:
+                albedo = character_albedo(static, vis.tri,
+                                          attr_px[..., 3:5], part_textures,
+                                          atlas)
+    return _composite(cfg, mats, color, vis, attr_px[..., 0:3], albedo,
+                      sdepth, ground_depth, width, height)

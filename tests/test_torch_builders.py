@@ -2,11 +2,13 @@
 reference's objects.
 
 The port keeps its own copies of the reference's host code (it imports
-nothing of the JAX package): `sample_character`, `sample_motion`, the PMX
-and VMD readers, `write_vmd`, the config dataclasses, and the builders
-`build_model`, `bind_motion`, `build_physics` and `build_weight_matrix`.
-Every field must be equal (np.array_equal, dtype too), on the sample rig at
-density 0.5 and at the flagship density 2.0, and the converters in
+nothing of the JAX package): `sample_character`, `sample_motion`, the
+procedural textures, the PMX and VMD readers, `write_vmd`, the config
+dataclasses, and the functions `build_model`, `bind_motion`,
+`build_physics`, `build_weight_matrix` and `build_packed_atlas`. Every
+field must be equal (np.array_equal, dtype too), on the sample rig at
+density 0.5 and at the flagship density 2.0 (the atlas on 8-bit and float
+textures, with and without mips), and the converters in
 `simple_mmd_renderer_tpu_torch.convert` must carry the reference's objects
 into the port's classes field by field.
 """
@@ -142,6 +144,29 @@ def test_build_model_matches_reference(rig):
                  ref_model.build_model(ref_pmx.parse_pmx(data)))
 
 
+def test_model_tables_part_tables_match_reference(rig):
+    """`ModelTables.part_base` / `tri_part` (buffers, so `.to()` moves them)
+    equal the reference's host part tables, `_static_pid` for the model's
+    own part count and for a smaller atlas (`pipeline._tri_part`)."""
+    import torch
+
+    from simple_mmd_renderer_tpu.render import pipeline as ref_pipeline
+    from simple_mmd_renderer_tpu_torch.render import pipeline
+
+    _, _, ref = rig
+    tables = model.ModelTables(convert.model_static(ref), device="cpu")
+    buffers = dict(tables.named_buffers())
+    assert "part_base" in buffers and "tri_part" in buffers
+    assert np.array_equal(tables.part_base.numpy(),
+                          np.asarray(ref.part_base, np.int32))
+    t = len(ref.triangles)
+    for pn in (len(ref.part_base), 1):
+        want = ref_pipeline._static_pid(t, ref, pn)
+        got = pipeline._tri_part(tables, pn)
+        assert got.dtype == torch.int64
+        assert np.array_equal(got.numpy(), want), pn
+
+
 def test_bind_motion_matches_reference(rig):
     _, _, static = rig
     motion = sample_motion(90, fps_keys=10)
@@ -228,3 +253,58 @@ def test_state_converter_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cuda'"):
         convert.sim_state_to_torch(ref_state)
+
+
+def test_sample_textures_match_reference():
+    """The procedural textures and the realistic size mix."""
+    from simple_mmd_renderer_tpu.app import sample as ref_sample
+
+    for n in (2, 16, 20):
+        assert (sample.realistic_texture_sizes(n)
+                == ref_sample.realistic_texture_sizes(n))
+    _assert_same(sample.sample_textures(), ref_sample.sample_textures())
+    _assert_same(sample.sample_textures((64, 16, 8)),
+                 ref_sample.sample_textures((64, 16, 8)))
+
+
+def _atlas_fields(atlas):
+    """A PackedAtlas's fields as NumPy arrays and host values."""
+    out = {}
+    for f in dataclasses.fields(atlas):
+        if f.name == "tables":
+            continue
+        v = getattr(atlas, f.name)
+        out[f.name] = np.asarray(v) if hasattr(v, "shape") else v
+    return out
+
+
+@pytest.mark.parametrize("eight_bit", [True, False], ids=["8bit", "float"])
+@pytest.mark.parametrize("mips", [0, 3])
+def test_build_packed_atlas_matches_reference(eight_bit, mips):
+    """`build_packed_atlas` gives the reference's atlas exactly: the packed
+    words (int32 here, uint32 there: every word is below 2^24) or float
+    rows, the placements, sizes and mip tables. Odd edges exercise the mip
+    step's dropped row and column, and a flat 1x1 part the short chain.
+    `convert.packed_atlas` carries the reference's atlas into the port's
+    class with the same fields."""
+    import torch
+
+    from simple_mmd_renderer_tpu.render import pipeline as ref_pipeline
+    from simple_mmd_renderer_tpu_torch.render import pipeline
+
+    rng = np.random.default_rng(3)
+    texs = [rng.random(s).astype(np.float32)
+            for s in ((13, 7, 3), (4, 9, 3), (1, 1, 3), (16, 16, 3))]
+    if eight_bit:
+        texs = [(np.round(t * 255.0) / 255.0).astype(np.float32)
+                for t in texs]
+    ref = ref_pipeline.build_packed_atlas(texs, mip_levels=mips)
+    got = pipeline.build_packed_atlas(texs, mip_levels=mips, device="cpu")
+    assert got.eight_bit is eight_bit
+    assert got.data.dtype == (torch.int32 if eight_bit else torch.float32)
+    want = _atlas_fields(convert.packed_atlas(ref, device="cpu"))
+    have = _atlas_fields(got)
+    _assert_same(have, want)
+    assert np.array_equal(have["data"], np.asarray(ref.data))
+    assert have["n_mips"] == (mips if mips > 1 else 0)
+    assert have["mip_meta"] == ref.mip_meta

@@ -109,8 +109,8 @@ def test_crowd_render_frame_equals_render_frame_per_instance(posed):
 
 
 @pytest.mark.parametrize("option,kw,cfg_kw", [
-    ("part_textures", dict(part_textures=[None]), {}),
-    ("atlas", dict(atlas=object()), {}),
+    ("msaa_supersample", {}, dict(msaa=4, msaa_supersample=True)),
+    ("camera_orthographic", {}, dict(camera_orthographic=True)),
     ("show_skybox", dict(cubemap=object()), dict(show_skybox=True)),
     ("show_edges", {}, dict(show_edges=True)),
     ("double_sided", {}, dict(double_sided=True)),

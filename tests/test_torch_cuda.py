@@ -21,6 +21,9 @@ and only small boxes, with shuffled entries, and twice for equal bits;
 K6's map must equal K1's on the same bins and boxes, and over 8-row bins
 K1's over 32-row bins of the same mesh. K3 runs at sizes whose rows are
 and are not a multiple of four columns, on maps at an unaligned base too.
+The raster kernels also run at five attributes (the UVs riding the raster
+as attributes 3-4), and textured frames (single and crowd) on the card
+must match the CPU's within the image tolerance.
 """
 
 import dataclasses
@@ -331,7 +334,7 @@ def test_default_device_is_cuda(cuda):
 
 
 def _crowd_bins(device, n_inst, t, spread, size, w, h, z, sample_extent=0.0,
-                seed=5):
+                seed=5, n_attrs=3):
     """Bins of n_inst random meshes over one topology (crowd binning) ->
     (rows, starts, counts, the entries' pixel boxes at `sample_extent`);
     the last instance lies behind the camera and bins nothing."""
@@ -346,7 +349,7 @@ def _crowd_bins(device, n_inst, t, spread, size, w, h, z, sample_extent=0.0,
     clip[-1, :, 3] = -1.0
     clip = torch.as_tensor(clip, device=device)
     tris = torch.arange(3 * t, dtype=torch.int32, device=device).reshape(t, 3)
-    attrs = torch.as_tensor(rng.normal(size=(n_inst, 3 * t, 3)).astype(
+    attrs = torch.as_tensor(rng.normal(size=(n_inst, 3 * t, n_attrs)).astype(
         np.float32), device=device)
     s, rows = tr._crowd_setup(clip, tris, attrs, w, h, raster.CULL_NONE, None,
                               None, None, sample_extent)
@@ -803,3 +806,83 @@ def test_failed_capture_raises(cuda, monkeypatch):
     got = scene.jit_step(render=False)(state)
     want = scene.step_pose(state)
     assert torch.equal(got[2], want[2])
+
+
+# ---------------------------------------------------------------------------
+# Textures: the raster kernels at A = 5 (the UVs as attributes 3-4) and
+# textured frames on the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", CASES, ids=["random", "compacted", "dense"])
+@pytest.mark.parametrize("ms", [False, True], ids=["K2", "K4"])
+def test_raster_kernels_bit_exact_at_five_attributes(cuda, case, ms):
+    """K2 and K4 with five attributes: the vector path's second group of
+    four is a partial one."""
+    t, spread, size, w, h, cull, e_max, z = case
+    rows, starts, counts, _ = _bins(cuda, t, spread, size, w, h, cull, e_max,
+                                    z, n_attrs=5,
+                                    sample_extent=0.375 if ms else 0.0)
+    kernel = tr.raster_tiles_ms if ms else tr.raster_tiles
+    plain = tr.raster_tiles_ms_plain if ms else tr.raster_tiles_plain
+    got = kernel(rows, starts, counts, w, h, 5)
+    want = plain(rows, starts, counts, w, h, 5)
+    assert got[4].shape[0] == 5           # planes [A, H, W]
+    for i in ((0, 1, 2, 3, 5) if ms else (0, 1, 2, 3)):
+        assert torch.equal(got[i], want[i]), i
+    assert float((got[4] - want[4]).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", CROWD_CASES, ids=["random", "dense"])
+@pytest.mark.parametrize("ms", [False, True], ids=["K5a", "K5b"])
+def test_crowd_raster_kernels_bit_exact_at_five_attributes(cuda, case, ms):
+    n_inst, t, spread, size, w, h, z = case
+    rows, starts, counts, _ = _crowd_bins(cuda, n_inst, t, spread, size, w,
+                                          h, z, 0.375 if ms else 0.0,
+                                          n_attrs=5)
+    kernel = tr.raster_tiles_ms_multi if ms else tr.raster_tiles_multi
+    plain = (tr.raster_tiles_ms_multi_plain if ms
+             else tr.raster_tiles_multi_plain)
+    got = kernel(rows, starts, counts, n_inst, w, h, 5)
+    want = plain(rows, starts, counts, n_inst, w, h, 5)
+    for i in ((0, 1, 2, 3, 5) if ms else (0, 1, 2, 3)):
+        assert torch.equal(got[i], want[i]), i
+    assert float((got[4] - want[4]).abs().max()) <= 1e-6
+
+
+TEXTURED = {
+    "deferred-16-parts-resident": dict(textures=(64, 32, 16, 8) * 4,
+                                       n_parts=16, texture_mips=4),
+    "msaa4-kernel-uv": dict(textures=(64, 16), msaa=4, albedo_window=False),
+    "crowd-msaa1-mips": dict(textures=(64, 16), texture_mips=4),
+    "crowd-msaa4": dict(textures=(64, 16), msaa=4),
+}
+
+
+@pytest.mark.parametrize("kind", list(TEXTURED))
+def test_textured_frames_on_the_card_match_the_cpu(cuda, kind):
+    """Two textured frames on the card and on the CPU (plain versions)
+    within the image tolerance: a single frame of 16 parts through the
+    deferred-UV path with mips and the resident mini-atlas, a single
+    msaa=4 frame with the UVs through K4, and a crowd of 3 through the
+    shared atlas (a mip atlas passed per call, and at msaa=4)."""
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+
+    crowd = kind.startswith("crowd")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = build_sample_scene(0.5, 128, 64 if crowd else 96, 64, dev,
+                                   n_frames=60, fps_keys=10,
+                                   solver_iterations=4, **TEXTURED[kind])
+        if crowd:
+            state = mesh.crowd_init(scene, 3)
+            step = mesh.crowd_step_fn(scene, atlas_arg=True)
+            for _ in range(2):
+                state, images = step(state, scene.packed_atlas())
+        else:
+            state = scene.init_state()
+            for _ in range(2):
+                state, images = scene.step_and_render(state)
+        out[dev] = images.cpu().numpy()
+    d = np.abs(out["cuda"] - out["cpu"])
+    assert (d > 0.02).mean() < 2e-3 and d.mean() < 1 / 255
+

@@ -106,10 +106,11 @@ BLOCKED = ("jax", "jaxlib", "flax", "simple_mmd_renderer_tpu")
 def test_port_runs_without_jax():
     """A fresh interpreter whose imports refuse `jax`, `flax` and the JAX
     package `simple_mmd_renderer_tpu` imports the port, `chip_smoke.py` and
-    the port's profile script, and renders one 64x48 frame at msaa=1
-    and one at msaa=4 with the windowed shadow map, and a crowd of two
-    through `parallel.mesh` at msaa=1 and 4: the card's machine has no JAX,
-    and the port keeps its own copies of the host modules."""
+    the port's profile script, and renders one 64x48 frame at msaa=1, one
+    at msaa=4 with the windowed shadow map and one textured with a mip
+    chain, and a crowd of two through `parallel.mesh` at msaa=1 and 4 and
+    textured: the card's machine has no JAX, and the port keeps its own
+    copies of the host modules."""
     code = textwrap.dedent(f"""
         import importlib.util
         import sys
@@ -124,6 +125,7 @@ def test_port_runs_without_jax():
 
         sys.meta_path.insert(0, _Block())
         import torch
+        from simple_mmd_renderer_tpu_torch.app.sample import sample_textures
         from simple_mmd_renderer_tpu_torch.core.scene import (
             build_sample_scene)
         import simple_mmd_renderer_tpu_torch.convert  # noqa: F401
@@ -142,6 +144,13 @@ def test_port_runs_without_jax():
             assert image.shape == (48, 64, 3)
             assert bool(torch.isfinite(image).all())
             print("rendered", extra, float(image.mean()))
+        scene = build_sample_scene(0.25, 64, 48, 64, "cpu", n_frames=30,
+                                   fps_keys=10, solver_iterations=2,
+                                   textures=(16, 8), n_parts=2,
+                                   texture_mips=3)
+        state, image = scene.step_and_render(scene.init_state())
+        assert bool(torch.isfinite(image).all())
+        print("rendered textured", float(image.mean()))
 
         from simple_mmd_renderer_tpu_torch.parallel import mesh
         for msaa in (1, 4):
@@ -153,6 +162,10 @@ def test_port_runs_without_jax():
             assert images.shape == (2, 48, 64, 3)
             assert bool(torch.isfinite(images).all())
             print("crowd", msaa, float(images.mean()))
+        scene.part_textures = sample_textures((16, 8))
+        state, images = mesh.crowd_step_fn(scene)(mesh.crowd_init(scene, 2))
+        assert bool(torch.isfinite(images).all())
+        print("textured crowd", float(images.mean()))
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -160,8 +173,8 @@ def test_port_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert res.stdout.count("rendered") == 2
-    assert res.stdout.count("crowd") == 2
+    assert res.stdout.count("rendered") == 3
+    assert res.stdout.count("crowd") == 3
 
 
 def _imported_modules(tree):
