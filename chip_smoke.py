@@ -8,10 +8,15 @@ the windowed shadow map (shadow K6, character K4, ground K3), the textured
 rows of `bench.py` (the 2-part procedural textures at 1920x1080 msaa=1
 and at 1280x720 msaa=4, the 16-part realistic set with 6 mip levels and
 the resident mini-atlas at 1920x1080: K1, K2 or K4, K3 and the albedo
-pass), and the crowd: 64 instances of the flagship character stepped and
-rendered by one batched program (`parallel.mesh.crowd_step_fn`: shadow
-maps K5c, ground K3 over the batch of maps, characters K5a at msaa=1 or
-K5b at msaa=4), textured in the light crowd.
+pass), the full look (the textured msaa=4 + window frame at 1920x1080
+with the skybox from a 512^2 cubemap, edge outlines, material 1
+double-sided and the MMD toon ramps and sphere maps: K6, K4 with both
+windings, K2 at 0 attributes on the edge hull, K3), and the crowd: 64
+instances of the flagship character stepped and rendered by one batched
+program (`parallel.mesh.crowd_step_fn`: shadow maps K5c, ground K3 over
+the batch of maps, characters K5a at msaa=1 or K5b at msaa=4), textured
+in the light crowd, which also runs the full look (K5b with both
+windings, K5a at 1 attribute on the edge hull).
 
 Phases (each prints its own line; any failure raises and exits nonzero):
 
@@ -42,7 +47,10 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    boxes (K5c vs K1, K5a vs K2, K5b vs K4). K2 and K4 also run at A = 5
    (the UVs as attributes 3-4: `albedo_window=False`) on the textured
    paths' frame-1 arguments, and K5a and K5b on the textured light
-   crowd's, every plane bit-exact, the attributes within 1e-6.
+   crowd's, every plane bit-exact, the attributes within 1e-6. On the
+   full-look paths every call of every kernel in frame 1 is held so
+   (`check_calls`), with the windings of the rasters' bins: the edge
+   hull's front faces only, the character's both in some tile.
 4. compiled: the step of every path (pose + physics + deform: the CCD
    loop's fixed, masked iteration count, `Scene.step_pose(...,
    capturable=True)`) captured as one CUDA graph (`Scene.captured_step`)
@@ -68,13 +76,18 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    (`Scene.step_and_render`) for comparison; every kernel's launch counter
    reset just before each segment and read just after. The frames must be
    finite, the checksums must advance, the path's kernels must each launch
-   once a frame and every other kernel never, and the character must cover
-   a plausible share of the frame. Prints ms/frame and fps. The 16-part
-   path is built first, alone: its host packing seconds, its atlas and
-   its device memory (allocated before and after, the peak over a frame).
-   Then the albedo pass (`pass_scope("albedo")`) of each textured path
-   under torch.profiler: host and device ms a frame, its byte bound and its
-   operators by device time.
+   as often a frame as the path says (`path_kernels`: the edge hull adds
+   a K2) and every other kernel never, and the character must cover a
+   plausible share of the frame. Prints ms/frame and fps, the full look's
+   beside the textured msaa=4 and the untextured msaa=4 frames of the
+   call. The 16-part path is built first, alone: its host packing
+   seconds, its atlas and its device memory (allocated before and after,
+   the peak over a frame); the full look's equirect is written as .hdr
+   and read back, its cubemap built on the card (seconds, MB). Then the
+   passes (`pass_scope`) of PROFILED under torch.profiler: the albedo of
+   each textured path, the skybox, edges and mmd of the full look, each
+   pass's host and device ms a frame, its byte bound and its operators by
+   device time.
 6. crowd: 64 instances (`crowd_init(scene, 64)`, clocks 7 frames apart)
    of the density-2.0 character with `sample_motion(120, fps_keys=5)` at
    256x144, shadow 256^2, physics on, through `crowd_step_fn` (a replay of
@@ -84,15 +97,19 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    density-0.5 crowd at msaa=4. The frames must be finite [64,144,256,3],
    their checksums must advance, and instance 0 must differ from instance
    1. Prints ms per crowd frame and instance-frames per second. The
-   light crowd samples the 2-part textures.
+   light crowd samples the 2-part textures, and runs again with the full
+   look at msaa=4 (one more K5a a frame).
 7. parity: a small scene rendered on the card and on the CPU (plain
    versions) must agree (fewer than 2e-3 of pixels off by more than 0.02,
    mean absolute difference below 1/255), at msaa=1 and at msaa=4 with the
    windowed shadow map, textured (16 parts with mips and the resident
-   mini-atlas at msaa=1; the UVs through K4 at msaa=4); and a crowd of 4
-   at msaa=1 and at msaa=4, untextured and textured.
+   mini-atlas at msaa=1; the UVs through K4 at msaa=4), and with the full
+   look at 64x48 at msaa=1 and 4; and a crowd of 4 at msaa=1 and at
+   msaa=4, untextured, textured and with the full look.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (`launches`: every
+kernel's launches summed over the timed compiled segments of every main
+path, each counted from 0 just before its segment); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -101,6 +118,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -109,6 +127,8 @@ import numpy as np
 import torch
 
 from simple_mmd_renderer_tpu_torch.app.sample import (realistic_texture_sizes,
+                                                      sample_equirect,
+                                                      sample_mmd_maps,
                                                       sample_textures)
 from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
 from simple_mmd_renderer_tpu_torch.parallel.mesh import (crowd_init,
@@ -128,11 +148,18 @@ TEX16 = dict(textures=realistic_texture_sizes(16), n_parts=16,
 M1, M4 = "msaa=1", "msaa=4 + shadow_window"
 T1, T4 = "textured", "textured + msaa=4, 1280x720"
 T16 = "textured 16 parts, resident mips"
+# the full look: the textured msaa=4 + shadow_window frame at WIDTH x HEIGHT
+# with the skybox (a LOOK_CUBE^2 cubemap from a seeded LOOK_HDR equirect
+# written and read back as .hdr), edge outlines, material 1 double-sided
+# and the MMD toon ramps and sphere maps (SPH on part 0, SPA on part 1,
+# LOOK_SPHERE^2 each)
+FULL = "full look"
+LOOK_HDR, LOOK_CUBE, LOOK_SPHERE, LOOK_RAMP = (1024, 2048), 512, 256, 32
 # the timed flagship segments (path, compiled?), in turns: FRAMES per path
 # compiled, and one eager segment of msaa=1 among them for comparison
 ORDER = ((M1, True), (M4, True), (T1, True), (T4, True), (T16, True),
-         (M1, False), (T16, True), (T4, True), (T1, True), (M4, True),
-         (M1, True))
+         (FULL, True), (M1, False), (FULL, True), (T16, True), (T4, True),
+         (T1, True), (M4, True), (M1, True))
 SEGMENT = FRAMES // 2
 EAGER_SEGMENT = SEGMENT // 2     # the eager segment's frames
 # the compiled phase's frames: replays held bit-equal to the eager step
@@ -176,6 +203,12 @@ CROWD_ORDER = (False, True, True, False)     # the segments' paths (msaa?)
 
 
 T_START = time.perf_counter()
+
+# every kernel's launches on the main paths: the sum over every timed
+# compiled flagship segment and every timed crowd segment, each counted
+# from 0 just before the segment and read just after (the record's
+# `launches`)
+MAIN_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 def log(msg: str) -> None:
@@ -411,24 +444,32 @@ def read_counters() -> dict:
             "K5c": tr.depth_multi_launches}
 
 
-def path_kernels(cfg) -> tuple[str, ...]:
-    """The kernels a single frame of render config `cfg` launches (the
-    shadow window applies to maps of at least 1024^2)."""
-    return ("K6" if cfg.shadow_window and cfg.shadow_map_size >= 1024
-            else "K1",
-            "K4" if cfg.msaa >= 4 else "K2", "K3")
+def path_kernels(cfg) -> dict:
+    """{kernel: launches} of a single frame of render config `cfg` (the
+    shadow window applies to maps of at least 1024^2; the edge outlines
+    add one launch of K2 at 0 attributes, beside K2 or K4)."""
+    out = {"K6" if cfg.shadow_window and cfg.shadow_map_size >= 1024
+           else "K1": 1, "K4" if cfg.msaa >= 4 else "K2": 1, "K3": 1}
+    if cfg.show_edges:
+        out["K2"] = out.get("K2", 0) + 1
+    return out
 
 
-def crowd_kernels(msaa: bool) -> tuple[str, ...]:
-    return ("K5c", "K5b", "K3") if msaa else ("K5c", "K5a", "K3")
+def crowd_kernels(msaa: bool, edges: bool = False) -> dict:
+    """{kernel: launches} of a crowd frame (the edge outlines add one launch
+    of K5a at 1 attribute, beside K5a or K5b)."""
+    out = {"K5c": 1, "K5b" if msaa else "K5a": 1, "K3": 1}
+    if edges:
+        out["K5a"] = out.get("K5a", 0) + 1
+    return out
 
 
 def capture_frame(step, state, expect):
     """One frame through `step` (`Scene.step_and_render`, or a crowd's
-    step function), recording the arguments and result of every kernel
-    wrapper it calls: -> (state', image, {"K1"|...|"K5c": (args,
-    result)}). The frame must call the wrappers in `expect` and no
-    other."""
+    step function), recording the arguments and result of every call of
+    every kernel wrapper: -> (state', image, {"K1"|...|"K5c": [(args,
+    result), ...] in call order}). The frame must call each wrapper as
+    many times as `expect` ({kernel: calls}) says, and no other."""
     from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
@@ -444,7 +485,7 @@ def capture_frame(step, state, expect):
     def spy(fn, key):
         def call(*args, **kw):
             out = fn(*args, **kw)
-            seen[key] = (args, out)
+            seen.setdefault(key, []).append((args, out))
             return out
         return call
 
@@ -455,9 +496,10 @@ def capture_frame(step, state, expect):
     finally:
         for (mod, name, _), fn in zip(wrapped, originals):
             setattr(mod, name, fn)
-    if seen.keys() != set(expect):
-        raise AssertionError(f"the frame called {sorted(seen)}, expected "
-                             f"{sorted(expect)}")
+    calls = {k: len(v) for k, v in seen.items()}
+    if calls != dict(expect):
+        raise AssertionError(f"the frame called {calls}, expected "
+                             f"{dict(expect)}")
     return state, image, seen
 
 
@@ -502,9 +544,9 @@ def check_kernels(scene, state, results):
 
     _, _, seen = capture_frame(scene.step_and_render, state,
                                path_kernels(scene.config.render))  # frame 1
-    k1_args, k1_out = seen["K1"]
-    k2_args, k2_out = seen["K2"]
-    k3_args, k3_out = seen["K3"]
+    (k1_args, k1_out), = seen["K1"]
+    (k2_args, k2_out), = seen["K2"]
+    (k3_args, k3_out), = seen["K3"]
     if len(k1_args) != 6 or k1_args[5] is None:
         raise AssertionError("the frame passed K1 no pixel boxes")
     if len(k2_args) != 7 or k2_args[6] is None:
@@ -601,8 +643,8 @@ def check_kernels_msaa(scene, state, results):
 
     _, _, seen = capture_frame(scene.step_and_render, state,
                                path_kernels(scene.config.render))  # frame 1
-    k6_args, k6_out = seen["K6"]
-    k4_args, k4_out = seen["K4"]
+    (k6_args, k6_out), = seen["K6"]
+    (k4_args, k4_out), = seen["K4"]
     if len(k6_args) != 8 or k6_args[7] is None:
         raise AssertionError("the frame passed K6 no pixel boxes")
     if len(k4_args) != 7 or k4_args[6] is None:
@@ -817,6 +859,9 @@ def time_segment(paths, name, compiled: bool, note=""):
     dt = time.perf_counter() - t0
     counts = read_counters()
     path["state"] = state
+    if compiled:
+        for k, n in counts.items():
+            MAIN_LAUNCHES[k] += n
 
     sums = sums.cpu().numpy()
     ms = 1000.0 * dt / frames
@@ -829,14 +874,14 @@ def time_segment(paths, name, compiled: bool, note=""):
         raise AssertionError("frames did not advance")
     mine = path_kernels(scene.config.render)
     for k, n in counts.items():
-        want = frames if k in mine else 0
+        want = frames * mine.get(k, 0)
         if n != want:
             raise AssertionError(f"{k} launched {n} times in {frames} "
                                  f"frames ({label}), expected {want}")
     return ms, counts
 
 
-def run_flagships(paths, results):
+def run_flagships(paths):
     """Every path warmed up, then timed in turns (ORDER), so that drift
     over the call falls on all alike; then each path's next frame is
     checked for shape, finite values and character coverage."""
@@ -856,22 +901,21 @@ def run_flagships(paths, results):
     eager = seg_ms[M1, False]
     log(f"flagship ({M1}, eager): {EAGER_SEGMENT} frames: "
         f"{sum(eager) / len(eager):.3f} ms/frame")
+    mean_ms = {name: sum(seg_ms[name, True]) / len(seg_ms[name, True])
+               for name in paths}
+    log(f"flagship ({FULL}): {mean_ms[FULL]:.3f} ms/frame; in the same "
+        f"call {T4} {mean_ms[T4]:.3f} ({mean_ms[FULL] - mean_ms[T4]:+.3f}), "
+        f"{M4} {mean_ms[M4]:.3f} ({mean_ms[FULL] - mean_ms[M4]:+.3f})")
     for name, path in paths.items():
         scene = path["scene"]
         cfg = scene.config.render
         mine = path_kernels(cfg)
-        ms = sum(seg_ms[name, True]) / len(seg_ms[name, True])
+        ms = mean_ms[name]
         log(f"flagship ({name}, compiled): {FRAMES} frames at "
             f"{cfg.width}x{cfg.height}, shadow {SHADOW}: {ms:.3f} ms/frame, "
             f"{1000.0 / ms:.3f} fps (segments "
             f"{', '.join(f'{t:.3f}' for t in seg_ms[name, True])}); "
             f"launches {launches[name]}")
-        # each kernel's launches are read from the untextured path that
-        # carries it in the record (K3 runs on all; its record is the
-        # msaa=1 path's)
-        if name in (M1, M4):
-            for k in mine:
-                results[k].setdefault("launches", launches[name][k])
 
         # the next frame's image and character coverage (the share of the
         # frame where K2 found a triangle; at msaa=4 where K4 covered any
@@ -879,11 +923,13 @@ def run_flagships(paths, results):
         _, image, seen = capture_frame(scene.step_and_render, path["state"],
                                        mine)
         h, w = cfg.height, cfg.width
+        # (the character's raster is the frame's last raster call; the
+        # edge hull's K2 runs before it)
         if cfg.msaa >= 4:
-            sdepth = seen["K4"][1][5][:, :h, :w]
+            sdepth = seen["K4"][-1][1][5][:, :h, :w]
             cover = float((sdepth < 1.0).any(0).float().mean())
         else:
-            tri = seen["K2"][1][1][:h, :w]
+            tri = seen["K2"][-1][1][1][:h, :w]
             cover = float((tri >= 0).float().mean())
         log(f"flagship ({name}): image {tuple(image.shape)}, finite "
             f"{bool(torch.isfinite(image).all())}, character covers "
@@ -896,18 +942,58 @@ def run_flagships(paths, results):
                                  f"{cover:.4f}")
 
 
-def albedo_profile(paths, n=3):
-    """The albedo pass (`pass_scope("albedo")`) of n compiled frames of each
-    textured path under torch.profiler (CPU and CUDA activities): its host
-    ms and the device ms of the kernels launched inside it, a frame, beside
-    its bound: every pixel's triangle id (4 B) and barycentrics (8 B) read,
-    its 48-byte row and 16-byte texel gathered, its albedo (12 B) written,
-    and on the resident path each part's slot copied (read and written)."""
-    from torch.profiler import ProfilerActivity, profile
+def pass_bytes(label, name, scene) -> int:
+    """The bytes a render pass must move a frame, each input read once and
+    each output written once (its byte bound's numerator):
 
+    - albedo: every pixel's triangle id (4 B) and barycentrics (8 B) read,
+      its 48-byte row and 16-byte texel gathered, its albedo (12 B)
+      written; on the resident path each part's slot copied (read and
+      written);
+    - skybox: a 12-byte cubemap texel gathered and 12 B written a pixel;
+    - edges: the vertices' positions, normals (12 B each) and edge
+      magnitudes (4 B) read, the hull's triangles (3 int32) and parts
+      (4 B) read, a mask byte and a 12-byte colour written a pixel;
+    - mmd: every pixel's triangle id (4 B), normal and albedo (12 B each)
+      read, a toon-ramp row (12 B) and a sphere texel (16 B: its packed
+      2x2 neighbourhood) gathered, the albedo and the SPA addend (12 B
+      each) written."""
     from simple_mmd_renderer_tpu_torch.render import pipeline
 
-    for name in (T1, T4, T16):
+    cfg = scene.config.render
+    px = cfg.width * cfg.height
+    if label == "albedo":
+        n_bytes = px * (4 + 8 + 48 + 16 + 12)
+        if name == T16:
+            atlas = scene.packed_atlas()
+            slot = pipeline.resident_slot_size(atlas.sizes.shape[0])
+            n_bytes += 2 * atlas.sizes.shape[0] * slot * slot * 16
+        return n_bytes
+    if label == "skybox":
+        return px * (12 + 12)
+    if label == "edges":
+        return (scene.rig.n_vertices * (12 + 12 + 4)
+                + scene.rig.n_edge_tris * (12 + 4) + px * (1 + 12))
+    if label == "mmd":
+        return px * (4 + 12 + 12 + 12 + 16 + 12 + 12)
+    raise ValueError(label)
+
+
+# the profiled passes of each path
+PROFILED = ((T1, ("albedo",)), (T4, ("albedo",)), (T16, ("albedo",)),
+            (FULL, ("albedo", "skybox", "edges", "mmd")))
+
+
+def pass_profile(paths, n=3):
+    """The `pass_scope` passes of PROFILED over n compiled frames of each
+    path under torch.profiler (CPU and CUDA activities): each pass's host
+    ms and the device ms of the operators' kernels launched inside it, a
+    frame, beside its byte bound (`pass_bytes`), and its operators by
+    device time. The hand kernels (K2 of the edge hull) launch outside
+    PyTorch's operators and are not in a pass's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, labels in PROFILED:
         path = paths[name]
         scene = path["scene"]
         torch.cuda.synchronize()
@@ -915,40 +1001,43 @@ def albedo_profile(paths, n=3):
                                  ProfilerActivity.CUDA]) as prof:
             path["state"], _ = scene.rollout(path["state"], n)
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if e.key == "albedo"]
-        if not rows:
-            raise AssertionError(f"no albedo pass in the profile of {name}")
-        e = max(rows, key=lambda r: r.cpu_time_total)
-        dev_us = e.device_time_total
-        ops = albedo_ops(prof.events())
-        cfg = scene.config.render
-        n_bytes = cfg.width * cfg.height * (4 + 8 + 48 + 16 + 12)
-        atlas = scene.packed_atlas()
-        if name == T16:
-            slot = pipeline.resident_slot_size(atlas.sizes.shape[0])
-            n_bytes += 2 * atlas.sizes.shape[0] * slot * slot * 16
-        bnd = bound(n_bytes, 0)
-        log(f"albedo ({name}): host {e.cpu_time_total / 1000 / n:.3f} "
-            f"ms/frame, device {dev_us / 1000 / n:.4f} ms/frame over {n} "
-            f"compiled frames; bound {bnd[0]:.4f} ms ({n_bytes / 1e6:.1f} "
-            f"MB a frame); atlas {tuple(atlas.data.shape)} "
-            f"{atlas.data.dtype}, {atlas.data.numel() * 4 / 1e6:.1f} MB; "
-            f"{sum(n for n, _ in ops.values()) / n:g} ops with device "
-            f"time a frame, by device time: " + ", ".join(
-                f"{op} {us / 1000 / n:.3f} ms ({k / n:g})"
-                for op, (k, us) in sorted(ops.items(),
-                                          key=lambda kv: -kv[1][1])[:8]))
+        averages = prof.key_averages()
+        events = prof.events()
+        for label in labels:
+            rows = [e for e in averages if e.key == label]
+            if not rows:
+                raise AssertionError(f"no {label} pass in the profile of "
+                                     f"{name}")
+            e = max(rows, key=lambda r: r.cpu_time_total)
+            ops = pass_ops(events, label)
+            n_bytes = pass_bytes(label, name, scene)
+            bnd = bound(n_bytes, 0)
+            extra = ""
+            if label == "albedo":
+                atlas = scene.packed_atlas()
+                extra = (f"atlas {tuple(atlas.data.shape)} "
+                         f"{atlas.data.dtype}, "
+                         f"{atlas.data.numel() * 4 / 1e6:.1f} MB; ")
+            log(f"{label} ({name}): host {e.cpu_time_total / 1000 / n:.3f} "
+                f"ms/frame, device {e.device_time_total / 1000 / n:.4f} "
+                f"ms/frame over {n} compiled frames; bound {bnd[0]:.4f} ms "
+                f"({n_bytes / 1e6:.1f} MB a frame); {extra}"
+                f"{sum(k for k, _ in ops.values()) / n:g} ops with device "
+                f"time a frame, by device time: " + ", ".join(
+                    f"{op} {us / 1000 / n:.3f} ms ({k / n:g})"
+                    for op, (k, us) in sorted(ops.items(),
+                                              key=lambda kv: -kv[1][1])[:8]))
 
 
-def albedo_ops(events) -> dict:
+def pass_ops(events, label) -> dict:
     """{op name: (calls, device us)} of the operators inside the profile's
-    `albedo` ranges that ran device work of their own."""
+    `label` ranges that ran device work of their own."""
     from torch.autograd import DeviceType
 
     def inside(e):
         p = e.cpu_parent
         while p is not None:
-            if p.name == "albedo":
+            if p.name == label:
                 return True
             p = p.cpu_parent
         return False
@@ -981,58 +1070,120 @@ def with_textures(scene, sizes, **render):
     return other
 
 
-def check_kernel_a5(label, key, step, state, kernels):
-    """Kernel `key` (K2, K4, K5a or K5b) at A = 5 (the UVs riding the raster
-    as attributes 3-4) on its arguments of frame 1 of `step` from `state`
-    (whose kernels are `kernels`), against its plain version: every plane
-    bit-exact, the attributes within 1e-6 (their mismatches printed)."""
+def windings(rows, starts, counts) -> tuple[int, int, int]:
+    """(entries of negative and of positive signed area, tiles holding
+    both) of a raster's bins. A setup row's barycentric slopes give the
+    sign: w1x * w2y - w1y * w2x = 1 / area2 (screen y down: the
+    back-culled character keeps area2 < 0, the front-culled edge hull
+    area2 > 0, a double-sided part both)."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
-    fn, plain, n_args = {
-        "K2": (tr.raster_tiles, tr.raster_tiles_plain, 6),
-        "K4": (tr.raster_tiles_ms, tr.raster_tiles_ms_plain, 6),
-        "K5a": (tr.raster_tiles_multi, tr.raster_tiles_multi_plain, 7),
-        "K5b": (tr.raster_tiles_ms_multi, tr.raster_tiles_ms_multi_plain, 7),
-    }[key]
-    _, _, seen = capture_frame(step, state, kernels)
-    args, out = seen[key]
-    if args[n_args - 1] != 5:
-        raise AssertionError(f"{key} ran with {args[n_args - 1]} attributes, "
-                             "expected 5")
-    k = fn(*args)
-    kp = plain(*args[:n_args])                     # brute force
-    exact = [i for i in range(len(k)) if i != 4]   # all planes but attr
-    bad = [mismatches(k[i], kp[i], out[i]) for i in exact]
-    attr_bad = mismatches(k[4], kp[4], out[4])
-    attr_err = float((k[4] - kp[4]).abs().max())
-    ms = cuda_ms(lambda: fn(*args), 20)
-    log(f"kernels: {key} at A = 5 ({label}) {tuple(k[0].shape)}, "
-        f"{int(args[2].sum())} entries: depth/tri/b1/b2"
-        f"{'/sdepth' if len(k) > 5 else ''} mismatches {bad}, attribute "
-        f"mismatches {attr_bad} (max err {attr_err:.3g}), {ms:.4f} ms")
-    if any(bad) or attr_err > 1e-6:
-        raise AssertionError(f"{key} at A = 5 disagrees with its plain "
-                             "version")
+    idx, tile = tr._tile_entries(starts, counts)
+    r = rows[idx]
+    pos = (r[:, 2] * r[:, 5] - r[:, 3] * r[:, 4]) > 0
+    n = counts.shape[0]
+    n_pos = torch.bincount(tile[pos], minlength=n)
+    n_neg = torch.bincount(tile[~pos], minlength=n)
+    return (int((~pos).sum()), int(pos.sum()),
+            int(((n_pos > 0) & (n_neg > 0)).sum()))
 
 
-def build_crowd(density, label, textures=None):
+def _kernel_table():
+    """{kernel: (wrapper, plain version, arguments the plain version
+    takes, index of the attribute planes in the result or None)}."""
+    from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    return {
+        "K1": (tr.depth_tiles, tr.depth_tiles_plain, 5, None),
+        "K2": (tr.raster_tiles, tr.raster_tiles_plain, 6, 4),
+        "K3": (shadow_pcf.pcf_lit_map, shadow_pcf.pcf_lit_map_plain, 2,
+               None),
+        "K4": (tr.raster_tiles_ms, tr.raster_tiles_ms_plain, 6, 4),
+        "K6": (tr.depth_tiles_win, tr.depth_tiles_win_plain, 7, None),
+        "K5a": (tr.raster_tiles_multi, tr.raster_tiles_multi_plain, 7, 4),
+        "K5b": (tr.raster_tiles_ms_multi, tr.raster_tiles_ms_multi_plain, 7,
+                4),
+        "K5c": (tr.depth_tiles_multi, tr.depth_tiles_multi_plain, 6, None),
+    }
+
+
+def check_calls(label, step, state, expect, nocull=False, attrs=None):
+    """Every call of every kernel in frame 1 of `step` from `state` (whose
+    kernels are `expect`, {kernel: calls}) against its plain version on
+    the call's own arguments: every plane bit-exact and equal to what the
+    frame computed, the attributes within 1e-6; each call's time as the
+    record takes it (`cuda_ms`, 20 launches). For the raster kernels the
+    bins' windings are printed: the edge hull's rasters (K2 at A = 0, K5a
+    at A = 1) must hold front faces only (culled the other way), and with
+    `nocull` the character's raster (K4 or K5b here) must hold both
+    windings in some tile. `attrs` ({kernel: A}) names the attribute count
+    a kernel's last call (the character's raster) must have."""
+    table = _kernel_table()
+    _, _, seen = capture_frame(step, state, expect)
+    failed = []
+    for key, calls in seen.items():
+        fn, plain, n_args, attr_at = table[key]
+        for i, (args, out) in enumerate(calls):
+            got = fn(*args)
+            want = plain(*args[:n_args])
+            got, want, out = ((x,) if isinstance(x, torch.Tensor) else x
+                              for x in (got, want, out))
+            bad = [mismatches(a, b, c) for j, (a, b, c)
+                   in enumerate(zip(got, want, out)) if j != attr_at]
+            attr_err = (0.0 if attr_at is None else
+                        float((got[attr_at] - want[attr_at]).abs().max()))
+            ms = cuda_ms(lambda: fn(*args), 20)
+            line = (f"kernels: {key} ({label}, call {i + 1} of "
+                    f"{len(calls)}) {tuple(got[0].shape)}: mismatches "
+                    f"{bad}, {ms:.4f} ms")
+            if attr_at is not None:
+                n_attrs = args[n_args - 1]
+                neg, pos, mixed = windings(*args[:3])
+                line += (f", {n_attrs} attributes (max err {attr_err:.3g}); "
+                         f"{int(args[2].sum())} entries: {neg} of negative "
+                         f"area, {pos} of positive, {mixed} tiles hold "
+                         f"both")
+                hull = n_attrs == (1 if key == "K5a" else 0)
+                if hull and neg:
+                    failed.append(f"{key} call {i + 1}: the edge hull "
+                                  "holds back faces")
+                if nocull and key in ("K4", "K5b") and not mixed:
+                    failed.append(f"{key}: no tile holds both windings")
+            log(line)
+            if any(bad) or attr_err > 1e-6:
+                failed.append(f"{key} call {i + 1} disagrees with its plain "
+                              "version")
+    for key, n_attrs in (attrs or {}).items():
+        args = seen[key][-1][0]
+        if args[table[key][2] - 1] != n_attrs:
+            failed.append(f"{key} ran with {args[table[key][2] - 1]} "
+                          f"attributes, expected {n_attrs}")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+
+
+def build_crowd(density, label, textures=None, msaas=(False, True),
+                **look):
     """(scene, {msaa?: (step function, crowd state)}) of CROWD_N instances
     of the sample character at `density`, with the procedural textures of
-    edges `textures` if given: one scene's tables (and compiled step), two
-    render configs."""
+    edges `textures` if given and build_sample_scene's `look` options
+    (the skybox, edges, double-sided parts, MMD maps): one scene's tables
+    (and compiled step), a render config for each of `msaas`."""
     t0 = time.perf_counter()
     scene = build_sample_scene(density, CROWD_W, CROWD_H, CROWD_SHADOW,
                                "cuda", n_frames=CROWD_MOTION, fps_keys=5,
-                               textures=textures)
+                               textures=textures, **look)
     crowd = {msaa: (crowd_step_fn(with_render(scene, msaa=4 if msaa else 1)),
-                    crowd_init(scene, CROWD_N)) for msaa in (False, True)}
+                    crowd_init(scene, CROWD_N)) for msaa in msaas}
+    state = next(iter(crowd.values()))[1]
     rig = scene.rig
     log(f"scene ({label}): {CROWD_N} instances of {rig.n_vertices} verts, "
         f"{rig.triangles.shape[0]} tris ({CROWD_N * rig.triangles.shape[0]} "
         f"per frame), {rig.n_bones} bones, {scene.phys.n_bodies} bodies, "
         f"{scene.phys.n_joints} joints; textures {textures}; clocks "
-        f"{float(crowd[False][1].time[1] * scene.config.fps):.1f} frames "
-        f"apart; built in {time.perf_counter() - t0:.2f} s")
+        f"{float(state.time[1] * scene.config.fps):.1f} frames apart; "
+        f"{look_label(scene)}built in {time.perf_counter() - t0:.2f} s")
     return scene, crowd
 
 
@@ -1056,10 +1207,10 @@ def check_kernels_crowd(crowd, results):
         step, state = crowd[msaa]
         _, _, got = capture_frame(step, state, crowd_kernels(msaa))
         seen.update({k: v for k, v in got.items() if k not in seen})
-    c_args, c_out = seen["K5c"]
-    a_args, a_out = seen["K5a"]
-    b_args, b_out = seen["K5b"]
-    k3_args, k3_out = seen["K3"]
+    (c_args, c_out), = seen["K5c"]
+    (a_args, a_out), = seen["K5a"]
+    (b_args, b_out), = seen["K5b"]
+    (k3_args, k3_out), = seen["K3"]
     n_inst, w, h = a_args[3:6]
     n_tiles = tr._grid(w, h)[2]
     s_tiles = tr._grid(*c_args[4:6])[2]
@@ -1178,7 +1329,8 @@ def crowd_frames(step, state, n: int):
     return state
 
 
-def time_crowd_segment(step, state, msaa: bool, label: str):
+def time_crowd_segment(step, state, msaa: bool, label: str,
+                       edges: bool = False):
     """CROWD_SEGMENT crowd frames, every launch counter reset just before
     and read just after: -> (state', ms per crowd frame, counts, last
     images)."""
@@ -1191,6 +1343,8 @@ def time_crowd_segment(step, state, msaa: bool, label: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counters()
+    for k, n in counts.items():
+        MAIN_LAUNCHES[k] += n
     sums = torch.stack(sums).cpu().numpy()
     ms = 1000.0 * dt / CROWD_SEGMENT
     log(f"crowd ({label}, {CROWD_LABEL[msaa]}): segment of {CROWD_SEGMENT} "
@@ -1200,9 +1354,9 @@ def time_crowd_segment(step, state, msaa: bool, label: str):
         raise AssertionError("non-finite crowd frames")
     if not (np.abs(np.diff(sums)) > 0).any():
         raise AssertionError("crowd frames did not advance")
-    mine = crowd_kernels(msaa)
+    mine = crowd_kernels(msaa, edges)
     for k, n in counts.items():
-        want = CROWD_SEGMENT if k in mine else 0
+        want = CROWD_SEGMENT * mine.get(k, 0)
         if n != want:
             raise AssertionError(f"{k} launched {n} times in "
                                  f"{CROWD_SEGMENT} crowd frames ({label}, "
@@ -1210,9 +1364,10 @@ def time_crowd_segment(step, state, msaa: bool, label: str):
     return state, ms, counts, images
 
 
-def run_crowd(crowd, label, paths, results=None):
+def run_crowd(crowd, label, paths, edges=False):
     """The crowd's paths warmed up, then timed in turns; each path's last
-    frames checked for shape, finite values and instances that differ."""
+    frames checked for shape, finite values and instances that differ.
+    `edges`: the scene draws the edge outlines (one more K5a a frame)."""
     states = {}
     for msaa in set(paths):
         step, state = crowd[msaa]
@@ -1226,7 +1381,7 @@ def run_crowd(crowd, label, paths, results=None):
     images = {}
     for msaa in paths:
         states[msaa], ms, counts, images[msaa] = time_crowd_segment(
-            crowd[msaa][0], states[msaa], msaa, label)
+            crowd[msaa][0], states[msaa], msaa, label, edges)
         seg_ms[msaa].append(ms)
         for k, n in counts.items():
             launches[msaa][k] += n
@@ -1249,70 +1404,132 @@ def run_crowd(crowd, label, paths, results=None):
             raise AssertionError("bad crowd frames")
         if not apart > 0.05:
             raise AssertionError("instances 0 and 1 render the same frame")
-        if results is not None:
-            for k in crowd_kernels(msaa):
-                if k in results:
-                    results[k].setdefault("launches", launches[msaa][k])
 
 
-def check_parity_crowd(msaa: bool, textures=None):
+def check_parity_crowd(msaa: bool, textures=None, label="", **look):
     """A crowd of 4 (density 0.25; with the procedural textures of edges
-    `textures` if given) on the card vs the same crowd on the CPU, frame
-    2."""
+    `textures` if given, and build_sample_scene's `look` options, named by
+    `label`) on the card vs the same crowd on the CPU, frame 2."""
     imgs = []
     for dev in ("cuda", "cpu"):
         scene = build_sample_scene(0.25, CROWD_W, CROWD_H, CROWD_SHADOW, dev,
                                    n_frames=60, fps_keys=10,
                                    solver_iterations=4,
-                                   msaa=4 if msaa else 1, textures=textures)
+                                   msaa=4 if msaa else 1, textures=textures,
+                                   **look)
         step, state = crowd_step_fn(scene), crowd_init(scene, 4)
         reset_counters()
         for _ in range(2):
             state, images = step(state)
         imgs.append(images.cpu().numpy())
         counts = read_counters()
-        want = 2 if dev == "cuda" else 0
-        if any(counts[k] != want for k in crowd_kernels(msaa)):
+        mine = crowd_kernels(msaa, scene.config.render.show_edges)
+        if any(counts[k] != (2 * n if dev == "cuda" else 0)
+               for k, n in mine.items()):
             raise AssertionError(f"crowd parity on {dev}: launches {counts}")
     d = np.abs(imgs[0] - imgs[1])
     frac = max(float((d[i] > 0.02).mean()) for i in range(4))
     mad = max(float(d[i].mean()) for i in range(4))
     log(f"parity (crowd of 4, {CROWD_LABEL[msaa]}"
-        f"{f', textures {textures}' if textures else ''}): {CROWD_W}x{CROWD_H} "
-        f"frame 2, shadow {CROWD_SHADOW}, card vs CPU, worst instance: "
-        f"|d|>0.02 fraction {frac:.3g}, mean abs diff {mad:.3g}")
+        f"{f', textures {textures}' if textures else ''}{label}): "
+        f"{CROWD_W}x{CROWD_H} frame 2, shadow {CROWD_SHADOW}, card vs CPU, "
+        f"worst instance: |d|>0.02 fraction {frac:.3g}, mean abs diff "
+        f"{mad:.3g}")
     if not (frac < 2e-3 and mad < 1 / 255):
         raise AssertionError("card and CPU crowd frames disagree")
 
 
-def check_parity(msaa: bool, **textured):
+def check_parity(msaa: bool, size=(256, 192), label="", shadow=None,
+                 **scene_kw):
     """Small scene on the card vs the same scene on the CPU. At msaa=4 the
-    shadow map is 1024^2, the least size the window applies to. `textured`
-    passes build_sample_scene's texture settings."""
-    shadow, extra = (1024, MSAA_PATH) if msaa else (256, {})
+    shadow map is 1024^2 (the least size the window applies to) unless
+    `shadow` is given, with the window only from 1024^2 on. `scene_kw`
+    passes build_sample_scene's texture and look settings (named in the
+    line by `label`, or printed)."""
+    if shadow is None:
+        shadow = 1024 if msaa else 256
+    extra = dict(msaa=4, shadow_window=shadow >= 1024) if msaa else {}
     imgs = []
     for dev in ("cuda", "cpu"):
-        scene = build_sample_scene(0.5, 256, 192, shadow, dev, n_frames=90,
+        scene = build_sample_scene(0.5, *size, shadow, dev, n_frames=90,
                                    fps_keys=10, solver_iterations=4, **extra,
-                                   **textured)
+                                   **scene_kw)
         state = scene.init_state()
         reset_counters()
         for _ in range(2):
             state, image = scene.step_and_render(state)
         imgs.append(image.cpu().numpy())
         counts = read_counters()
-        want = 2 if dev == "cuda" else 0
-        if any(counts[k] != want
-               for k in path_kernels(scene.config.render)):
+        if any(counts[k] != (2 * n if dev == "cuda" else 0)
+               for k, n in path_kernels(scene.config.render).items()):
             raise AssertionError(f"parity on {dev}: launches {counts}")
     d = np.abs(imgs[0] - imgs[1])
     frac, mad = float((d > 0.02).mean()), float(d.mean())
-    log(f"parity ({'msaa=4, shadow window' if msaa else 'msaa=1'}"
-        f"{f', {textured}' if textured else ''}): 256x192 "
-        f"frame 2, shadow {shadow}, card vs CPU: |d|>0.02 fraction "
-        f"{frac:.3g}, mean abs diff {mad:.3g}")
+    window = ", shadow window" if extra.get("shadow_window") else ""
+    log(f"parity ({'msaa=4' + window if msaa else 'msaa=1'}"
+        f"{label or (f', {scene_kw}' if scene_kw else '')}): "
+        f"{size[0]}x{size[1]} frame 2, shadow {shadow}, card vs CPU: "
+        f"|d|>0.02 fraction {frac:.3g}, mean abs diff {mad:.3g}")
     if not (frac < 2e-3 and mad < 1 / 255):
         raise AssertionError("card and CPU frames disagree")
+
+
+def look_label(scene) -> str:
+    """', '-separated names of the look options a scene draws ('' for
+    none), ending in '; ' when there are any."""
+    cfg = scene.config.render
+    on = [name for name, used in (
+        ("skybox", cfg.show_skybox and scene.cubemap is not None),
+        ("edges", cfg.show_edges), ("double-sided", cfg.double_sided),
+        ("MMD maps", scene.mmd_maps is not None)) if used]
+    return f"look {', '.join(on)}; " if on else ""
+
+
+def full_look_inputs(cube_size=LOOK_CUBE, hdr_size=LOOK_HDR,
+                     sphere=LOOK_SPHERE, device="cuda", quiet=False):
+    """The full look's inputs: (cubemap [6,S,S,3] on `device` from a seeded
+    equirect written with `write_hdr` (flat RGBE) into build/ and read back
+    with `load_hdr`, the MMD maps: `default_toon_ramp(LOOK_RAMP)` per part,
+    SPH on part 0, SPA on part 1, sphere^2 each). Prints the HDR's and the
+    cubemap's seconds and the cubemap's MB unless `quiet`."""
+    from simple_mmd_renderer_tpu_torch.formats.hdr import load_hdr, write_hdr
+    from simple_mmd_renderer_tpu_torch.render.ibl import equirect_to_cubemap
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"smoke_env_{hdr_size[0]}x{hdr_size[1]}.hdr")
+    t0 = time.perf_counter()
+    write_hdr(path, sample_equirect(*hdr_size, seed=1))
+    t1 = time.perf_counter()
+    equirect = torch.as_tensor(load_hdr(path), device=device)
+    t2 = time.perf_counter()
+    cube = equirect_to_cubemap(equirect, cube_size)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    if not quiet:
+        # the build again, timed alone on the card (the first call also
+        # pays the operators' first launches)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = equirect_to_cubemap(equirect, cube_size)
+        end.record()
+        torch.cuda.synchronize()
+        if not torch.equal(again, cube):
+            raise AssertionError("the cubemap build is not deterministic")
+        log(f"look: equirect {hdr_size[0]}x{hdr_size[1]} written as .hdr in "
+            f"{t1 - t0:.2f} s ({os.path.getsize(path) / 1e6:.1f} MB), read "
+            f"back in {t2 - t1:.2f} s; cubemap {tuple(cube.shape)} "
+            f"({cube.numel() * 4 / 1e6:.1f} MB) built on the card in "
+            f"{t3 - t2:.3f} s (first call), {start.elapsed_time(end):.3f} ms "
+            f"(second, CUDA events)")
+    return cube, sample_mmd_maps(2, sphere, LOOK_RAMP)
+
+
+def look_kw(cube, mmd) -> dict:
+    """build_sample_scene's options for the full look."""
+    return dict(cubemap=cube, show_edges=True, double_sided_parts=(1,),
+                mmd_maps=mmd)
 
 
 def build_paths() -> dict:
@@ -1373,6 +1590,15 @@ def build_paths() -> dict:
         f"{(peaks[1] - before[1]) / 1e9:.3f} GB above what was allocated "
         f"before that frame (the frame's temporaries; the step's graph "
         f"holds {(before[1] - mem1) / 1e9:.3f} GB)")
+    t0 = time.perf_counter()
+    scene = build_sample_scene(DENSITY, WIDTH, HEIGHT, SHADOW, "cuda",
+                               textures=TEX2, **MSAA_PATH,
+                               **look_kw(*full_look_inputs()))
+    paths[FULL] = {"scene": scene}
+    log(f"scene ({FULL}): textures {TEX2}, msaa=4 + shadow_window, "
+        f"{look_label(scene)}{scene.rig.n_edge_tris} edge triangles, "
+        f"{int(scene.rig.nocull_tris.sum())} double-sided; built in "
+        f"{time.perf_counter() - t0:.2f} s")
     for path in paths.values():
         path["state"] = path["scene"].init_state()
     return paths
@@ -1406,9 +1632,12 @@ def main() -> int:
     check_kernels_msaa(paths[M4]["scene"], paths[M4]["state"], results)
     for name, key in ((T1, "K2"), (T4, "K4")):
         scene = with_render(paths[name]["scene"], albedo_window=False)
-        check_kernel_a5(f"{name}, albedo_window=False", key,
-                        scene.step_and_render, paths[name]["state"],
-                        path_kernels(scene.config.render))
+        check_calls(f"{name}, albedo_window=False", scene.step_and_render,
+                    paths[name]["state"], path_kernels(scene.config.render),
+                    attrs={key: 5})
+    scene = paths[FULL]["scene"]
+    check_calls(FULL, scene.step_and_render, paths[FULL]["state"],
+                path_kernels(scene.config.render), nocull=True)
     check_compiled("flagship msaa=1", paths[M1]["scene"], paths[M1]["state"],
                    COMPILED_FRAMES)
     check_compiled("flagship msaa=4 + shadow_window", paths[M4]["scene"],
@@ -1428,19 +1657,29 @@ def main() -> int:
                    lambda s: crowd_frames(dense[False][0], s, 1),
                    dense[False][1], 1)
 
-    run_flagships(paths, results)
-    albedo_profile(paths)
-    run_crowd(dense, "crowd-dense", CROWD_ORDER, results)
+    run_flagships(paths)
+    pass_profile(paths)
+    run_crowd(dense, "crowd-dense", CROWD_ORDER)
+    look = look_kw(paths[FULL]["scene"].cubemap,
+                   paths[FULL]["scene"].mmd_maps)
     del dense, dense_scene, paths
     bench_scene, bench = build_crowd(0.5, "crowd-bench", TEX2)
     for msaa, key in ((False, "K5a"), (True, "K5b")):
         step, state = bench[msaa]
-        check_kernel_a5(f"textured crowd-bench, {CROWD_LABEL[msaa]}", key,
-                        step, state, crowd_kernels(msaa))
+        check_calls(f"textured crowd-bench, {CROWD_LABEL[msaa]}", step,
+                    state, crowd_kernels(msaa), attrs={key: 5})
     check_compiled("crowd-bench", bench_scene, bench[True][1],
                    COMPILED_FRAMES_SHORT)
     run_crowd(bench, "crowd-bench", (True, True))
     del bench, bench_scene
+    _, bench = build_crowd(0.5, f"crowd-bench, {FULL}", TEX2, msaas=(True,),
+                           **look)
+    step, state = bench[True]
+    check_calls(f"crowd-bench, {FULL}", step, state,
+                crowd_kernels(True, edges=True), nocull=True)
+    run_crowd(bench, f"crowd-bench, {FULL}", (True, True), edges=True)
+    del bench, look
+    small = look_kw(*full_look_inputs(16, (32, 64), 32, quiet=True))
     check_parity(msaa=False)
     check_parity(msaa=True)
     check_parity(False, textures=(64, 32, 16, 8) * 4, n_parts=16,
@@ -1450,8 +1689,17 @@ def main() -> int:
     check_parity_crowd(msaa=True)
     check_parity_crowd(False, (64, 16))
     check_parity_crowd(True, (64, 16))
+    for msaa in (False, True):
+        check_parity(msaa, (64, 48), f", textures (64, 16), {FULL}", 256,
+                     textures=(64, 16), **small)
+        check_parity_crowd(msaa, (64, 16), f", {FULL}", **small)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
+    for name in KERNELS:
+        if not MAIN_LAUNCHES[name]:
+            raise AssertionError(f"{name} never launched on the main paths")
+        results[name]["launches"] = MAIN_LAUNCHES[name]
+    log(f"launches on the main paths (every timed segment): {MAIN_LAUNCHES}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: results[name][k] for k in keys} for name in KERNELS]

@@ -417,3 +417,69 @@ def sample_textures(sizes=(1024, 256)) -> list[np.ndarray]:
         # off the grid route through the exact f32x12 atlas instead)
         out.append((np.round(rgb * 255.0) / 255.0).astype(F))
     return out
+
+
+def sample_mmd_maps(n_parts: int = 2, size: int = 256, k: int = 32,
+                    seed: int = 0):
+    """Procedural MMD shading maps for the sample character, as
+    `formats.textures.load_sphere_maps` and `load_toon_ramps` give them:
+    (sphere textures [P] of [size,size,3], modes [P] i32, toon ramps
+    [P,K,3]). Every part takes `default_toon_ramp(k)`; part 0 a multiplying
+    SPH map (mode 1), part 1 an adding SPA map (mode 2), the others none;
+    the maps are smooth seeded waves on the 8-bit grid (no file needed)."""
+    from ..formats.textures import (SPHERE_ADD, SPHERE_MUL, WHITE_1X1,
+                                    default_toon_ramp)
+    rng = np.random.default_rng(seed)
+    ys = (np.arange(size, dtype=F) + 0.5) / size
+    xx, yy = ys[None, :], ys[:, None]
+
+    def waves(lo, hi):
+        freq = rng.uniform(0.5, 3.0, (3, 2)).astype(F)
+        phase = rng.uniform(0.0, 2 * np.pi, 3).astype(F)
+        rgb = np.stack([0.5 + 0.5 * np.sin(2 * np.pi * (fx * xx + fy * yy)
+                                           + ph)
+                        for (fx, fy), ph in zip(freq, phase)], -1)
+        rgb = lo + (hi - lo) * rgb
+        return (np.round(rgb * 255.0) / 255.0).astype(F)
+
+    texs, modes = [], np.zeros(n_parts, np.int32)
+    for p in range(n_parts):
+        if p == 0:
+            texs.append(waves(0.6, 1.0))
+            modes[p] = SPHERE_MUL
+        elif p == 1:
+            texs.append(waves(0.0, 0.25))
+            modes[p] = SPHERE_ADD
+        else:
+            texs.append(WHITE_1X1)
+    ramps = np.stack([default_toon_ramp(k)] * n_parts)
+    return texs, modes, ramps
+
+
+def sample_equirect(height: int = 1024, width: int = 2048,
+                    seed: int = 0) -> np.ndarray:
+    """A procedural equirectangular HDR environment [H,W,3] float32 (linear
+    radiance): a sky gradient over a darker ground, seeded soft clouds and
+    a bright sun (radiance up to ~20, so the ACES tonemap sees HDR
+    values)."""
+    rng = np.random.default_rng(seed)
+    v = (np.arange(height, dtype=F) + 0.5) / height      # 0 = up
+    u = (np.arange(width, dtype=F) + 0.5) / width
+    phi = (v * np.pi)[:, None]
+    theta = ((u - 0.5) * 2 * np.pi)[None, :]
+    d = np.stack(np.broadcast_arrays(np.sin(phi) * np.cos(theta),
+                                     np.cos(phi) + 0 * theta,
+                                     np.sin(phi) * np.sin(theta)), -1)
+    up = np.clip(d[..., 1:2], -1.0, 1.0)
+    sky = np.where(up > 0, np.array([0.35, 0.55, 1.0], F) * (0.6 + up),
+                   np.array([0.25, 0.22, 0.2], F) * (1.0 + up))
+    freq = rng.uniform(1.0, 4.0, (4, 2)).astype(F)
+    phase = rng.uniform(0.0, 2 * np.pi, 4).astype(F)
+    cloud = sum(np.sin(fx * theta + fy * phi * 2 + ph)
+                for (fx, fy), ph in zip(freq, phase)) / 4.0
+    sky = sky + 0.3 * np.clip(cloud, 0.0, None)[..., None] * (up > 0)
+    az, el = rng.uniform(0, 2 * np.pi), rng.uniform(0.3, 1.0)
+    sun = np.array([np.cos(el) * np.cos(az), np.sin(el),
+                    np.cos(el) * np.sin(az)], F)
+    glow = np.exp((np.sum(d * sun, -1) - 1.0) * 400.0)[..., None]
+    return (sky + 20.0 * glow).astype(F)

@@ -15,6 +15,10 @@ this module needs neither JAX nor the reference package:
 - `packed_atlas`: the reference's PackedAtlas (its texture atlas, mip
   tables included) -> the port's on a device, so that both packages can
   sample one atlas.
+- `cubemap`, `mmd_maps`: the reference's skybox cubemap (a JAX or NumPy
+  [6,S,S,3]) -> a float32 tensor on a device, and its `mmd_maps` tuple
+  (sphere textures, sphere modes, toon ramps) -> the same tuple of NumPy
+  arrays, as `Scene(cubemap=, mmd_maps=)` and `render_frame` take them.
 - `sim_state_to_torch` / `sim_state_to_numpy`: a SimState (time + the
   physics leaves pos, quat, vel, omega) into torch tensors on a device (by
   default the card, as every entry point) and back to NumPy, so a test can
@@ -106,6 +110,22 @@ def packed_atlas(atlas, device="cuda") -> PackedAtlas:
         mip_sizes=t(atlas.mip_sizes, np.float32), n_mips=int(atlas.n_mips),
         mip_meta=tuple(tuple(tuple(int(v) for v in lv) for lv in part)
                        for part in atlas.mip_meta))
+
+
+def cubemap(cube, device="cuda") -> torch.Tensor:
+    """Reference cubemap [6,S,S,3] (JAX or NumPy) -> float32 tensor on
+    `device`."""
+    return torch.as_tensor(np.asarray(cube, np.float32),
+                           device=resolve_device(device))
+
+
+def mmd_maps(maps) -> tuple:
+    """Reference `mmd_maps` (sphere textures [P] of [h,w,3], modes [P],
+    toon ramps [P,K,3]; JAX or NumPy leaves) -> the same tuple of NumPy
+    arrays (float32 maps and ramps, int32 modes)."""
+    texs, modes, ramps = maps
+    return ([np.asarray(t, np.float32) for t in texs],
+            np.asarray(modes, np.int32), np.asarray(ramps, np.float32))
 
 
 def sim_state_to_torch(state, device="cuda") -> SimState:

@@ -629,6 +629,13 @@ class ModelTables(nn.Module):
                                                           device=device))
         self.register_buffer("tri_part", torch.as_tensor(
             np.maximum(tri_part, 0).astype(np.int64), device=device))
+        # the edge hull's and the double-sided materials' tables, and the
+        # host facts the render's per-frame gates read (no device read)
+        register_arrays(self, static, ("edge_mag", "edge_tris",
+                                       "edge_tri_part", "edge_colors",
+                                       "nocull_tris"), device)
+        self.n_edge_tris = len(static.edge_tris)
+        self.has_nocull = bool(np.asarray(static.nocull_tris).any())
         if static.skin_weight_dense is not None:
             register_arrays(self, static, ("skin_weight_dense",), device)
         else:

@@ -28,7 +28,11 @@ same buffers.
 
 Per-part textures (`part_textures`, NumPy [h,w,3] each) are packed once
 into a device atlas (`packed_atlas`, rebuilt when the list or one of its
-textures is replaced) that every render of the scene samples.
+textures is replaced) that every render of the scene samples. The skybox's
+`cubemap` ([6,S,S,3], `render.ibl.equirect_to_cubemap`) is a device buffer
+of the scene, and the MMD toon ramps and sphere maps (`mmd_maps`, the
+reference's tuple) are packed once into their device form
+(`mmd_device_maps`), as the atlas is.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ import torch
 from torch import nn
 
 from ..config import AppConfig, RenderConfig
-from ..render.pipeline import build_packed_atlas, render_frame
+from ..render.pipeline import (build_mmd_maps, build_packed_atlas,
+                               render_frame)
 from ..utils.device import resolve_device
 from ..utils.graph import CapturedStep, shape_key, tree_map
 from ..utils.profiling import pass_scope
@@ -76,12 +81,23 @@ class Scene(nn.Module):
     def __init__(self, static: ModelStatic, phys_static: PhysicsStatic,
                  motion: MotionArrays | None = None,
                  config: AppConfig | None = None,
-                 part_textures: list | None = None, device="cuda"):
+                 part_textures: list | None = None, cubemap=None,
+                 device="cuda", mmd_maps: tuple | None = None):
         super().__init__()
         device = resolve_device(device)
         self.config = config if config is not None else AppConfig()
         self.part_textures = part_textures
         self._atlas_src = self._atlas = None
+        # the skybox's cubemap [6,S,S,3] (None: no skybox), moved by .to()
+        if cubemap is not None:
+            cubemap = torch.as_tensor(cubemap, dtype=torch.float32,
+                                      device=device)
+        self.register_buffer("cubemap", cubemap)
+        # (sphere_textures, sphere_modes, toon_ramps) from
+        # formats.textures.load_sphere_maps / load_toon_ramps: the MMD
+        # toon / SPH / SPA shading when set
+        self.mmd_maps = mmd_maps
+        self._mmd_src = self._mmd = None
         self.rig = ModelTables(static, device)
         self.phys = PhysicsTables(phys_static, device)
         self.motion = (MotionTables(motion, device) if motion is not None
@@ -93,6 +109,7 @@ class Scene(nn.Module):
         # the old device: moving drops them
         self._graphs.clear()
         self._atlas_src = self._atlas = None
+        self._mmd_src = self._mmd = None
         return super()._apply(fn, *args, **kwargs)
 
     @property
@@ -116,6 +133,19 @@ class Scene(nn.Module):
                                              device=self.device)
             self._atlas_src = key
         return self._atlas
+
+    def mmd_device_maps(self):
+        """The scene's MMD maps in their device form (render.pipeline.
+        MmdMaps: the sphere maps packed into one atlas, the ramps and modes
+        on the scene's device), or None without `mmd_maps`; packed at the
+        first call and kept until `mmd_maps` is replaced or the scene
+        moves."""
+        if self.mmd_maps is None:
+            return None
+        if self._mmd_src is not self.mmd_maps:
+            self._mmd = build_mmd_maps(self.mmd_maps, self.device)
+            self._mmd_src = self.mmd_maps
+        return self._mmd
 
     def init_state(self) -> SimState:
         pose = self._neutral_pose()
@@ -218,8 +248,9 @@ class Scene(nn.Module):
         if atlas is None:
             atlas = self.packed_atlas()
         return render_frame(self.rig, positions, normals, self.config.render,
-                            part_textures=self.part_textures, width=width,
-                            height=height, atlas=atlas)
+                            part_textures=self.part_textures,
+                            cubemap=self.cubemap, width=width, height=height,
+                            mmd_maps=self.mmd_device_maps(), atlas=atlas)
 
     def jit_step(self, render: bool = True, width=None, height=None,
                  donate: bool = True):
@@ -281,9 +312,11 @@ def build_sample_scene(density=2.0, width=1920, height=1080, shadow=2048,
                        device="cuda", n_frames=240, fps_keys=5,
                        solver_iterations=None, msaa=1, shadow_window=False,
                        textures=None, n_parts=2, texture_mips=0,
-                       texture_resident=1, albedo_window=True) -> Scene:
-    """The procedural sample character and motion as a port Scene, with no
-    skybox. The defaults are the flagship frame (density 2.0,
+                       texture_resident=1, albedo_window=True, cubemap=None,
+                       show_edges=False, double_sided_parts=(),
+                       mmd_maps=None) -> Scene:
+    """The procedural sample character and motion as a port Scene. The
+    defaults are the flagship frame (density 2.0,
     sample_motion(240, fps_keys=5), 1920x1080, 2048^2 shadow map, physics on
     with the default solver iterations, msaa=1, no textures); `msaa=4,
     shadow_window=True` is the frame the reference app renders (native
@@ -293,24 +326,38 @@ def build_sample_scene(density=2.0, width=1920, height=1080, shadow=2048,
     (`app.sample.sample_textures`, e.g. (1024, 256) or
     `realistic_texture_sizes(16)` with `n_parts=16`), one per material part
     of the character (`n_parts`); `texture_mips`, `texture_resident` and
-    `albedo_window` set the RenderConfig's fields of those names."""
+    `albedo_window` set the RenderConfig's fields of those names.
+
+    The rest of the reference frame, each off by default: `cubemap`
+    ([6,S,S,3]) draws the skybox; `show_edges` the edge outlines (both of
+    the sample's materials carry MAT_DRAW_EDGE); `double_sided_parts`
+    flags those materials MAT_DOUBLE_FACE before the model is built and
+    turns `double_sided` on; `mmd_maps` (the reference's tuple, e.g.
+    `app.sample.sample_mmd_maps`) the MMD toon / sphere shading."""
     from ..app.sample import sample_character, sample_motion, sample_textures
+    from ..formats.pmx import MAT_DOUBLE_FACE
     from .model import build_model
 
     device = resolve_device(device)
-    static = build_model(sample_character(density=density, n_parts=n_parts))
+    pm = sample_character(density=density, n_parts=n_parts)
+    for p in double_sided_parts:
+        pm.materials[p].draw_flags |= MAT_DOUBLE_FACE
+    static = build_model(pm)
     motion = anim_mod.bind_motion(static, sample_motion(n_frames,
                                                         fps_keys=fps_keys))
     cfg = AppConfig()
     cfg.render = RenderConfig(width=width, height=height,
-                              shadow_map_size=shadow, show_skybox=False,
+                              shadow_map_size=shadow,
                               msaa=msaa, shadow_window=shadow_window,
                               texture_mips=texture_mips,
                               texture_resident=texture_resident,
-                              albedo_window=albedo_window)
+                              albedo_window=albedo_window,
+                              show_skybox=cubemap is not None,
+                              show_edges=show_edges,
+                              double_sided=bool(double_sided_parts))
     if solver_iterations is not None:
         cfg.physics.solver_iterations = solver_iterations
     part_textures = (sample_textures(tuple(textures)) if textures is not None
                      else None)
     return Scene(static, phys_mod.build_physics(static), motion, cfg,
-                 part_textures, device=device)
+                 part_textures, cubemap, device=device, mmd_maps=mmd_maps)

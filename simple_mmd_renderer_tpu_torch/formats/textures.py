@@ -7,9 +7,10 @@ failure (`main.cpp:486-513`, `1370-1387`). Decoding uses Pillow, imported
 only when a file is decoded (a machine without Pillow gets the white
 fallback).
 
-The port's own copy of the diffuse-texture part of
-`simple_mmd_renderer_tpu/formats/textures.py`, with `sample_bilinear` on
-tensors. The toon and sphere-map loaders are not ported yet.
+The port's own copy of `simple_mmd_renderer_tpu/formats/textures.py`: the
+diffuse-texture loaders, `sample_bilinear` on tensors, and the MMD toon
+ramps and sphere maps (`default_toon_ramp`, `load_toon_ramps`,
+`load_sphere_maps`), host NumPy built on `load_texture` and `WHITE_1X1`.
 """
 
 from __future__ import annotations
@@ -107,3 +108,68 @@ def sample_bilinear(texture, uv: torch.Tensor) -> torch.Tensor:
     top = c00 * (1 - fx) + c10 * fx
     bot = c01 * (1 - fx) + c11 * fx
     return top * (1 - fy) + bot * fy
+
+
+# ---------------------------------------------------------------------------
+# MMD extended shading maps (beyond the original app: it parses sphere and
+# toon references but its shader samples only the diffuse texture)
+# ---------------------------------------------------------------------------
+
+SPHERE_OFF, SPHERE_MUL, SPHERE_ADD, SPHERE_SUB_TEX = 0, 1, 2, 3
+
+
+def default_toon_ramp(k: int = 32) -> np.ndarray:
+    """Procedural stand-in for the global toonXX.bmp ramps (not shipped):
+    the classic MMD look, full-lit above the terminator and a soft
+    cool-tinted shadow band below. [K,3] float32, row 0 = fully lit."""
+    t = np.linspace(0.0, 1.0, k, dtype=np.float32)[:, None]
+    lit = np.array([1.0, 1.0, 1.0], np.float32)
+    shade = np.array([0.82, 0.80, 0.88], np.float32)
+    w = 1.0 / (1.0 + np.exp(-(t - 0.55) * 24.0))     # soft step at 0.55
+    return (lit * (1 - w) + shade * w).astype(np.float32)
+
+
+def load_toon_ramps(static, model_dir: str = ".", k: int = 32) -> np.ndarray:
+    """[P, K, 3] per-part toon ramps indexed by the shading coordinate
+    v = 0.5 - 0.5*dot(N, L) (0 = facing the light). Model-local toon
+    textures are resolved and sampled down their centre column; global
+    toonXX references (and failures) use the procedural default ramp."""
+    ramps = []
+    for mt in static.materials:
+        ramp = np.ones((k, 3), np.float32)
+        if mt.toon >= 0:
+            ramp = default_toon_ramp(k)
+            if not mt.toon_is_global and 0 <= mt.toon < len(static.textures):
+                tex = load_texture(static.textures[mt.toon], model_dir)
+                if tex.shape[0] > 1 or tex.shape[1] > 1:
+                    col = tex[:, tex.shape[1] // 2, :]       # centre column
+                    idx = np.clip((np.arange(k) * (len(col) - 1)
+                                   / max(k - 1, 1)).round().astype(int),
+                                  0, len(col) - 1)
+                    ramp = col[idx].astype(np.float32)
+        ramps.append(ramp)
+    return (np.stack(ramps) if ramps else np.ones((0, k, 3), np.float32))
+
+
+def load_sphere_maps(static, model_dir: str = "."):
+    """-> (textures: list [P] of [h,w,3] arrays, modes [P] i32).
+
+    Per-part environment sphere maps (the material's sub-texture with type
+    SPH = multiply or SPA = add), sampled at view-space-normal UVs. Missing
+    or OFF/sub-texture-typed entries get a neutral map (white, mode 0 =
+    inactive); a 1x1 fallback of an SPA map is black."""
+    texs, modes = [], []
+    for mt in static.materials:
+        mode = int(mt.sub_texture_type)
+        if mode in (SPHERE_MUL, SPHERE_ADD) and \
+                0 <= mt.sub_texture < len(static.textures):
+            tex = load_texture(static.textures[mt.sub_texture], model_dir)
+            if tex.shape[0] == 1 and tex.shape[1] == 1 \
+                    and mode == SPHERE_ADD:
+                tex = np.zeros((1, 1, 3), np.float32)
+            texs.append(tex)
+            modes.append(mode)
+        else:
+            texs.append(WHITE_1X1)
+            modes.append(SPHERE_OFF)
+    return texs, np.asarray(modes, np.int32)

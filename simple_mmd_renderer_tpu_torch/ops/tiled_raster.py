@@ -925,18 +925,40 @@ def rasterize_depth_tiled(clip, tris, width, height, cull=raster.CULL_BACK,
     return torch.minimum(depth, _scan_subset(width, height, sub[1]).depth)
 
 
+def rasterize_tiled(clip, tris, width, height, cull=raster.CULL_BACK,
+                    e_max=9, compact=True) -> raster.VisBuffer:
+    """Visibility only (K2 at A = 0), with rasterize_attrs_tiled's
+    compaction and big-triangle merge -> VisBuffer [H, W] (the single
+    frame's edge hull)."""
+    s = raster.setup(clip, tris, width, height, cull)
+    t = tris.shape[0]
+    rows = _setup_rows(s, torch.arange(t, device=clip.device))
+    # boxes: [entry-order boxes] on the card, [] on the CPU
+    sorted_rows, starts, counts, big, *boxes = _bin(
+        s, rows, width, height, e_max, compact and t >= COMPACT_MIN_T,
+        boxes=_kernel_boxes(s, 0.0))
+    vis, _ = _run_kernel(sorted_rows, starts, counts, width, height, 0,
+                         *boxes)
+    if not _covers_all(e_max, width, height):
+        vis, _ = _merge_big(vis, None, clip, tris, width, height, s, big,
+                            None)
+    return vis
+
+
 def rasterize_attrs_tiled(clip, tris, attrs, width, height,
                           cull=raster.CULL_BACK, e_max=9, compact=True,
-                          cv=None, va=None):
+                          cv=None, va=None, nocull=None):
     """Raster + in-kernel perspective-correct attribute interpolation.
 
     attrs: [V, A] per-vertex attributes. Returns (VisBuffer, attr_img
     [H, W, A]) with zeros on empty pixels. `cv`/`va` may pass pre-gathered
-    per-corner clip coords [T,3,4] and attributes [T,3,A]."""
+    per-corner clip coords [T,3,4] and attributes [T,3,A]. `nocull` [T]
+    bool exempts double-sided triangles from face culling: both windings
+    bin together."""
     if cv is None:
         g = torch.cat([clip, attrs], -1)[tris.long()]
         cv, va = g[..., :4], g[..., 4:]
-    s = raster.setup(clip, tris, width, height, cull, cv=cv)
+    s = raster.setup(clip, tris, width, height, cull, cv=cv, nocull=nocull)
     s["tris_v"] = tris
     s["va"] = va
     t = tris.shape[0]
@@ -957,19 +979,20 @@ def rasterize_attrs_tiled(clip, tris, attrs, width, height,
 
 def rasterize_attrs_tiled_msaa(clip, tris, attrs, width, height,
                                cull=raster.CULL_BACK, e_max=9, compact=True,
-                               cv=None, va=None):
+                               cv=None, va=None, nocull=None):
     """4x-MSAA raster: centre visibility + attributes like
     rasterize_attrs_tiled (with any-sample coverage, K4), plus per-sample
     depth [4, H, W] at MSAA4_OFFSETS; a sample is covered iff its depth is
     below 1. The sample-point cull is widened by the samples' 0.375 px
     reach. Where a big triangle wins the merge, its centre depth bounds all
     four samples (oversized triangles are interior-dominated), as in the
-    reference. Returns (VisBuffer, attr_img [H, W, A], sdepth)."""
+    reference. `nocull` as rasterize_attrs_tiled takes it. Returns
+    (VisBuffer, attr_img [H, W, A], sdepth)."""
     if cv is None:
         g = torch.cat([clip, attrs], -1)[tris.long()]
         cv, va = g[..., :4], g[..., 4:]
     s = raster.setup(clip, tris, width, height, cull, cv=cv,
-                     sample_extent=MSAA4_EXTENT)
+                     sample_extent=MSAA4_EXTENT, nocull=nocull)
     s["tris_v"] = tris
     s["va"] = va
     t = tris.shape[0]
@@ -1307,9 +1330,8 @@ def _merge_big_depth_crowd(depth, width, height, s, big):
 
 def _crowd_setup(clip, tris, attrs, width, height, cull, cv, va, nocull,
                  sample_extent=0.0):
-    """Setup and rows of every instance at once -> (s, rows [I, T, W])."""
-    if nocull is not None:
-        raise NotImplementedError("double_sided")
+    """Setup and rows of every instance at once -> (s, rows [I, T, W]);
+    `nocull` [T] is shared by the instances."""
     if clip.dim() != 3:
         raise ValueError("crowd raster: clip must be [I, V, 4]")
     if cv is None:
@@ -1319,7 +1341,7 @@ def _crowd_setup(clip, tris, attrs, width, height, cull, cv, va, nocull,
             g = torch.cat([clip, attrs], -1)[:, tris.long()]
             cv, va = g[..., :4], g[..., 4:]
     s = raster.setup(clip, tris, width, height, cull, cv=cv,
-                     sample_extent=sample_extent)
+                     sample_extent=sample_extent, nocull=nocull)
     s["va"] = va
     rows = _setup_rows(s, torch.arange(tris.shape[0], device=clip.device),
                        attrs)
@@ -1352,7 +1374,8 @@ def rasterize_attrs_tiled_crowd(clip, tris, attrs, width, height,
     `_crowd_e_max` tiles per triangle; oversized triangles merge through
     the capped scan, per instance. Per pixel and per entry the semantics
     are rasterize_attrs_tiled's. `cv` [I,T,3,4] / `va` [I,T,3,A] may pass
-    pre-gathered corner tables."""
+    pre-gathered corner tables; `nocull` [T] (double-sided triangles) is
+    shared by the instances."""
     s, rows = _crowd_setup(clip, tris, attrs, width, height, cull, cv, va,
                            nocull)
     # boxes: [entry-order boxes] on the card, [] on the CPU

@@ -58,7 +58,9 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
     atlas -> (state', images) (e.g. `scene.packed_atlas()`, whose mip
     chain selects each triangle's level per instance); else one packed
     from the scene's textures without mips when the function is made (the
-    atlas the reference's jitted step holds as a constant).
+    atlas the reference's jitted step holds as a constant). The scene's
+    skybox (`scene.cubemap`) and MMD maps (`scene.mmd_device_maps()`,
+    packed once) go into every crowd frame.
 
     Posing and physics always run batched, as one replay of the scene's
     compiled step on the crowd state (`Scene.jit_step(render=False,
@@ -77,6 +79,7 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
     textures = scene.part_textures
     own = (None if atlas_arg or textures is None
            else build_packed_atlas(textures, device=scene.device))
+    look = dict(cubemap=scene.cubemap, mmd_maps=scene.mmd_device_maps())
 
     def bind(step):
         return step if atlas_arg else (lambda state: step(state, own))
@@ -86,7 +89,7 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
             state, _, positions, normals = pose_step(state)
             images = crowd_render_frame(scene.rig, positions, normals, cfg_r,
                                         width, height, part_textures=textures,
-                                        atlas=atlas)
+                                        atlas=atlas, **look)
             return state, images
         return bind(step)
 
@@ -106,7 +109,7 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
         images = torch.stack([
             render_frame(scene.rig, positions[i], normals[i], cfg_r,
                          part_textures=textures, width=width, height=height,
-                         atlas=atlas)
+                         atlas=atlas, **look)
             for i in range(positions.shape[0])])
         return state, images
     return bind(step_fallback)

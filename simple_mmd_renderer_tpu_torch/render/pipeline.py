@@ -1,14 +1,17 @@
 """Frame pipeline: shadow pass -> ground -> character -> shading.
 
-Port of `simple_mmd_renderer_tpu/render/pipeline.py` less the skybox,
-edges, double-sided materials, MMD toon/sphere maps and extended morphs:
+Port of `simple_mmd_renderer_tpu/render/pipeline.py` less the extended
+morphs (`part_color`, `uv_offsets`), `proj_transform` and the scan raster:
 `build_matrices`, `ground_pass` (with its row0/rows halo),
 `unproject_depth`, `upsample_bilinear_int`, `_tiled_e_max`, `shadow_pass`
 (with the caster window), the textures (the shelf-packed atlas with its
 mip chain, `PackedAtlas`, deferred-UV albedo from the visibility buffer,
 the resident mini-atlas) and `render_frame`, at msaa=1 or msaa=4 (native
 per-sample MSAA with a coverage resolve, or 2x2 supersampling with
-`msaa_supersample`). The rasterizer is the binned tile raster
+`msaa_supersample`), with the skybox (`render/ibl.py`), the edge outlines
+(the inverted hull through K2 at 0 attributes), double-sided materials
+(the `nocull` exemption and two-sided lighting) and the MMD toon ramps and
+sphere maps (`MmdMaps`, packed once). The rasterizer is the binned tile raster
 (`ops/tiled_raster.py`) on every device; its kernels (K1/K6 shadow depth,
 K2/K4 character) and the ground's PCF kernel (K3) run as hand-written CUDA
 on the card. The albedo pass is gathers (plain PyTorch), as it is XLA
@@ -17,8 +20,9 @@ gathers in the reference.
 `crowd_render_frame` is the multi-instance frame: one binning and one
 kernel launch for all instances' shadow maps (K5c) and character rasters
 (K5a, or K5b at msaa=4), K3 over the batch of shadow maps, the
-camera-shared ground computed once, and the albedo of every instance from
-one shared atlas.
+camera-shared skybox and ground computed once, the albedo of every
+instance from one shared atlas, the edge hull through K5a, and the MMD
+shading over the instance axis.
 
 Options outside the slice raise NotImplementedError naming the option.
 """
@@ -35,6 +39,7 @@ import torch
 from ..utils.device import resolve_device
 from ..utils.profiling import pass_scope
 from . import camera as cam
+from . import ibl
 from . import raster
 from . import shade
 
@@ -688,16 +693,107 @@ def _frame_albedo(static, cfg, part_textures, atlas, vis, uv_px, uvs, tris,
                                      mini, bary=vis.bary, uv_rows=rows)
 
 
-def _background(cfg, mats, shadow_map, lead, width, height, dev):
-    """Clear colour and shadowed ground -> (color [*lead, H, W, 3],
-    ground_depth [H, W]). `shadow_map` is [S, S] for one frame (lead ()) or
-    [I, S, S] for a crowd (lead (I,)), None with shadows off: the ground's
-    geometry and light-space positions belong to the camera and are
-    computed once, the lit lookup per map."""
-    color = _f32(cfg.clear_color, dev).expand(lead + (height, width, 3))
+# ---------------------------------------------------------------------------
+# MMD toon ramps and sphere maps (the `mmd_maps` option)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class MmdMaps:
+    """Device form of the reference's `mmd_maps` tuple (sphere_textures,
+    sphere_modes, toon_ramps), built once by `build_mmd_maps`: the sphere
+    maps packed into one atlas (None when every map is a flat 1x1 colour,
+    which `character_albedo` broadcasts from the host values), the modes
+    and the ramps on the device, and the host facts the per-frame gates
+    read."""
+    sphere_textures: list          # [P] host [h,w,3] maps
+    sphere_atlas: PackedAtlas | None
+    sphere_modes: torch.Tensor     # [P] i32 (0 off, 1 SPH multiply, 2 SPA add)
+    any_sphere: bool               # some part's mode is not 0 (host)
+    toon_ramps: torch.Tensor       # [P*K, 3] f32, part-major
+    k: int                         # ramp length K
+
+
+def build_mmd_maps(mmd_maps, device="cuda") -> MmdMaps:
+    """The reference's `mmd_maps` tuple (formats.textures.load_sphere_maps
+    and load_toon_ramps: sphere textures [P] of [h,w,3], modes [P], toon
+    ramps [P,K,3]) -> MmdMaps on `device` (the card unless the caller asks
+    for another). The sphere maps are packed here, on the host, once: a
+    Scene keeps the result (`Scene.mmd_device_maps`); an MmdMaps passes
+    through unchanged."""
+    if isinstance(mmd_maps, MmdMaps):
+        return mmd_maps
+    device = resolve_device(device)
+    texs, modes, ramps = mmd_maps
+    modes = np.asarray(modes, np.int32)
+    ramps = np.asarray(ramps, np.float32)
+    any_sphere = bool((modes != 0).any())
+    return MmdMaps(
+        sphere_textures=list(texs),
+        sphere_atlas=(build_packed_atlas(texs, device=device) if any_sphere
+                      else None),
+        sphere_modes=torch.as_tensor(modes, device=device),
+        any_sphere=any_sphere,
+        toon_ramps=torch.as_tensor(ramps.reshape(-1, 3), device=device),
+        k=int(ramps.shape[1]))
+
+
+def _part_of(static, tri):
+    """Each pixel's part from its triangle id (uncovered pixels: part 0)."""
+    n_parts = static.part_base.shape[0]
+    return torch.clamp(torch.searchsorted(
+        static.part_base, torch.clamp(tri, min=0).contiguous(),
+        right=True) - 1, 0, n_parts - 1)
+
+
+def _mmd_shading(cfg, mats, static, tri, nrm_px, albedo, mmd):
+    """MMD extended shading (reference `render_frame` l.1367-1397, beyond
+    the original app, whose shader ignores toon and sphere maps): the
+    part's toon ramp at v = 0.5 - 0.5 dot(N, L) multiplies the albedo
+    (index rounded half to even, as jnp.round), SPH sphere maps multiply
+    it, SPA maps are added after shading; sphere maps are sampled at
+    view-space-normal UVs. Leading instance axes pass through.
+    -> (albedo, addend or None)."""
+    dev = nrm_px.device
+    pid = _part_of(static, tri)
+    ldir = _f32(cfg.light_direction, dev)
+    ldir = ldir / torch.linalg.vector_norm(ldir)
+    ndl = -torch.sum(nrm_px * ldir, -1)              # dot(N, toward the light)
+    k = mmd.k
+    qi = torch.clamp(torch.round((0.5 - 0.5 * ndl) * (k - 1)), 0,
+                     k - 1).to(torch.int64)
+    albedo = albedo * _take_rows(mmd.toon_ramps, pid * k + qi)
+    if not mmd.any_sphere:
+        return albedo, None
+    nv = nrm_px @ mats["view"][:3, :3].T
+    uv_s = torch.stack([nv[..., 0] * 0.5 + 0.5, 0.5 - nv[..., 1] * 0.5], -1)
+    scol = character_albedo(static, tri, uv_s, mmd.sphere_textures,
+                            mmd.sphere_atlas)
+    modes_px = mmd.sphere_modes[pid][..., None]
+    albedo = torch.where(modes_px == 1, albedo * scol, albedo)
+    return albedo, torch.where(modes_px == 2, scol, torch.zeros_like(scol))
+
+
+# ---------------------------------------------------------------------------
+# The frame's stages, shared by the single frame and the crowd (leading
+# instance axes pass through)
+# ---------------------------------------------------------------------------
+
+def _background(cfg, mats, shadow_map, lead, width, height, dev,
+                cubemap=None):
+    """Clear colour or skybox, then the shadowed ground -> (color [*lead, H,
+    W, 3], ground_depth [H, W]). `shadow_map` is [S, S] for one frame (lead
+    ()) or [I, S, S] for a crowd (lead (I,)), None with shadows off: the
+    skybox, the ground's geometry and its light-space positions belong to
+    the camera and are computed once, the lit lookup per map."""
+    color = _f32(cfg.clear_color, dev).expand(height, width, 3)
+    if cfg.show_skybox and cubemap is not None:
+        with pass_scope("skybox"):
+            color = ibl.skybox_colors(
+                torch.as_tensor(cubemap, dtype=torch.float32, device=dev),
+                mats["view"], mats["proj"], width, height)
     if not cfg.show_ground:
-        return color, torch.ones((height, width), dtype=torch.float32,
-                                 device=dev)
+        return color.expand(lead + (height, width, 3)), torch.ones(
+            (height, width), dtype=torch.float32, device=dev)
     with pass_scope("ground"):
         ground_mask, gpos, ground_depth = ground_pass(
             cfg, mats["view"], mats["proj"], width, height)
@@ -725,26 +821,93 @@ def _background(cfg, mats, shadow_map, lead, width, height, dev):
             lit = torch.ones(lead + (height, width, 1), dtype=torch.float32,
                              device=dev)
         gcolor = torch.ones(3, dtype=torch.float32, device=dev) * 0.7 * lit
-        return torch.where(ground_mask[..., None], gcolor, color), \
-            ground_depth
+        color = torch.where(ground_mask[..., None], gcolor, color)
+        return color.expand(lead + (height, width, 3)), ground_depth
 
 
-def _composite(cfg, mats, color, vis, nrm_px, albedo, sdepth, ground_depth,
-               width, height):
+def _edge_hull(static, positions_mmd, normals, cfg, mats, width, height,
+               ground_depth):
+    """Edge outlines (reference `render_frame` l.1204-1227, crowd
+    l.934-953; beyond the original app): the inverted hull of the
+    MAT_DRAW_EDGE parts, its vertices displaced along the deformed normals
+    by edge_mag * 0.01 * edge_scale, front faces culled so that only the
+    silhouette ring shows. One frame rasterizes it with K2 at 0 attributes
+    (`rasterize_tiled`), a crowd [I, V, 3] with K5a and one zero attribute,
+    as the reference does. -> (mask [*lead, H, W] where the hull is nearer
+    than the ground, its part's edge colour [*lead, H, W, 3]), or None
+    without edges."""
+    from ..ops.tiled_raster import rasterize_attrs_tiled_crowd, rasterize_tiled
+    if not (cfg.show_edges and static.n_edge_tris):
+        return None
+    with pass_scope("edges"):
+        emag = (static.edge_mag * (0.01 * cfg.edge_scale))[:, None]
+        verts_e = (positions_mmd + normals * emag) * cfg.mmd_to_meter
+        etris = static.edge_tris.flip(-1)
+        clip_e = raster.transform_clip(verts_e, mats["mvp"])
+        if clip_e.dim() == 3:
+            vis_e, _ = rasterize_attrs_tiled_crowd(
+                clip_e, etris, torch.zeros(positions_mmd.shape[:2] + (1,),
+                                           dtype=torch.float32,
+                                           device=clip_e.device),
+                width, height, raster.CULL_FRONT)
+        else:
+            vis_e = rasterize_tiled(clip_e, etris, width, height,
+                                    raster.CULL_FRONT,
+                                    _tiled_e_max(width, height),
+                                    cfg.compact_bin)
+        pid_e = static.edge_tri_part[torch.clamp(vis_e.tri, min=0).long()]
+        color = static.edge_colors[pid_e][..., :3]
+        return (vis_e.tri >= 0) & (vis_e.depth <= ground_depth), color
+
+
+def _nocull(cfg, static):
+    """The double-sided materials' [T] cull exemption (a host gate), or
+    None."""
+    return (static.nocull_tris if cfg.double_sided and static.has_nocull
+            else None)
+
+
+def _surface(cfg, mats, vis, attr_px, nocull, width, height):
+    """(world positions unprojected from the depth, normals): with
+    double-sided materials the back faces shade with the viewer-facing
+    normal, before the albedo and the MMD shading read it."""
+    world_px = unproject_depth(vis.depth, mats["proj"] @ mats["view"],
+                               width, height)
+    nrm_px = attr_px[..., 0:3]
+    if nocull is not None:
+        to_eye = _f32(cfg.camera_pos, world_px.device) - world_px
+        flip = torch.sum(nrm_px * to_eye, -1, keepdim=True) < 0.0
+        nrm_px = torch.where(flip, -nrm_px, nrm_px)
+    return world_px, nrm_px
+
+
+def _composite(cfg, mats, static, color, vis, world_px, nrm_px, albedo,
+               sdepth, ground_depth, mmd=None, edges=None):
     """Shade the character once per pixel from the visibility buffer, its
-    normals and its albedo (None: white) and lay it over `color`: by the
-    depth test against the ground, or with per-sample depths (`sdepth`
+    world positions, normals and albedo (None: white), with the MMD toon /
+    sphere shading where `mmd` is given, and lay it over `color`: the edge
+    outlines first (under the character), then the character by the depth
+    test against the ground, or with per-sample depths (`sdepth`
     [..., 4, H, W]) by coverage. Leading instance axes pass through."""
     dev = vis.depth.device
     char_mask = (vis.tri >= 0) & (vis.depth <= ground_depth)
-    world_px = unproject_depth(vis.depth, mats["proj"] @ mats["view"],
-                               width, height)
     if albedo is None:
         albedo = torch.ones(vis.depth.shape + (3,), dtype=torch.float32,
                             device=dev)
+    addend = None
+    if mmd is not None:
+        with pass_scope("mmd"):
+            albedo, addend = _mmd_shading(cfg, mats, static, vis.tri, nrm_px,
+                                          albedo, mmd)
     with pass_scope("shade"):
         char_color = shade.shade_character(
             albedo, nrm_px, world_px, _f32(cfg.camera_pos, dev), cfg)
+    if addend is not None:
+        char_color = char_color + addend
+    if edges is not None:
+        edge_mask, edge_color = edges
+        color = torch.where((edge_mask & ~char_mask)[..., None], edge_color,
+                            color)
     if sdepth is not None:
         # MSAA resolve: shaded once per pixel (centre attributes), coverage
         # from the 4 per-sample depths against the ground's depth
@@ -756,15 +919,10 @@ def _composite(cfg, mats, color, vis, nrm_px, albedo, sdepth, ground_depth,
     return torch.clamp(color, 0.0, 1.0)
 
 
-def _check_slice(cfg, cubemap, uv_offsets, part_color, mmd_maps,
-                 proj_transform):
+def _check_slice(cfg, uv_offsets, part_color, proj_transform):
     """Raise NotImplementedError for every option outside the ported
     slice."""
     unsupported = [
-        ("show_skybox", bool(cfg.show_skybox) and cubemap is not None),
-        ("show_edges", bool(cfg.show_edges)),
-        ("double_sided", bool(cfg.double_sided)),
-        ("mmd_maps", mmd_maps is not None),
         ("part_color", part_color is not None),
         ("uv_offsets", uv_offsets is not None),
         ("proj_transform", proj_transform is not None),
@@ -786,12 +944,19 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
     positions_mmd/normals: deformed vertices from core.pose.deform (MMD
     units). part_textures: per-part [h,w,3] textures (NumPy), sampled
     through `atlas` (a PackedAtlas, e.g. `Scene.packed_atlas()`), or
-    through one packed here from `part_textures` when none is given."""
-    _check_slice(cfg, cubemap, uv_offsets, part_color, mmd_maps,
-                 proj_transform)
+    through one packed here from `part_textures` when none is given.
+    cubemap: [6,S,S,3] (`render.ibl.equirect_to_cubemap`), drawn as the
+    skybox when `cfg.show_skybox`. mmd_maps: the toon ramps and sphere maps,
+    an MmdMaps (`build_mmd_maps`, e.g. `Scene.mmd_device_maps()`) or the
+    reference's tuple, then packed here on every call. `cfg.show_edges`
+    draws the edge outlines, `cfg.double_sided` exempts the double-faced
+    parts' triangles from culling and lights their back faces."""
+    _check_slice(cfg, uv_offsets, part_color, proj_transform)
     dev = positions_mmd.device
     width = width or cfg.width
     height = height or cfg.height
+    if mmd_maps is not None:
+        mmd_maps = build_mmd_maps(mmd_maps, dev)
     msaa_native = cfg.msaa >= 4 and not cfg.msaa_supersample
     if cfg.msaa >= 4 and not msaa_native:
         # 2x2 supersampling at msaa=1 (the ground's lit lookup at twice the
@@ -799,8 +964,9 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
         sub = dataclasses.replace(cfg, msaa=1, shadow_lookup_downsample=max(
             2 * cfg.shadow_lookup_downsample, 2))
         big = render_frame(static, positions_mmd, normals, sub,
-                           part_textures=part_textures, width=2 * width,
-                           height=2 * height, atlas=atlas)
+                           part_textures=part_textures, cubemap=cubemap,
+                           width=2 * width, height=2 * height,
+                           mmd_maps=mmd_maps, atlas=atlas)
         return big.reshape(height, 2, width, 2, 3).mean(dim=(1, 3))
     mats = build_matrices(cfg, aspect=width / height, device=dev)
 
@@ -828,10 +994,13 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
                                      corner_pos=corner_pos)
 
     color, ground_depth = _background(cfg, mats, shadow_map, (), width,
-                                      height, dev)
+                                      height, dev, cubemap)
+    edges = _edge_hull(static, positions_mmd, normals, cfg, mats, width,
+                       height, ground_depth)
 
     clip = raster.transform_clip(verts_m, mats["mvp"])
     cv = raster.transform_clip(corner_pos, mats["mvp"])
+    nocull = _nocull(cfg, static)
     sdepth = None
     with pass_scope("character"):
         from ..ops.tiled_raster import (rasterize_attrs_tiled,
@@ -840,28 +1009,37 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
             vis, attr_px, sdepth = rasterize_attrs_tiled_msaa(
                 clip, tris, attrs, width, height, raster.CULL_BACK,
                 _tiled_e_max(width, height), cfg.compact_bin, cv=cv,
-                va=corner_va)
+                va=corner_va, nocull=nocull)
         else:
             vis, attr_px = rasterize_attrs_tiled(
                 clip, tris, attrs, width, height, raster.CULL_BACK,
                 _tiled_e_max(width, height), cfg.compact_bin, cv=cv,
-                va=corner_va)
+                va=corner_va, nocull=nocull)
+    world_px, nrm_px = _surface(cfg, mats, vis, attr_px, nocull, width,
+                                height)
     albedo = None
     if part_textures is not None:
         with pass_scope("albedo"):
             albedo = _frame_albedo(static, cfg, part_textures, atlas, vis,
                                    None if defer_uv else attr_px[..., 3:5],
                                    static.uvs, tris, clip, width, height)
-    return _composite(cfg, mats, color, vis, attr_px[..., 0:3], albedo,
-                      sdepth, ground_depth, width, height)
+    return _composite(cfg, mats, static, color, vis, world_px, nrm_px,
+                      albedo, sdepth, ground_depth, mmd_maps, edges)
 
 
 def crowd_render_supported(cfg, part_textures=None, cubemap=None,
                            camera=None) -> bool:
-    """True when `crowd_render_frame` covers the config: a shared camera,
-    the tiled raster, and msaa=1 or native 4x MSAA. The supersampled MSAA
-    and a per-instance camera render instance by instance instead
-    (parallel.mesh.crowd_step_fn)."""
+    """True when `crowd_render_frame` covers the config: textures (one
+    shared atlas, mips selected per instance), native 4x MSAA, edge
+    outlines (a second crowd raster over the displaced hull), double-sided
+    materials (the shared nocull mask), the skybox (one camera-shared
+    pass), MMD toon/sphere shading (over the instance axis), shadows and
+    ground are all in the fused frame. A per-instance camera and the
+    supersampled MSAA render instance by instance instead
+    (parallel.mesh.crowd_step_fn); so does the scan raster, which the
+    port's `raster_mode="auto"` never picks. `texture_resident` is ignored
+    on the crowd path: the mip atlas is sampled directly, which is
+    exact."""
     return (camera is None
             and not (cfg.msaa >= 4 and cfg.msaa_supersample)
             and cfg.raster_mode != "scan")
@@ -874,21 +1052,27 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
     """Multi-instance frame: positions/normals carry a leading instance
     axis [I,N,3]; one binning sort and one kernel launch cover all
     instances' shadow maps, and one more their character rasters. Work the
-    instances share through the camera (ground geometry, the ground's
-    light-space positions) is computed once. Per-part textures sample the
-    shared atlas per instance, the UVs riding the raster as attributes 3-4;
-    a mip-chain atlas selects each triangle's level from its own instance's
-    screen footprint (`texture_resident` is ignored here, as in the
-    reference: the mip atlas is sampled directly). -> [I,H,W,3]."""
+    instances share through the camera (the skybox, ground geometry, the
+    ground's light-space positions) is computed once. Per-part textures
+    sample the shared atlas per instance, the UVs riding the raster as
+    attributes 3-4; a mip-chain atlas selects each triangle's level from
+    its own instance's screen footprint (`texture_resident` is ignored
+    here, as in the reference: the mip atlas is sampled directly). Edge
+    outlines are one more crowd raster (K5a), the double-sided materials'
+    exemption is shared by the instances, and the MMD shading runs over
+    the instance axis. `cubemap` and `mmd_maps` as render_frame takes
+    them. -> [I,H,W,3]."""
     from ..ops.tiled_raster import (rasterize_attrs_tiled_crowd,
                                     rasterize_attrs_tiled_msaa_crowd,
                                     rasterize_depth_tiled_crowd)
-    _check_slice(cfg, cubemap, uv_offsets, part_color, mmd_maps, None)
+    _check_slice(cfg, uv_offsets, part_color, None)
     if not crowd_render_supported(cfg):
         raise NotImplementedError("msaa_supersample")
     dev = positions_mmd.device
     width = width or cfg.width
     height = height or cfg.height
+    if mmd_maps is not None:
+        mmd_maps = build_mmd_maps(mmd_maps, dev)
     n_inst = positions_mmd.shape[0]
     mats = build_matrices(cfg, aspect=width / height, device=dev)
     verts_m = positions_mmd * cfg.mmd_to_meter
@@ -912,23 +1096,28 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
                 cfg.shadow_map_size, cfg.shadow_map_size, raster.CULL_FRONT,
                 cv=raster.transform_clip(corner_pos, mats["light_vp"]))
 
-    # background and ground: camera-shared geometry computed once, the lit
-    # maps of all instances in one launch of K3
+    # background and ground: camera-shared geometry (and skybox) computed
+    # once, the lit maps of all instances in one launch of K3
     color, ground_depth = _background(cfg, mats, shadow_maps, (n_inst,),
-                                      width, height, dev)
+                                      width, height, dev, cubemap)
 
     clip = raster.transform_clip(verts_m, mats["mvp"])
     cv = raster.transform_clip(corner_pos, mats["mvp"])
+    nocull = _nocull(cfg, static)
     sdepth = None
     with pass_scope("character"):
         if cfg.msaa >= 4:
             vis, attr_px, sdepth = rasterize_attrs_tiled_msaa_crowd(
                 clip, tris, attrs, width, height, raster.CULL_BACK, cv=cv,
-                va=corner_va)
+                va=corner_va, nocull=nocull)
         else:
             vis, attr_px = rasterize_attrs_tiled_crowd(
                 clip, tris, attrs, width, height, raster.CULL_BACK, cv=cv,
-                va=corner_va)
+                va=corner_va, nocull=nocull)
+    edges = _edge_hull(static, positions_mmd, normals, cfg, mats, width,
+                       height, ground_depth)
+    world_px, nrm_px = _surface(cfg, mats, vis, attr_px, nocull, width,
+                                height)
     albedo = None
     if part_textures is not None:
         with pass_scope("albedo"):
@@ -943,5 +1132,5 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
                 albedo = character_albedo(static, vis.tri,
                                           attr_px[..., 3:5], part_textures,
                                           atlas)
-    return _composite(cfg, mats, color, vis, attr_px[..., 0:3], albedo,
-                      sdepth, ground_depth, width, height)
+    return _composite(cfg, mats, static, color, vis, world_px, nrm_px,
+                      albedo, sdepth, ground_depth, mmd_maps, edges)

@@ -43,14 +43,15 @@ def screen_from_clip(clip, width, height):
 
 
 def setup(clip, tris, width, height, cull=CULL_BACK, cv=None,
-          sample_extent=0.0):
+          sample_extent=0.0, nocull=None):
     """Per-triangle rasterization setup -> dict of [T,...] tensors: screen xy
     per vertex, z, 1/w, twice the signed area, and the valid mask (in front
     of the camera, non-degenerate, not culled, straddling a sample point).
     `cv` may pass pre-gathered clip[tris]. `sample_extent` widens the
     sample-point cull for MSAA samples up to that many pixels from the
-    centre (0 = centre sampling). A crowd's clip [I,V,4] (cv [I,T,3,4])
-    gives [I,T,...] tensors."""
+    centre (0 = centre sampling). `nocull` [T] bool marks triangles exempt
+    from face culling (double-sided materials). A crowd's clip [I,V,4] (cv
+    [I,T,3,4]) gives [I,T,...] tensors, `nocull` shared by the instances."""
     if cv is None:
         cv = clip[..., tris.long(), :]                  # [T,3,4]
     xy, z, iw = screen_from_clip(cv, width, height)
@@ -66,6 +67,8 @@ def setup(clip, tris, width, height, cull=CULL_BACK, cv=None,
         face_ok = area2 > 0.0
     else:
         face_ok = torch.abs(area2) > 0.0
+    if nocull is not None:
+        face_ok = face_ok | (nocull & (torch.abs(area2) > 0.0))
 
     # sample-point cull (exact): a triangle whose bbox straddles no sample
     # point in x or y can never produce coverage

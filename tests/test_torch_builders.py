@@ -308,3 +308,48 @@ def test_build_packed_atlas_matches_reference(eight_bit, mips):
     assert np.array_equal(have["data"], np.asarray(ref.data))
     assert have["n_mips"] == (mips if mips > 1 else 0)
     assert have["mip_meta"] == ref.mip_meta
+
+
+def test_toon_and_sphere_loaders_match_reference(tmp_path):
+    """`default_toon_ramp`, `load_toon_ramps` and `load_sphere_maps` give
+    the reference's arrays exactly, over materials without a toon, with a
+    global toon, a model-local toon file (its centre column resampled), a
+    missing and an out-of-range toon; an SPH and an SPA file, an SPA whose
+    file is missing (black), an out-of-range SPH and a sub-texture (off)."""
+    import types
+
+    from PIL import Image
+
+    from simple_mmd_renderer_tpu.formats import textures as ref_textures
+    from simple_mmd_renderer_tpu_torch.formats import textures
+
+    for k in (1, 2, 16, 32):
+        _assert_same(textures.default_toon_ramp(k),
+                     ref_textures.default_toon_ramp(k))
+    rng = np.random.default_rng(7)
+    for name, shape in (("sph.png", (8, 6, 3)), ("toon.png", (16, 4, 3)),
+                        ("spa.png", (5, 5, 3))):
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(
+            tmp_path / name)
+    base = sample_character(density=0.5).materials[0]
+    mats = [dataclasses.replace(base, toon=t, toon_is_global=g,
+                                sub_texture=s, sub_texture_type=m)
+            for t, g, s, m in ((-1, True, -1, 0), (3, True, 0, 1),
+                               (1, False, 2, 2), (3, False, 3, 2),
+                               (9, False, 9, 1), (1, False, 0, 3))]
+    static = types.SimpleNamespace(
+        materials=mats,
+        textures=["sph.png", "toon.png", "spa.png", "missing.png"])
+    for k in (4, 32):
+        got = textures.load_toon_ramps(static, str(tmp_path), k)
+        _assert_same(got, ref_textures.load_toon_ramps(static, str(tmp_path),
+                                                       k))
+        assert got.shape == (len(mats), k, 3)
+    got = textures.load_sphere_maps(static, str(tmp_path))
+    _assert_same(got, ref_textures.load_sphere_maps(static, str(tmp_path)))
+    assert got[1].tolist() == [0, 1, 2, 2, 0, 0]
+    assert textures.SPHERE_MUL == ref_textures.SPHERE_MUL == 1
+    assert textures.SPHERE_ADD == ref_textures.SPHERE_ADD == 2
+    empty = types.SimpleNamespace(materials=[], textures=[])
+    _assert_same(textures.load_toon_ramps(empty, k=8),
+                 ref_textures.load_toon_ramps(empty, k=8))

@@ -246,12 +246,38 @@ def test_crowd_bins_hold_every_valid_triangle_once_in_draw_order():
         int((tile[i] < n_tiles).sum()) for i in range(3)]
 
 
-def test_crowd_double_sided_raises():
-    clip, tris, attrs = _crowd_mesh(46, 2, t=8)
-    args = (torch.as_tensor(clip), torch.as_tensor(tris),
-            torch.as_tensor(attrs), 128, 64)
-    nocull = torch.ones(tris.shape[0], dtype=torch.bool)
-    for fn in (tr.rasterize_attrs_tiled_crowd,
-               tr.rasterize_attrs_tiled_msaa_crowd):
-        with pytest.raises(NotImplementedError, match="double_sided"):
-            fn(*args, nocull=nocull)
+@pytest.mark.parametrize("msaa", [False, True], ids=["K5a", "K5b"])
+def test_crowd_rasters_with_nocull_equal_the_single_instance_ones(msaa):
+    """Double-sided triangles (a shared `nocull` mask over half of them):
+    per instance the crowd raster equals the single-instance raster with
+    the same mask bit for bit (visibility, attributes and per-sample
+    depth), both windings are binned, and the crowd matches the
+    reference's crowd raster with that mask (the module's tolerances)."""
+    clip, tris, attrs = _crowd_mesh(46, 2, t=60, big=(1,))
+    nocull = np.zeros(tris.shape[0], bool)
+    nocull[::2] = True
+    w, h = 128, 64
+    fn = (tr.rasterize_attrs_tiled_msaa_crowd if msaa
+          else tr.rasterize_attrs_tiled_crowd)
+    single_fn = (tr.rasterize_attrs_tiled_msaa if msaa
+                 else tr.rasterize_attrs_tiled)
+    nc = torch.as_tensor(nocull)
+    got = fn(torch.as_tensor(clip), torch.as_tensor(tris),
+             torch.as_tensor(attrs), w, h, raster.CULL_BACK, nocull=nc)
+    culled = fn(torch.as_tensor(clip), torch.as_tensor(tris),
+                torch.as_tensor(attrs), w, h, raster.CULL_BACK)
+    assert int((got[0].tri >= 0).sum()) > int((culled[0].tri >= 0).sum())
+    for i in range(clip.shape[0]):
+        one = single_fn(torch.as_tensor(clip[i]), torch.as_tensor(tris),
+                        torch.as_tensor(attrs[i]), w, h, raster.CULL_BACK,
+                        tr._crowd_e_max(w, h), False, nocull=nc)
+        for a, b in zip((got[0].depth, got[0].tri, got[0].bary, *got[1:]),
+                        (one[0].depth, one[0].tri, one[0].bary, *one[1:])):
+            assert torch.equal(a[i], b), i
+    ref_fn = (ref_tr.rasterize_attrs_tiled_msaa_crowd if msaa
+              else ref_tr.rasterize_attrs_tiled_crowd)
+    ref = ref_fn(jnp.asarray(clip), jnp.asarray(tris), jnp.asarray(attrs),
+                 w, h, raster.CULL_BACK, 256, nocull=jnp.asarray(nocull))
+    same = _assert_crowd_vis(got[0], ref[0])
+    np.testing.assert_allclose(got[1].numpy()[same],
+                               np.asarray(ref[1])[same], atol=1e-4)

@@ -111,10 +111,6 @@ def test_crowd_render_frame_equals_render_frame_per_instance(posed):
 @pytest.mark.parametrize("option,kw,cfg_kw", [
     ("msaa_supersample", {}, dict(msaa=4, msaa_supersample=True)),
     ("camera_orthographic", {}, dict(camera_orthographic=True)),
-    ("show_skybox", dict(cubemap=object()), dict(show_skybox=True)),
-    ("show_edges", {}, dict(show_edges=True)),
-    ("double_sided", {}, dict(double_sided=True)),
-    ("mmd_maps", dict(mmd_maps=(None, None, None)), {}),
     ("uv_offsets", dict(uv_offsets=object()), {}),
     ("part_color", dict(part_color=(None, None)), {}),
     ('raster_mode="scan"', {}, dict(raster_mode="scan")),

@@ -54,10 +54,10 @@ def cuda():
 
 def _bins(device, t, spread, size, w, h, cull, e_max, z=(0.1, 0.9),
           seed=0, n_attrs=3, sample_extent=0.0, tile_h=tr.TILE_H,
-          boxes=False):
+          boxes=False, nocull=None):
     """(rows, starts, counts, caster window) of a random mesh; with `boxes`
     (rows, starts, counts, the entries' pixel boxes at `sample_extent`,
-    caster window)."""
+    caster window). `nocull` [t] exempts triangles from `cull`."""
     rng = np.random.default_rng(seed)
     v0 = rng.uniform(-spread, spread, (t, 2))
     d1 = rng.uniform(-size, size, (t, 2))
@@ -70,7 +70,9 @@ def _bins(device, t, spread, size, w, h, cull, e_max, z=(0.1, 0.9),
     tris = torch.arange(3 * t, dtype=torch.int32, device=device).reshape(t, 3)
     attrs = torch.as_tensor(rng.normal(size=(3 * t, n_attrs)).astype(
         np.float32), device=device)
-    s = raster.setup(clip, tris, w, h, cull, sample_extent=sample_extent)
+    s = raster.setup(clip, tris, w, h, cull, sample_extent=sample_extent,
+                     nocull=None if nocull is None else torch.as_tensor(
+                         nocull, device=device))
     s["tris_v"] = tris
     rows = tr._setup_rows(s, torch.arange(t, device=device),
                           attrs if n_attrs else None)
@@ -334,10 +336,11 @@ def test_default_device_is_cuda(cuda):
 
 
 def _crowd_bins(device, n_inst, t, spread, size, w, h, z, sample_extent=0.0,
-                seed=5, n_attrs=3):
+                seed=5, n_attrs=3, cull=raster.CULL_NONE, nocull=None):
     """Bins of n_inst random meshes over one topology (crowd binning) ->
     (rows, starts, counts, the entries' pixel boxes at `sample_extent`);
-    the last instance lies behind the camera and bins nothing."""
+    the last instance lies behind the camera and bins nothing. `nocull`
+    [t] exempts triangles from `cull`."""
     rng = np.random.default_rng(seed)
     v0 = rng.uniform(-spread, spread, (n_inst, t, 2))
     d1 = rng.uniform(-size, size, (n_inst, t, 2))
@@ -351,8 +354,10 @@ def _crowd_bins(device, n_inst, t, spread, size, w, h, z, sample_extent=0.0,
     tris = torch.arange(3 * t, dtype=torch.int32, device=device).reshape(t, 3)
     attrs = torch.as_tensor(rng.normal(size=(n_inst, 3 * t, n_attrs)).astype(
         np.float32), device=device)
-    s, rows = tr._crowd_setup(clip, tris, attrs, w, h, raster.CULL_NONE, None,
-                              None, None, sample_extent)
+    s, rows = tr._crowd_setup(
+        clip, tris, attrs if n_attrs else None, w, h, cull, None, None,
+        None if nocull is None else torch.as_tensor(nocull, device=device),
+        sample_extent)
     bins = tr._bin_crowd(s, rows, w, h, tr._pixel_boxes(s, sample_extent))
     return bins[:3] + bins[4:]
 
@@ -886,3 +891,143 @@ def test_textured_frames_on_the_card_match_the_cpu(cuda, kind):
     d = np.abs(out["cuda"] - out["cpu"])
     assert (d > 0.02).mean() < 2e-3 and d.mean() < 1 / 255
 
+
+
+# ---------------------------------------------------------------------------
+# The rest of the reference frame: the edge hull's rasters (front faces
+# only, K2 at 0 attributes, K5a at 1), double-sided triangles (both
+# windings in one bin) and the full look on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _windings(rows, starts, counts):
+    """(entries of negative and of positive signed area, tiles holding
+    both): a row's barycentric slopes give w1x * w2y - w1y * w2x =
+    1 / area2."""
+    idx, tile = tr._tile_entries(starts, counts)
+    r = rows[idx]
+    pos = (r[:, 2] * r[:, 5] - r[:, 3] * r[:, 4]) > 0
+    n = counts.shape[0]
+    both = ((torch.bincount(tile[pos], minlength=n) > 0)
+            & (torch.bincount(tile[~pos], minlength=n) > 0))
+    return int((~pos).sum()), int(pos.sum()), int(both.sum())
+
+
+@pytest.mark.parametrize("case", CASES, ids=["random", "compacted", "dense"])
+def test_edge_hull_raster_kernel_bit_exact(cuda, case):
+    """K2 at 0 attributes on a front-culled mesh (the edge hull's raster):
+    bit-exact against its plain version, with boxes and without; only
+    triangles of positive area are binned."""
+    t, spread, size, w, h, _, e_max, z = case
+    rows, starts, counts, boxes, _ = _bins(cuda, t, spread, size, w, h,
+                                           raster.CULL_FRONT, e_max, z,
+                                           n_attrs=0, boxes=True)
+    neg, pos, _ = _windings(rows, starts, counts)
+    assert neg == 0 and pos > 0
+    want = tr.raster_tiles_plain(rows, starts, counts, w, h, 0)
+    for bx in (boxes, None):
+        got = tr.raster_tiles(rows, starts, counts, w, h, 0, bx)
+        for g, p in zip(got, want):
+            assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("case", CROWD_CASES, ids=["random", "dense"])
+def test_edge_hull_crowd_raster_kernel_bit_exact(cuda, case):
+    """K5a at 1 attribute on front-culled meshes (the crowd's edge hull):
+    bit-exact against its plain version, the attribute plane included."""
+    n_inst, t, spread, size, w, h, z = case
+    rows, starts, counts, boxes = _crowd_bins(cuda, n_inst, t, spread, size,
+                                              w, h, z, n_attrs=1,
+                                              cull=raster.CULL_FRONT)
+    neg, pos, _ = _windings(rows, starts, counts)
+    assert neg == 0 and pos > 0
+    got = tr.raster_tiles_multi(rows, starts, counts, n_inst, w, h, 1, boxes)
+    want = tr.raster_tiles_multi_plain(rows, starts, counts, n_inst, w, h, 1)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K5a", "K5b"])
+@pytest.mark.parametrize("case", ["random", "dense"])
+def test_raster_kernels_bit_exact_with_nocull(cuda, kernel, case):
+    """Back culling with every other triangle double-sided: both windings
+    in one bin (some tile holds both), each kernel bit-exact against its
+    plain version (the attributes within 1e-6)."""
+    ms = kernel in ("K4", "K5b")
+    ext = 0.375 if ms else 0.0
+    crowd = kernel.startswith("K5")
+    t, spread, size, w, h = ((300, 0.9, 0.25, 256, 144) if case == "random"
+                             else (2000, 0.05, 0.08, 128, 64))
+    z = (0.1, 0.9) if case == "random" else (0.5, 0.5)
+    nocull = np.arange(t) % 2 == 0
+    if crowd:
+        rows, starts, counts, boxes = _crowd_bins(
+            cuda, 3, t, spread, size, w, h, z, ext, cull=raster.CULL_BACK,
+            nocull=nocull)
+        args = (rows, starts, counts, 3, w, h, 3)
+        fn, plain = ((tr.raster_tiles_ms_multi, tr.raster_tiles_ms_multi_plain)
+                     if ms else (tr.raster_tiles_multi,
+                                 tr.raster_tiles_multi_plain))
+    else:
+        rows, starts, counts, boxes, _ = _bins(
+            cuda, t, spread, size, w, h, raster.CULL_BACK, 6, z,
+            sample_extent=ext, boxes=True, nocull=nocull)
+        args = (rows, starts, counts, w, h, 3)
+        fn, plain = ((tr.raster_tiles_ms, tr.raster_tiles_ms_plain) if ms
+                     else (tr.raster_tiles, tr.raster_tiles_plain))
+    neg, pos, both = _windings(rows, starts, counts)
+    assert neg > 0 and pos > 0 and both > 0
+    got = fn(*args, boxes)
+    want = plain(*args)
+    for i in ((0, 1, 2, 3, 5) if ms else (0, 1, 2, 3)):
+        assert torch.equal(got[i], want[i]), i
+    assert float((got[4] - want[4]).abs().max()) <= 1e-6
+
+
+def _look(n_parts=2):
+    from simple_mmd_renderer_tpu_torch.app.sample import (sample_equirect,
+                                                          sample_mmd_maps)
+    from simple_mmd_renderer_tpu_torch.render.ibl import equirect_to_cubemap
+
+    return dict(cubemap=equirect_to_cubemap(sample_equirect(32, 64), 16,
+                                            device="cpu"),
+                show_edges=True, double_sided_parts=(1,),
+                mmd_maps=sample_mmd_maps(n_parts, 32, 16))
+
+
+@pytest.mark.parametrize("kind", ["single-msaa1", "single-msaa4",
+                                  "crowd-msaa1", "crowd-msaa4"])
+def test_full_look_frames_on_the_card_match_the_cpu(cuda, kind):
+    """Two frames with the skybox, edges, a double-sided part and the MMD
+    maps (textured) on the card and on the CPU (plain versions) within the
+    image tolerance; the card launches the edge hull's raster beside the
+    character's every frame."""
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+
+    crowd = kind.startswith("crowd")
+    msaa = 4 if kind.endswith("4") else 1
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = build_sample_scene(0.5, 128, 64 if crowd else 96, 64, dev,
+                                   n_frames=60, fps_keys=10,
+                                   solver_iterations=4, textures=(64, 16),
+                                   msaa=msaa, **_look())
+        before = (tr.raster_launches, tr.raster_multi_launches)
+        if crowd:
+            state = mesh.crowd_init(scene, 3)
+            step = mesh.crowd_step_fn(scene)
+            for _ in range(2):
+                state, images = step(state)
+        else:
+            state = scene.init_state()
+            for _ in range(2):
+                state, images = scene.step_and_render(state)
+        if dev == "cuda":
+            k2 = tr.raster_launches - before[0]
+            k5a = tr.raster_multi_launches - before[1]
+            if crowd:
+                assert k5a == (2 if msaa == 4 else 4) and k2 == 0
+            else:
+                assert k2 == (2 if msaa == 4 else 4) and k5a == 0
+        out[dev] = images.cpu().numpy()
+    d = np.abs(out["cuda"] - out["cpu"])
+    assert (d > 0.02).mean() < 2e-3 and d.mean() < 1 / 255

@@ -108,7 +108,8 @@ def test_port_runs_without_jax():
     package `simple_mmd_renderer_tpu` imports the port, `chip_smoke.py` and
     the port's profile script, and renders one 64x48 frame at msaa=1, one
     at msaa=4 with the windowed shadow map and one textured with a mip
-    chain, and a crowd of two through `parallel.mesh` at msaa=1 and 4 and
+    chain and the full look (skybox, edges, a double-sided part, the MMD
+    maps), and a crowd of two through `parallel.mesh` at msaa=1 and 4 and
     textured: the card's machine has no JAX, and the port keeps its own
     copies of the host modules."""
     code = textwrap.dedent(f"""
@@ -129,6 +130,11 @@ def test_port_runs_without_jax():
         from simple_mmd_renderer_tpu_torch.core.scene import (
             build_sample_scene)
         import simple_mmd_renderer_tpu_torch.convert  # noqa: F401
+        import simple_mmd_renderer_tpu_torch.formats.hdr  # noqa: F401
+        from simple_mmd_renderer_tpu_torch.app.sample import (
+            sample_equirect, sample_mmd_maps)
+        from simple_mmd_renderer_tpu_torch.render.ibl import (
+            equirect_to_cubemap)
         import chip_smoke  # noqa: F401
 
         spec = importlib.util.spec_from_file_location(
@@ -144,10 +150,14 @@ def test_port_runs_without_jax():
             assert image.shape == (48, 64, 3)
             assert bool(torch.isfinite(image).all())
             print("rendered", extra, float(image.mean()))
+        look = dict(cubemap=equirect_to_cubemap(sample_equirect(16, 32), 8,
+                                                device="cpu"),
+                    show_edges=True, double_sided_parts=(1,),
+                    mmd_maps=sample_mmd_maps(2, 16, 8))
         scene = build_sample_scene(0.25, 64, 48, 64, "cpu", n_frames=30,
                                    fps_keys=10, solver_iterations=2,
                                    textures=(16, 8), n_parts=2,
-                                   texture_mips=3)
+                                   texture_mips=3, **look)
         state, image = scene.step_and_render(scene.init_state())
         assert bool(torch.isfinite(image).all())
         print("rendered textured", float(image.mean()))

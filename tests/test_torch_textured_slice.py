@@ -241,10 +241,6 @@ def test_scene_packed_atlas_cache(scenes):
 
 
 @pytest.mark.parametrize("option,kw,cfg_kw", [
-    ("show_skybox", dict(cubemap=object()), dict(show_skybox=True)),
-    ("show_edges", {}, dict(show_edges=True)),
-    ("double_sided", {}, dict(double_sided=True)),
-    ("mmd_maps", dict(mmd_maps=(None, None, None)), {}),
     ("part_color", dict(part_color=(None, None)), {}),
     ("uv_offsets", dict(uv_offsets=object()), {}),
     ("proj_transform", dict(proj_transform=object()), {}),
