@@ -16,7 +16,13 @@ instances of the flagship character stepped and rendered by one batched
 program (`parallel.mesh.crowd_step_fn`: shadow maps K5c, ground K3 over
 the batch of maps, characters K5a at msaa=1 or K5b at msaa=4), textured
 in the light crowd, which also runs the full look (K5b with both
-windings, K5a at 1 attribute on the edge hull).
+windings, K5a at 1 attribute on the edge hull). The content paths run the
+content rig (`content_rig`: the flagship character with its forearm,
+thigh and shin BDEF2 vertices made SDEF, a UV morph on part 0 and a
+material morph on part 1, written and read back as PMX) on
+`content_motion` with `sdef_true` and `apply_extended_morphs` on: the
+textured msaa=4 + window frame at 1920x1080 (K6, K4, K3) and the light
+crowd at msaa=4 (K5c, K5b, K3).
 
 Phases (each prints its own line; any failure raises and exits nonzero):
 
@@ -48,25 +54,29 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    (the UVs as attributes 3-4: `albedo_window=False`) on the textured
    paths' frame-1 arguments, and K5a and K5b on the textured light
    crowd's, every plane bit-exact, the attributes within 1e-6. On the
-   full-look paths every call of every kernel in frame 1 is held so
-   (`check_calls`), with the windings of the rasters' bins: the edge
-   hull's front faces only, the character's both in some tile.
+   full-look and content paths every call of every kernel in frame 1 is
+   held so (`check_calls`), with the windings of the rasters' bins: the
+   edge hull's front faces only, the character's both in some tile.
 4. compiled: the step of every path (pose + physics + deform: the CCD
    loop's fixed, masked iteration count, `Scene.step_pose(...,
    capturable=True)`) captured as one CUDA graph (`Scene.captured_step`)
    and replayed (`Scene.jit_step(render=False)`), capture and replays
    under `torch.cuda.set_sync_debug_mode("error")`; the replays must equal
    the eager step (early exit) bit for bit, every state leaf, pose field,
-   position and normal, over 8 frames of the flagship msaa=1 path and of
+   position and normal, over 4 frames of the flagship msaa=1 path and of
    the dense crowd (whose msaa=1 and msaa=4 paths share one graph: the
    step reads no render setting) and 2 frames of the msaa=4 + window
-   flagship and of the light crowd. Prints the capture's seconds, the
-   eager step's and the replay's ms/frame, and the CCD iterations the
-   eager step ran per IK group against the fixed count. Then under
-   torch.profiler one eager frame of the flagship msaa=1 path, one
-   compiled frame of it (`rollout` of one frame: the state copied in and
-   out) and one of the dense crowd at msaa=1 (`crowd_step_fn`): host
-   launch calls and device kernels a frame.
+   flagship, of the content path and of the light crowds. Prints the
+   capture's seconds, the eager step's and the replay's ms/frame, and the
+   CCD iterations the eager step ran per IK group against the fixed
+   count. The content step is also replayed with `sdef_true` off (its own
+   graph) in turns with it on (`sdef_step_times`: ms/frame of each, the
+   SDEF vertex count; the two must differ at the SDEF vertices only), as
+   is the content crowd's. Then under torch.profiler one eager frame of
+   the flagship msaa=1 path, one compiled frame of it (`rollout` of one
+   frame: the state copied in and out), one of the dense crowd at msaa=1
+   (`crowd_step_fn`) and one of the content path: host launch calls and
+   device kernels a frame.
 5. flagship: the sample character at density 2.0, shadow 2048^2, physics
    on, on every path (ORDER): 3 warm-up frames each, then 20 timed frames
    of each through the compiled `Scene.rollout` (a replay and the eager
@@ -80,14 +90,16 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    a K2) and every other kernel never, and the character must cover a
    plausible share of the frame. Prints ms/frame and fps, the full look's
    beside the textured msaa=4 and the untextured msaa=4 frames of the
-   call. The 16-part path is built first, alone: its host packing
-   seconds, its atlas and its device memory (allocated before and after,
-   the peak over a frame); the full look's equirect is written as .hdr
-   and read back, its cubemap built on the card (seconds, MB). Then the
-   passes (`pass_scope`) of PROFILED under torch.profiler: the albedo of
-   each textured path, the skybox, edges and mmd of the full look, each
-   pass's host and device ms a frame, its byte bound and its operators by
-   device time.
+   call, the content frame's beside the untextured msaa=4 frame's. The
+   16-part path is built first, alone: its host packing seconds, its
+   atlas and its device memory (allocated before and after, the peak over
+   a frame); the full look's equirect is written as .hdr and read back,
+   its cubemap built on the card (seconds, MB). Then the passes
+   (`pass_scope`) of PROFILED under torch.profiler over the renders of 3
+   compiled frames: the albedo of each textured path, the skybox, edges
+   and mmd of the full look, the morph consumers (`morphs`) of the
+   content path, each pass's host and device ms a frame, its byte bound
+   and its operators by device time.
 6. crowd: 64 instances (`crowd_init(scene, 64)`, clocks 7 frames apart)
    of the density-2.0 character with `sample_motion(120, fps_keys=5)` at
    256x144, shadow 256^2, physics on, through `crowd_step_fn` (a replay of
@@ -98,14 +110,21 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    their checksums must advance, and instance 0 must differ from instance
    1. Prints ms per crowd frame and instance-frames per second. The
    light crowd samples the 2-part textures, and runs again with the full
-   look at msaa=4 (one more K5a a frame).
+   look at msaa=4 (one more K5a a frame) and as the content crowd at
+   msaa=4 (each instance's own UV offsets and part colours), the three
+   timed in turns (LIGHT_ORDER) and compared.
+   Then the readers: the sample character written as PMD bytes
+   (`pmd_bytes`) and read back by the port's `parse_pmd` renders on the
+   card as on the CPU, and a VPD pose (VPD_POSE, `parse_vpd`) held by the
+   sample character, physics off, gives the same frame at two times.
 7. parity: a small scene rendered on the card and on the CPU (plain
    versions) must agree (fewer than 2e-3 of pixels off by more than 0.02,
    mean absolute difference below 1/255), at msaa=1 and at msaa=4 with the
    windowed shadow map, textured (16 parts with mips and the resident
-   mini-atlas at msaa=1; the UVs through K4 at msaa=4), and with the full
-   look at 64x48 at msaa=1 and 4; and a crowd of 4 at msaa=1 and at
-   msaa=4, untextured, textured and with the full look.
+   mini-atlas at msaa=1; the UVs through K4 at msaa=4), with the full
+   look at 64x48 at msaa=1 and 4, and the content rig at msaa=4; and a
+   crowd of 4 at msaa=1 and at msaa=4, untextured, textured, with the
+   full look and of the content rig.
 
 The line before the last is the kernels' JSON record (`launches`: every
 kernel's launches summed over the timed compiled segments of every main
@@ -117,6 +136,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -155,15 +175,21 @@ T16 = "textured 16 parts, resident mips"
 # LOOK_SPHERE^2 each)
 FULL = "full look"
 LOOK_HDR, LOOK_CUBE, LOOK_SPHERE, LOOK_RAMP = (1024, 2048), 512, 256, 32
+# the content path: the textured msaa=4 + shadow_window frame at WIDTH x
+# HEIGHT of the content rig (`content_rig`: SDEF vertices, a UV and a
+# material morph, through write_pmx and parse_pmx) on `content_motion`, with
+# `sdef_true` and `apply_extended_morphs` on
+CONTENT = "content (SDEF + morphs)"
 # the timed flagship segments (path, compiled?), in turns: FRAMES per path
 # compiled, and one eager segment of msaa=1 among them for comparison
 ORDER = ((M1, True), (M4, True), (T1, True), (T4, True), (T16, True),
-         (FULL, True), (M1, False), (FULL, True), (T16, True), (T4, True),
-         (T1, True), (M4, True), (M1, True))
+         (FULL, True), (CONTENT, True), (M1, False), (CONTENT, True),
+         (FULL, True), (T16, True), (T4, True), (T1, True), (M4, True),
+         (M1, True))
 SEGMENT = FRAMES // 2
 EAGER_SEGMENT = SEGMENT // 2     # the eager segment's frames
 # the compiled phase's frames: replays held bit-equal to the eager step
-COMPILED_FRAMES, COMPILED_FRAMES_SHORT = 8, 2
+COMPILED_FRAMES, COMPILED_FRAMES_SHORT = 4, 2
 
 # cycles of the sleep kernel that holds the stream while the host queues a
 # back-to-back run (`primed_ms`), about 10 ms on an H100
@@ -191,6 +217,10 @@ OPS_WINNER, OPS_PER_ATTR = 12, 5
 # 1/9 scale and the clamp (3)
 OPS_PCF = 24
 
+# the content rig's extended morphs (`content_rig`) and the motion keys
+# that drive them (`content_motion`)
+CONTENT_UV, CONTENT_MATERIAL = "UVスクロール", "色変化"
+
 KERNELS = ("K1", "K2", "K3", "K4", "K6", "K5a", "K5b", "K5c")
 ROW_LANES = 11   # lanes of a setup row that visibility reads (lanes 0-10)
 
@@ -200,6 +230,10 @@ CROWD_N, CROWD_W, CROWD_H, CROWD_SHADOW, CROWD_MOTION = 64, 256, 144, 256, 120
 CROWD_FRAMES, CROWD_SEGMENT = 8, 4
 CROWD_LABEL = {False: "msaa=1", True: "msaa=4"}
 CROWD_ORDER = (False, True, True, False)     # the segments' paths (msaa?)
+# the light crowd's paths at msaa=4 (textured, full look, content), timed in
+# turns
+TEX = "textured"
+LIGHT_ORDER = (TEX, FULL, CONTENT, CONTENT, FULL, TEX)
 
 
 T_START = time.perf_counter()
@@ -209,6 +243,169 @@ T_START = time.perf_counter()
 # from 0 just before the segment and read just after (the record's
 # `launches`)
 MAIN_LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def content_rig(density=DENSITY, n_parts=2):
+    """The sample character with the content the flagship rig lacks, sent
+    through the PMX bytes path (the port's `write_pmx`, then its
+    `parse_pmx`) -> (PmxModel, SDEF vertex count):
+
+    - SDEF: every BDEF2 vertex blended between a bone and that bone's own
+      child (the forearms: elbow and wrist; the thighs: hip and knee; the
+      shins: knee and ankle) becomes SDEF, with C = R0 = R1 at the joint
+      the two bones share (the child's rest position);
+    - a UV morph (CONTENT_UV) that moves part 0's vertices by (0.25,
+      0.125);
+    - a material morph (CONTENT_MATERIAL) on part 1 with a multiply entry
+      (diffuse (0.4, 0.7, 1.0)) and an additive one (diffuse (0.1, 0.0,
+      0.2))."""
+    from simple_mmd_renderer_tpu_torch.app.sample import sample_character
+    from simple_mmd_renderer_tpu_torch.formats import pmx as P
+    from simple_mmd_renderer_tpu_torch.formats.writers import write_pmx
+
+    pm = sample_character(density=density, n_parts=n_parts)
+    parent = np.array([b.parent for b in pm.bones])
+    b0, b1 = pm.skin_bones[:, 0], pm.skin_bones[:, 1]
+    sdef = (pm.skin_type == P.BDEF2) & (b1 >= 0) & (parent[b1] == b0)
+    joint = np.stack([b.position for b in pm.bones])[b1[sdef]]
+    pm.skin_type[sdef] = P.SDEF
+    pm.sdef_c[sdef] = pm.sdef_r0[sdef] = pm.sdef_r1[sdef] = joint
+
+    part0 = pm.materials[0]
+    verts = np.unique(pm.triangles[part0.base_shift:part0.base_shift
+                                   + part0.n_triangles]).astype(np.int32)
+    uv = np.zeros((len(verts), 4), np.float32)
+    uv[:, :2] = (0.25, 0.125)
+    mul, add = np.ones(28, np.float32), np.zeros(28, np.float32)
+    mul[0:3], add[0:3] = (0.4, 0.7, 1.0), (0.1, 0.0, 0.2)
+    pm.morphs += [
+        P.Morph(CONTENT_UV, "uv scroll", 4, P.MORPH_UV,
+                uv_vertex_indices=verts, uv_offsets=uv),
+        P.Morph(CONTENT_MATERIAL, "tint", 4, P.MORPH_MATERIAL,
+                material_indices=np.array([1, 1], np.int32),
+                material_methods=np.array([0, 1], np.uint8),
+                material_payload=np.stack([mul, add]))]
+    return P.parse_pmx(write_pmx(pm)), int(sdef.sum())
+
+
+def content_motion(n_frames=240, fps_keys=5):
+    """`sample_motion(n_frames, fps_keys)` with the content rig's two
+    extended morphs keyed every `fps_keys` frames, each rising from 0 to 1
+    and back within the motion (sin^2: the UV morph once, the material
+    morph twice), through the port's `write_vmd` and `parse_vmd`."""
+    from simple_mmd_renderer_tpu_torch.app.sample import sample_motion
+    from simple_mmd_renderer_tpu_torch.formats.vmd import parse_vmd
+    from simple_mmd_renderer_tpu_torch.formats.writers import write_vmd
+
+    motion = sample_motion(n_frames, fps_keys=fps_keys)
+    keys = []
+    for f in range(0, n_frames + 1, fps_keys):
+        phase = np.pi * f / n_frames
+        keys += [(CONTENT_UV, f, float(np.sin(phase) ** 2)),
+                 (CONTENT_MATERIAL, f, float(np.sin(2 * phase) ** 2))]
+    motion.morph_tracks.update(parse_vmd(write_vmd("content", [],
+                                                   keys)).morph_tracks)
+    return motion
+
+
+def pmd_bytes(pm) -> bytes:
+    """A PMD 1.0 file of a BDEF1/BDEF2-skinned PmxModel (e.g.
+    `sample_character`), laid out as the PMD reader takes it: the
+    vertices' first two bones and weight (as a byte / 100), the index list
+    (uint16), each material (its diffuse, shininess, specular, ambient, no
+    texture, an edge flag from MAT_DRAW_EDGE), the bones with their PMD
+    types (IK 2, append-rotate with a ratio 9 and its ratio x100, movable
+    1, others 0), an IK block per IK bone (the angle / 4, as the reader
+    scales it by 4), the vertex morphs as face morphs over a "base" list of
+    every vertex they move, an English block, the toon table, and the
+    rigid bodies (positions relative to their bone) and joints. Bone and
+    group morphs have no PMD form and are left out."""
+    import struct
+
+    from simple_mmd_renderer_tpu_torch.formats import pmx as P
+    from simple_mmd_renderer_tpu_torch.utils.io import encode_shift_jis
+
+    out = bytearray()
+    w = out.extend
+    w(b"Pmd" + struct.pack("<f", 1.0))
+    w(encode_shift_jis(pm.name, 20) + encode_shift_jis(pm.description, 256))
+    w(struct.pack("<I", len(pm.positions)))
+    bones2 = np.maximum(pm.skin_bones[:, :2], 0)
+    weight = np.where(pm.skin_type == P.BDEF1, 100,
+                      np.rint(pm.skin_weights[:, 0] * 100)).astype(np.uint8)
+    for i in range(len(pm.positions)):
+        w(struct.pack("<8fhhBB", *pm.positions[i], *pm.normals[i],
+                      *pm.uvs[i], *bones2[i], weight[i],
+                      int(pm.edge_scale[i] == 0)))
+    w(struct.pack("<I", pm.triangles.size))
+    w(pm.triangles.astype("<u2").tobytes())
+    w(struct.pack("<I", len(pm.materials)))
+    for m in pm.materials:
+        w(struct.pack("<4ff3f3fbBI", *m.diffuse, m.shininess, *m.specular,
+                      *m.ambient, -1, int(bool(m.draw_flags
+                                               & P.MAT_DRAW_EDGE)),
+                      3 * m.n_triangles))
+        w(encode_shift_jis("", 20))
+    w(struct.pack("<H", len(pm.bones)))
+    iks = []
+    for i, b in enumerate(pm.bones):
+        child, ik_number = -1, 0
+        if b.has(P.BONE_HAS_IK):
+            btype = 2
+            iks.append(i)
+        elif b.has(P.BONE_APPEND_ROTATE):
+            btype, child = 9, b.append_parent
+            ik_number = int(round(b.append_ratio * 100))
+        else:
+            btype = 1 if b.has(P.BONE_MOVABLE) else 0
+        w(encode_shift_jis(b.name, 20))
+        w(struct.pack("<hhBh3f", b.parent, child, btype, ik_number,
+                      *b.position))
+    w(struct.pack("<H", len(iks)))
+    for i in iks:
+        b = pm.bones[i]
+        w(struct.pack("<hhBHf", i, b.ik_target, len(b.ik_links), b.ik_loop,
+                      b.ik_angle / 4))
+        w(struct.pack(f"<{len(b.ik_links)}H", *(l.bone for l in b.ik_links)))
+    faces = [m for m in pm.morphs if m.type == P.MORPH_VERTEX]
+    base = np.unique(np.concatenate([m.vertex_indices for m in faces])) \
+        if faces else np.zeros(0, np.int64)
+    w(struct.pack("<H", len(faces) + 1 if faces else 0))
+    if faces:
+        w(encode_shift_jis("base", 20) + struct.pack("<IB", len(base), 0))
+        for v in base:
+            w(struct.pack("<I3f", int(v), *pm.positions[v]))
+    for m in faces:
+        w(encode_shift_jis(m.name, 20))
+        w(struct.pack("<IB", len(m.vertex_indices), max(m.category, 1)))
+        for v, off in zip(np.searchsorted(base, m.vertex_indices),
+                          m.vertex_offsets):
+            w(struct.pack("<I3f", int(v), *off))
+    w(struct.pack("<BBI", 0, 0, 0))             # display lists
+    w(struct.pack("<B", 1) + encode_shift_jis(pm.name_en, 20)
+      + encode_shift_jis(pm.description_en, 256))
+    for b in pm.bones:
+        w(encode_shift_jis(b.name_en, 20))
+    for m in faces:
+        w(encode_shift_jis(m.name_en, 20))
+    for k in range(10):
+        w(encode_shift_jis(f"toon{k + 1:02d}.bmp", 100))
+    w(struct.pack("<I", len(pm.rigid_bodies)))
+    for rb in pm.rigid_bodies:
+        rel = rb.position - pm.bones[rb.bone].position
+        w(encode_shift_jis(rb.name, 20))
+        w(struct.pack("<HBHB14fB", rb.bone, rb.group, rb.mask, rb.shape,
+                      *rb.dimensions, *rel, *rb.rotation, rb.mass,
+                      rb.linear_damping, rb.angular_damping, rb.restitution,
+                      rb.friction, rb.type))
+    w(struct.pack("<I", len(pm.constraints)))
+    for c in pm.constraints:
+        w(encode_shift_jis(c.name, 20) + struct.pack("<II", c.body_a,
+                                                     c.body_b))
+        w(struct.pack("<24f", *c.position, *c.rotation, *c.pos_lo,
+                      *c.pos_hi, *c.rot_lo, *c.rot_hi, *c.spring_translate,
+                      *c.spring_rotate))
+    return bytes(out)
 
 
 def log(msg: str) -> None:
@@ -814,6 +1011,55 @@ def check_compiled(label, scene, state, n: int) -> None:
                              "eager step")
 
 
+# the order of the SDEF-on (True) and SDEF-off step segments
+SDEF_ORDER = (True, False, False, True) * 2
+
+
+def sdef_step_times(label, scene, state, n=EAGER_SEGMENT):
+    """A content scene's replayed step (pose + physics + deform; a single
+    or a crowd state) with `sdef_true` on and with it off (a copy of the
+    scene with its own graph), each warmed up, then segments of n replays
+    in turns (SDEF_ORDER) from `state`: prints both ms/frame (the median
+    of the segments, and each), their difference and the SDEF vertex
+    count. The two
+    steps' vertices must differ, and only at the SDEF vertices."""
+    off = copy.copy(scene)
+    off.config = dataclasses.replace(scene.config, sdef_true=False)
+    off._graphs = {}
+    steps = {True: scene.jit_step(render=False, donate=False),
+             False: off.jit_step(render=False, donate=False)}
+    pos = {on: steps[on](state)[2] for on in steps}     # captures both
+    moved = (pos[True] - pos[False]).abs().amax(-1)
+    idx = scene.rig.sdef_idx
+    if not (bool((moved[..., idx] > 0).any())
+            and not bool(moved.index_fill(-1, idx, 0).any())):
+        raise AssertionError("sdef_true moved no SDEF vertex, or moved "
+                             "another")
+    for on in steps:                    # warm-up
+        s = state
+        for _ in range(n):
+            s = steps[on](s)[0]
+    times = {True: [], False: []}
+    for on in SDEF_ORDER:
+        s = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            s = steps[on](s)[0]
+        torch.cuda.synchronize()
+        times[on].append(1000.0 * (time.perf_counter() - t0) / n)
+    on, off_ms = (float(np.median(times[k])) for k in (True, False))
+    each = (f" in each of {state.time.numel()} instances" if state.time.dim()
+            else "")
+    log(f"sdef ({label}): the replayed step with sdef_true {on:.3f} "
+        f"ms/frame, the median of segments "
+        f"{', '.join(f'{t:.3f}' for t in times[True])}; off {off_ms:.3f} "
+        f"({', '.join(f'{t:.3f}' for t in times[False])}): "
+        f"{on - off_ms:+.3f} ms for "
+        f"{scene.rig.n_sdef} SDEF vertices of {scene.rig.n_vertices}{each}; "
+        f"the largest SDEF move {float(moved.max()):.4f} MMD units")
+
+
 def launch_profile(label, frames, state, n: int):
     """`frames` (state -> state' after n frames) under torch.profiler ->
     state'; prints the host launch calls and device kernels a frame."""
@@ -906,6 +1152,9 @@ def run_flagships(paths):
     log(f"flagship ({FULL}): {mean_ms[FULL]:.3f} ms/frame; in the same "
         f"call {T4} {mean_ms[T4]:.3f} ({mean_ms[FULL] - mean_ms[T4]:+.3f}), "
         f"{M4} {mean_ms[M4]:.3f} ({mean_ms[FULL] - mean_ms[M4]:+.3f})")
+    log(f"flagship ({CONTENT}): {mean_ms[CONTENT]:.3f} ms/frame; in the "
+        f"same call {M4} {mean_ms[M4]:.3f} "
+        f"({mean_ms[CONTENT] - mean_ms[M4]:+.3f})")
     for name, path in paths.items():
         scene = path["scene"]
         cfg = scene.config.render
@@ -976,30 +1225,48 @@ def pass_bytes(label, name, scene) -> int:
                 + scene.rig.n_edge_tris * (12 + 4) + px * (1 + 12))
     if label == "mmd":
         return px * (4 + 12 + 12 + 12 + 16 + 12 + 12)
+    if label == "morphs":
+        rig = scene.rig
+        # the UV offsets: each entry's vertex, rate and offset read, the
+        # offsets written and added to the UVs (both read, the sum
+        # written); the part colour: each pixel's triangle id and albedo
+        # read, its part's mul and add gathered, the albedo written
+        return (rig.um_morph.shape[0] * (8 + 4 + 8)
+                + rig.n_vertices * (8 + 8 + 8 + 8)
+                + px * (4 + 12 + 12 + 12 + 12))
     raise ValueError(label)
 
 
 # the profiled passes of each path
 PROFILED = ((T1, ("albedo",)), (T4, ("albedo",)), (T16, ("albedo",)),
-            (FULL, ("albedo", "skybox", "edges", "mmd")))
+            (FULL, ("albedo", "skybox", "edges", "mmd")),
+            (CONTENT, ("morphs", "albedo")))
 
 
 def pass_profile(paths, n=3):
-    """The `pass_scope` passes of PROFILED over n compiled frames of each
-    path under torch.profiler (CPU and CUDA activities): each pass's host
-    ms and the device ms of the operators' kernels launched inside it, a
-    frame, beside its byte bound (`pass_bytes`), and its operators by
-    device time. The hand kernels (K2 of the edge hull) launch outside
+    """The `pass_scope` passes of PROFILED over the renders of n compiled
+    frames of each path under torch.profiler (CPU and CUDA activities; the
+    n steps replayed before the window, their outputs copied): each pass's
+    host ms and the device ms of the operators' kernels launched inside
+    it, a frame, beside its byte bound (`pass_bytes`), and its operators
+    by device time. The hand kernels (K2 of the edge hull) launch outside
     PyTorch's operators and are not in a pass's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for name, labels in PROFILED:
         path = paths[name]
         scene = path["scene"]
+        step = scene.jit_step(render=False, donate=False)
+        frames, state = [], path["state"]
+        for _ in range(n):
+            frames.append(step(state))
+            state = frames[-1][0]
+        path["state"] = state
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            path["state"], _ = scene.rollout(path["state"], n)
+            for _, pose, positions, normals in frames:
+                scene._render(pose, positions, normals, None, None)
             torch.cuda.synchronize()
         averages = prof.key_averages()
         events = prof.events()
@@ -1164,16 +1431,19 @@ def check_calls(label, step, state, expect, nocull=False, attrs=None):
 
 
 def build_crowd(density, label, textures=None, msaas=(False, True),
-                **look):
+                content=False, **look):
     """(scene, {msaa?: (step function, crowd state)}) of CROWD_N instances
-    of the sample character at `density`, with the procedural textures of
+    of the sample character at `density` (with `content`, the content rig
+    on its motion, `build_content`), with the procedural textures of
     edges `textures` if given and build_sample_scene's `look` options
     (the skybox, edges, double-sided parts, MMD maps): one scene's tables
     (and compiled step), a render config for each of `msaas`."""
     t0 = time.perf_counter()
-    scene = build_sample_scene(density, CROWD_W, CROWD_H, CROWD_SHADOW,
-                               "cuda", n_frames=CROWD_MOTION, fps_keys=5,
-                               textures=textures, **look)
+    build = (functools.partial(build_content, None) if content
+             else build_sample_scene)
+    scene = build(density, CROWD_W, CROWD_H, CROWD_SHADOW,
+                  n_frames=CROWD_MOTION, fps_keys=5, device="cuda",
+                  textures=textures, **look)
     crowd = {msaa: (crowd_step_fn(with_render(scene, msaa=4 if msaa else 1)),
                     crowd_init(scene, CROWD_N)) for msaa in msaas}
     state = next(iter(crowd.values()))[1]
@@ -1183,7 +1453,9 @@ def build_crowd(density, label, textures=None, msaas=(False, True),
         f"per frame), {rig.n_bones} bones, {scene.phys.n_bodies} bodies, "
         f"{scene.phys.n_joints} joints; textures {textures}; clocks "
         f"{float(state.time[1] * scene.config.fps):.1f} frames apart; "
-        f"{look_label(scene)}built in {time.perf_counter() - t0:.2f} s")
+        f"{look_label(scene)}"
+        f"{f'{rig.n_sdef} SDEF vertices; ' if rig.n_sdef else ''}built in "
+        f"{time.perf_counter() - t0:.2f} s")
     return scene, crowd
 
 
@@ -1364,39 +1636,43 @@ def time_crowd_segment(step, state, msaa: bool, label: str,
     return state, ms, counts, images
 
 
-def run_crowd(crowd, label, paths, edges=False):
-    """The crowd's paths warmed up, then timed in turns; each path's last
-    frames checked for shape, finite values and instances that differ.
-    `edges`: the scene draws the edge outlines (one more K5a a frame)."""
+def run_crowd(paths, order):
+    """Crowd paths {key: (label, step function, state, msaa?, edges?)}
+    warmed up, then timed in turns (`order`: keys, CROWD_SEGMENT frames a
+    segment), so that drift over the call falls on all alike; each path's
+    last frames checked for shape, finite values and instances that
+    differ. `edges`: the scene draws the edge outlines (one more K5a a
+    frame). -> {key: ms per crowd frame}."""
     states = {}
-    for msaa in set(paths):
-        step, state = crowd[msaa]
+    for key, (_, step, state, _, _) in paths.items():
         for _ in range(WARMUP):
             state, _ = step(state)
-        states[msaa] = state
+        states[key] = state
     torch.cuda.synchronize()
 
-    seg_ms = {msaa: [] for msaa in states}
-    launches = {msaa: dict.fromkeys(KERNELS, 0) for msaa in states}
+    seg_ms = {key: [] for key in paths}
+    launches = {key: dict.fromkeys(KERNELS, 0) for key in paths}
     images = {}
-    for msaa in paths:
-        states[msaa], ms, counts, images[msaa] = time_crowd_segment(
-            crowd[msaa][0], states[msaa], msaa, label, edges)
-        seg_ms[msaa].append(ms)
+    for key in order:
+        label, step, _, msaa, edges = paths[key]
+        states[key], ms, counts, images[key] = time_crowd_segment(
+            step, states[key], msaa, label, edges)
+        seg_ms[key].append(ms)
         for k, n in counts.items():
-            launches[msaa][k] += n
+            launches[key][k] += n
 
-    for msaa in sorted(states):
-        ms = sum(seg_ms[msaa]) / len(seg_ms[msaa])
-        img = images[msaa]
+    mean_ms = {}
+    for key, (label, _, _, msaa, _) in paths.items():
+        ms = mean_ms[key] = sum(seg_ms[key]) / len(seg_ms[key])
+        img = images[key]
         apart = float((img[0] - img[1]).abs().max())
         log(f"crowd ({label}, {CROWD_LABEL[msaa]}): "
-            f"{CROWD_SEGMENT * len(seg_ms[msaa])} frames of {CROWD_N} "
+            f"{CROWD_SEGMENT * len(seg_ms[key])} frames of {CROWD_N} "
             f"instances at {CROWD_W}x{CROWD_H}, shadow {CROWD_SHADOW}: "
             f"{ms:.3f} ms per crowd frame, {1000.0 * CROWD_N / ms:.3f} "
             f"instance-frames/s (segments "
-            f"{', '.join(f'{t:.3f}' for t in seg_ms[msaa])}); launches "
-            f"{launches[msaa]}; images {tuple(img.shape)}, finite "
+            f"{', '.join(f'{t:.3f}' for t in seg_ms[key])}); launches "
+            f"{launches[key]}; images {tuple(img.shape)}, finite "
             f"{bool(torch.isfinite(img).all())}, instance 0 vs 1 max "
             f"difference {apart:.3f}")
         if tuple(img.shape) != (CROWD_N, CROWD_H, CROWD_W, 3) or \
@@ -1404,6 +1680,7 @@ def run_crowd(crowd, label, paths, edges=False):
             raise AssertionError("bad crowd frames")
         if not apart > 0.05:
             raise AssertionError("instances 0 and 1 render the same frame")
+    return mean_ms
 
 
 def check_parity_crowd(msaa: bool, textures=None, label="", **look):
@@ -1532,6 +1809,34 @@ def look_kw(cube, mmd) -> dict:
                 mmd_maps=mmd)
 
 
+def build_content(label, density, *args, n_frames=240, fps_keys=5,
+                  device="cuda", **kw):
+    """A scene of the content rig at `density` (`content_rig`, through the
+    PMX bytes) on `content_motion(n_frames, fps_keys)` with `sdef_true` and
+    the extended morphs on; `args` and `kw` as build_sample_scene takes
+    them. Prints the rig's SDEF vertices and morph tables unless `label`
+    is None."""
+    t0 = time.perf_counter()
+    pm, n_sdef = content_rig(density)
+    t1 = time.perf_counter()
+    scene = build_sample_scene(density, *args, device, pmx=pm,
+                               vmd=content_motion(n_frames, fps_keys),
+                               sdef_true=True, extended_morphs=True, **kw)
+    rig = scene.rig
+    if rig.n_sdef != n_sdef or not (rig.um_morph.shape[0]
+                                    and rig.mm_morph.shape[0]):
+        raise AssertionError("the content rig lost its SDEF vertices or its "
+                             "morphs on the way through the PMX bytes")
+    if label is not None:
+        log(f"scene ({label}): {rig.n_vertices} verts, "
+            f"{rig.triangles.shape[0]} tris, {n_sdef} SDEF vertices, "
+            f"{rig.um_morph.shape[0]} UV-morph entries, "
+            f"{rig.mm_morph.shape[0]} material-morph entries; the rig "
+            f"written and read as PMX in {t1 - t0:.2f} s, the scene built in "
+            f"{time.perf_counter() - t1:.2f} s")
+    return scene
+
+
 def build_paths() -> dict:
     """The flagship paths {name: {"scene", "state"}}: M1 and M4 built by
     build_sample_scene, T1 and T4 copies of M1's scene (the same step
@@ -1599,9 +1904,74 @@ def build_paths() -> dict:
         f"{look_label(scene)}{scene.rig.n_edge_tris} edge triangles, "
         f"{int(scene.rig.nocull_tris.sum())} double-sided; built in "
         f"{time.perf_counter() - t0:.2f} s")
+    paths[CONTENT] = {"scene": build_content(
+        CONTENT, DENSITY, WIDTH, HEIGHT, SHADOW, textures=TEX2,
+        **MSAA_PATH)}
     for path in paths.values():
         path["state"] = path["scene"].init_state()
     return paths
+
+
+VPD_POSE = """Vocaloid Pose Data file
+
+sample_character.osm;
+3;
+
+Bone0{左腕
+  0.000000,0.000000,0.000000;
+  0.000000,0.000000,0.382683,0.923880;
+}
+
+Bone1{右ひじ
+  0.000000,0.000000,0.000000;
+  0.000000,-0.258819,0.000000,0.965926;
+}
+
+Bone2{センター
+  0.000000,0.500000,0.000000;
+  0.000000,0.000000,0.000000,1.000000;
+}
+
+Morph0{まばたき
+  0.500000;
+}
+"""
+
+
+def check_pmd_vpd():
+    """The PMD and VPD readers on the card: the sample character at density
+    0.5 written as PMD (`pmd_bytes`) and read back by the port's
+    `parse_pmd`, 2 frames on the card against the CPU's (`check_parity`);
+    and VPD_POSE read by `parse_vpd`, held by the sample character (density
+    2.0, 640x360, shadow 1024^2, physics off): the frames at 1/30 s and
+    3/30 s must be equal bit for bit."""
+    from simple_mmd_renderer_tpu_torch.app.sample import sample_character
+    from simple_mmd_renderer_tpu_torch.formats.pmd import parse_pmd
+    from simple_mmd_renderer_tpu_torch.formats.vpd import parse_vpd
+
+    t0 = time.perf_counter()
+    data = pmd_bytes(sample_character(density=0.5))
+    pm = parse_pmd(data)
+    log(f"pmd: the sample character (density 0.5) as {len(data)} PMD bytes, "
+        f"read back in {time.perf_counter() - t0:.2f} s: "
+        f"{len(pm.positions)} verts, {len(pm.bones)} bones, "
+        f"{len(pm.morphs)} morphs, {len(pm.rigid_bodies)} bodies")
+    check_parity(False, label=", PMD sample character", pmx=pm)
+    pose = parse_vpd(VPD_POSE.encode("cp932"), name="pose.vpd")
+    scene = build_sample_scene(DENSITY, 640, 360, 1024, "cuda", vmd=pose)
+    scene.config.physics.enabled = False
+    state = scene.init_state()
+    frames = []
+    for _ in range(3):
+        state, image = scene.step_and_render(state)
+        frames.append(image)
+    same = torch.equal(frames[0], frames[2])
+    log(f"vpd: {len(pose.bone_tracks)} bones and {len(pose.morph_tracks)} "
+        f"morph held by the sample character at 640x360, physics off: "
+        f"frames 1 and 3 equal {same}, image mean "
+        f"{float(frames[0].mean()):.4f}")
+    if not same or not bool(torch.isfinite(frames[0]).all()):
+        raise AssertionError("the VPD pose does not hold")
 
 
 def main() -> int:
@@ -1638,10 +2008,16 @@ def main() -> int:
     scene = paths[FULL]["scene"]
     check_calls(FULL, scene.step_and_render, paths[FULL]["state"],
                 path_kernels(scene.config.render), nocull=True)
+    scene = paths[CONTENT]["scene"]
+    check_calls(CONTENT, scene.step_and_render, paths[CONTENT]["state"],
+                path_kernels(scene.config.render))
     check_compiled("flagship msaa=1", paths[M1]["scene"], paths[M1]["state"],
                    COMPILED_FRAMES)
     check_compiled("flagship msaa=4 + shadow_window", paths[M4]["scene"],
                    paths[M4]["state"], COMPILED_FRAMES_SHORT)
+    check_compiled(CONTENT, paths[CONTENT]["scene"], paths[CONTENT]["state"],
+                   COMPILED_FRAMES_SHORT)
+    sdef_step_times(CONTENT, paths[CONTENT]["scene"], paths[CONTENT]["state"])
     check_compiled("crowd-dense, both paths", dense_scene, dense[False][1],
                    COMPILED_FRAMES)
     check_kernels_crowd(dense, results)
@@ -1656,10 +2032,14 @@ def main() -> int:
     launch_profile("crowd-dense msaa=1, compiled",
                    lambda s: crowd_frames(dense[False][0], s, 1),
                    dense[False][1], 1)
+    scene = paths[CONTENT]["scene"]
+    launch_profile(f"{CONTENT}, compiled", lambda s: scene.rollout(s, 1)[0],
+                   paths[CONTENT]["state"], 1)
 
     run_flagships(paths)
     pass_profile(paths)
-    run_crowd(dense, "crowd-dense", CROWD_ORDER)
+    run_crowd({msaa: ("crowd-dense", *dense[msaa], msaa, False)
+               for msaa in (False, True)}, CROWD_ORDER)
     look = look_kw(paths[FULL]["scene"].cubemap,
                    paths[FULL]["scene"].mmd_maps)
     del dense, dense_scene, paths
@@ -1670,15 +2050,27 @@ def main() -> int:
                     state, crowd_kernels(msaa), attrs={key: 5})
     check_compiled("crowd-bench", bench_scene, bench[True][1],
                    COMPILED_FRAMES_SHORT)
-    run_crowd(bench, "crowd-bench", (True, True))
-    del bench, bench_scene
+    light = {TEX: ("crowd-bench", *bench[True], True, False)}
     _, bench = build_crowd(0.5, f"crowd-bench, {FULL}", TEX2, msaas=(True,),
                            **look)
     step, state = bench[True]
     check_calls(f"crowd-bench, {FULL}", step, state,
                 crowd_kernels(True, edges=True), nocull=True)
-    run_crowd(bench, f"crowd-bench, {FULL}", (True, True), edges=True)
-    del bench, look
+    light[FULL] = (f"crowd-bench, {FULL}", step, state, True, True)
+    label = f"crowd-bench, {CONTENT}"
+    content_scene, bench = build_crowd(0.5, label, TEX2, msaas=(True,),
+                                       content=True)
+    step, state = bench[True]
+    check_calls(label, step, state, crowd_kernels(True))
+    check_compiled(label, content_scene, state, COMPILED_FRAMES_SHORT)
+    sdef_step_times(label, content_scene, state)
+    light[CONTENT] = (label, step, state, True, False)
+    ms = run_crowd(light, LIGHT_ORDER)
+    log(f"crowd-bench in turns: textured {ms[TEX]:.3f} ms per crowd frame, "
+        f"{FULL} {ms[FULL]:.3f} ({ms[FULL] - ms[TEX]:+.3f}), {CONTENT} "
+        f"{ms[CONTENT]:.3f} ({ms[CONTENT] - ms[TEX]:+.3f})")
+    del bench, bench_scene, content_scene, light, look
+    check_pmd_vpd()
     small = look_kw(*full_look_inputs(16, (32, 64), 32, quiet=True))
     check_parity(msaa=False)
     check_parity(msaa=True)
@@ -1693,6 +2085,14 @@ def main() -> int:
         check_parity(msaa, (64, 48), f", textures (64, 16), {FULL}", 256,
                      textures=(64, 16), **small)
         check_parity_crowd(msaa, (64, 16), f", {FULL}", **small)
+    # the content rig on a 12-frame motion, so that both morphs are well
+    # above 0 at frame 2
+    content = dict(vmd=content_motion(12, 2), sdef_true=True,
+                   extended_morphs=True, textures=(64, 16))
+    check_parity(True, label=f", textures (64, 16), {CONTENT}",
+                 pmx=content_rig(0.5)[0], **content)
+    check_parity_crowd(True, label=f", {CONTENT}", pmx=content_rig(0.25)[0],
+                       **content)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     for name in KERNELS:

@@ -125,8 +125,12 @@ class AppConfig:
     physics: PhysicsConfig = field(default_factory=PhysicsConfig)
     fps: float = 30.0                  # VMD frame rate (main.cpp:1793)
     animation_playing: bool = True
-    # true spherical SDEF skinning (beyond the reference app; not ported)
+    # true spherical SDEF skinning for the model's SDEF vertices (beyond the
+    # reference app, which ships the matrix-lerp fallback): core.pose.deform,
+    # inside the compiled step too
     sdef_true: bool = False
-    # UV and material morphs at render time (beyond the reference app; not
-    # ported)
+    # UV and material morphs at render time (beyond the reference app, which
+    # parses them and applies neither): Scene.extended_morphs feeds
+    # render_frame's uv_offsets / part_color on every render path, the
+    # crowd's per instance
     apply_extended_morphs: bool = False

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -642,8 +643,21 @@ class ModelTables(nn.Module):
             self.skin_weight_dense = None
         self.pre_segments = _segments(static.pre_segments, device)
         self.post_segments = _segments(static.post_segments, device)
-        for name, targets in (("vm", static.vm_vertex),
-                              ("bm", static.bm_bone)):
+        # the extended morphs' tables (UV, extra-UV and material morphs)
+        register_arrays(self, static, ("um_morph", "um_vertex", "um_offset",
+                                       "xum_morph", "xum_vertex",
+                                       "xum_channel", "xum_offset",
+                                       "extra_uvs", "mm_morph", "mm_part",
+                                       "mm_payload"), device)
+        self.register_buffer("mm_is_mul", torch.as_tensor(
+            np.asarray(static.mm_method) == 0, device=device))
+        self._register_sdef(static, device)
+        n_extra = np.asarray(static.extra_uvs).shape[1]
+        for name, targets in (
+                ("vm", static.vm_vertex), ("bm", static.bm_bone),
+                ("um", static.um_vertex), ("mm", static.mm_part),
+                ("xum", np.asarray(static.xum_vertex, np.int64) * n_extra
+                 + np.asarray(static.xum_channel, np.int64))):
             passes = _occurrence_passes(np.asarray(targets))
             setattr(self, f"n_{name}_passes", len(passes))
             for k, entries in enumerate(passes):
@@ -653,6 +667,24 @@ class ModelTables(nn.Module):
                            ("post_bones", static.post_segments)):
             self.register_buffer(name, torch.as_tensor(
                 np.asarray(_segment_bones(segs), np.int64), device=device))
+
+    def _register_sdef(self, static: ModelStatic, device):
+        """The SDEF vertex subset (skin type SDEF after Model::Normalize)
+        and its gathered tables, found on the host once, here, so that the
+        per-frame deform does no `nonzero` and no host->device copy:
+        `sdef_idx` [S], the two bones `sdef_b0`/`sdef_b1` [S], the first
+        weight `sdef_w0` [S] and `sdef_c`/`sdef_r0`/`sdef_r1` [S,3]."""
+        idx = np.flatnonzero(np.asarray(static.skin_type) == P.SDEF)
+        self.n_sdef = len(idx)
+        bones = np.asarray(static.skin_bones)[idx]
+        tables = dict(
+            sdef_idx=idx.astype(np.int64), sdef_b0=bones[:, 0],
+            sdef_b1=bones[:, 1],
+            sdef_w0=np.asarray(static.skin_weights)[idx, 0],
+            sdef_c=np.asarray(static.sdef_c, np.float32).reshape(-1, 3)[idx],
+            sdef_r0=np.asarray(static.sdef_r0, np.float32).reshape(-1, 3)[idx],
+            sdef_r1=np.asarray(static.sdef_r1, np.float32).reshape(-1, 3)[idx])
+        register_arrays(self, SimpleNamespace(**tables), tables, device)
 
     n_inst = 1      # one instance; `crowd(n)` gives the view of n
 
@@ -665,8 +697,9 @@ class ModelTables(nn.Module):
         return self.positions.shape[0]
 
     def passes(self, name: str) -> list[torch.Tensor]:
-        """The occurrence passes of the vertex ("vm") or bone ("bm") morph
-        entries (`_occurrence_passes`)."""
+        """The occurrence passes of the vertex ("vm"), bone ("bm"), UV
+        ("um"), extra-UV ("xum", by vertex and channel) or material ("mm",
+        by part) morph entries (`_occurrence_passes`)."""
         return [getattr(self, f"{name}_pass{k}")
                 for k in range(getattr(self, f"n_{name}_passes"))]
 
@@ -742,7 +775,8 @@ class CrowdModelTables:
                 "append_translate", "is_ik_link")
     SHARED = ("positions", "normals", "uvs", "triangles", "part_base",
               "tri_part", "skin_bones", "skin_weights", "skin_weight_dense",
-              "morph_expand")
+              "morph_expand", "n_sdef", "sdef_idx", "sdef_b0", "sdef_b1",
+              "sdef_w0", "sdef_c", "sdef_r0", "sdef_r1")
 
     def __init__(self, rig: ModelTables, n_inst: int):
         b, n = rig.n_bones, rig.n_vertices

@@ -1,10 +1,18 @@
 """Posing pipeline: morphs -> level-parallel FK -> CCD IK -> skinning
 matrices -> deform.
 
-Port of `simple_mmd_renderer_tpu/core/pose.py` (BDEF path; the opt-in SDEF
-path is not ported yet). The rig program (FK levels, IK groups) comes from
-`ModelTables`; per-frame inputs are the sampled bone poses and morph rates.
-Functions are pure: each returns a new PoseArrays.
+Port of `simple_mmd_renderer_tpu/core/pose.py`. The rig program (FK levels,
+IK groups) comes from `ModelTables`; per-frame inputs are the sampled bone
+poses and morph rates. Functions are pure: each returns a new PoseArrays.
+
+The extended morphs (`uv_morph_offsets`, `ext_uv_morph_offsets`,
+`material_morph_factors`) read the pose's leaf rates, [M] for one frame or
+[I, M] for a crowd, and return their tables with the same leading axes.
+Repeated targets sum (or multiply) in entry order, one occurrence pass at a
+time, as the vertex morphs do: no float atomics. `deform(sdef=True)`
+overwrites the SDEF vertices (spherical deform) from the device tables
+`ModelTables` gathered once (`sdef_*`), with an index copy: no host read,
+so it runs inside the captured step.
 
 The CCD loop's early exit (every chain converged) reads a device flag
 once per iteration, a host synchronisation. The posing functions take
@@ -60,13 +68,17 @@ def _set(t, idx, val):
     return out
 
 
-def _ordered_add(t, idx, val, passes):
-    """Out-of-place t.at[idx].add(val), summed in entry order one occurrence
-    pass at a time (no index repeats within a pass): deterministic on every
-    device, with no float atomics."""
+def _ordered_add(t, idx, val, passes, op=torch.add):
+    """Out-of-place t.at[idx].add(val) along dim -2 of t [..., R, C]
+    (leading instance axes pass through): rows idx [K] combined with val
+    [..., K, C] by `op` (torch.add, or torch.mul for .multiply) in entry
+    order, one occurrence pass at a time (no index repeats within a pass),
+    each written with an index copy: deterministic on every device, with
+    no float atomics."""
     for entries in passes:
         i = idx[entries]
-        t = _set(t, i, t[i] + val[entries])
+        t = t.index_copy(-2, i, op(t.index_select(-2, i),
+                                   val.index_select(-2, entries)))
     return t
 
 
@@ -138,6 +150,63 @@ def apply_morphs(static: ModelTables, morph_rates):
                              m3.quat_mul(morph_rot[bone], delta))
 
     return vertex_offsets, morph_rot, morph_trans, leaf
+
+
+def _zeros(static, leaf_rates, shape):
+    return torch.zeros(tuple(leaf_rates.shape[:-1]) + shape,
+                       dtype=torch.float32, device=static.device)
+
+
+def uv_morph_offsets(static: ModelTables, leaf_rates):
+    """[..., N, 2] UV offsets from the MORPH_UV entries at the leaf rates
+    [..., M] (beyond the original app, which parses UV morphs and never
+    applies them; gated by AppConfig.apply_extended_morphs)."""
+    out = _zeros(static, leaf_rates, (static.n_vertices, 2))
+    if static.um_morph.shape[0] == 0 or static.n_morphs == 0:
+        return out
+    val = static.um_offset * leaf_rates[..., static.um_morph, None]
+    return _ordered_add(out, static.um_vertex, val, static.passes("um"))
+
+
+def ext_uv_morph_offsets(static: ModelTables, leaf_rates):
+    """[..., N, E, 4] offsets from the MORPH_EXT_UV_1..4 entries at the leaf
+    rates (E: the model's extra-UV channel count). The built-in shader
+    samples no extra-UV channel; `Scene.morphed_extra_uvs` serves them to
+    custom-effect consumers."""
+    n, e = static.n_vertices, static.extra_uvs.shape[1]
+    out = _zeros(static, leaf_rates, (n * e, 4))
+    if static.xum_morph.shape[0] and static.n_morphs and e:
+        val = static.xum_offset * leaf_rates[..., static.xum_morph, None]
+        out = _ordered_add(out, static.xum_vertex * e + static.xum_channel,
+                           val, static.passes("xum"))
+    return out.reshape(out.shape[:-2] + (n, e, 4))
+
+
+def material_morph_factors(static: ModelTables, leaf_rates):
+    """-> (mul [..., P, 3], add [..., P, 3]) albedo modifiers from the
+    material morphs at the leaf rates [..., M].
+
+    PMX material-morph semantics per entry of weight w: a multiply entry
+    sets v *= lerp(1, payload, w), an additive one v += payload * w; the
+    payload's diffuse RGB (floats 0:3) and texture tint RGB (16:19) both
+    scale the sampled albedo here, so their effects combine. Entries of one
+    part apply in table order (multiplies compose, adds add), as the
+    reference's scan; beyond the original app, which applies none."""
+    pn = static.part_base.shape[0]
+    mul = _zeros(static, leaf_rates, (pn, 3)) + 1.0
+    add = _zeros(static, leaf_rates, (pn, 3))
+    if static.mm_morph.shape[0] == 0 or static.n_morphs == 0:
+        return mul, add
+    w = leaf_rates[..., static.mm_morph, None]                   # [..., K, 1]
+    diff = static.mm_payload[:, 0:3]
+    tint = static.mm_payload[:, 16:19]
+    is_mul = static.mm_is_mul[:, None]
+    factor = torch.where(is_mul, (1 + w * (diff - 1)) * (1 + w * (tint - 1)),
+                         1.0)
+    term = torch.where(is_mul, 0.0, w * (diff + tint))
+    passes = static.passes("mm")
+    return (_ordered_add(mul, static.mm_part, factor, passes, torch.mul),
+            _ordered_add(add, static.mm_part, term, passes))
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +461,7 @@ def post_physics_posing(static: ModelTables, pose: PoseArrays, anim_rot,
 
 
 # ---------------------------------------------------------------------------
-# Deform: uniform 4-wide linear blend skinning (BDEF path)
+# Deform: uniform 4-wide linear blend skinning, spherical SDEF on request
 # ---------------------------------------------------------------------------
 
 def deform(static: ModelTables, pose: PoseArrays, use_matmul=None,
@@ -402,9 +471,12 @@ def deform(static: ModelTables, pose: PoseArrays, use_matmul=None,
     with the dense weight matrix this is a bone-palette matmul. On a crowd
     view the mesh and weights are shared and the skin matrices and morph
     offsets carry the instances: -> [I,N,3] each, from one batched
-    product."""
-    if sdef:
-        raise NotImplementedError("sdef")
+    product.
+
+    sdef=True deforms the vertices that kept SDEF through Model::Normalize
+    spherically (`_sdef_overwrite`, each instance of a crowd with its own
+    matrices); sdef=False is the matrix-lerp fallback the original app
+    ships."""
     skin, offsets = pose.skin, pose.vertex_offsets
     if static.n_inst > 1:
         skin = skin.reshape(static.n_inst, -1, 4, 4)
@@ -413,13 +485,58 @@ def deform(static: ModelTables, pose: PoseArrays, use_matmul=None,
         use_matmul = static.skin_weight_dense is not None
     if use_matmul and static.skin_weight_dense is not None:
         from ..ops.skinning import skin_matmul
-        return skin_matmul(static.skin_weight_dense, skin, static.positions,
-                           offsets, static.normals)
-    mats = skin[..., static.skin_bones, :, :]           # [N,4,4,4]
-    blend = torch.einsum("nk,...nkij->...nij", static.skin_weights, mats)
-    p = static.positions + offsets
-    out_pos = (torch.einsum("...nij,...nj->...ni", blend[..., :3, :3], p)
-               + blend[..., :3, 3])
-    out_nrm = torch.einsum("...nij,nj->...ni", blend[..., :3, :3],
-                           static.normals)
+        out_pos, out_nrm = skin_matmul(static.skin_weight_dense, skin,
+                                       static.positions, offsets,
+                                       static.normals)
+    else:
+        mats = skin[..., static.skin_bones, :, :]       # [N,4,4,4]
+        blend = torch.einsum("nk,...nkij->...nij", static.skin_weights, mats)
+        p = static.positions + offsets
+        out_pos = (torch.einsum("...nij,...nj->...ni", blend[..., :3, :3], p)
+                   + blend[..., :3, 3])
+        out_nrm = torch.einsum("...nij,nj->...ni", blend[..., :3, :3],
+                               static.normals)
+    if sdef and static.n_sdef:
+        out_pos, out_nrm = _sdef_overwrite(static, skin, offsets, out_pos,
+                                           out_nrm)
     return out_pos, out_nrm
+
+
+def _sdef_overwrite(static: ModelTables, skin, offsets, out_pos, out_nrm):
+    """Spherical SDEF for the SDEF vertex subset (the rig's `sdef_*`
+    tables; `skin` [..., B, 4, 4] and `offsets` [..., N, 3] may carry a
+    leading instance axis).
+
+    Rotation is the slerp of the two bone rotations; translation anchors
+    through the centre point C with the R0/R1 correction, so the skin
+    bulges around the joint instead of collapsing like the linear
+    matrix-lerp:
+
+        rw  = w0*R0 + w1*R1
+        cr0 = (C + (C + R0 - rw)) / 2,  cr1 = (C + (C + R1 - rw)) / 2
+        p'  = slerp(q0, q1, w1) * (p - C) + w0*(M0 @ cr0) + w1*(M1 @ cr1)
+
+    The rows are written back with an index copy."""
+    idx = static.sdef_idx
+    w0 = static.sdef_w0[:, None]                      # [S,1]
+    w1 = 1.0 - w0
+    m0 = skin[..., static.sdef_b0, :, :]              # [..., S, 4, 4]
+    m1 = skin[..., static.sdef_b1, :, :]
+    q0 = m3.mat3_to_quat(m0[..., :3, :3])
+    q1 = m3.mat3_to_quat(m1[..., :3, :3])
+    qb = m3.quat_slerp(q0, q1, w1[:, 0])
+
+    c, r0, r1 = static.sdef_c, static.sdef_r0, static.sdef_r1
+    rw = r0 * w0 + r1 * w1
+    cr0 = c + (r0 - rw) * 0.5
+    cr1 = c + (r1 - rw) * 0.5
+
+    def apply(m, v):
+        return torch.einsum("...nij,nj->...ni", m[..., :3, :3], v) \
+            + m[..., :3, 3]
+
+    p = static.positions[idx] + offsets.index_select(-2, idx)
+    pos = m3.quat_rotate(qb, p - c) + w0 * apply(m0, cr0) \
+        + w1 * apply(m1, cr1)
+    nrm = m3.quat_rotate(qb, static.normals[idx].expand(pos.shape))
+    return out_pos.index_copy(-2, idx, pos), out_nrm.index_copy(-2, idx, nrm)

@@ -33,6 +33,12 @@ textures is replaced) that every render of the scene samples. The skybox's
 of the scene, and the MMD toon ramps and sphere maps (`mmd_maps`, the
 reference's tuple) are packed once into their device form
 (`mmd_device_maps`), as the atlas is.
+
+With `config.apply_extended_morphs` every render path (`step_and_render`,
+`jit_step(render=True)`, `rollout`, `jit_rollout`) applies the model's UV
+and material morphs at the frame's leaf rates (the replay's pose on the
+compiled paths); `config.sdef_true` deforms the SDEF vertices spherically,
+inside the captured step.
 """
 
 from __future__ import annotations
@@ -219,12 +225,45 @@ class Scene(nn.Module):
             normals = normals.reshape(n_inst, -1, 3)
         return SimState(time=time, physics=physics), pose, positions, normals
 
+    def morphed_extra_uvs(self, pose):
+        """[N,E,4] extra-UV channels with the frame's ext-UV morphs applied
+        (rest values + the offsets at `pose.leaf_rates`; a crowd pose's
+        [I, M] rates give [I,N,E,4]). The built-in shader samples no
+        extra-UV channel: this is the query surface for custom effects,
+        gated like the other extended morphs (AppConfig.
+        apply_extended_morphs says whether callers should apply it)."""
+        base = self.rig.extra_uvs
+        if self.rig.n_morphs == 0 or self.rig.xum_morph.shape[0] == 0:
+            return base
+        return base + pose_mod.ext_uv_morph_offsets(self.rig, pose.leaf_rates)
+
+    def extended_morphs(self, leaf_rates):
+        """(uv_offsets, part_color) for `render_frame` from a pose's leaf
+        rates ([M], or [I, M] for a crowd: the outputs then carry the
+        instance axis), under the reference's static gate: nothing unless
+        `config.apply_extended_morphs` is on and the model has morphs; UV
+        offsets only with UV morphs and part textures, the part colour
+        (mul, add) only with material morphs."""
+        rig = self.rig
+        uv_off = part_color = None
+        if not (self.config.apply_extended_morphs and rig.n_morphs):
+            return uv_off, part_color
+        with pass_scope("morphs"):
+            if rig.um_morph.shape[0] and self.part_textures is not None:
+                uv_off = pose_mod.uv_morph_offsets(rig, leaf_rates)
+            if rig.mm_morph.shape[0]:
+                part_color = pose_mod.material_morph_factors(rig, leaf_rates)
+        return uv_off, part_color
+
     def step_and_render(self, state: SimState, width=None, height=None,
                         atlas=None):
         """One frame -> (state', image [H,W,3]). Textures sample `atlas`,
-        by default the scene's own (`packed_atlas`)."""
-        state, _, positions, normals = self.step_pose(state)
-        return state, self._render(positions, normals, width, height, atlas)
+        by default the scene's own (`packed_atlas`); with
+        `config.apply_extended_morphs` the UV and material morphs of the
+        frame's pose apply (`extended_morphs`)."""
+        state, pose, positions, normals = self.step_pose(state)
+        return state, self._render(pose, positions, normals, width, height,
+                                   atlas)
 
     def captured_step(self, state: SimState) -> CapturedStep:
         """The compiled step for states shaped like `state` (a single
@@ -244,12 +283,14 @@ class Scene(nn.Module):
         step.load(state)
         return step.replay()
 
-    def _render(self, positions, normals, width, height, atlas=None):
+    def _render(self, pose, positions, normals, width, height, atlas=None):
         if atlas is None:
             atlas = self.packed_atlas()
+        uv_off, part_color = self.extended_morphs(pose.leaf_rates)
         return render_frame(self.rig, positions, normals, self.config.render,
                             part_textures=self.part_textures,
                             cubemap=self.cubemap, width=width, height=height,
+                            uv_offsets=uv_off, part_color=part_color,
                             mmd_maps=self.mmd_device_maps(), atlas=atlas)
 
     def jit_step(self, render: bool = True, width=None, height=None,
@@ -274,8 +315,8 @@ class Scene(nn.Module):
         atlas = self.packed_atlas()
 
         def step(state):
-            state, _, positions, normals = self.replay_step(state)
-            return keep(state), self._render(positions, normals, width,
+            state, pose, positions, normals = self.replay_step(state)
+            return keep(state), self._render(pose, positions, normals, width,
                                              height, atlas)
         return step
 
@@ -292,9 +333,9 @@ class Scene(nn.Module):
         step.load(state)
         sums = []
         for _ in range(n_frames):
-            state, _, positions, normals = step.replay()
-            sums.append(self._render(positions, normals, width, height,
-                                     atlas).mean()
+            state, pose, positions, normals = step.replay()
+            sums.append(self._render(pose, positions, normals, width,
+                                     height, atlas).mean()
                         if render else positions.mean())
         return tree_map(torch.clone, state), torch.stack(sums)
 
@@ -314,7 +355,8 @@ def build_sample_scene(density=2.0, width=1920, height=1080, shadow=2048,
                        textures=None, n_parts=2, texture_mips=0,
                        texture_resident=1, albedo_window=True, cubemap=None,
                        show_edges=False, double_sided_parts=(),
-                       mmd_maps=None) -> Scene:
+                       mmd_maps=None, pmx=None, vmd=None, sdef_true=False,
+                       extended_morphs=False) -> Scene:
     """The procedural sample character and motion as a port Scene. The
     defaults are the flagship frame (density 2.0,
     sample_motion(240, fps_keys=5), 1920x1080, 2048^2 shadow map, physics on
@@ -333,19 +375,27 @@ def build_sample_scene(density=2.0, width=1920, height=1080, shadow=2048,
     the sample's materials carry MAT_DRAW_EDGE); `double_sided_parts`
     flags those materials MAT_DOUBLE_FACE before the model is built and
     turns `double_sided` on; `mmd_maps` (the reference's tuple, e.g.
-    `app.sample.sample_mmd_maps`) the MMD toon / sphere shading."""
+    `app.sample.sample_mmd_maps`) the MMD toon / sphere shading.
+
+    `pmx` (a PmxModel, e.g. parsed from a file) and `vmd` (a VmdMotion)
+    take the place of the sample character (`density` and `n_parts` then
+    unused) and of its motion; `sdef_true` and `extended_morphs` set the
+    AppConfig's `sdef_true` and `apply_extended_morphs`."""
     from ..app.sample import sample_character, sample_motion, sample_textures
     from ..formats.pmx import MAT_DOUBLE_FACE
     from .model import build_model
 
     device = resolve_device(device)
-    pm = sample_character(density=density, n_parts=n_parts)
+    pm = (pmx if pmx is not None
+          else sample_character(density=density, n_parts=n_parts))
     for p in double_sided_parts:
         pm.materials[p].draw_flags |= MAT_DOUBLE_FACE
     static = build_model(pm)
-    motion = anim_mod.bind_motion(static, sample_motion(n_frames,
-                                                        fps_keys=fps_keys))
-    cfg = AppConfig()
+    if vmd is None:
+        vmd = sample_motion(n_frames, fps_keys=fps_keys)
+    motion = anim_mod.bind_motion(static, vmd)
+    cfg = AppConfig(sdef_true=sdef_true,
+                    apply_extended_morphs=extended_morphs)
     cfg.render = RenderConfig(width=width, height=height,
                               shadow_map_size=shadow,
                               msaa=msaa, shadow_window=shadow_window,

@@ -60,7 +60,11 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
     from the scene's textures without mips when the function is made (the
     atlas the reference's jitted step holds as a constant). The scene's
     skybox (`scene.cubemap`) and MMD maps (`scene.mmd_device_maps()`,
-    packed once) go into every crowd frame.
+    packed once) go into every crowd frame. With
+    `config.apply_extended_morphs` each instance's UV and material morphs
+    apply at its own leaf rates (`Scene.extended_morphs` on the batched
+    pose: [I, V, 2] offsets and [I, P, 3] factors), under the reference's
+    static gate.
 
     Posing and physics always run batched, as one replay of the scene's
     compiled step on the crowd state (`Scene.jit_step(render=False,
@@ -86,10 +90,12 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
 
     if crowd_render_supported(cfg_r):
         def step(state, atlas=None):
-            state, _, positions, normals = pose_step(state)
+            state, pose, positions, normals = pose_step(state)
+            uv_off, part_color = scene.extended_morphs(pose.leaf_rates)
             images = crowd_render_frame(scene.rig, positions, normals, cfg_r,
                                         width, height, part_textures=textures,
-                                        atlas=atlas, **look)
+                                        atlas=atlas, uv_offsets=uv_off,
+                                        part_color=part_color, **look)
             return state, images
         return bind(step)
 
@@ -105,11 +111,16 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
               file=sys.stderr)
 
     def step_fallback(state, atlas=None):
-        state, _, positions, normals = pose_step(state)
+        state, pose, positions, normals = pose_step(state)
+        uv_off, part_color = scene.extended_morphs(pose.leaf_rates)
         images = torch.stack([
             render_frame(scene.rig, positions[i], normals[i], cfg_r,
                          part_textures=textures, width=width, height=height,
-                         atlas=atlas, **look)
+                         atlas=atlas,
+                         uv_offsets=None if uv_off is None else uv_off[i],
+                         part_color=(None if part_color is None else
+                                     (part_color[0][i], part_color[1][i])),
+                         **look)
             for i in range(positions.shape[0])])
         return state, images
     return bind(step_fallback)

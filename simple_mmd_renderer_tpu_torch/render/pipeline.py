@@ -1,8 +1,7 @@
 """Frame pipeline: shadow pass -> ground -> character -> shading.
 
-Port of `simple_mmd_renderer_tpu/render/pipeline.py` less the extended
-morphs (`part_color`, `uv_offsets`), `proj_transform` and the scan raster:
-`build_matrices`, `ground_pass` (with its row0/rows halo),
+Port of `simple_mmd_renderer_tpu/render/pipeline.py` less `proj_transform`
+and the scan raster: `build_matrices`, `ground_pass` (with its row0/rows halo),
 `unproject_depth`, `upsample_bilinear_int`, `_tiled_e_max`, `shadow_pass`
 (with the caster window), the textures (the shelf-packed atlas with its
 mip chain, `PackedAtlas`, deferred-UV albedo from the visibility buffer,
@@ -11,8 +10,12 @@ per-sample MSAA with a coverage resolve, or 2x2 supersampling with
 `msaa_supersample`), with the skybox (`render/ibl.py`), the edge outlines
 (the inverted hull through K2 at 0 attributes), double-sided materials
 (the `nocull` exemption and two-sided lighting) and the MMD toon ramps and
-sphere maps (`MmdMaps`, packed once). The rasterizer is the binned tile raster
-(`ops/tiled_raster.py`) on every device; its kernels (K1/K6 shadow depth,
+sphere maps (`MmdMaps`, packed once), and the extended morphs'
+consumers: UV offsets added to the UVs before the raster or the deferred
+albedo reads them, and the material morphs' per-part colour
+(`part_color` = (mul, add)) applied to the albedo by the pixel's part.
+The rasterizer is the binned tile raster (`ops/tiled_raster.py`) on every
+device; its kernels (K1/K6 shadow depth,
 K2/K4 character) and the ground's PCF kernel (K3) run as hand-written CUDA
 on the card. The albedo pass is gathers (plain PyTorch), as it is XLA
 gathers in the reference.
@@ -22,7 +25,8 @@ kernel launch for all instances' shadow maps (K5c) and character rasters
 (K5a, or K5b at msaa=4), K3 over the batch of shadow maps, the
 camera-shared skybox and ground computed once, the albedo of every
 instance from one shared atlas, the edge hull through K5a, and the MMD
-shading over the instance axis.
+shading over the instance axis, with per-instance UV offsets and part
+colours.
 
 Options outside the slice raise NotImplementedError naming the option.
 """
@@ -745,6 +749,29 @@ def _part_of(static, tri):
         right=True) - 1, 0, n_parts - 1)
 
 
+def _part_rows(table, pid):
+    """table [..., P, C] at the pixels' parts pid [..., H, W] (the same
+    leading instance axes, each instance reading its own rows)."""
+    if table.dim() == 2:
+        return table[pid]
+    n_parts = table.shape[-2]
+    base = torch.arange(pid[..., 0, 0].numel(), device=pid.device) * n_parts
+    return table.reshape(-1, table.shape[-1])[
+        pid + base.reshape(pid.shape[:-2] + (1, 1))]
+
+
+def _part_colour(static, tri, albedo, part_color):
+    """The material morphs' albedo modulation (reference `render_frame`
+    l.1361-1365, crowd l.987-1000; beyond the original app): each pixel's
+    albedo times its part's `mul` plus its `add`, clamped at 0. `part_color`
+    = (mul, add), [P, 3] each, or [I, P, 3] for a crowd."""
+    with pass_scope("morphs"):
+        mul, add = part_color
+        pid = _part_of(static, tri)
+        return torch.clamp(albedo * _part_rows(mul, pid)
+                           + _part_rows(add, pid), min=0.0)
+
+
 def _mmd_shading(cfg, mats, static, tri, nrm_px, albedo, mmd):
     """MMD extended shading (reference `render_frame` l.1367-1397, beyond
     the original app, whose shader ignores toon and sphere maps): the
@@ -882,10 +909,11 @@ def _surface(cfg, mats, vis, attr_px, nocull, width, height):
 
 
 def _composite(cfg, mats, static, color, vis, world_px, nrm_px, albedo,
-               sdepth, ground_depth, mmd=None, edges=None):
+               sdepth, ground_depth, mmd=None, edges=None, part_color=None):
     """Shade the character once per pixel from the visibility buffer, its
-    world positions, normals and albedo (None: white), with the MMD toon /
-    sphere shading where `mmd` is given, and lay it over `color`: the edge
+    world positions, normals and albedo (None: white), with the material
+    morphs' part colour (`_part_colour`) and then the MMD toon / sphere
+    shading where they are given, and lay it over `color`: the edge
     outlines first (under the character), then the character by the depth
     test against the ground, or with per-sample depths (`sdepth`
     [..., 4, H, W]) by coverage. Leading instance axes pass through."""
@@ -894,6 +922,8 @@ def _composite(cfg, mats, static, color, vis, world_px, nrm_px, albedo,
     if albedo is None:
         albedo = torch.ones(vis.depth.shape + (3,), dtype=torch.float32,
                             device=dev)
+    if part_color is not None:
+        albedo = _part_colour(static, vis.tri, albedo, part_color)
     addend = None
     if mmd is not None:
         with pass_scope("mmd"):
@@ -919,12 +949,10 @@ def _composite(cfg, mats, static, color, vis, world_px, nrm_px, albedo,
     return torch.clamp(color, 0.0, 1.0)
 
 
-def _check_slice(cfg, uv_offsets, part_color, proj_transform):
+def _check_slice(cfg, proj_transform):
     """Raise NotImplementedError for every option outside the ported
     slice."""
     unsupported = [
-        ("part_color", part_color is not None),
-        ("uv_offsets", uv_offsets is not None),
         ("proj_transform", proj_transform is not None),
         ('raster_mode="scan"', cfg.raster_mode == "scan"),
     ]
@@ -950,8 +978,11 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
     an MmdMaps (`build_mmd_maps`, e.g. `Scene.mmd_device_maps()`) or the
     reference's tuple, then packed here on every call. `cfg.show_edges`
     draws the edge outlines, `cfg.double_sided` exempts the double-faced
-    parts' triangles from culling and lights their back faces."""
-    _check_slice(cfg, uv_offsets, part_color, proj_transform)
+    parts' triangles from culling and lights their back faces.
+    uv_offsets [V, 2] (`core.pose.uv_morph_offsets`) move the UVs the
+    textures are sampled at; part_color = (mul [P, 3], add [P, 3])
+    (`core.pose.material_morph_factors`) modulates the albedo by part."""
+    _check_slice(cfg, proj_transform)
     dev = positions_mmd.device
     width = width or cfg.width
     height = height or cfg.height
@@ -966,6 +997,7 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
         big = render_frame(static, positions_mmd, normals, sub,
                            part_textures=part_textures, cubemap=cubemap,
                            width=2 * width, height=2 * height,
+                           uv_offsets=uv_offsets, part_color=part_color,
                            mmd_maps=mmd_maps, atlas=atlas)
         return big.reshape(height, 2, width, 2, 3).mean(dim=(1, 3))
     mats = build_matrices(cfg, aspect=width / height, device=dev)
@@ -976,9 +1008,12 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
     # visibility buffer (uv_from_vis), else they ride the raster as
     # attributes 3-4
     defer_uv = part_textures is not None and cfg.albedo_window
-    attrs = normals
+    attrs, uvs = normals, static.uvs
+    if part_textures is not None and uv_offsets is not None:
+        with pass_scope("morphs"):
+            uvs = uvs + uv_offsets          # UV morphs, before either path
     if part_textures is not None and not defer_uv:
-        attrs = torch.cat([normals, static.uvs], -1)
+        attrs = torch.cat([normals, uvs], -1)
 
     # per-corner vertex table shared by the shadow and character rasters:
     # one 3T-row gather of [pos | attrs], transformed per pass
@@ -1022,9 +1057,10 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
         with pass_scope("albedo"):
             albedo = _frame_albedo(static, cfg, part_textures, atlas, vis,
                                    None if defer_uv else attr_px[..., 3:5],
-                                   static.uvs, tris, clip, width, height)
+                                   uvs, tris, clip, width, height)
     return _composite(cfg, mats, static, color, vis, world_px, nrm_px,
-                      albedo, sdepth, ground_depth, mmd_maps, edges)
+                      albedo, sdepth, ground_depth, mmd_maps, edges,
+                      part_color)
 
 
 def crowd_render_supported(cfg, part_textures=None, cubemap=None,
@@ -1061,11 +1097,12 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
     outlines are one more crowd raster (K5a), the double-sided materials'
     exemption is shared by the instances, and the MMD shading runs over
     the instance axis. `cubemap` and `mmd_maps` as render_frame takes
-    them. -> [I,H,W,3]."""
+    them; `uv_offsets` [I, V, 2] and `part_color` = (mul, add) [I, P, 3]
+    each are the instances' own extended morphs. -> [I,H,W,3]."""
     from ..ops.tiled_raster import (rasterize_attrs_tiled_crowd,
                                     rasterize_attrs_tiled_msaa_crowd,
                                     rasterize_depth_tiled_crowd)
-    _check_slice(cfg, uv_offsets, part_color, None)
+    _check_slice(cfg, None)
     if not crowd_render_supported(cfg):
         raise NotImplementedError("msaa_supersample")
     dev = positions_mmd.device
@@ -1081,6 +1118,9 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
     uvs = None
     if part_textures is not None:
         uvs = static.uvs.expand((n_inst,) + static.uvs.shape)
+        if uv_offsets is not None:
+            with pass_scope("morphs"):
+                uvs = static.uvs + uv_offsets     # per-instance UV morphs
         attrs = torch.cat([normals, uvs], -1)
 
     # per-corner vertex tables shared by the shadow and character rasters:
@@ -1133,4 +1173,5 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
                                           attr_px[..., 3:5], part_textures,
                                           atlas)
     return _composite(cfg, mats, static, color, vis, world_px, nrm_px,
-                      albedo, sdepth, ground_depth, mmd_maps, edges)
+                      albedo, sdepth, ground_depth, mmd_maps, edges,
+                      part_color)

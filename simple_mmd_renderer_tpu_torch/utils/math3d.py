@@ -208,3 +208,39 @@ def affine(rot3=None, trans=None):
     if trans is not None:
         m[..., :3, 3] = trans
     return m
+
+
+def mat3_to_quat(m):
+    """Rotation matrix [..., 3, 3] -> quaternion (x, y, z, w).
+
+    The branchless 4-branch conversion (largest of trace / diagonal): all
+    four candidate quaternions are computed and the one with the largest
+    pivot is selected with `torch.where`, so rotations near 180 deg stay
+    stable and no branch reads a value on the host (SDEF runs inside the
+    captured step)."""
+    m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    # pivot magnitudes: 4w^2, 4x^2, 4y^2, 4z^2
+    pw = 1.0 + m00 + m11 + m22
+    px = 1.0 + m00 - m11 - m22
+    py = 1.0 - m00 + m11 - m22
+    pz = 1.0 - m00 - m11 + m22
+    sw = torch.sqrt(torch.clamp(pw, min=1e-12))
+    sx = torch.sqrt(torch.clamp(px, min=1e-12))
+    sy = torch.sqrt(torch.clamp(py, min=1e-12))
+    sz = torch.sqrt(torch.clamp(pz, min=1e-12))
+    a21 = m[..., 2, 1] - m[..., 1, 2]
+    a02 = m[..., 0, 2] - m[..., 2, 0]
+    a10 = m[..., 1, 0] - m[..., 0, 1]
+    s01 = m[..., 0, 1] + m[..., 1, 0]
+    s02 = m[..., 0, 2] + m[..., 2, 0]
+    s12 = m[..., 1, 2] + m[..., 2, 1]
+    qw = torch.stack([a21, a02, a10, sw * sw], -1) / (2.0 * sw[..., None])
+    qx = torch.stack([sx * sx, s01, s02, a21], -1) / (2.0 * sx[..., None])
+    qy = torch.stack([s01, sy * sy, s12, a02], -1) / (2.0 * sy[..., None])
+    qz = torch.stack([s02, s12, sz * sz, a10], -1) / (2.0 * sz[..., None])
+    best = torch.argmax(torch.stack([pw, px, py, pz], -1), -1)[..., None]
+    q = torch.where(best == 0, qw,
+                    torch.where(best == 1, qx, torch.where(best == 2, qy, qz)))
+    # canonical sign (w >= 0) keeps blends of nearby rotations consistent
+    q = torch.where(q[..., 3:4] < 0.0, -q, q)
+    return quat_normalize(q)

@@ -18,8 +18,8 @@ def pass_scope(name: str):
 
 # the sim and render passes' labels, in frame order
 PASSES = ("anim", "pre_physics", "physics", "post_physics", "deform",
-          "shadow", "skybox", "ground", "edges", "character", "albedo",
-          "mmd", "shade")
+          "morphs", "shadow", "skybox", "ground", "edges", "character",
+          "albedo", "mmd", "shade")
 
 # the host calls that put work on the card: kernel launches (the runtime's
 # and the driver's), graph launches, copies and fills

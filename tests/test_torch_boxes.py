@@ -41,6 +41,8 @@ from test_torch_raster import _random_mesh
 from torch_box_meshes import (KINDS, boxed_bins, screen_setup,
                               screen_triangles)
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 SIZES = [(256, 144), (320, 192)]
 SIZE_IDS = ["256x144", "320x192"]
 WHOLE = 2 ** 15 - 1     # last column / row of a box that spans the range

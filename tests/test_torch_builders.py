@@ -33,6 +33,8 @@ from simple_mmd_renderer_tpu_torch.core import anim, model, physics
 from simple_mmd_renderer_tpu_torch.formats import pmx, vmd, writers
 from simple_mmd_renderer_tpu_torch.ops import skinning
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 
 def _assert_same(a, b, path="root"):
     """Deep equality: arrays by np.array_equal (dtype too), dataclasses

@@ -56,6 +56,8 @@ from simple_mmd_renderer_tpu_torch.utils.graph import tree_leaves
 
 from test_torch_slice import _ik_driven_bodies
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 W, H, FRAMES = 64, 48, 3
 
 

@@ -29,6 +29,8 @@ from simple_mmd_renderer_tpu_torch.render import raster
 
 from test_torch_raster import BIG, _random_mesh
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 W, H = 256, 128
 
 

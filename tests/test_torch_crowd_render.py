@@ -32,6 +32,8 @@ from simple_mmd_renderer_tpu_torch.render import pipeline
 
 from test_torch_crowd_step import port_scene, ref_scene
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 N = 3
 
 
@@ -111,8 +113,6 @@ def test_crowd_render_frame_equals_render_frame_per_instance(posed):
 @pytest.mark.parametrize("option,kw,cfg_kw", [
     ("msaa_supersample", {}, dict(msaa=4, msaa_supersample=True)),
     ("camera_orthographic", {}, dict(camera_orthographic=True)),
-    ("uv_offsets", dict(uv_offsets=object()), {}),
-    ("part_color", dict(part_color=(None, None)), {}),
     ('raster_mode="scan"', {}, dict(raster_mode="scan")),
 ])
 def test_crowd_options_outside_the_slice_raise(posed, option, kw, cfg_kw):

@@ -26,6 +26,8 @@ from simple_mmd_renderer_tpu_torch.render import pipeline
 from test_torch_crowd_render import N, _assert_frames_close
 from test_torch_crowd_step import port_scene, ref_scene
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 
 @pytest.mark.parametrize("msaa", [1, 4])
 def test_crowd_step_fn_end_to_end_two_frames(msaa):

@@ -54,6 +54,8 @@ from simple_mmd_renderer_tpu_torch.parallel import mesh as par
 
 from test_torch_slice import _ik_driven_bodies
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 
 def ref_scene(width=128, height=64, **render):
     static = M.build_model(sample_character(density=0.25))

@@ -23,7 +23,10 @@ K1's over 32-row bins of the same mesh. K3 runs at sizes whose rows are
 and are not a multiple of four columns, on maps at an unaligned base too.
 The raster kernels also run at five attributes (the UVs riding the raster
 as attributes 3-4), and textured frames (single and crowd) on the card
-must match the CPU's within the image tolerance.
+must match the CPU's within the image tolerance. The content rig of
+chip_smoke.py (SDEF vertices, a UV and a material morph) with `sdef_true`
+and the extended morphs on: its compiled step replays the eager step's
+bits, and its frames on the card match the CPU's.
 """
 
 import dataclasses
@@ -1028,6 +1031,89 @@ def test_full_look_frames_on_the_card_match_the_cpu(cuda, kind):
                 assert k5a == (2 if msaa == 4 else 4) and k2 == 0
             else:
                 assert k2 == (2 if msaa == 4 else 4) and k5a == 0
+        out[dev] = images.cpu().numpy()
+    d = np.abs(out["cuda"] - out["cpu"])
+    assert (d > 0.02).mean() < 2e-3 and d.mean() < 1 / 255
+
+
+def _content_scene(device, density, *args, **kw):
+    """A scene of chip_smoke's content rig (SDEF vertices, a UV and a
+    material morph, through write_pmx and parse_pmx) at `density` on
+    `content_motion(12, 2)` (both morphs well above 0 from frame 1), with
+    `sdef_true` and the extended morphs on."""
+    import chip_smoke
+
+    return chip_smoke.build_content(None, density, *args, device=device,
+                                    n_frames=12, fps_keys=2, **kw)
+
+
+@pytest.mark.parametrize("kind", ["single", "crowd"])
+def test_content_step_replays_equal_eager_steps(cuda, kind):
+    """The content rig's step with `sdef_true` captured and replayed 4
+    times under torch.cuda.set_sync_debug_mode("error"): the eager step's
+    bits, every state leaf, pose field, position and normal; the single
+    rig at density 2.0, 64 instances of it at 0.5."""
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+    from simple_mmd_renderer_tpu_torch.utils.graph import (sync_errors,
+                                                           tree_leaves)
+
+    if kind == "single":
+        scene = _content_scene("cuda", 2.0)
+        state = scene.init_state()
+    else:
+        scene = _content_scene("cuda", 0.5, 256, 144, 256)
+        state = mesh.crowd_init(scene, 64)
+    assert scene.rig.n_sdef > 0 and scene.config.sdef_true
+    eager, s = [], state
+    for _ in range(4):
+        eager.append(scene.step_pose(s))
+        s = eager[-1][0]
+    step = scene.jit_step(render=False)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    with sync_errors():
+        s = state
+        for want in eager:
+            got = step(s)
+            for a, b in zip(tree_leaves(got), tree_leaves(want),
+                            strict=True):
+                bad += (a != b).sum()
+            s = got[0]
+    assert int(bad) == 0
+
+
+@pytest.mark.parametrize("kind", ["single-msaa1", "single-msaa4",
+                                  "crowd-msaa1", "crowd-msaa4"])
+def test_content_frames_on_the_card_match_the_cpu(cuda, kind):
+    """Two textured frames of the content rig (SDEF, UV and material
+    morphs) on the card and on the CPU (plain versions) within the image
+    tolerance; the morphs move the card's frame."""
+    import copy
+
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+
+    crowd = kind.startswith("crowd")
+    msaa = 4 if kind.endswith("4") else 1
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = _content_scene(dev, 0.25 if crowd else 0.5, 128,
+                               64 if crowd else 96, 64, solver_iterations=4,
+                               textures=(64, 16), msaa=msaa)
+        plain = copy.copy(scene)
+        plain.config = dataclasses.replace(scene.config,
+                                           apply_extended_morphs=False)
+        if crowd:
+            state, step = mesh.crowd_init(scene, 3), mesh.crowd_step_fn(scene)
+            for _ in range(2):
+                state, images = step(state)
+            off = mesh.crowd_step_fn(plain)(state)[1]
+            images = step(state)[1]
+        else:
+            state = scene.init_state()
+            for _ in range(2):
+                state, images = scene.step_and_render(state)
+            off = plain.step_and_render(state)[1]
+            images = scene.step_and_render(state)[1]
+        assert float((images - off).abs().max()) > 0.05
         out[dev] = images.cpu().numpy()
     d = np.abs(out["cuda"] - out["cpu"])
     assert (d > 0.02).mean() < 2e-3 and d.mean() < 1 / 255

@@ -30,6 +30,8 @@ from simple_mmd_renderer_tpu_torch.app.sample import sample_equirect
 from simple_mmd_renderer_tpu_torch.formats import hdr
 from simple_mmd_renderer_tpu_torch.render import ibl, pipeline
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 SHARE = 1e-3      # the most texels or pixels that may pick another texel
 
 

@@ -40,6 +40,8 @@ from simple_mmd_renderer_tpu_torch.render import pipeline
 from test_torch_mmd_look import (CHANGED, OPTIONS, H, W, assert_frames_close,
                                  cfg_kw, changed, look_inputs)
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 N = 2
 
 
@@ -146,9 +148,7 @@ def test_crowd_options_outside_the_slice_still_raise(crowd):
     _, _, _, scene, _, pos, nrm = crowd
     cfg = _port_cfg(scene, OPTIONS, 1)
     for option, kw, c in (
-            ("part_color", dict(part_color=(None, None)), cfg),
-            ("uv_offsets", dict(uv_offsets=object()), cfg),
             ("msaa_supersample", {},
-             dataclasses.replace(cfg, msaa=4, msaa_supersample=True))):
+             dataclasses.replace(cfg, msaa=4, msaa_supersample=True)),):
         with pytest.raises(NotImplementedError, match=option):
             pipeline.crowd_render_frame(scene.rig, pos, nrm, c, **kw)

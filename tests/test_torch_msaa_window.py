@@ -35,6 +35,8 @@ from simple_mmd_renderer_tpu_torch.render import pipeline, raster
 
 from test_torch_raster import _assert_vis_equal, _random_mesh, _with_big
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 CULLS = [raster.CULL_NONE, raster.CULL_BACK, raster.CULL_FRONT]
 
 

@@ -17,6 +17,8 @@ from simple_mmd_renderer_tpu.render import shade as ref_shade
 from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
 from simple_mmd_renderer_tpu_torch.render import camera, pipeline, shade
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 
 def _light_vp():
     """A plausible ortho light VP (as tests/test_render.py's PCF test)."""

@@ -26,6 +26,8 @@ from simple_mmd_renderer_tpu.formats import pmx as P
 from simple_mmd_renderer_tpu_torch.core import physics, pose
 from simple_mmd_renderer_tpu_torch.core.model import ModelTables
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 LEAVES = ("pos", "quat", "vel", "omega")
 POSE_FIELDS = ("world", "skin", "total_rot", "total_trans", "pre_ik_rot",
                "ik_rot", "vertex_offsets", "leaf_rates")

@@ -31,6 +31,8 @@ from simple_mmd_renderer_tpu_torch.core.model import ModelTables
 from simple_mmd_renderer_tpu_torch.utils import bezier
 from simple_mmd_renderer_tpu_torch.utils import math3d as m3
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 POSE_FIELDS = ("world", "skin", "total_rot", "total_trans", "pre_ik_rot",
                "ik_rot", "vertex_offsets", "leaf_rates")
 

@@ -25,6 +25,8 @@ from simple_mmd_renderer_tpu.render import raster as ref_raster
 from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 from simple_mmd_renderer_tpu_torch.render import raster
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 CULLS = [raster.CULL_NONE, raster.CULL_BACK, raster.CULL_FRONT]
 BIG = np.array([[-3, -3, 0.95, 1], [3, -3, 0.95, 1], [0, 3, 0.95, 1]],
                np.float32)

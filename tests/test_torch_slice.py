@@ -36,6 +36,8 @@ import jax
 from simple_mmd_renderer_tpu_torch import convert
 from simple_mmd_renderer_tpu_torch.core.scene import Scene
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -110,8 +112,12 @@ def test_port_runs_without_jax():
     at msaa=4 with the windowed shadow map and one textured with a mip
     chain and the full look (skybox, edges, a double-sided part, the MMD
     maps), and a crowd of two through `parallel.mesh` at msaa=1 and 4 and
-    textured: the card's machine has no JAX, and the port keeps its own
-    copies of the host modules."""
+    textured; and the content rig (`chip_smoke.content_rig`: SDEF, UV and
+    material morphs, through `write_pmx` and `parse_pmx`) with `sdef_true`
+    and the extended morphs on, one frame and a crowd of two, and the
+    sample character read back from PMD bytes with a VPD pose (the
+    `models` index's readers): the card's machine has no JAX, and the port
+    keeps its own copies of the host modules."""
     code = textwrap.dedent(f"""
         import importlib.util
         import sys
@@ -176,6 +182,29 @@ def test_port_runs_without_jax():
         state, images = mesh.crowd_step_fn(scene)(mesh.crowd_init(scene, 2))
         assert bool(torch.isfinite(images).all())
         print("textured crowd", float(images.mean()))
+
+        from simple_mmd_renderer_tpu_torch import models
+        from simple_mmd_renderer_tpu_torch.formats.vpd import parse_vpd
+        pm, n_sdef = chip_smoke.content_rig(0.25)
+        scene = build_sample_scene(0.25, 64, 48, 64, "cpu", fps_keys=10,
+                                   solver_iterations=2, textures=(16, 8),
+                                   pmx=pm,
+                                   vmd=chip_smoke.content_motion(30, 10),
+                                   sdef_true=True, extended_morphs=True)
+        assert scene.rig.n_sdef == n_sdef > 0
+        state, image = scene.step_and_render(scene.init_state())
+        state, images = mesh.crowd_step_fn(scene)(mesh.crowd_init(scene, 2))
+        assert bool(torch.isfinite(image).all() & torch.isfinite(images).all())
+        print("content", float(image.mean()), float(images.mean()))
+        pm = models.parse_pmd(chip_smoke.pmd_bytes(
+            models.sample_character(0.25)))
+        pose = parse_vpd("Vocaloid Pose Data file\\n\\nBone0{{左腕\\n"
+                         "0,0,0;\\n0,0,0.3,0.95;\\n}}\\n".encode("cp932"))
+        scene = build_sample_scene(0.25, 64, 48, 64, "cpu",
+                                   solver_iterations=2, pmx=pm, vmd=pose)
+        state, image = scene.step_and_render(scene.init_state())
+        assert bool(torch.isfinite(image).all())
+        print("pmd + vpd", float(image.mean()))
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -185,6 +214,7 @@ def test_port_runs_without_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.count("rendered") == 3
     assert res.stdout.count("crowd") == 3
+    assert "content" in res.stdout and "pmd + vpd" in res.stdout
 
 
 def _imported_modules(tree):
@@ -214,8 +244,11 @@ def test_port_imports_nothing_of_the_reference():
     assert os.path.join(REPO, "scripts", "profile_torch_frame.py") in scripts
     files += [os.path.join(REPO, "chip_smoke.py")] + scripts
     assert len(files) > 20
-    assert os.path.join(REPO, "simple_mmd_renderer_tpu_torch", "parallel",
-                        "mesh.py") in files
+    for module in (("parallel", "mesh.py"), ("formats", "pmd.py"),
+                   ("formats", "vpd.py"), ("formats", "writers.py"),
+                   ("models", "__init__.py")):
+        assert os.path.join(REPO, "simple_mmd_renderer_tpu_torch",
+                            *module) in files
     seen = set()
     for path in files:
         with open(path, encoding="utf-8") as f:

@@ -24,6 +24,8 @@ from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 
 from test_torch_slice import compare_slice
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 
 def _reference_scene(width, height, shadow, **render):
     from __graft_entry__ import _build_scene

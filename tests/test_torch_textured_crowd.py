@@ -36,6 +36,8 @@ from test_torch_crowd_step import port_scene, ref_scene
 from test_torch_textured_slice import (TEXTURES, _assert_frames_close,
                                        _model, _port_cfg)
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 
 @pytest.fixture(scope="module")
 def crowd_model():

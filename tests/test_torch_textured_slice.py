@@ -39,6 +39,8 @@ from simple_mmd_renderer_tpu_torch.core.scene import Scene
 from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 from simple_mmd_renderer_tpu_torch.render import pipeline
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 TEXTURES = (64, 16)
 
 
@@ -241,8 +243,6 @@ def test_scene_packed_atlas_cache(scenes):
 
 
 @pytest.mark.parametrize("option,kw,cfg_kw", [
-    ("part_color", dict(part_color=(None, None)), {}),
-    ("uv_offsets", dict(uv_offsets=object()), {}),
     ("proj_transform", dict(proj_transform=object()), {}),
     ('raster_mode="scan"', {}, dict(raster_mode="scan")),
     ("camera_orthographic", {}, dict(camera_orthographic=True)),

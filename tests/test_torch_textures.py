@@ -34,6 +34,8 @@ from simple_mmd_renderer_tpu_torch.core.model import ModelTables
 from simple_mmd_renderer_tpu_torch.formats import textures
 from simple_mmd_renderer_tpu_torch.render import pipeline
 
+import torch_threads  # noqa: F401  (the port's tests' thread cap)
+
 N_PARTS = 3
 
 
