@@ -22,7 +22,10 @@ thigh and shin BDEF2 vertices made SDEF, a UV morph on part 0 and a
 material morph on part 1, written and read back as PMX) on
 `content_motion` with `sdef_true` and `apply_extended_morphs` on: the
 textured msaa=4 + window frame at 1920x1080 (K6, K4, K3) and the light
-crowd at msaa=4 (K5c, K5b, K3).
+crowd at msaa=4 (K5c, K5b, K3). The CLI path runs `app.cli.main` on the
+written sample character with VMD camera and light tracks at 1920x1080
+(K1, K2, K3 at msaa=1; K1, K4, K3 at msaa=4), perspective and
+orthographic frames.
 
 Phases (each prints its own line; any failure raises and exits nonzero):
 
@@ -126,22 +129,47 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    crowd of 4 at msaa=1 and at msaa=4, untextured, textured, with the
    full look and of the content rig.
 
+8. cli: the command-line renderer (`app.cli`, `check_cli`) on the sample
+   character at density 2.0 written as PMX (`cli_files`) and a VMD of the
+   sample motion's bone keys with a camera track (an orbit, a fov change,
+   frames 4-6 orthographic) and a turning light (`cli_vmd`), with
+   --use-camera --use-light at 1920x1080, shadow 2048^2: the seek captured
+   once as a CUDA graph against the eager seek, bit for bit (capture
+   seconds, replay and eager ms); the tracks' sampling, the frame config
+   and build_matrices under sync debug mode "error"; every kernel call of
+   frame 1 (perspective) and of frame 5 (orthographic) against its plain
+   version; `cli.main` for CLI_FRAMES frames at msaa=1 with PNGs, a
+   checkpoint and a trace, again without output, and at msaa=4 (K1, K4,
+   K3: the CLI has no shadow_window flag), each printing the CLI's own
+   "frames in s -> fps" line beside nvidia-smi's name and power limit,
+   every launch counter reset just before the run and read just after;
+   CLI_RESUME_AT frames, --save-state, then --resume for the rest equal to
+   the uninterrupted run bit for bit (PNGs and state); the PNGs decoded
+   (`png_pixels`) equal to the frames' uint8 arrays; the trace's pass
+   labels; and card-vs-CPU frames (256x192 and an orthographic frame;
+   a crowd of 4 with the camera track, rendered instance by instance).
+
 The line before the last is the kernels' JSON record (`launches`: every
 kernel's launches summed over the timed compiled segments of every main
-path, each counted from 0 just before its segment); the last line is
-{"ok": true, "device": {...}}.
+path and over the CLI's runs, each counted from 0 just before its
+segment or run); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
+import io
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -306,6 +334,53 @@ def content_motion(n_frames=240, fps_keys=5):
     motion.morph_tracks.update(parse_vmd(write_vmd("content", [],
                                                    keys)).morph_tracks)
     return motion
+
+
+# the CLI phase's camera track: an orbit (yaw -0.6 -> 0.8 rad), a fov
+# change (30 -> 45 degrees) and a "perspective off" range (frames 4-6)
+CLI_CAMERA = [dict(frame=f, focal_length=-30.0 - f, position=(0.0, 11.0, 0.0),
+                   rotation=(0.1, -0.6 + 0.1167 * f, 0.0),
+                   fov=30.0 + 1.25 * f, orthographic=4 <= f <= 6)
+              for f in (0, 3, 4, 6, 7, 12)]
+# its light track: the light turns from front-left to back-right and warms
+CLI_LIGHT = [dict(frame=0, color=(1.0, 1.0, 1.0), direction=(-0.5, -1.0, 0.3)),
+             dict(frame=8, color=(1.0, 0.8, 0.6), direction=(0.2, -1.0, 0.0)),
+             dict(frame=16, color=(0.9, 0.6, 0.4),
+                  direction=(0.6, -0.8, -0.4))]
+
+
+def cli_vmd(n_frames=240, fps_keys=5) -> bytes:
+    """VMD bytes of `sample_motion(n_frames, fps_keys)`'s bone keys (their
+    Bezier bytes as written), the camera track CLI_CAMERA and the light
+    track CLI_LIGHT, through the port's `write_vmd`."""
+    from simple_mmd_renderer_tpu_torch.app.sample import sample_motion
+    from simple_mmd_renderer_tpu_torch.formats.writers import write_vmd
+
+    motion = sample_motion(n_frames, fps_keys=fps_keys)
+    keys = []
+    for name, t in motion.bone_tracks.items():
+        interp = np.rint(np.concatenate([t.c0, t.c1], -1) * 127)
+        keys += [(name, int(f), t.translations[k], t.rotations[k],
+                  interp[k].astype(np.int8))
+                 for k, f in enumerate(t.frames)]
+    return write_vmd("cli", keys, camera_keys=CLI_CAMERA,
+                     light_keys=CLI_LIGHT)
+
+
+def cli_files(directory, density=DENSITY) -> tuple[str, str]:
+    """The CLI phase's inputs written into `directory`: the sample
+    character at `density` as PMX (`write_pmx`) and `cli_vmd()` ->
+    (pmx path, vmd path)."""
+    from simple_mmd_renderer_tpu_torch.app.sample import sample_character
+    from simple_mmd_renderer_tpu_torch.formats.writers import write_pmx
+
+    pmx = os.path.join(directory, f"sample_{density}.pmx")
+    vmd = os.path.join(directory, "dance.vmd")
+    with open(pmx, "wb") as f:
+        f.write(write_pmx(sample_character(density=density)))
+    with open(vmd, "wb") as f:
+        f.write(cli_vmd())
+    return pmx, vmd
 
 
 def pmd_bytes(pm) -> bytes:
@@ -1265,8 +1340,9 @@ def pass_profile(paths, n=3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _, pose, positions, normals in frames:
-                scene._render(pose, positions, normals, None, None)
+            for state, pose, positions, normals in frames:
+                scene._render(state.time, pose, positions, normals, None,
+                              None)
             torch.cuda.synchronize()
         averages = prof.key_averages()
         events = prof.events()
@@ -1974,6 +2050,251 @@ def check_pmd_vpd():
         raise AssertionError("the VPD pose does not hold")
 
 
+CLI_FRAMES, CLI_RESUME_AT = 8, 3
+
+
+def cli_run(argv) -> list[str]:
+    """`app.cli.main(argv)` on the card with its output kept -> its
+    lines (it must return 0)."""
+    from simple_mmd_renderer_tpu_torch.app import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}: {buf.getvalue()}")
+    return buf.getvalue().splitlines()
+
+
+def png_pixels(path) -> np.ndarray:
+    """The [H,W,3] uint8 pixels of an 8-bit RGB PNG whose rows all use
+    filter 0 (what `utils/png.encode_png` writes)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            if (depth, ctype) != (8, 2):
+                raise AssertionError(f"{path}: not 8-bit RGB")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+    h, w = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def sim_leaves(state) -> list:
+    return [state.time] + [getattr(state.physics, f.name)
+                           for f in dataclasses.fields(state.physics)]
+
+
+def check_cli_seek(scene):
+    """The captured seek (its capture seconds, the scene's first seek, and
+    replay ms) against the eager one (ms), bit for bit at three times; a
+    seek after playback equals a seek from a fresh state bit for bit."""
+    fresh = scene.init_state()
+    t0 = time.perf_counter()
+    scene.seek(fresh, 0.5)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replay = cuda_ms(lambda: scene.seek(fresh, 0.5), 10)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        scene.seek(fresh, 0.5, compiled=False)
+    torch.cuda.synchronize()
+    eager = 500.0 * (time.perf_counter() - t0)
+    bad = 0
+    for t in (0.1, 0.5, 2.0):
+        got, want = scene.seek(fresh, t), scene.seek(fresh, t, compiled=False)
+        bad += sum(mismatches(a, b) for a, b in zip(sim_leaves(got),
+                                                    sim_leaves(want)))
+    step = scene.jit_step(render=False, donate=False)
+    s = fresh
+    for _ in range(3):
+        s = step(s)[0]
+    scrub = sum(mismatches(a, b) for a, b in zip(
+        sim_leaves(scene.seek(s, 0.5)), sim_leaves(scene.seek(fresh, 0.5))))
+    log(f"cli: seek captured in {capture_s:.3f} s, replay {replay:.3f} ms "
+        f"(CUDA events, with the fill and the copies out), eager "
+        f"{eager:.3f} ms (host clock); captured vs eager mismatches {bad}, "
+        f"after playback vs fresh {scrub}")
+    if bad or scrub:
+        raise AssertionError("the captured seek disagrees")
+
+
+def check_cli_sync(scene):
+    """The tracks' sampling, the frame config and build_matrices with the
+    tensor ortho flag under sync debug mode "error"."""
+    from simple_mmd_renderer_tpu_torch.render import camera_anim, pipeline
+    from simple_mmd_renderer_tpu_torch.utils.graph import sync_errors
+
+    state = scene.seek(scene.init_state(), 4 / 30)
+    dev = torch.device("cuda")
+    with sync_errors():
+        frame = state.time * scene.config.fps
+        camera_anim.sample_camera(scene.camera, frame)
+        camera_anim.sample_light(scene.light, frame)
+        cfg = scene.frame_config(state.time)
+        pipeline.build_matrices(cfg, device=dev)
+    if not (isinstance(cfg.camera_orthographic, torch.Tensor)
+            and bool(cfg.camera_orthographic)):
+        raise AssertionError("frame 4 is not orthographic")
+    log("cli: sample_camera, sample_light, frame_config and build_matrices "
+        "(tensor ortho flag) ran under sync debug mode \"error\"")
+
+
+def cli_parity(tmp, density, size, crowd=0):
+    """The CLI's Scene of `cli_files(tmp, density)` at `size` on the card
+    and on the CPU: 2 frames (a crowd of `crowd` with the camera track:
+    the per-instance fallback), then an orthographic frame (seek to 4/30
+    s) of the single scene, each within the image tolerance."""
+    from simple_mmd_renderer_tpu_torch.app import cli
+
+    pmx, vmd = cli_files(tmp, density)
+    args = cli.parse_args([pmx, vmd, "--use-camera", "--use-light",
+                           "--width", str(size[0]), "--height", str(size[1]),
+                           "--shadow-size", "256"])
+    imgs = {}
+    for dev in ("cuda", "cpu"):
+        scene = cli.build_scene(args, torch.device(dev))
+        scene.config.physics.solver_iterations = 4
+        if crowd:
+            step, state = crowd_step_fn(scene), crowd_init(scene, crowd)
+        else:
+            step, state = scene.step_and_render, scene.init_state()
+        reset_counters()
+        for _ in range(2):
+            state, image = step(state)
+        counts = read_counters()
+        frames = [image.cpu().numpy()]
+        if not crowd:
+            frames.append(step(scene.seek(state, 4 / 30))[1].cpu().numpy())
+        want = {k: (2 * max(crowd, 1) if dev == "cuda" else 0) * n
+                for k, n in path_kernels(scene.config.render).items()}
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"cli parity on {dev}: launches {counts}")
+        imgs[dev] = frames
+    for i, (a, b) in enumerate(zip(imgs["cuda"], imgs["cpu"])):
+        d = np.abs(a - b)
+        frac, mad = float((d > 0.02).mean()), float(d.mean())
+        what = (f"crowd of {crowd}, frame 2" if crowd else
+                ("frame 2" if i == 0 else "orthographic frame 5"))
+        log(f"parity (cli: camera and light tracks, {what}): "
+            f"{size[0]}x{size[1]}, density {density}, card vs CPU: "
+            f"|d|>0.02 fraction {frac:.3g}, mean abs diff {mad:.3g}")
+        if not (frac < 2e-3 and mad < 1 / 255):
+            raise AssertionError("card and CPU CLI frames disagree")
+
+
+def check_cli(smi: str):
+    """The command-line renderer (`app.cli`) at the flagship's widths: the
+    sample character at density 2.0 written as PMX and `cli_vmd()` (bone
+    keys, an orbiting camera with a fov change and an orthographic range,
+    a turning light), with --use-camera --use-light at 1920x1080, shadow
+    2048^2. The seek captured vs eager; the sampling under sync debug mode
+    "error"; every kernel call of a perspective frame 1 and of an
+    orthographic frame against its plain version (`check_calls`);
+    CLI_FRAMES frames at msaa=1 with PNGs, a checkpoint and a trace (then
+    again without output, timed) and at msaa=4, every launch counter reset
+    just before each run and read just after; the PNGs decoded equal to
+    the frames' uint8 arrays; CLI_RESUME_AT frames, --save-state, then
+    --resume for the rest, equal to the run of CLI_FRAMES bit for bit;
+    the trace holds the pass labels; small frames card vs CPU."""
+    from simple_mmd_renderer_tpu_torch.app import cli
+    from simple_mmd_renderer_tpu_torch.utils.profiling import (PASSES,
+                                                               TRACE_FILE)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pmx, vmd = cli_files(tmp)
+        base = [pmx, vmd, "--use-camera", "--use-light", "--width",
+                str(WIDTH), "--height", str(HEIGHT), "--shadow-size",
+                str(SHADOW)]
+        scene = cli.build_scene(cli.parse_args(base), torch.device("cuda"))
+        expect = path_kernels(scene.config.render)
+        state0 = scene.init_state()
+        check_cli_seek(scene)
+        check_cli_sync(scene)
+        for label, state in (("perspective frame 1", state0),
+                             ("orthographic frame 5",
+                              scene.seek(state0, 4 / 30))):
+            ortho = scene.frame_config(
+                state.time + float(np.float32(1 / 30))).camera_orthographic
+            if bool(ortho) != label.startswith("ortho"):
+                raise AssertionError(f"{label}: orthographic {bool(ortho)}")
+            check_calls(f"cli, {label}", scene.step_and_render, state,
+                        expect)
+
+        runs = (("msaa=1, PNGs + checkpoint + trace", "a",
+                 ["--out", f"{tmp}/a", "--save-state", f"{tmp}/a.npz",
+                  "--trace", f"{tmp}/trace"]),
+                ("msaa=1, no output", "m1", []),
+                ("msaa=4, no output", "m4", ["--msaa", "4"]))
+        for label, key, extra in runs:
+            cfg = dataclasses.replace(scene.config.render,
+                                      msaa=4 if key == "m4" else 1)
+            reset_counters()
+            lines = cli_run(base + ["--frames", str(CLI_FRAMES)] + extra)
+            counts = read_counters()
+            for k, n in counts.items():
+                MAIN_LAUNCHES[k] += n
+            want = {k: CLI_FRAMES * path_kernels(cfg).get(k, 0)
+                    for k in KERNELS}
+            fps = next(line for line in lines if " frames in " in line)
+            log(f"cli ({label}): {fps}; launches {counts}; nvidia-smi: "
+                f"{smi}")
+            if counts != want:
+                raise AssertionError(f"cli ({label}) launched {counts}, "
+                                     f"expected {want}")
+        cli_run(base + ["--frames", str(CLI_RESUME_AT), "--out", f"{tmp}/b",
+                        "--save-state", f"{tmp}/b.npz"])
+        cli_run(base + ["--frames", str(CLI_FRAMES - CLI_RESUME_AT), "--out",
+                        f"{tmp}/c", "--resume", f"{tmp}/b.npz",
+                        "--save-state", f"{tmp}/c.npz"])
+        png_bad = sum(
+            not np.array_equal(
+                png_pixels(f"{tmp}/c/frame_{i:05d}.png"),
+                png_pixels(f"{tmp}/a/frame_{i + CLI_RESUME_AT:05d}.png"))
+            for i in range(CLI_FRAMES - CLI_RESUME_AT))
+        a, c = np.load(f"{tmp}/a.npz"), np.load(f"{tmp}/c.npz")
+        state_bad = [k for k in a.files if not np.array_equal(a[k], c[k])]
+        log(f"cli: {CLI_RESUME_AT} frames + --resume for "
+            f"{CLI_FRAMES - CLI_RESUME_AT} against {CLI_FRAMES} in one run: "
+            f"{png_bad} PNGs differ, state leaves differing {state_bad}")
+        if png_bad or state_bad or a.files != c.files:
+            raise AssertionError("the resumed run differs")
+
+        step, s = scene.jit_step(), scene.init_state()
+        decoded_bad = 0
+        for i in range(CLI_FRAMES):
+            s, image = step(s)
+            pixels = (image.cpu().numpy() * 255).astype(np.uint8)
+            decoded_bad += not np.array_equal(
+                png_pixels(f"{tmp}/a/frame_{i:05d}.png"), pixels)
+        with open(os.path.join(tmp, "trace", TRACE_FILE)) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        labels = sorted(n for n in PASSES if n in names)
+        log(f"cli: {CLI_FRAMES} PNGs decoded, {decoded_bad} unequal to the "
+            f"frames' uint8 arrays; trace {TRACE_FILE} holds the labels "
+            f"{labels}")
+        if decoded_bad or not {"shadow", "ground", "character",
+                               "shade"} <= set(labels):
+            raise AssertionError("the PNGs or the trace are wrong")
+        del scene, step, s, image
+        cli_parity(tmp, 0.5, (256, 192))
+        cli_parity(tmp, 0.25, (CROWD_W, CROWD_H), crowd=4)
+    log(f"cli: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2093,6 +2414,7 @@ def main() -> int:
                  pmx=content_rig(0.5)[0], **content)
     check_parity_crowd(True, label=f", {CONTENT}", pmx=content_rig(0.25)[0],
                        **content)
+    check_cli(smi)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     for name in KERNELS:

@@ -19,6 +19,10 @@ this module needs neither JAX nor the reference package:
   [6,S,S,3]) -> a float32 tensor on a device, and its `mmd_maps` tuple
   (sphere textures, sphere modes, toon ramps) -> the same tuple of NumPy
   arrays, as `Scene(cubemap=, mmd_maps=)` and `render_frame` take them.
+- `camera_arrays`, `light_arrays`: the reference's CameraArrays /
+  LightArrays (a bound VMD camera or light track) -> the port's
+  `render.camera_anim` modules on a device, as `Scene(camera=, light=)`
+  takes them.
 - `sim_state_to_torch` / `sim_state_to_numpy`: a SimState (time + the
   physics leaves pos, quat, vel, omega) into torch tensors on a device (by
   default the card, as every entry point) and back to NumPy, so a test can
@@ -41,6 +45,7 @@ from .core.anim import MotionArrays
 from .core.physics import PhysicsState, PhysicsStatic
 from .core.scene import SimState
 from .formats import pmx as _pmx
+from .render.camera_anim import CameraArrays, LightArrays
 from .render.pipeline import PackedAtlas
 from .utils.device import resolve_device
 
@@ -126,6 +131,20 @@ def mmd_maps(maps) -> tuple:
     texs, modes, ramps = maps
     return ([np.asarray(t, np.float32) for t in texs],
             np.asarray(modes, np.int32), np.asarray(ramps, np.float32))
+
+
+def camera_arrays(cam, device="cuda") -> CameraArrays:
+    """Reference CameraArrays (JAX or NumPy leaves) -> the port's on
+    `device`."""
+    return CameraArrays(*(np.asarray(getattr(cam, k)) for k in (
+        "frames", "targets", "rotations", "distances", "fovs", "ortho",
+        "luts")), device=device)
+
+
+def light_arrays(light, device="cuda") -> LightArrays:
+    """Reference LightArrays -> the port's on `device`."""
+    return LightArrays(np.asarray(light.frames), np.asarray(light.colors),
+                       np.asarray(light.directions), device=device)
 
 
 def sim_state_to_torch(state, device="cuda") -> SimState:

@@ -39,6 +39,15 @@ With `config.apply_extended_morphs` every render path (`step_and_render`,
 and material morphs at the frame's leaf rates (the replay's pose on the
 compiled paths); `config.sdef_true` deforms the SDEF vertices spherically,
 inside the captured step.
+
+A VMD camera track (`camera`, `render.camera_anim.CameraArrays`) and light
+track (`light`, `LightArrays`) are buffers of the scene, sampled on the
+device at the frame's post-step time by every render path
+(`frame_config`): the camera's eye, target, fov and orthographic flag, the
+light's colour and direction (which also steers the shadow frustum). A
+`camera_override` (eye, target, fov in metres: the live camera) takes the
+camera track's place. `seek` jumps the clock and re-seeds physics from the
+animation pose there, captured once per scene as a CUDA graph on the card.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch
 from torch import nn
 
 from ..config import AppConfig, RenderConfig
+from ..render.camera_anim import sample_camera, sample_light
 from ..render.pipeline import (build_mmd_maps, build_packed_atlas,
                                render_frame)
 from ..utils.device import resolve_device
@@ -88,7 +98,8 @@ class Scene(nn.Module):
                  motion: MotionArrays | None = None,
                  config: AppConfig | None = None,
                  part_textures: list | None = None, cubemap=None,
-                 device="cuda", mmd_maps: tuple | None = None):
+                 device="cuda", mmd_maps: tuple | None = None,
+                 camera=None, light=None):
         super().__init__()
         device = resolve_device(device)
         self.config = config if config is not None else AppConfig()
@@ -108,12 +119,18 @@ class Scene(nn.Module):
         self.phys = PhysicsTables(phys_static, device)
         self.motion = (MotionTables(motion, device) if motion is not None
                        else None)
+        # the VMD camera and light tracks (render.camera_anim.CameraArrays,
+        # LightArrays), moved by .to()
+        self.camera = camera.to(device) if camera is not None else None
+        self.light = light.to(device) if light is not None else None
         self._graphs: dict = {}      # shape_key(state) -> CapturedStep
+        self._seek = None            # the captured seek (CapturedStep)
 
     def _apply(self, fn, *args, **kwargs):
         # the graphs hold the tables' old addresses and the atlas lies on
         # the old device: moving drops them
         self._graphs.clear()
+        self._seek = None
         self._atlas_src = self._atlas = None
         self._mmd_src = self._mmd = None
         return super()._apply(fn, *args, **kwargs)
@@ -179,6 +196,39 @@ class Scene(nn.Module):
             return self._neutral_inputs(tuple(time.shape))
         frame = torch.floor(time * self.config.fps)
         return anim_mod.sample_motion(self.motion, frame)
+
+    def _seek_state(self, t, capturable: bool = False) -> SimState:
+        """The state at clock `t` (a 0-d tensor): physics re-seeded from
+        the animation pose there, velocities zero."""
+        anim_rot, anim_trans, rates = self._sample_anim(t)
+        pose = pose_mod.pre_physics_posing(self.rig, anim_rot, anim_trans,
+                                           rates, capturable)
+        return SimState(time=t.clone(),
+                        physics=phys_mod.physics_reset(self.phys, pose))
+
+    def seek(self, state: SimState, t, compiled: bool = True) -> SimState:
+        """Jump the animation clock to `t` seconds (a host number, as the
+        reference's): the sequencer scrub. A scrub discards in-flight
+        rigid-body dynamics: physics re-seeds from the animation pose at
+        the new time, as the reference's Reset does, so hair and skirts do
+        not integrate through the time discontinuity. `state` is not read.
+
+        The seek is captured once per scene as a CUDA graph (the posing's
+        fixed, masked CCD count), so an interactive scrub replays it on
+        every drag tick; on the CPU the same form runs eagerly. `t` goes
+        in by a fill: nothing is read on the host. `compiled=False` runs
+        the eager form (the CCD early exit), the same bits. Returns a
+        fresh state."""
+        t = float(np.float32(t))
+        if not compiled:
+            return self._seek_state(torch.full((), t, dtype=torch.float32,
+                                               device=self.device))
+        if self._seek is None:
+            self._seek = CapturedStep(
+                lambda tb: (tb, self._seek_state(tb, capturable=True)),
+                torch.zeros((), dtype=torch.float32, device=self.device))
+        self._seek.state.fill_(t)
+        return tree_map(torch.clone, self._seek.replay()[1])
 
     def step_pose(self, state: SimState, capturable: bool = False):
         """One animation+physics frame -> (state', pose, positions, normals)
@@ -255,15 +305,62 @@ class Scene(nn.Module):
                 part_color = pose_mod.material_morph_factors(rig, leaf_rates)
         return uv_off, part_color
 
+    def frame_config(self, time, camera_override=None) -> RenderConfig:
+        """The render config of the frame at clock `time` (the post-step
+        time, a tensor): `camera_override` = (eye, target, fov_deg) in
+        metres first (the live camera; host or device values, copied to
+        the scene's device once here), else the camera track's sample (MMD
+        units scaled to metres, with its orthographic flag); then the
+        light track's colour and direction. The tracks are sampled on the
+        device; nothing is read on the host."""
+        rcfg = self.config.render
+        dev = self.device
+        if self.camera is None and self.light is None \
+                and camera_override is None:
+            return rcfg
+        frame = time * self.config.fps
+        if camera_override is not None:
+            if any(isinstance(x, torch.Tensor) for x in camera_override):
+                eye, target, fov = (torch.as_tensor(x, dtype=torch.float32,
+                                                    device=dev)
+                                    for x in camera_override)
+            else:
+                # host values: one copy to the device for all three
+                packed = torch.as_tensor(np.concatenate(
+                    [np.asarray(x, np.float32).reshape(-1)
+                     for x in camera_override]), device=dev)
+                eye, target, fov = packed[0:3], packed[3:6], packed[6]
+            rcfg = dataclasses.replace(rcfg, camera_pos=eye,
+                                       camera_target=target,
+                                       camera_fov_deg=fov)
+        elif self.camera is not None:
+            cam = sample_camera(self.camera, frame)
+            scale = rcfg.mmd_to_meter
+            rcfg = dataclasses.replace(
+                rcfg, camera_pos=cam["eye"] * scale,
+                camera_target=cam["target"] * scale,
+                camera_fov_deg=cam["fov_deg"],
+                camera_orthographic=cam["ortho"])
+        if self.light is not None:
+            li = sample_light(self.light, frame)
+            rcfg = dataclasses.replace(rcfg, light_color=li["color"],
+                                       light_direction=li["direction"])
+        return rcfg
+
     def step_and_render(self, state: SimState, width=None, height=None,
-                        atlas=None):
-        """One frame -> (state', image [H,W,3]). Textures sample `atlas`,
-        by default the scene's own (`packed_atlas`); with
+                        camera_override=None, atlas=None,
+                        proj_transform=None, aspect=None):
+        """One frame -> (state', image [H,W,3]). The camera and light come
+        from `frame_config` (`camera_override` = (eye, target, fov_deg) in
+        metres, else the tracks, sampled at the post-step time). Textures
+        sample `atlas`, by default the scene's own (`packed_atlas`); with
         `config.apply_extended_morphs` the UV and material morphs of the
-        frame's pose apply (`extended_morphs`)."""
+        frame's pose apply (`extended_morphs`). `proj_transform` and
+        `aspect` as `render_frame` takes them."""
         state, pose, positions, normals = self.step_pose(state)
-        return state, self._render(pose, positions, normals, width, height,
-                                   atlas)
+        return state, self._render(state.time, pose, positions, normals,
+                                   width, height, atlas, camera_override,
+                                   proj_transform, aspect)
 
     def captured_step(self, state: SimState) -> CapturedStep:
         """The compiled step for states shaped like `state` (a single
@@ -283,15 +380,19 @@ class Scene(nn.Module):
         step.load(state)
         return step.replay()
 
-    def _render(self, pose, positions, normals, width, height, atlas=None):
+    def _render(self, time, pose, positions, normals, width, height,
+                atlas=None, camera_override=None, proj_transform=None,
+                aspect=None):
         if atlas is None:
             atlas = self.packed_atlas()
         uv_off, part_color = self.extended_morphs(pose.leaf_rates)
-        return render_frame(self.rig, positions, normals, self.config.render,
+        return render_frame(self.rig, positions, normals,
+                            self.frame_config(time, camera_override),
                             part_textures=self.part_textures,
                             cubemap=self.cubemap, width=width, height=height,
                             uv_offsets=uv_off, part_color=part_color,
-                            mmd_maps=self.mmd_device_maps(), atlas=atlas)
+                            mmd_maps=self.mmd_device_maps(), atlas=atlas,
+                            proj_transform=proj_transform, aspect=aspect)
 
     def jit_step(self, render: bool = True, width=None, height=None,
                  donate: bool = True):
@@ -299,7 +400,10 @@ class Scene(nn.Module):
         `step_pose` / `step_and_render`): state -> (state', pose, positions,
         normals) with `render=False`, one CUDA-graph replay; state ->
         (state', image) with `render=True`, the replay and then the eager
-        `render_frame` (on the scene's atlas, `packed_atlas`).
+        `render_frame` (on the scene's atlas, `packed_atlas`), the camera
+        and light tracks sampled at the replay's time. The rendering
+        function also takes `camera_override` = (eye, target, fov_deg) in
+        metres (the live camera), as `step_and_render` does.
 
         `donate=True` is the counterpart of the reference's buffer
         donation: the function returns the graph's own tensors (state' is
@@ -314,10 +418,11 @@ class Scene(nn.Module):
             return lambda state: keep(self.replay_step(state))
         atlas = self.packed_atlas()
 
-        def step(state):
+        def step(state, camera_override=None):
             state, pose, positions, normals = self.replay_step(state)
-            return keep(state), self._render(pose, positions, normals, width,
-                                             height, atlas)
+            return keep(state), self._render(state.time, pose, positions,
+                                             normals, width, height, atlas,
+                                             camera_override)
         return step
 
     def rollout(self, state: SimState, n_frames: int, render: bool = True,
@@ -334,8 +439,8 @@ class Scene(nn.Module):
         sums = []
         for _ in range(n_frames):
             state, pose, positions, normals = step.replay()
-            sums.append(self._render(pose, positions, normals, width,
-                                     height, atlas).mean()
+            sums.append(self._render(state.time, pose, positions, normals,
+                                     width, height, atlas).mean()
                         if render else positions.mean())
         return tree_map(torch.clone, state), torch.stack(sums)
 

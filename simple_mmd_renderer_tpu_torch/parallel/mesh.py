@@ -46,6 +46,10 @@ def crowd_init(scene: Scene, n: int, phase_frames: float = 7.0) -> SimState:
 
 _FALLBACK_NOTICED: set = set()
 
+# the render config's fields a camera or light track sets
+_TRACK_FIELDS = ("camera_pos", "camera_target", "camera_fov_deg",
+                 "camera_orthographic", "light_color", "light_direction")
+
 
 def crowd_step_fn(scene: Scene, render: bool = True, width=None,
                   height=None, atlas_arg: bool = False):
@@ -66,15 +70,22 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
     pose: [I, V, 2] offsets and [I, P, 3] factors), under the reference's
     static gate.
 
+    With a VMD camera track (`scene.camera`) the crowd leaves the fused
+    frame for the per-instance one, as the reference's does, each instance
+    rendered with its own clock's camera and light samples
+    (`Scene.frame_config`). The fused frame does not read a light track:
+    the reference's fused step passes the scene's render config as it is,
+    and so does this one.
+
     Posing and physics always run batched, as one replay of the scene's
     compiled step on the crowd state (`Scene.jit_step(render=False,
     donate=False)`; on a CPU scene the same capturable step, eagerly). Its
     outputs are copies, so that steps of several crowds may share the
     scene's graph. Rendering goes through the
     fused multi-instance frame when the config allows it
-    (`crowd_render_supported`); the supersampled MSAA, which it does not
-    cover, renders instance by instance through `render_frame`, with a
-    one-line notice once per process."""
+    (`crowd_render_supported`); the supersampled MSAA and a camera track,
+    which it does not cover, render instance by instance through
+    `render_frame`, with a one-line notice once per process."""
     pose_step = scene.jit_step(render=False, donate=False)
     if not render:
         return pose_step
@@ -88,7 +99,7 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
     def bind(step):
         return step if atlas_arg else (lambda state: step(state, own))
 
-    if crowd_render_supported(cfg_r):
+    if crowd_render_supported(cfg_r, camera=scene.camera):
         def step(state, atlas=None):
             state, pose, positions, normals = pose_step(state)
             uv_off, part_color = scene.extended_morphs(pose.leaf_rates)
@@ -101,6 +112,7 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
 
     reasons = [r for r, on in (
         ("msaa_supersample", bool(cfg_r.msaa >= 4 and cfg_r.msaa_supersample)),
+        ("vmd_camera", scene.camera is not None),
         ("scan_raster", cfg_r.raster_mode == "scan"),
     ) if on]
     key = tuple(reasons)
@@ -113,8 +125,17 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
     def step_fallback(state, atlas=None):
         state, pose, positions, normals = pose_step(state)
         uv_off, part_color = scene.extended_morphs(pose.leaf_rates)
+        # the tracks sampled once at every instance's clock ([I] leading)
+        batched = scene.frame_config(state.time)
+        sampled = [f for f in _TRACK_FIELDS
+                   if getattr(batched, f) is not getattr(cfg_r, f)]
+
+        def instance_cfg(i):
+            return dataclasses.replace(
+                batched, **{f: getattr(batched, f)[i] for f in sampled})
         images = torch.stack([
-            render_frame(scene.rig, positions[i], normals[i], cfg_r,
+            render_frame(scene.rig, positions[i], normals[i],
+                         instance_cfg(i),
                          part_textures=textures, width=width, height=height,
                          atlas=atlas,
                          uv_offsets=None if uv_off is None else uv_off[i],

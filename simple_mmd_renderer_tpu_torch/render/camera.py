@@ -2,7 +2,9 @@
 space, zero-to-one clip depth, column-vector convention.
 
 Port of `simple_mmd_renderer_tpu/render/camera.py`. Scalars may be Python
-numbers or 0-d tensors; matrices are float32 on `device`.
+numbers or 0-d tensors; matrices are float32 on `device`, built by fills
+and device copies (a host scalar assigned into a device tensor would be
+copied from the host and synchronise).
 """
 
 from __future__ import annotations
@@ -16,28 +18,36 @@ def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _put(m, idx, value):
+    """m[idx] = value: a device copy for a tensor, a fill for a number."""
+    if isinstance(value, torch.Tensor):
+        m[idx] = value
+    else:
+        m[idx].fill_(value)
+
+
 def perspective(fov_y_rad, aspect, near, far, device=None):
     """HMM_Perspective_RH_ZO."""
     f = 1.0 / torch.tan(_f32(fov_y_rad, device) / 2.0)
     m = torch.zeros((4, 4), dtype=torch.float32, device=device)
-    m[0, 0] = f / aspect
-    m[1, 1] = f
-    m[2, 2] = far / (near - far)
-    m[2, 3] = near * far / (near - far)
-    m[3, 2] = -1.0
+    _put(m, (0, 0), f / aspect)
+    _put(m, (1, 1), f)
+    _put(m, (2, 2), far / (near - far))
+    _put(m, (2, 3), near * far / (near - far))
+    _put(m, (3, 2), -1.0)
     return m
 
 
 def orthographic(left, right, bottom, top, near, far, device=None):
     """HMM_Orthographic_RH_ZO."""
     m = torch.zeros((4, 4), dtype=torch.float32, device=device)
-    m[0, 0] = 2.0 / (right - left)
-    m[1, 1] = 2.0 / (top - bottom)
-    m[2, 2] = 1.0 / (near - far)
-    m[0, 3] = (left + right) / (left - right)
-    m[1, 3] = (bottom + top) / (bottom - top)
-    m[2, 3] = near / (near - far)
-    m[3, 3] = 1.0
+    _put(m, (0, 0), 2.0 / (right - left))
+    _put(m, (1, 1), 2.0 / (top - bottom))
+    _put(m, (2, 2), 1.0 / (near - far))
+    _put(m, (0, 3), (left + right) / (left - right))
+    _put(m, (1, 3), (bottom + top) / (bottom - top))
+    _put(m, (2, 3), near / (near - far))
+    _put(m, (3, 3), 1.0)
     return m
 
 
@@ -67,9 +77,9 @@ def directional_light_view(light_dir, device=None):
     d = _f32(light_dir, device)
     d = d / torch.clamp(torch.linalg.vector_norm(d), min=1e-6)
     world_up = torch.zeros(3, dtype=torch.float32, device=d.device)
-    world_up[1] = 1.0
+    world_up[1].fill_(1.0)
     alt_up = torch.zeros(3, dtype=torch.float32, device=d.device)
-    alt_up[2] = 1.0
+    alt_up[2].fill_(1.0)
     right = torch.linalg.cross(d, world_up)
     use_alt = torch.linalg.vector_norm(right) < 1e-3
     right = torch.where(use_alt, torch.linalg.cross(d, alt_up), right)

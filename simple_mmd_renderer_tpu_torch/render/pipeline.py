@@ -1,7 +1,8 @@
 """Frame pipeline: shadow pass -> ground -> character -> shading.
 
-Port of `simple_mmd_renderer_tpu/render/pipeline.py` less `proj_transform`
-and the scan raster: `build_matrices`, `ground_pass` (with its row0/rows halo),
+Port of `simple_mmd_renderer_tpu/render/pipeline.py` less the scan
+raster: `build_matrices` (with the orthographic camera, `model_mat` and
+`proj_transform`), `ground_pass` (with its row0/rows halo),
 `unproject_depth`, `upsample_bilinear_int`, `_tiled_e_max`, `shadow_pass`
 (with the caster window), the textures (the shelf-packed atlas with its
 mip chain, `PackedAtlas`, deferred-UV albedo from the visibility buffer,
@@ -52,17 +53,39 @@ def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def build_matrices(cfg, aspect=None, device=None):
-    """Camera and light matrices (float32 on `device`)."""
+def build_matrices(cfg, model_mat=None, aspect=None, proj_transform=None,
+                   device=None):
+    """Camera and light matrices (float32 on `device`): view, proj, mvp
+    (with `model_mat`), light_mvp (with it) and light_vp (without it, for
+    the ground).
+
+    `cfg.camera_orthographic` a host bool picks the perspective or the
+    orthographic camera; a bool tensor (a camera track's "perspective off"
+    key) selects with `torch.where`. The orthographic frame's height
+    matches the perspective frustum at the look-at distance, so that
+    toggling the flag keeps the subject at the same screen size.
+    `proj_transform` (4x4, e.g. one band of the frame, with `aspect` the
+    full frame's ratio) pre-multiplies proj, so that every consumer (the
+    raster, the ground's rays, the skybox, the depth unprojection) sees one
+    camera."""
     if aspect is None:
         aspect = cfg.width / cfg.height
-    proj = cam.perspective(cam.deg2rad(cfg.camera_fov_deg, device), aspect,
-                           cfg.near, cfg.far, device=device)
-    if not (isinstance(cfg.camera_orthographic, bool)
-            and not cfg.camera_orthographic):
-        raise NotImplementedError("camera_orthographic")
+    fov = cam.deg2rad(cfg.camera_fov_deg, device)
+    proj = cam.perspective(fov, aspect, cfg.near, cfg.far, device=device)
+    ortho = cfg.camera_orthographic
+    tensor_flag = isinstance(ortho, torch.Tensor)
+    if tensor_flag or ortho:
+        eye = _f32(cfg.camera_pos, device)
+        tgt = _f32(cfg.camera_target, device)
+        half_h = torch.linalg.vector_norm(eye - tgt) * torch.tan(fov * 0.5)
+        half_w = half_h * aspect
+        oproj = cam.orthographic(-half_w, half_w, -half_h, half_h, cfg.near,
+                                 cfg.far, device=device)
+        proj = torch.where(ortho, oproj, proj) if tensor_flag else oproj
+    if proj_transform is not None:
+        proj = _f32(proj_transform, device) @ proj
     up = torch.zeros(3, dtype=torch.float32, device=device)
-    up[1] = 1.0
+    up[1].fill_(1.0)
     view = cam.look_at(cfg.camera_pos, cfg.camera_target, up, device=device)
     mvp = proj @ view
 
@@ -71,7 +94,13 @@ def build_matrices(cfg, aspect=None, device=None):
                                   cfg.shadow_far, device=device)
     light_view = cam.directional_light_view(cfg.light_direction, device)
     light_vp = light_proj @ light_view
-    return dict(view=view, proj=proj, mvp=mvp, light_vp=light_vp)
+    light_mvp = light_vp
+    if model_mat is not None:
+        model_mat = _f32(model_mat, device)
+        mvp = mvp @ model_mat
+        light_mvp = light_vp @ model_mat
+    return dict(model=model_mat, view=view, proj=proj, mvp=mvp,
+                light_mvp=light_mvp, light_vp=light_vp)
 
 
 def unproject_depth(depth, vp, width, height):
@@ -895,12 +924,17 @@ def _nocull(cfg, static):
 
 
 def _surface(cfg, mats, vis, attr_px, nocull, width, height):
-    """(world positions unprojected from the depth, normals): with
-    double-sided materials the back faces shade with the viewer-facing
-    normal, before the albedo and the MMD shading read it."""
+    """(world positions unprojected from the depth, normals): with a model
+    matrix (`mats["model"]`) the normals get its normal matrix inv(M3)^T
+    (the positions are unprojected after it already); with double-sided
+    materials the back faces shade with the viewer-facing normal, before
+    the albedo and the MMD shading read it."""
     world_px = unproject_depth(vis.depth, mats["proj"] @ mats["view"],
                                width, height)
     nrm_px = attr_px[..., 0:3]
+    if mats["model"] is not None:
+        nmat = torch.linalg.inv_ex(mats["model"][:3, :3]).inverse.T
+        nrm_px = nrm_px @ nmat.T
     if nocull is not None:
         to_eye = _f32(cfg.camera_pos, world_px.device) - world_px
         flip = torch.sum(nrm_px * to_eye, -1, keepdim=True) < 0.0
@@ -949,22 +983,17 @@ def _composite(cfg, mats, static, color, vis, world_px, nrm_px, albedo,
     return torch.clamp(color, 0.0, 1.0)
 
 
-def _check_slice(cfg, proj_transform):
+def _check_slice(cfg):
     """Raise NotImplementedError for every option outside the ported
     slice."""
-    unsupported = [
-        ("proj_transform", proj_transform is not None),
-        ('raster_mode="scan"', cfg.raster_mode == "scan"),
-    ]
-    for name, used in unsupported:
-        if used:
-            raise NotImplementedError(name)
+    if cfg.raster_mode == "scan":
+        raise NotImplementedError('raster_mode="scan"')
 
 
 def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
-                 cubemap=None, width=None, height=None, uv_offsets=None,
-                 part_color=None, mmd_maps=None, atlas=None,
-                 proj_transform=None):
+                 cubemap=None, model_mat=None, width=None, height=None,
+                 uv_offsets=None, part_color=None, mmd_maps=None, atlas=None,
+                 proj_transform=None, aspect=None):
     """Full main-pass image, [H,W,3] float32 in [0,1], on the device of
     `positions_mmd`.
 
@@ -981,8 +1010,14 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
     parts' triangles from culling and lights their back faces.
     uv_offsets [V, 2] (`core.pose.uv_morph_offsets`) move the UVs the
     textures are sampled at; part_color = (mul [P, 3], add [P, 3])
-    (`core.pose.material_morph_factors`) modulates the albedo by part."""
-    _check_slice(cfg, proj_transform)
+    (`core.pose.material_morph_factors`) modulates the albedo by part.
+    model_mat (4x4) places the character (its shadow and edges too; the
+    normals get its normal matrix). proj_transform (4x4 clip-space
+    transform, with `aspect` the full frame's ratio) renders one band of a
+    larger frame. The camera and light may be tensors (a camera or light
+    track's samples, `Scene.frame_config`), `camera_orthographic` a bool
+    tensor."""
+    _check_slice(cfg)
     dev = positions_mmd.device
     width = width or cfg.width
     height = height or cfg.height
@@ -996,11 +1031,15 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
             2 * cfg.shadow_lookup_downsample, 2))
         big = render_frame(static, positions_mmd, normals, sub,
                            part_textures=part_textures, cubemap=cubemap,
-                           width=2 * width, height=2 * height,
-                           uv_offsets=uv_offsets, part_color=part_color,
-                           mmd_maps=mmd_maps, atlas=atlas)
+                           model_mat=model_mat, width=2 * width,
+                           height=2 * height, uv_offsets=uv_offsets,
+                           part_color=part_color, mmd_maps=mmd_maps,
+                           atlas=atlas, proj_transform=proj_transform,
+                           aspect=aspect)
         return big.reshape(height, 2, width, 2, 3).mean(dim=(1, 3))
-    mats = build_matrices(cfg, aspect=width / height, device=dev)
+    mats = build_matrices(cfg, model_mat,
+                          width / height if aspect is None else aspect,
+                          proj_transform, device=dev)
 
     verts_m = positions_mmd * cfg.mmd_to_meter
     tris = static.triangles.flip(-1)              # winding flip at upload
@@ -1023,7 +1062,7 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
     shadow_map = None
     if cfg.shadows_enabled:
         with pass_scope("shadow"):
-            shadow_map = shadow_pass(verts_m, tris, mats["light_vp"],
+            shadow_map = shadow_pass(verts_m, tris, mats["light_mvp"],
                                      cfg.shadow_map_size, cfg.shadow_window,
                                      compact=cfg.compact_bin,
                                      corner_pos=corner_pos)
@@ -1102,7 +1141,7 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
     from ..ops.tiled_raster import (rasterize_attrs_tiled_crowd,
                                     rasterize_attrs_tiled_msaa_crowd,
                                     rasterize_depth_tiled_crowd)
-    _check_slice(cfg, None)
+    _check_slice(cfg)
     if not crowd_render_supported(cfg):
         raise NotImplementedError("msaa_supersample")
     dev = positions_mmd.device

@@ -13,7 +13,9 @@ On the card the step is captured once into a CUDA graph with its own
 private memory pool, after a warm-up run on a side stream (as
 `torch.cuda.graphs` asks), both under `torch.cuda.set_sync_debug_mode(
 "error")`: a step that would synchronise with the host, or copy from it,
-raises there. A failed capture raises; nothing falls back to running the
+raises there. Python's cyclic garbage collector runs just before the
+capture and not during it, so that no dead graph is destroyed while the
+stream captures. A failed capture raises; nothing falls back to running the
 step eagerly on the card. A replay is one `cudaGraphLaunch`.
 
 On the CPU there is no graph: `replay()` runs the step eagerly on the same
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 
 import torch
 
@@ -106,9 +109,20 @@ class CapturedStep:
             self.step(self.state)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            with sync_errors():
-                outputs = self._body()
+        # a scene and its graphs form a reference cycle (the step closes
+        # over the scene), so a dead scene's graphs are freed by the
+        # cyclic collector; a graph destroyed while a stream captures
+        # invalidates the capture: collect first, and not during it
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                with sync_errors():
+                    outputs = self._body()
+        finally:
+            if was_enabled:
+                gc.enable()
         self.graph, self.outputs = graph, outputs
 
     def load(self, state) -> None:

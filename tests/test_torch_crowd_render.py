@@ -116,8 +116,19 @@ def test_crowd_render_frame_equals_render_frame_per_instance(posed):
     ('raster_mode="scan"', {}, dict(raster_mode="scan")),
 ])
 def test_crowd_options_outside_the_slice_raise(posed, option, kw, cfg_kw):
+    """The options outside the crowd frame raise, naming themselves. The
+    orthographic camera is ported (it no longer raises): the fused frame
+    then equals each instance's own orthographic render_frame."""
     _, port, pos, nrm = posed
     cfg = dataclasses.replace(port.config.render, **cfg_kw)
+    if option == "camera_orthographic":
+        fused = pipeline.crowd_render_frame(
+            port.rig, torch.as_tensor(pos), torch.as_tensor(nrm), cfg, **kw)
+        for i in range(N):
+            assert torch.equal(fused[i], pipeline.render_frame(
+                port.rig, torch.as_tensor(pos[i]), torch.as_tensor(nrm[i]),
+                cfg)), i
+        return
     with pytest.raises(NotImplementedError) as err:
         pipeline.crowd_render_frame(port.rig, torch.as_tensor(pos),
                                     torch.as_tensor(nrm), cfg, **kw)

@@ -26,7 +26,11 @@ as attributes 3-4), and textured frames (single and crowd) on the card
 must match the CPU's within the image tolerance. The content rig of
 chip_smoke.py (SDEF vertices, a UV and a material morph) with `sdef_true`
 and the extended morphs on: its compiled step replays the eager step's
-bits, and its frames on the card match the CPU's.
+bits, and its frames on the card match the CPU's. The command-line
+renderer's Scene (`app.cli.build_scene`) with VMD camera and light tracks:
+its frames (msaa=1 and 4, an orthographic frame, a crowd with the camera
+track) match the CPU's, the captured `Scene.seek` equals the eager one bit
+for bit, and the tracks' sampling runs under sync debug mode "error".
 """
 
 import dataclasses
@@ -1117,3 +1121,125 @@ def test_content_frames_on_the_card_match_the_cpu(cuda, kind):
         out[dev] = images.cpu().numpy()
     d = np.abs(out["cuda"] - out["cpu"])
     assert (d > 0.02).mean() < 2e-3 and d.mean() < 1 / 255
+
+
+def _cli_scene(device, directory, density, width, height, *flags):
+    """The CLI's Scene (`app.cli.build_scene`) of chip_smoke's written PMX
+    and VMD (camera and light tracks) with `flags`, on `device`."""
+    import chip_smoke
+    from simple_mmd_renderer_tpu_torch.app import cli
+
+    pmx, vmd = chip_smoke.cli_files(directory, density=density)
+    args = cli.parse_args([pmx, vmd, "--use-camera", "--use-light",
+                           "--width", str(width), "--height", str(height),
+                           "--shadow-size", "256", *flags])
+    return cli.build_scene(args, torch.device(device))
+
+
+@pytest.mark.parametrize("kind", ["msaa1", "msaa4", "ortho", "crowd"])
+def test_camera_track_frames_on_the_card_match_the_cpu(cuda, tmp_path,
+                                                       kind):
+    """Frames of the CLI's Scene with the camera and light tracks on the
+    card and on the CPU (plain versions) within the image tolerance: two
+    frames at msaa=1 and 4, an orthographic frame (frame 5, inside the
+    track's "perspective off" range), and a crowd of 3 with the camera
+    track (the per-instance fallback: K1, K2, K3 an instance)."""
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        flags = ("--msaa", "4") if kind == "msaa4" else ()
+        scene = _cli_scene(dev, str(tmp_path), 0.25 if kind == "crowd"
+                           else 0.5, 128, 96, *flags)
+        scene.config.physics.solver_iterations = 4
+        if kind == "crowd":
+            state, step = mesh.crowd_init(scene, 3), mesh.crowd_step_fn(scene)
+        else:
+            state, step = scene.init_state(), scene.step_and_render
+        if kind == "ortho":
+            state = scene.seek(state, 4 / 30)
+            assert bool(scene.frame_config(
+                state.time + 1 / 30).camera_orthographic)
+        for _ in range(1 if kind == "ortho" else 2):
+            state, images = step(state)
+        out[dev] = images.cpu().numpy()
+    d = np.abs(out["cuda"] - out["cpu"])
+    assert (d > 0.02).mean() < 2e-3 and d.mean() < 1 / 255
+
+
+def test_captured_seek_equals_eager_seek(cuda, tmp_path):
+    """The seek captured as a CUDA graph (once per scene) equals the eager
+    seek bit for bit at three times, and a seek after playback equals a
+    seek from a fresh state."""
+    scene = _cli_scene("cuda", str(tmp_path), 0.5, 128, 96)
+    fresh = scene.init_state()
+
+    def leaves(s):
+        return [s.time, s.physics.pos, s.physics.quat, s.physics.vel,
+                s.physics.omega]
+
+    for t in (0.1, 0.5, 2.0):
+        got, want = scene.seek(fresh, t), scene.seek(fresh, t, compiled=False)
+        assert all(torch.equal(a, b) for a, b in zip(leaves(got),
+                                                     leaves(want))), t
+    graph = scene._seek
+    step = scene.jit_step(render=False, donate=False)
+    s = fresh
+    for _ in range(3):
+        s = step(s)[0]
+    assert all(torch.equal(a, b) for a, b in zip(
+        leaves(scene.seek(s, 0.5)), leaves(scene.seek(fresh, 0.5))))
+    assert scene._seek is graph
+
+
+def test_track_sampling_has_no_host_sync(cuda, tmp_path):
+    """sample_camera, sample_light, the Scene's frame config (tracks and a
+    device camera_override) and build_matrices with the tensor ortho flag
+    run under sync debug mode "error"."""
+    from simple_mmd_renderer_tpu_torch.render import camera_anim, pipeline
+    from simple_mmd_renderer_tpu_torch.utils.graph import sync_errors
+
+    scene = _cli_scene("cuda", str(tmp_path), 0.5, 128, 96)
+    state = scene.seek(scene.init_state(), 4 / 30)
+    override = tuple(torch.zeros(3, device=cuda) + v for v in (1.0, 0.5))
+    fov = torch.full((), 30.0, device=cuda)
+    with sync_errors():
+        frame = state.time * scene.config.fps
+        cam = camera_anim.sample_camera(scene.camera, frame)
+        light = camera_anim.sample_light(scene.light, frame)
+        cfg = scene.frame_config(state.time)
+        mats = pipeline.build_matrices(cfg, device=cuda)
+        live = scene.frame_config(state.time, override + (fov,))
+        pipeline.build_matrices(live, device=cuda)
+    assert cam["ortho"].is_cuda and light["direction"].is_cuda
+    assert bool(cfg.camera_orthographic) and mats["proj"].is_cuda
+
+
+def test_capture_survives_dead_graphs(cuda):
+    """Scenes dropped with their captured steps (a scene and its graphs
+    form a reference cycle) are freed by the cyclic collector; with the
+    collector set to run at almost every allocation, a later capture must
+    still succeed (a graph destroyed while a stream captures invalidates
+    the capture) and replay the eager step's bits."""
+    import gc
+
+    def scene():
+        return build_sample_scene(0.25, 64, 48, 64, "cuda", n_frames=30,
+                                  fps_keys=10, solver_iterations=2)
+
+    threshold = gc.get_threshold()
+    try:
+        for _ in range(3):
+            dead = scene()
+            dead.seek(dead.init_state(), 0.2)
+            dead.jit_step(render=False)(dead.init_state())
+            del dead
+        gc.set_threshold(1, 1, 1)
+        live = scene()
+        state = live.init_state()
+        got = live.jit_step(render=False, donate=False)(state)[0]
+    finally:
+        gc.set_threshold(*threshold)
+    want = live.step_pose(state)[0]
+    assert torch.equal(got.physics.pos, want.physics.pos)
+    assert torch.equal(got.time, want.time)

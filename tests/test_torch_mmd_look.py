@@ -27,6 +27,8 @@ of pixels it moves by more than 0.02 must exceed 5e-3 (measured: skybox
 0.381, edges 0.0107, double-sided 0.0254, MMD maps 0.0267).
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -202,13 +204,17 @@ def test_double_sided_bins_both_windings(look, monkeypatch):
 
 
 def test_options_outside_the_slice_still_raise(look):
+    """With the full look the scan raster, still outside the port, raises
+    naming itself (`proj_transform`, which raised here before, is ported:
+    tests/test_torch_camera.py)."""
     static, rig, _, _ = look
     pos = torch.as_tensor(np.asarray(static.positions))
     nrm = torch.as_tensor(np.asarray(static.normals))
     cfg = config.RenderConfig(**cfg_kw(OPTIONS))
-    for option, kw in (("proj_transform", dict(proj_transform=object())),):
+    for option, kw in (('raster_mode="scan"', dict(raster_mode="scan")),):
         with pytest.raises(NotImplementedError, match=option):
-            pipeline.render_frame(rig, pos, nrm, cfg, **kw)
+            pipeline.render_frame(rig, pos, nrm,
+                                  dataclasses.replace(cfg, **kw))
 
 
 @pytest.fixture(scope="module")

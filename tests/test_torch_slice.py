@@ -116,8 +116,10 @@ def test_port_runs_without_jax():
     material morphs, through `write_pmx` and `parse_pmx`) with `sdef_true`
     and the extended morphs on, one frame and a crowd of two, and the
     sample character read back from PMD bytes with a VPD pose (the
-    `models` index's readers): the card's machine has no JAX, and the port
-    keeps its own copies of the host modules."""
+    `models` index's readers); and the command-line renderer (`app/cli.py`)
+    over 2 tiny frames of the written PMX and VMD with the camera and light
+    tracks, PNGs and a checkpoint: the card's machine has no JAX, and the
+    port keeps its own copies of the host modules."""
     code = textwrap.dedent(f"""
         import importlib.util
         import sys
@@ -205,6 +207,21 @@ def test_port_runs_without_jax():
         state, image = scene.step_and_render(scene.init_state())
         assert bool(torch.isfinite(image).all())
         print("pmd + vpd", float(image.mean()))
+
+        import os
+        import tempfile
+        from simple_mmd_renderer_tpu_torch.app import cli
+        with tempfile.TemporaryDirectory() as tmp:
+            pmx, vmd = chip_smoke.cli_files(tmp, density=0.25)
+            out = os.path.join(tmp, "frames")
+            assert cli.main([pmx, vmd, "--use-camera", "--use-light",
+                             "--device", "cpu", "--frames", "2", "--width",
+                             "64", "--height", "48", "--shadow-size", "64",
+                             "--out", out, "--save-state",
+                             os.path.join(tmp, "s.npz")]) == 0
+            assert sorted(os.listdir(out)) == ["frame_00000.png",
+                                               "frame_00001.png"]
+        print("cli done")
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -215,6 +232,7 @@ def test_port_runs_without_jax():
     assert res.stdout.count("rendered") == 3
     assert res.stdout.count("crowd") == 3
     assert "content" in res.stdout and "pmd + vpd" in res.stdout
+    assert "camera driven" in res.stdout and "cli done" in res.stdout
 
 
 def _imported_modules(tree):
@@ -246,7 +264,9 @@ def test_port_imports_nothing_of_the_reference():
     assert len(files) > 20
     for module in (("parallel", "mesh.py"), ("formats", "pmd.py"),
                    ("formats", "vpd.py"), ("formats", "writers.py"),
-                   ("models", "__init__.py")):
+                   ("models", "__init__.py"), ("render", "camera_anim.py"),
+                   ("utils", "checkpoint.py"), ("utils", "png.py"),
+                   ("app", "cli.py")):
         assert os.path.join(REPO, "simple_mmd_renderer_tpu_torch",
                             *module) in files
     seen = set()

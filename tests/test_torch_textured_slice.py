@@ -243,20 +243,33 @@ def test_scene_packed_atlas_cache(scenes):
 
 
 @pytest.mark.parametrize("option,kw,cfg_kw", [
-    ("proj_transform", dict(proj_transform=object()), {}),
+    ("proj_transform", dict(proj_transform=np.eye(4, dtype=np.float32)), {}),
     ('raster_mode="scan"', {}, dict(raster_mode="scan")),
     ("camera_orthographic", {}, dict(camera_orthographic=True)),
 ])
 def test_textured_frame_options_outside_the_slice_raise(model, option, kw,
                                                          cfg_kw):
     """With textures the options still outside the port raise, naming
-    themselves."""
+    themselves. `proj_transform` and the orthographic camera are ported
+    (tests/test_torch_camera.py holds them against the reference): with
+    textures an identity `proj_transform` gives the plain frame bit for
+    bit, and the orthographic frame is finite and another."""
     static, rig = model
     cfg = config.RenderConfig(**{"width": 64, "height": 48,
                                  "shadow_map_size": 64, "show_skybox": False,
                                  **cfg_kw})
     pos = torch.as_tensor(np.asarray(static.positions))
     nrm = torch.as_tensor(np.asarray(static.normals))
+    texs = sample_textures(TEXTURES)
+    if option in ("proj_transform", "camera_orthographic"):
+        got = pipeline.render_frame(rig, pos, nrm, cfg, part_textures=texs,
+                                    **kw)
+        plain = pipeline.render_frame(
+            rig, pos, nrm, dataclasses.replace(cfg, camera_orthographic=False),
+            part_textures=texs)
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, plain) == (option == "proj_transform")
+        return
     with pytest.raises(NotImplementedError) as err:
         pipeline.render_frame(rig, pos, nrm, cfg,
                               part_textures=sample_textures(TEXTURES), **kw)
