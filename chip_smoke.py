@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 The main paths driven: the flagship frame at msaa=1 (shadow K1, character
-K2, ground PCF K3), the frame the reference app renders, at msaa=4 with
+K2, ground PCF K3), the same frame through the exact scan raster
+(`raster_mode="scan"`: shadow and character KS, ground K3), the frame the reference app renders, at msaa=4 with
 the windowed shadow map (shadow K6, character K4, ground K3), the textured
 rows of `bench.py` (the 2-part procedural textures at 1920x1080 msaa=1
 and at 1280x720 msaa=4, the 16-part realistic set with 6 mip levels and
@@ -103,7 +104,26 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    and mmd of the full look, the morph consumers (`morphs`) of the
    content path, each pass's host and device ms a frame, its byte bound
    and its operators by device time.
-6. crowd: 64 instances (`crowd_init(scene, 64)`, clocks 7 frames apart)
+6. scan: the exact scan raster (`raster_mode="scan"`, KS: `check_scan`).
+   KS against its plain version bit for bit on the frame-1 calls of the
+   256x192 scan frame (density 0.5, shadow 256^2, edge outlines on: the
+   shadow map, the edge hull, the character), on the character from the
+   hull's buffer and on two instances; each flagship path's big-triangle
+   counts on frame 1 (`binning_stats`: the triangles its tiled rasters
+   merge through KS); the seven golden configurations of
+   tests/test_golden_frames.py (192x144) on the card against the CPU
+   (the whole-frame tolerance of the parity phase; KS and K3 launch
+   counts); the 1080p scan frame (density 2.0, shadow 2048^2, msaa=1, the
+   msaa=1 flagship's scene with raster_mode="scan"): KS on its frame-1
+   shadow and character calls, host-paced and back to back, beside its
+   bound (`scan_bound`), the plain version once on the character (bits
+   and time), 4-frame segments through the compiled rollout in turns with
+   the tiled msaa=1 flagship (scan, tiled, tiled, scan; the scan
+   segments' counters: KS twice and K3 once a frame, nothing else), and
+   the scan frame against the tiled frame of the same state. The tiled
+   paths' segments (flagship, crowd, CLI) print KS's launches: their
+   big-triangle merges.
+7. crowd: 64 instances (`crowd_init(scene, 64)`, clocks 7 frames apart)
    of the density-2.0 character with `sample_motion(120, fps_keys=5)` at
    256x144, shadow 256^2, physics on, through `crowd_step_fn` (a replay of
    the crowd's compiled step and the eager fused render a crowd frame): 3
@@ -120,7 +140,7 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    (`pmd_bytes`) and read back by the port's `parse_pmd` renders on the
    card as on the CPU, and a VPD pose (VPD_POSE, `parse_vpd`) held by the
    sample character, physics off, gives the same frame at two times.
-7. parity: a small scene rendered on the card and on the CPU (plain
+8. parity: a small scene rendered on the card and on the CPU (plain
    versions) must agree (fewer than 2e-3 of pixels off by more than 0.02,
    mean absolute difference below 1/255), at msaa=1 and at msaa=4 with the
    windowed shadow map, textured (16 parts with mips and the resident
@@ -129,7 +149,7 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    crowd of 4 at msaa=1 and at msaa=4, untextured, textured, with the
    full look and of the content rig.
 
-8. cli: the command-line renderer (`app.cli`, `check_cli`) on the sample
+9. cli: the command-line renderer (`app.cli`, `check_cli`) on the sample
    character at density 2.0 written as PMX (`cli_files`) and a VMD of the
    sample motion's bone keys with a camera track (an orbit, a fov change,
    frames 4-6 orthographic) and a turning light (`cli_vmd`), with
@@ -151,8 +171,9 @@ Phases (each prints its own line; any failure raises and exits nonzero):
 
 The line before the last is the kernels' JSON record (`launches`: every
 kernel's launches summed over the timed compiled segments of every main
-path and over the CLI's runs, each counted from 0 just before its
-segment or run); the last line is {"ok": true, "device": {...}}.
+path, the scan frame's included, and over the CLI's runs, each counted
+from 0 just before its segment or run; KS's also the tiled paths'
+merges); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -250,6 +271,10 @@ OPS_PCF = 24
 CONTENT_UV, CONTENT_MATERIAL = "UVスクロール", "色変化"
 
 KERNELS = ("K1", "K2", "K3", "K4", "K6", "K5a", "K5b", "K5c")
+# the kernels of the record: the TPU kernels' ports and KS, the scan
+# raster's body (no TPU kernel: the reference's scan is an XLA lax.scan),
+# which the tiled paths' big-triangle merges also launch
+RECORDED = KERNELS + ("KS",)
 ROW_LANES = 11   # lanes of a setup row that visibility reads (lanes 0-10)
 
 # the crowd: instances, frame, shadow map, motion length; timed frames per
@@ -270,7 +295,25 @@ T_START = time.perf_counter()
 # compiled flagship segment and every timed crowd segment, each counted
 # from 0 just before the segment and read just after (the record's
 # `launches`)
-MAIN_LAUNCHES = dict.fromkeys(KERNELS, 0)
+MAIN_LAUNCHES = dict.fromkeys(RECORDED, 0)
+
+# the scan phase (`check_scan`): the small scan frame whose frame-1 calls
+# of KS are held against the plain version (width, height, shadow, at
+# density 0.5, with the edge outlines); the 1080p scan frame's timed
+# segments of SCAN_SEGMENT frames in turns with the tiled msaa=1 flagship
+# (SCAN_ORDER: scan?); the golden frames' configurations (GOLDEN, as
+# tests/test_golden_frames.py builds them) card against CPU
+SCAN_SMALL = (256, 192, 256)
+SCAN_SEGMENT = 4
+SCAN_ORDER = (True, False, False, True)
+GOLDEN = ("flat", "textured", "msaa4", "toon_sph", "edges", "double_sided",
+          "skybox")
+GOLDEN_SIZE = (192, 144)
+# KS's fp32 operations per (triangle, pixel of its box): three edge
+# functions (two differences, two products and their difference: 15),
+# their scaling by 1 / area (3), zp (three products, two sums: 5) and six
+# tests (b0, b1, b2 >= 0; zp <= depth, zp >= 0, zp <= 1)
+OPS_SCAN = 29
 
 
 def content_rig(density=DENSITY, n_parts=2):
@@ -681,10 +724,13 @@ def depth_bound(key, bins, tile_h, boxes, out_bytes, ms):
 
 
 def record(results, key, name, source, line, err, ms, plain_ms, bnd):
+    """The record line of kernel `key`; `line` is the file:line it
+    replaces in the reference package (KS: the reference scan raster's
+    lax.scan)."""
     results[key] = dict(
         name=name, route="cuda",
         source=f"simple_mmd_renderer_tpu_torch/csrc/{source}",
-        replaces=f"simple_mmd_renderer_tpu/ops/{line}",
+        replaces=f"simple_mmd_renderer_tpu/{line}",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
         bound_by=bnd[1],
         # no single PyTorch call computes a binned tile raster or a
@@ -702,7 +748,7 @@ def reset_counters():
     tr.depth_launches = tr.raster_launches = 0
     tr.raster_ms_launches = tr.depth_win_launches = 0
     tr.raster_multi_launches = tr.raster_ms_multi_launches = 0
-    tr.depth_multi_launches = 0
+    tr.depth_multi_launches = tr.scan_launches = 0
 
 
 def read_counters() -> dict:
@@ -714,6 +760,20 @@ def read_counters() -> dict:
             "K6": tr.depth_win_launches, "K5a": tr.raster_multi_launches,
             "K5b": tr.raster_ms_multi_launches,
             "K5c": tr.depth_multi_launches}
+
+
+def merge_launches(label, frames, rasters) -> int:
+    """KS's launches since the last reset, on a tiled path: the
+    big-triangle merges, one a raster whose frame has a triangle over more
+    tiles than its binning's e_max (at most `rasters` a frame)."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    n = tr.scan_launches
+    log(f"{label}: KS (big-triangle merges) launched {n} times in {frames} "
+        f"frames")
+    if n > frames * rasters:
+        raise AssertionError(f"{label}: more merges than rasters")
+    return n
 
 
 def path_kernels(cfg) -> dict:
@@ -900,12 +960,12 @@ def check_kernels(scene, state, results):
         raise AssertionError("K2 attributes beyond 1e-6 of the plain version")
 
     record(results, "K1", "K1 depth_tiles (shadow depth)", "tiled_raster.cu",
-           "tiled_raster.py:1139", k1_err, k1_ms, k1_plain, k1_bound)
+           "ops/tiled_raster.py:1139", k1_err, k1_ms, k1_plain, k1_bound)
     record(results, "K2", "K2 raster_tiles (character visibility + "
-           "attributes)", "tiled_raster.cu", "tiled_raster.py:430", k2_err,
-           k2_ms, k2_plain, k2_bound)
+           "attributes)", "tiled_raster.cu", "ops/tiled_raster.py:430",
+           k2_err, k2_ms, k2_plain, k2_bound)
     record(results, "K3", "K3 pcf_lit_map (ground 3x3 PCF)", "shadow_pcf.cu",
-           "shadow_pcf.py:37", k3_err, k3_ms, k3_plain, k3_bound)
+           "ops/shadow_pcf.py:37", k3_err, k3_ms, k3_plain, k3_bound)
 
 
 def check_kernels_msaa(scene, state, results):
@@ -995,10 +1055,10 @@ def check_kernels_msaa(scene, state, results):
 
     record(results, "K4", "K4 raster_tiles_ms (4x MSAA visibility + "
            "attributes + per-sample depth)", "tiled_raster.cu",
-           "tiled_raster.py:660", k4_err, k4_ms, k4_plain, k4_bound)
+           "ops/tiled_raster.py:660", k4_err, k4_ms, k4_plain, k4_bound)
     record(results, "K6", "K6 depth_tiles_win (shadow depth over the "
            "casters' tile window)", "tiled_raster.cu",
-           "tiled_raster.py:1156", k6_err, k6_ms, k6_plain, k6_bound)
+           "ops/tiled_raster.py:1156", k6_err, k6_ms, k6_plain, k6_bound)
 
 
 def eager_steps(scene, state, n: int):
@@ -1179,10 +1239,13 @@ def time_segment(paths, name, compiled: bool, note=""):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counters()
+    merges = merge_launches(f"flagship ({label})", frames,
+                            3 if scene.config.render.show_edges else 2)
     path["state"] = state
     if compiled:
         for k, n in counts.items():
             MAIN_LAUNCHES[k] += n
+        MAIN_LAUNCHES["KS"] += merges
 
     sums = sums.cpu().numpy()
     ms = 1000.0 * dt / frames
@@ -1660,13 +1723,14 @@ def check_kernels_crowd(crowd, results):
         raise AssertionError("crowd attributes beyond 1e-6 of the plain "
                              "version")
     record(results, "K5a", "K5a raster_tiles_multi (crowd visibility + "
-           "attributes)", "tiled_raster.cu", "tiled_raster.py:1772",
+           "attributes)", "tiled_raster.cu", "ops/tiled_raster.py:1772",
            *rec["K5a"][3:])
     record(results, "K5b", "K5b raster_tiles_ms_multi (crowd 4x MSAA "
            "visibility + attributes + per-sample depth)", "tiled_raster.cu",
-           "tiled_raster.py:1952", *rec["K5b"][3:])
+           "ops/tiled_raster.py:1952", *rec["K5b"][3:])
     record(results, "K5c", "K5c depth_tiles_multi (crowd shadow depth)",
-           "tiled_raster.cu", "tiled_raster.py:2072", c_err, c_ms, c_plain,
+           "tiled_raster.cu", "ops/tiled_raster.py:2072", c_err, c_ms,
+           c_plain,
            c_bound)
 
 
@@ -1693,6 +1757,9 @@ def time_crowd_segment(step, state, msaa: bool, label: str,
     counts = read_counters()
     for k, n in counts.items():
         MAIN_LAUNCHES[k] += n
+    MAIN_LAUNCHES["KS"] += merge_launches(
+        f"crowd ({label}, {CROWD_LABEL[msaa]})", CROWD_SEGMENT,
+        3 if edges else 2)
     sums = torch.stack(sums).cpu().numpy()
     ms = 1000.0 * dt / CROWD_SEGMENT
     log(f"crowd ({label}, {CROWD_LABEL[msaa]}): segment of {CROWD_SEGMENT} "
@@ -2014,6 +2081,281 @@ Morph0{まばたき
 """
 
 
+def capture_scan(step, state):
+    """One frame through `step`, recording every call of the scan raster
+    (`ops.tiled_raster.scan_raster`: KS on the card) with its result ->
+    (state', image, [((width, height, setup, vis), VisBuffer), ...])."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    calls = []
+    fn = tr.scan_raster
+
+    def spy(width, height, s, vis=None):
+        out = fn(width, height, s, vis)
+        calls.append(((width, height, s, vis), out))
+        return out
+
+    tr.scan_raster = spy
+    try:
+        state, image = step(state)
+    finally:
+        tr.scan_raster = fn
+    return state, image, calls
+
+
+def scan_bad(got, want) -> int:
+    """Elements of two visibility buffers that differ."""
+    return sum(int((a != b).sum()) for a, b in zip(
+        (got.depth, got.tri, got.bary), (want.depth, want.tri, want.bary)))
+
+
+def scan_bound(width, height, s):
+    """KS's bound on a setup: the bytes of its setup table (16 f32 a
+    triangle) and of the output planes (depth, triangle, two barycentrics:
+    16 bytes a pixel), and OPS_SCAN operations for each valid triangle over
+    the pixels of its exact box inside the frame (the box rule; a
+    triangle whose box is the whole range counts the whole frame) ->
+    (bound, evaluations)."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    box = tr._pixel_boxes(s, 0.0).long()
+    c0 = torch.clamp(box[..., 0] + tr.BOX_MARGIN, min=0)
+    r0 = torch.clamp(box[..., 1] + tr.BOX_MARGIN, min=0)
+    c1 = torch.clamp(box[..., 2] - tr.BOX_MARGIN, max=width - 1)
+    r1 = torch.clamp(box[..., 3] - tr.BOX_MARGIN, max=height - 1)
+    pixels = (c1 - c0 + 1).clamp(min=0) * (r1 - r0 + 1).clamp(min=0)
+    evals = int((pixels * s["valid"]).sum())
+    n_inst = s["valid"][..., 0].numel()
+    n_bytes = 4 * 16 * s["valid"].numel() + 16 * width * height * n_inst
+    return bound(n_bytes, evals * OPS_SCAN), evals
+
+
+def golden_frame(name, device):
+    """tests/test_golden_frames.py's configuration `name` (the sample
+    character at density 0.5, rest pose, 192x144, shadow 128^2, its
+    camera, textures, MMD maps and equirect built as there) rendered by the
+    port with the scan raster on `device`."""
+    from simple_mmd_renderer_tpu_torch.config import RenderConfig
+    from simple_mmd_renderer_tpu_torch.core.model import (ModelTables,
+                                                          build_model)
+    from simple_mmd_renderer_tpu_torch.app.sample import sample_character
+    from simple_mmd_renderer_tpu_torch.render import ibl
+    from simple_mmd_renderer_tpu_torch.render.pipeline import render_frame
+
+    static = build_model(sample_character(density=0.5))
+    cfg = dict(width=GOLDEN_SIZE[0], height=GOLDEN_SIZE[1],
+               shadow_map_size=128, show_skybox=False, raster_mode="scan",
+               camera_pos=np.array([0.0, 1.2, -2.6], np.float32),
+               camera_target=np.array([0.0, 0.9, 0.0], np.float32))
+    kw = {}
+    if name in ("textured", "toon_sph"):
+        kw["part_textures"] = sample_textures((128, 64))
+    if name == "toon_sph":
+        pn = len(static.part_base)
+        ramps = np.ones((pn, 16, 3), np.float32)
+        ramps[:] = np.linspace(1.0, 0.55, 16, dtype=np.float32)[None, :, None]
+        ys = np.linspace(0.6, 1.0, 32, dtype=np.float32)
+        sph = np.broadcast_to(ys[:, None, None], (32, 32, 3)).copy()
+        modes = np.zeros(pn, np.int32)
+        modes[0] = 1
+        kw["mmd_maps"] = ([sph] * pn, modes, ramps)
+    if name == "msaa4":
+        cfg["msaa"] = 4
+    if name == "edges":
+        cfg["show_edges"] = True
+    if name == "double_sided":
+        cfg["double_sided"] = True
+        static.nocull_tris[: len(static.nocull_tris) // 2] = True
+    if name == "skybox":
+        eq = np.zeros((16, 32, 3), np.float32)
+        eq[:, :, 0] = np.linspace(0.1, 1.2, 32, dtype=np.float32)[None, :]
+        eq[:, :, 1] = np.linspace(1.0, 0.1, 16, dtype=np.float32)[:, None]
+        eq[:, :, 2] = 0.4
+        cfg["show_skybox"] = True
+        kw["cubemap"] = ibl.equirect_to_cubemap(torch.as_tensor(eq), 32,
+                                                device=device)
+    return render_frame(
+        ModelTables(static, device),
+        torch.as_tensor(np.asarray(static.positions, np.float32),
+                        device=device),
+        torch.as_tensor(np.asarray(static.normals, np.float32),
+                        device=device), RenderConfig(**cfg), **kw)
+
+
+def big_triangles(name, scene):
+    """The big-triangle counts of flagship path `name` on frame 1
+    (`binning_stats` of the shadow and character rasters at the path's
+    e_max; the character's at the pixel centre, also under 4x MSAA): the
+    triangles a tiled frame merges through KS."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+    from simple_mmd_renderer_tpu_torch.render import pipeline, raster
+
+    cfg = scene.config.render
+    _, _, pos, _ = scene.jit_step(render=False, donate=False)(
+        scene.init_state())
+    verts = pos * cfg.mmd_to_meter
+    tris = scene.rig.triangles.flip(-1)
+    mats = pipeline.build_matrices(cfg, aspect=cfg.width / cfg.height,
+                                   device=pos.device)
+    size = cfg.shadow_map_size
+    shadow = tr.binning_stats(raster.transform_clip(verts, mats["light_mvp"]),
+                              tris, size, size, raster.CULL_FRONT,
+                              pipeline._tiled_e_max(size, size))
+    char = tr.binning_stats(raster.transform_clip(verts, mats["mvp"]), tris,
+                            cfg.width, cfg.height, raster.CULL_BACK,
+                            pipeline._tiled_e_max(cfg.width, cfg.height))
+    log(f"scan: {name} frame 1 (binning_stats): big triangles shadow "
+        f"{shadow['n_big']}, character {char['n_big']} (merged through KS "
+        f"when above 0; fullest tile {shadow['max_tile_entries']} / "
+        f"{char['max_tile_entries']} entries)")
+
+
+def check_scan(paths, results):
+    """The scan raster (`raster_mode="scan"`, KS): the small scan frame's
+    frame-1 calls (shadow, edge hull, character), the character from the
+    hull's buffer and two instances, against the plain version bit for
+    bit; every flagship path's big-triangle counts; the golden
+    configurations card against CPU; the 1080p scan frame: KS on its
+    frame-1 calls timed (host-paced and back to back) beside its bound,
+    the plain version once on the character (bits and time), SCAN_SEGMENT
+    frames through the compiled rollout in turns with the tiled msaa=1
+    flagship (counters reset before each scan segment and read after),
+    and the scan frame against the tiled frame of the same state."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    t_phase = time.perf_counter()
+    w, h, shadow = SCAN_SMALL
+    small = with_render(build_sample_scene(0.5, w, h, shadow, "cuda",
+                                           show_edges=True),
+                        raster_mode="scan")
+    _, _, calls = capture_scan(small.step_and_render, small.init_state())
+    if [c[0][:2] for c in calls] != [(shadow, shadow), (w, h), (w, h)]:
+        raise AssertionError(f"scan: frame-1 calls "
+                             f"{[c[0][:2] for c in calls]}")
+    bad = {}
+    for label, (args, out) in zip(("shadow", "edge hull", "character"),
+                                  calls):
+        got = tr.scan_raster(*args)
+        bad[label] = (scan_bad(got, tr.scan_raster_plain(*args))
+                      + scan_bad(got, out))
+    args = calls[2][0][:3] + (calls[1][1],)
+    bad["character from the hull's buffer"] = scan_bad(
+        tr.scan_raster(*args), tr.scan_raster_plain(*args))
+    s = calls[2][0][2]
+    shift = torch.tensor([3.5, -2.25], device=s["xy"].device)
+    pair = {k: torch.stack([s[k], s[k] + shift if k == "xy" else s[k]])
+            for k in ("xy", "z", "area2", "valid")}
+    got = tr.scan_raster(w, h, pair)
+    bad["two instances"] = scan_bad(got, tr.scan_raster_plain(w, h, pair))
+    log(f"scan: KS on the {w}x{h} scan frame's frame-1 calls (shadow "
+        f"{shadow}^2, {s['xy'].shape[0]} triangles, edge hull "
+        f"{calls[1][0][2]['xy'].shape[0]}) against the plain version: "
+        f"mismatches {bad}")
+    if any(bad.values()) or torch.equal(got.tri[0], got.tri[1]):
+        raise AssertionError("scan: KS disagrees with its plain version")
+
+    for name, path in paths.items():
+        big_triangles(name, path["scene"])
+
+    for name in GOLDEN:
+        reset_counters()
+        card = golden_frame(name, "cuda")
+        counts = dict(read_counters(), KS=tr.scan_launches)
+        want = dict.fromkeys(RECORDED, 0)
+        want.update(K3=1, KS=3 if name == "edges" else 2)
+        d = np.abs(card.cpu().numpy() - golden_frame(name, "cpu").numpy())
+        frac, mad = float((d > 0.02).mean()), float(d.mean())
+        log(f"scan: golden configuration {name} ({GOLDEN_SIZE[0]}x"
+            f"{GOLDEN_SIZE[1]}), card vs CPU: |d|>0.02 fraction {frac:.3g}, "
+            f"mean abs diff {mad:.3g}, max {float(d.max()):.3g}; launches "
+            f"{counts}")
+        if counts != want:
+            raise AssertionError(f"scan: {name} launched {counts}")
+        if not (frac < 2e-3 and mad < 1 / 255):
+            raise AssertionError(f"scan: {name}: card and CPU disagree")
+
+    tiled = paths[M1]
+    scene = with_render(tiled["scene"], raster_mode="scan")
+    state, _ = scene.rollout(scene.init_state(), 1)
+    _, _, calls = capture_scan(scene.step_and_render, state)
+    if [c[0][:2] for c in calls] != [(SHADOW, SHADOW), (WIDTH, HEIGHT)]:
+        raise AssertionError(f"scan: 1080p calls {[c[0][:2] for c in calls]}")
+    for label, (args, out) in zip(("shadow", "character"), calls):
+        def fn(args=args):
+            return tr.scan_raster(*args)
+        host = cuda_ms(fn, 10)
+        runs = sorted(primed_ms(fn, 10) for _ in range(3))
+        bnd, evals = scan_bound(*args[:3])
+        n = args[2]["xy"].shape[0]
+        log(f"scan: KS {label} {args[0]}x{args[1]}, {n} triangles "
+            f"({int(args[2]['valid'].sum())} valid, {evals} triangle-pixel "
+            f"evaluations by the box rule): host-paced {host:.4f} ms, back "
+            f"to back least {runs[0]:.4f}, median {runs[1]:.4f} ms; bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]}), card / bound {host / bnd[0]:.1f} "
+            f"(back to back {runs[0] / bnd[0]:.1f}); covers "
+            f"{100 * float((out.tri >= 0).float().mean()):.2f}% of the map")
+        if label == "character":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = tr.scan_raster_plain(*args)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            got = fn()
+            n_bad = scan_bad(got, plain) + scan_bad(got, out)
+            err = float((got.depth - plain.depth).abs().max())
+            log(f"scan: the plain version once on the 1080p character: "
+                f"{plain_ms:.1f} ms, mismatches {n_bad}")
+            if n_bad:
+                raise AssertionError("scan: KS disagrees at 1080p")
+            record(results, "KS", "KS scan_raster (the exact scan raster: "
+                   "the scan frame's shadow, edge hull and character; the "
+                   "tiled paths' big-triangle merges)", "scan_raster.cu",
+                   "render/raster.py:111", err, host, plain_ms, bnd)
+
+    seg = {True: [], False: []}
+    for is_scan in SCAN_ORDER:
+        sc, st = (scene, state) if is_scan else (tiled["scene"],
+                                                 tiled["state"])
+        reset_counters()
+        t0 = time.perf_counter()
+        st, sums = sc.rollout(st, SCAN_SEGMENT)
+        torch.cuda.synchronize()
+        seg[is_scan].append(1000.0 * (time.perf_counter() - t0)
+                            / SCAN_SEGMENT)
+        counts = dict(read_counters(), KS=tr.scan_launches)
+        sums = sums.cpu().numpy()
+        if not (np.isfinite(sums).all() and (np.diff(sums) != 0).any()):
+            raise AssertionError("scan: frames not finite or not advancing")
+        if is_scan:
+            state = st
+            want = dict.fromkeys(RECORDED, 0)
+            want.update(K3=SCAN_SEGMENT, KS=2 * SCAN_SEGMENT)
+            if counts != want:
+                raise AssertionError(f"scan: 1080p launches {counts}")
+            for k, n in counts.items():
+                MAIN_LAUNCHES[k] += n
+        else:
+            tiled["state"] = st
+        log(f"scan: 1080p {'scan' if is_scan else 'tiled'} msaa=1 segment "
+            f"of {SCAN_SEGMENT} frames (compiled rollout): "
+            f"{seg[is_scan][-1]:.3f} ms/frame; launches {counts}")
+    scan_ms, tiled_ms = (sum(seg[k]) / len(seg[k]) for k in (True, False))
+    log(f"scan: 1080p msaa=1, shadow {SHADOW}: scan {scan_ms:.3f} ms/frame, "
+        f"tiled {tiled_ms:.3f} ({scan_ms - tiled_ms:+.3f}) in the same call")
+
+    frames = [with_render(scene, raster_mode=m).jit_step(donate=False)(
+        state)[1] for m in ("scan", "auto")]
+    d = (frames[0] - frames[1]).abs()
+    frac, mad = float((d > 0.02).float().mean()), float(d.mean())
+    log(f"scan: 1080p scan frame vs tiled frame of the same state: "
+        f"|d|>0.02 fraction {frac:.3g}, mean abs diff {mad:.3g}")
+    if not (frac < 2e-3 and mad < 1 / 255):
+        raise AssertionError("scan: the scan and tiled frames disagree")
+    log(f"scan: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def check_pmd_vpd():
     """The PMD and VPD readers on the card: the sample character at density
     0.5 written as PMD (`pmd_bytes`) and read back by the port's
@@ -2247,6 +2589,8 @@ def check_cli(smi: str):
             counts = read_counters()
             for k, n in counts.items():
                 MAIN_LAUNCHES[k] += n
+            MAIN_LAUNCHES["KS"] += merge_launches(f"cli ({label})",
+                                                  CLI_FRAMES, 2)
             want = {k: CLI_FRAMES * path_kernels(cfg).get(k, 0)
                     for k in KERNELS}
             fps = next(line for line in lines if " frames in " in line)
@@ -2359,6 +2703,7 @@ def main() -> int:
 
     run_flagships(paths)
     pass_profile(paths)
+    check_scan(paths, results)
     run_crowd({msaa: ("crowd-dense", *dense[msaa], msaa, False)
                for msaa in (False, True)}, CROWD_ORDER)
     look = look_kw(paths[FULL]["scene"].cubemap,
@@ -2417,14 +2762,14 @@ def main() -> int:
     check_cli(smi)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
-    for name in KERNELS:
+    for name in RECORDED:
         if not MAIN_LAUNCHES[name]:
             raise AssertionError(f"{name} never launched on the main paths")
         results[name]["launches"] = MAIN_LAUNCHES[name]
     log(f"launches on the main paths (every timed segment): {MAIN_LAUNCHES}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: results[name][k] for k in keys} for name in KERNELS]
+    kernels = [{k: results[name][k] for k in keys} for name in RECORDED]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -81,7 +81,8 @@ class RenderConfig:
     specular_intensity: float = 1.0
 
     # rasterizer path: "auto" and "tiled" run the binned tile raster in the
-    # port; "scan" (the exact scan raster) is not ported yet
+    # port on every device; "scan" runs the exact scan raster (KS on the
+    # card), the reference's choice off the TPU
     raster_mode: str = "auto"
 
     # toon edge outlines (inverted hull; beyond the reference app)

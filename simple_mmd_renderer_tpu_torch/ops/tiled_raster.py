@@ -28,9 +28,9 @@ goes to the larger triangle id):
    carried into entry order by the binning); the plain versions stay brute
    force over the whole tile, so the comparison also checks the boxes.
 3. Triangles covering more than `e_max` tiles (at most BIG_TRI_CAP of them)
-   are rasterized exactly by a full-frame loop (`_scan_subset`) and merged
-   by depth, a big triangle winning a tie. When `e_max` covers the whole
-   tile grid the merge cannot trigger and is skipped.
+   are rasterized exactly by the scan raster (`scan_raster`: KS on the
+   card) and merged by depth, a big triangle winning a tie. When `e_max`
+   covers the whole tile grid the merge cannot trigger and is skipped.
 
 Kept from the reference because they change output: BIG_TRI_CAP, the merge's
 `<=` tie rule, the kernel's id tie rule, `_covers_all`, zeroed attributes
@@ -55,6 +55,8 @@ whatever the number of instances.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -816,48 +818,182 @@ def _run_kernel(sorted_rows, starts, counts, width, height, n_attrs,
     return vis, attr[:, :height, :width]
 
 
+def binning_stats(clip, tris, width, height, cull=raster.CULL_BACK, e_max=6,
+                  chunk=256, tile_h=None):
+    """Binning diagnostics of a scene at given raster parameters ->
+    dict(max_tile_entries, total_entries, n_big, big_capacity,
+    big_dropped): the fullest tile's entries (the dense-tile cost driver),
+    all entries, the triangles spanning more than `e_max` tiles (the
+    big-triangle merge's), BIG_TRI_CAP and how many of them the merge's
+    cap drops. `chunk` is the reference's streaming chunk, kept for its
+    call form: the port's tile loops have none. Reads the host."""
+    s = raster.setup(clip, tris, width, height, cull)
+    t = tris.shape[0]
+    rows = _setup_rows(s, torch.arange(t, device=clip.device))
+    _, _, counts, big = _bin(s, rows, width, height, e_max,
+                             t >= COMPACT_MIN_T, tile_h or TILE_H)
+    n_big = int(big.sum())
+    return dict(max_tile_entries=int(counts.max()),
+                total_entries=int(counts.sum()), n_big=n_big,
+                big_capacity=BIG_TRI_CAP,
+                big_dropped=max(0, n_big - BIG_TRI_CAP))
+
+
 # ---------------------------------------------------------------------------
-# Oversized triangles: exact full-frame loop, merged by depth
+# Oversized triangles: the exact scan raster (KS), merged by depth
 # ---------------------------------------------------------------------------
 
-def _scan_subset(width, height, s):
-    """The exact scan raster's body over a precomputed (masked) setup of n
-    triangles ([n, ...], or [I, n, ...] for a crowd: one step rasterizes
-    triangle k of every instance): later triangles win z-ties
-    (`zp <= depth`)."""
-    dev = s["xy"].device
-    lead = s["xy"].shape[:-3]
-    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]
-    depth = torch.ones(lead + (height, width), dtype=torch.float32,
-                       device=dev)
-    tri_id = torch.full(lead + (height, width), -1, dtype=torch.int32,
-                        device=dev)
-    bary = torch.zeros(lead + (height, width, 2), dtype=torch.float32,
-                       device=dev)
+# pixels x triangles the plain scan evaluates at once (its chunk of
+# triangles is this over the frame's pixels, at most SCAN_CHUNK)
+SCAN_CHUNK_ELEMS = 1 << 20
+SCAN_CHUNK = 64
 
-    def px(t):      # a per-triangle value against the [H, W] pixel planes
+scan_launches = 0          # KS
+
+
+def _scan_start(vis, lead, width, height, dev):
+    """The scan's start buffer as fresh tensors: a copy of `vis` (depth
+    [*lead, H, W] f32, tri i32, bary [*lead, H, W, 2] f32), or cleared to
+    depth 1, triangle -1, barycentrics 0."""
+    if vis is None:
+        vis = raster.empty_vis(width, height, dev, lead)
+    want = lead + (height, width)
+    if (vis.depth.shape != want or vis.tri.shape != want
+            or vis.bary.shape != want + (2,)):
+        raise ValueError(f"scan raster: start vis shapes do not match "
+                         f"{want}")
+    if (vis.depth.dtype != torch.float32 or vis.tri.dtype != torch.int32
+            or vis.bary.dtype != torch.float32):
+        raise TypeError("scan raster: start vis must be f32 depth, i32 tri, "
+                        "f32 bary")
+    planes = (vis.depth, vis.tri, vis.bary)
+    if any(t.device != dev for t in planes):
+        raise ValueError("scan raster: start vis on another device")
+    return tuple(t.clone(memory_format=torch.contiguous_format)
+                 for t in planes)
+
+
+def _inv_area(area2):
+    return torch.where(torch.abs(area2) > 1e-12, 1.0 / area2,
+                       torch.zeros_like(area2))
+
+
+def _scan_planes(s, ids, inv_area, xs, ys):
+    """The scan body's per-pixel planes of triangles `ids` [K] of a setup
+    over pixel centres xs [1, W], ys [H, 1] -> (b1, b2, zp, candidate)
+    [*lead, K, H, W], the candidates the covered pixels with 0 <= zp <= 1,
+    in the reference's per-element arithmetic (each operator rounding
+    once)."""
+    def px(t):      # [*lead, K] per-triangle values against the pixels
         return t[..., None, None]
 
-    for k in range(s["xy"].shape[-3]):
-        xy = px(s["xy"][..., k, :, :].movedim(-2, 0).movedim(-1, 1))
-        z = px(s["z"][..., k, :].movedim(-1, 0))
-        area2, valid = px(s["area2"][..., k]), px(s["valid"][..., k])
-        inv_area = torch.where(torch.abs(area2) > 1e-12, 1.0 / area2,
-                               torch.zeros_like(area2))
+    def edge(a, b):
+        return (b[0] - a[0]) * (ys - a[1]) - (b[1] - a[1]) * (xs - a[0])
 
-        def edge(a, b):
-            return (b[0] - a[0]) * (ys - a[1]) - (b[1] - a[1]) * (xs - a[0])
+    xy = s["xy"][..., ids, :, :]
+    v = [(px(xy[..., j, 0]), px(xy[..., j, 1])) for j in range(3)]
+    z = [px(s["z"][..., ids, j]) for j in range(3)]
+    ia = px(inv_area[..., ids])
+    b0 = edge(v[1], v[2]) * ia
+    b1 = edge(v[2], v[0]) * ia
+    b2 = edge(v[0], v[1]) * ia
+    zp = b0 * z[0] + b1 * z[1] + b2 * z[2]
+    cand = ((b0 >= 0) & (b1 >= 0) & (b2 >= 0) & px(s["valid"][..., ids])
+            & (zp >= 0.0) & (zp <= 1.0))
+    return b1, b2, zp, cand
 
-        b0 = edge(xy[1], xy[2]) * inv_area
-        b1 = edge(xy[2], xy[0]) * inv_area
-        b2 = edge(xy[0], xy[1]) * inv_area
-        cover = (b0 >= 0) & (b1 >= 0) & (b2 >= 0) & valid
-        zp = b0 * z[0] + b1 * z[1] + b2 * z[2]
-        passed = cover & (zp <= depth) & (zp >= 0.0) & (zp <= 1.0)
-        depth = torch.where(passed, zp, depth)
-        tri_id = torch.where(passed, torch.full_like(tri_id, k), tri_id)
-        bary = torch.where(passed[..., None], torch.stack([b1, b2], -1), bary)
+
+def scan_raster_plain(width, height, s, vis=None, chunk=None):
+    """Plain version of KS: the exact scan raster over a setup of n
+    triangles (`raster.setup`'s xy, z, area2, valid as [n, ...], or
+    [I, n, ...] for I instances at once) from the start buffer `vis`
+    (None: cleared), triangles in draw order, later triangles winning
+    z-ties (LESS_EQUAL) -> VisBuffer [*lead, H, W] with tri the index in
+    the setup.
+
+    Triangles run in chunks of `chunk` (default: SCAN_CHUNK_ELEMS over the
+    frame's pixels, at most SCAN_CHUNK); a chunk's [K, H, W] edge
+    functions, barycentrics and depths use exactly the per-element
+    arithmetic of the reference's scan body. Within a chunk the candidates
+    are the covered pixels with 0 <= zp <= 1; the smallest zp wins, a tie
+    going to the larger index, and the winner replaces the carry where
+    zp <= depth, with its own zp and barycentrics. Under LESS_EQUAL the
+    sequential scan's last pass is the last triangle whose zp equals the
+    least over the candidates and the start depth, so this gives the
+    scan's bits. Triangles valid in no instance can never pass and are
+    left out (a host read)."""
+    dev = s["xy"].device
+    lead = tuple(s["xy"].shape[:-3])
+    depth, tri_id, bary = _scan_start(vis, lead, width, height, dev)
+    n_inst = math.prod(lead)
+    keep = torch.nonzero(s["valid"].reshape(n_inst, -1).any(0))[:, 0]
+    n = keep.shape[0]
+    if n == 0 or width * height == 0:
+        return raster.VisBuffer(depth=depth, tri=tri_id, bary=bary)
+    if chunk is None:
+        chunk = max(1, min(SCAN_CHUNK,
+                           SCAN_CHUNK_ELEMS // (n_inst * width * height)))
+    centres = raster._pixel_centers(width, height, dev)
+    inv_area = _inv_area(s["area2"])
+    b1_c, b2_c = bary[..., 0], bary[..., 1]
+    for k0 in range(0, n, chunk):
+        ids = keep[k0:k0 + chunk]
+        b1, b2, zp, cand = _scan_planes(s, ids, inv_area, *centres)
+        zc = torch.where(cand, zp, torch.full_like(zp, 2.0))
+        least = torch.amin(zc, -3, keepdim=True)
+        order = torch.arange(ids.shape[0], device=dev)[:, None, None]
+        last = torch.amax(torch.where(cand & (zc == least), order,
+                                      torch.full_like(order, -1)), -3)
+        at = torch.clamp(last, min=0)[..., None, :, :]
+
+        def won(t):
+            return torch.gather(t, -3, at)[..., 0, :, :]
+        zw = won(zp)
+        passed = (last >= 0) & (zw <= depth)
+        depth = torch.where(passed, zw, depth)
+        tri_id = torch.where(passed, ids[torch.clamp(last, min=0)].to(
+            torch.int32), tri_id)
+        b1_c = torch.where(passed, won(b1), b1_c)
+        b2_c = torch.where(passed, won(b2), b2_c)
+    return raster.VisBuffer(depth=depth, tri=tri_id,
+                            bary=torch.stack([b1_c, b2_c], -1))
+
+
+def _scan_table(s):
+    """KS's per-triangle setup table f32 [*lead, n, 16]: x0, y0, x1, y1,
+    x2, y2, z0, z1, z2, inv_area, valid, 0 and the pixel box (first
+    column, first row, last column, last row) at the pixel centre."""
+    xy = s["xy"]
+    zero = torch.zeros_like(s["area2"])[..., None]
+    return torch.cat([
+        xy.flatten(-2), s["z"], _inv_area(s["area2"])[..., None],
+        s["valid"].to(torch.float32)[..., None], zero,
+        _pixel_boxes(s, 0.0).to(torch.float32)], -1)
+
+
+def scan_raster(width, height, s, vis=None):
+    """KS dispatch: the exact scan raster (see scan_raster_plain) — the
+    plain version for CPU tensors, the CUDA kernel for CUDA tensors, which
+    evaluates a triangle only in the blocks of pixels its box reaches."""
+    global scan_launches
+    dev = s["xy"].device
+    if dev.type == "cpu":
+        return scan_raster_plain(width, height, s, vis)
+    if dev.type != "cuda":
+        raise ValueError(f"scan_raster: unsupported device {dev}")
+    if max(width, height) > _BOX_MAX:
+        raise ValueError("scan_raster: frame beyond the boxes' range")
+    lead = tuple(s["xy"].shape[:-3])
+    n = s["xy"].shape[-3]
+    depth, tri_id, bary = _scan_start(vis, lead, width, height, dev)
+    n_inst = math.prod(lead)
+    if n and n_inst and width and height:
+        table = _scan_table(s).reshape(n_inst, n, 16).contiguous()
+        rc = _build.lib().smr_scan_raster(
+            table.data_ptr(), n, n_inst, width, height, depth.data_ptr(),
+            tri_id.data_ptr(), bary.data_ptr(), _build.stream_ptr(dev))
+        _build.check(rc, "smr_scan_raster")
+        scan_launches += 1
     return raster.VisBuffer(depth=depth, tri=tri_id, bary=bary)
 
 
@@ -885,7 +1021,7 @@ def _merge_big(vis, attr, clip, tris, width, height, s, big, attrs):
     if sub is None:
         return vis, attr
     order, s_big = sub
-    vis_big = _scan_subset(width, height, s_big)
+    vis_big = scan_raster(width, height, s_big)
     real_tri = torch.where(vis_big.tri >= 0,
                            order[torch.clamp(vis_big.tri, min=0).long()].to(
                                torch.int32), -1)
@@ -922,7 +1058,7 @@ def rasterize_depth_tiled(clip, tris, width, height, cull=raster.CULL_BACK,
     sub = _big_subset(s, big)
     if sub is None:
         return depth
-    return torch.minimum(depth, _scan_subset(width, height, sub[1]).depth)
+    return torch.minimum(depth, scan_raster(width, height, sub[1]).depth)
 
 
 def rasterize_tiled(clip, tris, width, height, cull=raster.CULL_BACK,
@@ -1076,7 +1212,7 @@ def rasterize_depth_tiled_window(clip, tris, width, height,
     sub = _big_subset(s, big)
     if sub is None:
         return depth
-    return torch.minimum(depth, _scan_subset(width, height, sub[1]).depth)
+    return torch.minimum(depth, scan_raster(width, height, sub[1]).depth)
 
 
 # ---------------------------------------------------------------------------
@@ -1304,7 +1440,7 @@ def _merge_big_crowd(vis, attr, clip, tris, width, height, s, big, attrs):
     if sub is None:
         return vis, attr, torch.zeros_like(vis.tri, dtype=torch.bool)
     order, s_big = sub
-    vis_big = _scan_subset(width, height, s_big)
+    vis_big = scan_raster(width, height, s_big)
     n_inst = order.shape[0]
     real_tri = torch.gather(
         order, 1, torch.clamp(vis_big.tri, min=0).long().reshape(n_inst, -1)
@@ -1325,7 +1461,7 @@ def _merge_big_depth_crowd(depth, width, height, s, big):
     sub = _big_subset_crowd(s, big)
     if sub is None:
         return depth
-    return torch.minimum(depth, _scan_subset(width, height, sub[1]).depth)
+    return torch.minimum(depth, scan_raster(width, height, sub[1]).depth)
 
 
 def _crowd_setup(clip, tris, attrs, width, height, cull, cv, va, nocull,

@@ -83,9 +83,9 @@ def crowd_step_fn(scene: Scene, render: bool = True, width=None,
     outputs are copies, so that steps of several crowds may share the
     scene's graph. Rendering goes through the
     fused multi-instance frame when the config allows it
-    (`crowd_render_supported`); the supersampled MSAA and a camera track,
-    which it does not cover, render instance by instance through
-    `render_frame`, with a one-line notice once per process."""
+    (`crowd_render_supported`); the supersampled MSAA, a camera track and
+    the scan raster, which it does not cover, render instance by instance
+    through `render_frame`, with a one-line notice once per process."""
     pose_step = scene.jit_step(render=False, donate=False)
     if not render:
         return pose_step

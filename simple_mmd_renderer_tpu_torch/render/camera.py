@@ -71,6 +71,18 @@ def look_at(eye, target, up, device=None):
     return m
 
 
+def orbit_camera(target, distance, rotation_x, rotation_y, device=None):
+    """The app's orbit camera: offset from `target` by spherical angles;
+    `distance` is negative (the camera behind the target)."""
+    target = _f32(target, device)
+    rx = _f32(rotation_x, target.device)
+    ry = _f32(rotation_y, target.device)
+    cos_y, sin_y = torch.cos(ry), torch.sin(ry)
+    cos_x, sin_x = torch.cos(rx), torch.sin(rx)
+    offset = distance * torch.stack([cos_y * sin_x, sin_y, cos_y * cos_x])
+    return target + offset
+
+
 def directional_light_view(light_dir, device=None):
     """The shadow pass light frame: light placed 50 m against its direction,
     looking at the origin, with the robust up-vector chain."""

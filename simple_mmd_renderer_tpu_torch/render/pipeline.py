@@ -103,6 +103,17 @@ def build_matrices(cfg, model_mat=None, aspect=None, proj_transform=None,
                 light_mvp=light_mvp, light_vp=light_vp)
 
 
+def ground_geometry(size, device="cuda"):
+    """The 2*size-metre white stage quad: vertices [4, 3] f32 on the y = 0
+    plane and its two triangles [2, 3] i32."""
+    s = float(size)
+    verts = torch.tensor([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s]],
+                         dtype=torch.float32, device=device)
+    tris = torch.tensor([[0, 1, 2], [2, 3, 0]], dtype=torch.int32,
+                        device=device)
+    return verts, tris
+
+
 def unproject_depth(depth, vp, width, height):
     """[H,W] NDC depth -> [H,W,3] world positions through inv(vp), evaluated
     per row of inv(vp) on [H,W] planes; [I,H,W] depths of a shared camera
@@ -206,14 +217,19 @@ def _tiled_e_max(width, height, default=6):
 
 
 def shadow_pass(verts_m, tris_flipped, light_mvp, size, window=False,
-                compact=True, corner_pos=None):
+                compact=True, corner_pos=None, scan=False):
     """Depth-only character raster from the light (front-face cull).
     `window` restricts it to the casters' tile bounding box (K6) for maps
     of at least 1024^2. `corner_pos` [T,3,3] may pass pre-gathered
-    per-corner world positions shared with the main pass."""
+    per-corner world positions shared with the main pass. `scan` takes the
+    exact scan raster's depth instead (`raster.rasterize`, KS), as the
+    reference does for its scan raster_fn."""
     from ..ops.tiled_raster import (rasterize_depth_tiled,
                                     rasterize_depth_tiled_window)
     clip = raster.transform_clip(verts_m, light_mvp)
+    if scan:
+        return raster.rasterize(clip, tris_flipped, size, size,
+                                raster.CULL_FRONT).depth
     cv = (raster.transform_clip(corner_pos, light_mvp)
           if corner_pos is not None else None)
     if window and size >= 1024:
@@ -682,9 +698,11 @@ def _frame_albedo(static, cfg, part_textures, atlas, vis, uv_px, uvs, tris,
                   clip, width, height):
     """The single frame's albedo pass (reference `render_frame`
     l.1277-1350): deferred UVs from the visibility buffer with
-    `albedo_window` (per-triangle mip levels and the resident mini-atlas
-    where the config asks for them), else the UVs the raster carried."""
-    if not cfg.albedo_window:
+    `albedo_window` on the tiled raster (per-triangle mip levels and the
+    resident mini-atlas where the config asks for them), else the UVs the
+    raster carried (`uv_px`: given without albedo_window, and on the scan
+    raster, whose UVs always ride as attributes 3-4)."""
+    if uv_px is not None:
         return character_albedo(static, vis.tri, uv_px, part_textures, atlas)
     atl = atlas if atlas is not None else build_packed_atlas(
         part_textures, mip_levels=cfg.texture_mips, device=tris.device)
@@ -888,10 +906,11 @@ def _edge_hull(static, positions_mmd, normals, cfg, mats, width, height,
     MAT_DRAW_EDGE parts, its vertices displaced along the deformed normals
     by edge_mag * 0.01 * edge_scale, front faces culled so that only the
     silhouette ring shows. One frame rasterizes it with K2 at 0 attributes
-    (`rasterize_tiled`), a crowd [I, V, 3] with K5a and one zero attribute,
-    as the reference does. -> (mask [*lead, H, W] where the hull is nearer
-    than the ground, its part's edge colour [*lead, H, W, 3]), or None
-    without edges."""
+    (`rasterize_tiled`), or with the scan raster (`raster.rasterize`, KS)
+    under raster_mode="scan", a crowd [I, V, 3] with K5a and one zero
+    attribute, as the reference does. -> (mask [*lead, H, W] where the
+    hull is nearer than the ground, its part's edge colour [*lead, H, W,
+    3]), or None without edges."""
     from ..ops.tiled_raster import rasterize_attrs_tiled_crowd, rasterize_tiled
     if not (cfg.show_edges and static.n_edge_tris):
         return None
@@ -900,7 +919,10 @@ def _edge_hull(static, positions_mmd, normals, cfg, mats, width, height,
         verts_e = (positions_mmd + normals * emag) * cfg.mmd_to_meter
         etris = static.edge_tris.flip(-1)
         clip_e = raster.transform_clip(verts_e, mats["mvp"])
-        if clip_e.dim() == 3:
+        if cfg.raster_mode == "scan":
+            vis_e = raster.rasterize(clip_e, etris, width, height,
+                                     raster.CULL_FRONT)
+        elif clip_e.dim() == 3:
             vis_e, _ = rasterize_attrs_tiled_crowd(
                 clip_e, etris, torch.zeros(positions_mmd.shape[:2] + (1,),
                                            dtype=torch.float32,
@@ -983,13 +1005,6 @@ def _composite(cfg, mats, static, color, vis, world_px, nrm_px, albedo,
     return torch.clamp(color, 0.0, 1.0)
 
 
-def _check_slice(cfg):
-    """Raise NotImplementedError for every option outside the ported
-    slice."""
-    if cfg.raster_mode == "scan":
-        raise NotImplementedError('raster_mode="scan"')
-
-
 def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
                  cubemap=None, model_mat=None, width=None, height=None,
                  uv_offsets=None, part_color=None, mmd_maps=None, atlas=None,
@@ -1016,14 +1031,18 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
     transform, with `aspect` the full frame's ratio) renders one band of a
     larger frame. The camera and light may be tensors (a camera or light
     track's samples, `Scene.frame_config`), `camera_orthographic` a bool
-    tensor."""
-    _check_slice(cfg)
+    tensor. `cfg.raster_mode="scan"` rasterizes the shadow map, the edge
+    hull and the character with the exact scan raster (`raster.rasterize`,
+    KS), the attributes interpolated from its visibility buffer, the UVs
+    riding as attributes 3-4 and 4x MSAA supersampled, as the reference's
+    scan raster does; "auto" and "tiled" take the binned tile rasters."""
     dev = positions_mmd.device
     width = width or cfg.width
     height = height or cfg.height
     if mmd_maps is not None:
         mmd_maps = build_mmd_maps(mmd_maps, dev)
-    msaa_native = cfg.msaa >= 4 and not cfg.msaa_supersample
+    scan = cfg.raster_mode == "scan"
+    msaa_native = cfg.msaa >= 4 and not cfg.msaa_supersample and not scan
     if cfg.msaa >= 4 and not msaa_native:
         # 2x2 supersampling at msaa=1 (the ground's lit lookup at twice the
         # downsample, so it runs at the same resolution), then a box filter
@@ -1043,10 +1062,10 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
 
     verts_m = positions_mmd * cfg.mmd_to_meter
     tris = static.triangles.flip(-1)              # winding flip at upload
-    # deferred UV: with albedo_window the UVs are rebuilt from the
-    # visibility buffer (uv_from_vis), else they ride the raster as
-    # attributes 3-4
-    defer_uv = part_textures is not None and cfg.albedo_window
+    # deferred UV: with albedo_window on the tiled raster the UVs are
+    # rebuilt from the visibility buffer (uv_from_vis), else they ride the
+    # raster as attributes 3-4
+    defer_uv = part_textures is not None and cfg.albedo_window and not scan
     attrs, uvs = normals, static.uvs
     if part_textures is not None and uv_offsets is not None:
         with pass_scope("morphs"):
@@ -1054,10 +1073,12 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
     if part_textures is not None and not defer_uv:
         attrs = torch.cat([normals, uvs], -1)
 
-    # per-corner vertex table shared by the shadow and character rasters:
-    # one 3T-row gather of [pos | attrs], transformed per pass
-    g3 = torch.cat([verts_m, attrs], -1)[tris.long()]
-    corner_pos, corner_va = g3[..., :3], g3[..., 3:]
+    # per-corner vertex table shared by the tiled shadow and character
+    # rasters: one 3T-row gather of [pos | attrs], transformed per pass
+    corner_pos = corner_va = None
+    if not scan:
+        g3 = torch.cat([verts_m, attrs], -1)[tris.long()]
+        corner_pos, corner_va = g3[..., :3], g3[..., 3:]
 
     shadow_map = None
     if cfg.shadows_enabled:
@@ -1065,7 +1086,7 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
             shadow_map = shadow_pass(verts_m, tris, mats["light_mvp"],
                                      cfg.shadow_map_size, cfg.shadow_window,
                                      compact=cfg.compact_bin,
-                                     corner_pos=corner_pos)
+                                     corner_pos=corner_pos, scan=scan)
 
     color, ground_depth = _background(cfg, mats, shadow_map, (), width,
                                       height, dev, cubemap)
@@ -1073,22 +1094,24 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
                        height, ground_depth)
 
     clip = raster.transform_clip(verts_m, mats["mvp"])
-    cv = raster.transform_clip(corner_pos, mats["mvp"])
     nocull = _nocull(cfg, static)
     sdepth = None
     with pass_scope("character"):
         from ..ops.tiled_raster import (rasterize_attrs_tiled,
                                         rasterize_attrs_tiled_msaa)
-        if msaa_native:
-            vis, attr_px, sdepth = rasterize_attrs_tiled_msaa(
-                clip, tris, attrs, width, height, raster.CULL_BACK,
-                _tiled_e_max(width, height), cfg.compact_bin, cv=cv,
-                va=corner_va, nocull=nocull)
+        if scan:
+            vis = raster.rasterize(clip, tris, width, height,
+                                   raster.CULL_BACK, nocull=nocull)
+            attr_px = raster.interpolate(vis, clip, tris, attrs)
         else:
-            vis, attr_px = rasterize_attrs_tiled(
+            cv = raster.transform_clip(corner_pos, mats["mvp"])
+            raster_fn = (rasterize_attrs_tiled_msaa if msaa_native
+                         else rasterize_attrs_tiled)
+            vis, attr_px, *ms = raster_fn(
                 clip, tris, attrs, width, height, raster.CULL_BACK,
                 _tiled_e_max(width, height), cfg.compact_bin, cv=cv,
                 va=corner_va, nocull=nocull)
+            sdepth = ms[0] if ms else None
     world_px, nrm_px = _surface(cfg, mats, vis, attr_px, nocull, width,
                                 height)
     albedo = None
@@ -1109,12 +1132,11 @@ def crowd_render_supported(cfg, part_textures=None, cubemap=None,
     outlines (a second crowd raster over the displaced hull), double-sided
     materials (the shared nocull mask), the skybox (one camera-shared
     pass), MMD toon/sphere shading (over the instance axis), shadows and
-    ground are all in the fused frame. A per-instance camera and the
-    supersampled MSAA render instance by instance instead
-    (parallel.mesh.crowd_step_fn); so does the scan raster, which the
-    port's `raster_mode="auto"` never picks. `texture_resident` is ignored
-    on the crowd path: the mip atlas is sampled directly, which is
-    exact."""
+    ground are all in the fused frame. A per-instance camera, the
+    supersampled MSAA and the scan raster (as in the reference) render
+    instance by instance instead (parallel.mesh.crowd_step_fn).
+    `texture_resident` is ignored on the crowd path: the mip atlas is
+    sampled directly, which is exact."""
     return (camera is None
             and not (cfg.msaa >= 4 and cfg.msaa_supersample)
             and cfg.raster_mode != "scan")
@@ -1141,9 +1163,10 @@ def crowd_render_frame(static, positions_mmd, normals, cfg, width=None,
     from ..ops.tiled_raster import (rasterize_attrs_tiled_crowd,
                                     rasterize_attrs_tiled_msaa_crowd,
                                     rasterize_depth_tiled_crowd)
-    _check_slice(cfg)
     if not crowd_render_supported(cfg):
-        raise NotImplementedError("msaa_supersample")
+        raise NotImplementedError('raster_mode="scan"'
+                                  if cfg.raster_mode == "scan"
+                                  else "msaa_supersample")
     dev = positions_mmd.device
     width = width or cfg.width
     height = height or cfg.height

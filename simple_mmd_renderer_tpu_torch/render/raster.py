@@ -1,9 +1,12 @@
 """Triangle setup and visibility buffers shared by the tiled raster.
 
-Port of the parts of `simple_mmd_renderer_tpu/render/raster.py` that the
-tiled path needs: `VisBuffer`, `transform_clip`, `screen_from_clip`, `setup`
-and `interpolate` (used by the big-triangle merge). The exact scan
-`rasterize` is not ported yet.
+Port of `simple_mmd_renderer_tpu/render/raster.py`: `VisBuffer`,
+`transform_clip`, `screen_from_clip`, `setup`, `interpolate`, and the exact
+scan raster `rasterize` (triangles in draw order, full-frame edge functions,
+LESS_EQUAL) with `empty_vis` and `_pixel_centers`. `rasterize` is the
+raster of `raster_mode="scan"`; its body is `ops.tiled_raster.scan_raster`
+(kernel KS on the card, its plain version on the CPU), which the tiled
+path's big-triangle merges share.
 
 Depth convention: zero-to-one (RH_ZO), z-less wins, cleared to 1.0; screen
 y points down; pixel centres sit at integer + 0.5.
@@ -83,6 +86,38 @@ def setup(clip, tris, width, height, cull=CULL_BACK, cv=None,
 
     valid = w_ok & face_ok & (torch.abs(area2) > 1e-12) & hits_sample
     return dict(xy=xy, z=z, inv_w=iw, area2=area2, valid=valid)
+
+
+def _pixel_centers(width, height, device="cuda"):
+    """Pixel-centre coordinates: xs [1, W] and ys [H, 1] (integer + 0.5)."""
+    ys = (torch.arange(height, dtype=torch.float32, device=device)
+          + 0.5)[:, None]
+    xs = (torch.arange(width, dtype=torch.float32, device=device)
+          + 0.5)[None, :]
+    return xs, ys
+
+
+def rasterize(clip, tris, width, height, cull=CULL_BACK,
+              vis: VisBuffer | None = None, nocull=None) -> VisBuffer:
+    """Exact rasterization: every triangle's edge functions over the whole
+    frame, in draw order, a pixel passing where it is covered and
+    0 <= zp <= depth, zp <= 1 (LESS_EQUAL: a later triangle wins a z-tie),
+    from `vis` (None: `empty_vis`). clip [V, 4], tris [T, 3]; a crowd's
+    clip [I, V, 4] gives a VisBuffer [I, H, W]. `cull` and `nocull` as
+    `setup` takes them. Runs kernel KS on a CUDA tensor."""
+    from ..ops.tiled_raster import scan_raster
+    s = setup(clip, tris, width, height, cull, nocull=nocull)
+    return scan_raster(width, height, s, vis)
+
+
+def empty_vis(width, height, device="cuda", lead=()) -> VisBuffer:
+    """A cleared visibility buffer [*lead, H, W]: depth 1, triangle -1,
+    barycentrics 0."""
+    shape = tuple(lead) + (height, width)
+    return VisBuffer(
+        depth=torch.ones(shape, dtype=torch.float32, device=device),
+        tri=torch.full(shape, -1, dtype=torch.int32, device=device),
+        bary=torch.zeros(shape + (2,), dtype=torch.float32, device=device))
 
 
 def interpolate(vis: VisBuffer, clip, tris, attrs):

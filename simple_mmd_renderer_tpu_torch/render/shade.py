@@ -1,10 +1,12 @@
 """Deferred shading: the reference's GLSL fragment programs on torch tensors.
 
-Port of the flagship subset of `simple_mmd_renderer_tpu/render/shade.py`:
-`shade_character` (main.glsl: albedo, rim, Blinn-Phong, weak diffuse, final
-srgb->linear transfer), and the ground's shadow path: `_ground_zref_plane`,
-`ground_lit_map` (3x3 PCF in shadow space, kernel K3 on the card for every
-map size) and `ground_shadow_lookup`.
+Port of `simple_mmd_renderer_tpu/render/shade.py`: `shade_character`
+(main.glsl: albedo, rim, Blinn-Phong, weak diffuse, final srgb->linear
+transfer), `srgb_to_linear` / `linear_to_srgb`, the per-pixel ground of
+shader/ground.glsl (`pcf_shadow`, `shade_ground`), and the frame's ground
+shadow path: `_ground_zref_plane`, `ground_lit_map` (3x3 PCF in shadow
+space, kernel K3 on the card for every map size) and
+`ground_shadow_lookup`.
 """
 
 from __future__ import annotations
@@ -18,6 +20,11 @@ def srgb_to_linear(c):
     """SrgbToLinear (main.glsl:64-77) — applied to the *final* color."""
     return torch.where(c <= 0.04045, c / 12.92,
                        torch.pow(torch.abs((c + 0.055) / 1.055), 2.4))
+
+
+def linear_to_srgb(c):
+    return torch.where(c <= 0.0031308, 12.92 * c,
+                       1.055 * torch.pow(torch.abs(c), 1.0 / 2.4) - 0.055)
 
 
 def _f32(x, device):
@@ -61,6 +68,51 @@ def shade_character(albedo, normal, world_pos, view_pos, cfg):
                  + light_col[c] * cfg.specular_intensity * spec_factor)
         chans.append(srgb_to_linear(final))
     return torch.stack(chans, -1)
+
+
+def pcf_shadow(light_space_pos, shadow_map, enabled, bias=0.001):
+    """Per-pixel 3x3 PCF (shader/ground.glsl:66-125): light_space_pos
+    [..., 4] clip coordinates in the light frustum, shadow_map [S, S] depth
+    (rendered y-down, so the GL-style v flips to a row index); `enabled` a
+    bool or a bool tensor. -> [..., 1] shadow factor in [0, 1] (1 = lit;
+    outside the frustum lit). The frame's ground uses `ground_lit_map`
+    (PCF in shadow space, K3) and one lookup a pixel instead."""
+    s = shadow_map.shape[0]
+    w = light_space_pos[..., 3:4]
+    proj = light_space_pos[..., :3] / torch.where(torch.abs(w) > 1e-9, w,
+                                                  torch.ones_like(w))
+    proj = proj * 0.5 + 0.5
+    u = proj[..., 0]
+    v_ = 1.0 - proj[..., 1]
+    w0 = w[..., 0]
+    zref = light_space_pos[..., 2] / torch.where(torch.abs(w0) > 1e-9, w0,
+                                                 torch.ones_like(w0))
+    inside = ((u >= -0.001) & (u <= 1.001) & (v_ >= -0.001) & (v_ <= 1.001)
+              & (zref >= 0.0) & (zref <= 1.001))
+    px = torch.clamp((torch.clamp(u, 0.0, 1.0) * s).to(torch.int32), 0, s - 1)
+    py = torch.clamp((torch.clamp(v_, 0.0, 1.0) * s).to(torch.int32), 0,
+                     s - 1)
+    total = torch.zeros_like(zref)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            qx = torch.clamp(px + dx, 0, s - 1).long()
+            qy = torch.clamp(py + dy, 0, s - 1).long()
+            total = total + (zref - bias < shadow_map[qy, qx]).to(
+                torch.float32)
+    shadow = torch.clamp(total / 9.0, 0.0, 1.0)
+    one = torch.ones_like(shadow)
+    shadow = torch.where(inside, shadow, one)
+    on = torch.as_tensor(enabled, dtype=torch.bool, device=shadow.device)
+    return torch.where(on, shadow, one)[..., None]
+
+
+def shade_ground(albedo, light_space_pos, shadow_map, shadows_enabled,
+                 receive_shadows=True):
+    """shader/ground.glsl:118-125: albedo * 0.7 times the PCF factor."""
+    shadow = pcf_shadow(light_space_pos, shadow_map,
+                        torch.as_tensor(shadows_enabled)
+                        & torch.as_tensor(receive_shadows))
+    return albedo * 0.7 * shadow
 
 
 def _ground_zref_plane(s, light_vp, bias):

@@ -60,6 +60,10 @@ def presample(c0: np.ndarray, c1: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return lut.reshape(batch + (RESOLUTION,)), linear.reshape(batch)
 
 
+LINEAR_LUT = (np.arange(RESOLUTION, dtype=np.float32)
+              / np.float32(RESOLUTION - 1))
+
+
 def lut_eval(lut, x):
     """Evaluate LUT(s) at x: (1-r)*lut[ix] + r*lut[ix+1], ix = int(31x).
 

@@ -167,6 +167,15 @@ def euler_to_quat(euler, order):
 
 # --- Interpolation (the reference's Lerp/NLerp/SLerp proxies) ---------------
 
+def lerp(a, b, t):
+    """Linear interpolation with the reference's eps endpoint shortcuts."""
+    t = torch.as_tensor(t, dtype=a.dtype, device=a.device)
+    tt = t[..., None] if t.dim() < a.dim() else t
+    out = (1.0 - tt) * a + tt * b
+    out = torch.where(tt < EPS, a, out)
+    return torch.where(tt > 1.0 - EPS, b, out)
+
+
 def quat_nlerp(a, b, t):
     """Normalized lerp with shortest-path sign flip (NLerpProxy)."""
     t = t[..., None]
@@ -208,6 +217,28 @@ def affine(rot3=None, trans=None):
     if trans is not None:
         m[..., :3, 3] = trans
     return m
+
+
+def transform_point(m, p):
+    """Apply 4x4 affine(s) to 3-point(s)."""
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
+
+
+def rotate_vec(m, v):
+    """Apply the rotation block of 4x4 affine(s) to vector(s)."""
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], v)
+
+
+def affine_inverse(m):
+    """Inverse of a rigid/affine transform via the full inverse of its 3x3
+    block."""
+    r_inv = torch.linalg.inv_ex(m[..., :3, :3]).inverse   # no host sync
+    t_inv = -torch.einsum("...ij,...j->...i", r_inv, m[..., :3, 3])
+    return affine(r_inv, t_inv)
+
+
+def mat_from_quat_trans(q, t):
+    return affine(quat_to_mat3(q), t)
 
 
 def mat3_to_quat(m):

@@ -47,7 +47,8 @@ from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
 from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
 from simple_mmd_renderer_tpu_torch.render import raster
 
-from torch_box_meshes import KINDS, boxed_bins, screen_setup
+from torch_box_meshes import (KINDS, boxed_bins, screen_setup,
+                              screen_triangles)
 
 pytestmark = pytest.mark.cuda
 
@@ -1243,3 +1244,142 @@ def test_capture_survives_dead_graphs(cuda):
     want = live.step_pose(state)[0]
     assert torch.equal(got.physics.pos, want.physics.pos)
     assert torch.equal(got.time, want.time)
+
+
+def _scan_setup(device, t, w, h, seed, cull=raster.CULL_NONE, n_inst=None):
+    """`raster.setup` of a random mesh (one big triangle among t) on the
+    device, [t + 1, ...], or [n_inst, t + 1, ...] (instances moved
+    apart)."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-0.9, 0.9, (t, 2))
+    verts = np.stack([v0, v0 + rng.uniform(-0.3, 0.3, (t, 2)),
+                      v0 + rng.uniform(-0.3, 0.3, (t, 2))], 1).reshape(-1, 2)
+    zs = rng.uniform(0.05, 0.95, 3 * t)
+    clip = np.concatenate([verts, zs[:, None], np.ones((3 * t, 1))], -1)
+    clip = np.concatenate([clip, [[-3, -3, 0.9, 1], [3, -3, 0.9, 1],
+                                  [0, 3, 0.9, 1]]]).astype(np.float32)
+    if n_inst:
+        shift = rng.uniform(-0.2, 0.2, (n_inst, 1, 4)) * [1, 1, 0, 0]
+        clip = (clip[None] + shift).astype(np.float32)
+    tris = torch.arange(3 * t + 3, dtype=torch.int32,
+                        device=device).reshape(-1, 3)
+    return raster.setup(torch.as_tensor(clip, device=device), tris, w, h,
+                        cull)
+
+
+def _assert_vis_bits(got, want):
+    assert torch.equal(got.depth, want.depth)
+    assert torch.equal(got.tri, want.tri)
+    assert torch.equal(got.bary, want.bary)
+
+
+SCAN_CASES = {"random": dict(t=699), "back": dict(t=300, cull=1),
+              "stage": dict(t=255), "one": dict(t=0),
+              "start": dict(t=700), "crowd": dict(t=515, n_inst=3)}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_scan_kernel_bit_exact(cuda, case):
+    """KS against its plain version: depth, triangle ids and barycentrics
+    bit for bit (triangle counts 1, 256, 301, 516, 700 and 701 against
+    the staging chunk of 256), from a start buffer, over three instances; a
+    second run gives the same bits; the counter counts the launch."""
+    w, h = 333, 197
+    kw = SCAN_CASES[case]
+    s = _scan_setup(cuda, seed=len(case), w=w, h=h, **kw)
+    vis = None
+    if case == "start":
+        rng = np.random.default_rng(3)
+        vis = raster.VisBuffer(
+            torch.as_tensor(rng.uniform(0.3, 1.0, (h, w)).astype(np.float32),
+                            device=cuda),
+            torch.as_tensor(rng.integers(-1, 50, (h, w)).astype(np.int32),
+                            device=cuda),
+            torch.as_tensor(rng.uniform(size=(h, w, 2)).astype(np.float32),
+                            device=cuda))
+    before = tr.scan_launches
+    got = tr.scan_raster(w, h, s, vis)
+    assert tr.scan_launches == before + 1
+    want = tr.scan_raster_plain(w, h, s, vis)
+    _assert_vis_bits(got, want)
+    _assert_vis_bits(tr.scan_raster(w, h, s, vis), got)
+    assert (got.tri >= 0).float().mean() > 0.3
+    if case == "crowd":
+        assert got.depth.shape == (3, h, w)
+        assert not torch.equal(got.tri[0], got.tri[1])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_scan_kernel_adversarial_boxes(cuda, kind):
+    """KS skips a triangle where its pixel box misses the block: on the
+    adversarial sets (slivers, vertices on centres, samples and edges,
+    ties) it must still equal the brute-force plain version."""
+    w, h = 320, 192
+    s = screen_setup(*screen_triangles(kind, 11, 600, w, h), 0.0)
+    s = {k: v.to(cuda) for k, v in s.items()}
+    _assert_vis_bits(tr.scan_raster(w, h, s), tr.scan_raster_plain(w, h, s))
+
+
+def test_scan_kernel_on_nothing(cuda):
+    """No triangle, or no pixel: the start buffer comes back, no launch."""
+    s = _scan_setup(cuda, 10, 64, 48, 1)
+    empty = {k: v[:0] for k, v in s.items()}
+    before = tr.scan_launches
+    got = tr.scan_raster(64, 48, empty)
+    assert tr.scan_launches == before
+    assert (got.depth == 1).all() and (got.tri == -1).all()
+    assert not got.bary.any()
+
+
+@pytest.mark.parametrize("path", ["attrs", "msaa", "depth", "window",
+                                  "crowd", "crowd_msaa", "crowd_depth"])
+def test_big_triangle_merge_on_the_scan_kernel(cuda, monkeypatch, path):
+    """A tiled raster whose big-triangle merge is live (e_max 2 on the
+    single frame, the crowd's own e_max; one frame-filling triangle among
+    many large ones) gives the same bits with the merge on KS as with the
+    merge on the plain scan, in every raster that merges."""
+    w, h = 320, 192
+    rng = np.random.default_rng(4)
+    t = 400
+    v0 = rng.uniform(-0.9, 0.9, (t, 2))
+    verts = np.stack([v0, v0 + rng.uniform(-0.6, 0.6, (t, 2)),
+                      v0 + rng.uniform(-0.6, 0.6, (t, 2))], 1).reshape(-1, 2)
+    zs = rng.uniform(0.05, 0.95, 3 * t)
+    clip = np.concatenate([verts, zs[:, None], np.ones((3 * t, 1))], -1)
+    clip = np.concatenate([clip, [[-3, -3, 0.9, 1], [3, -3, 0.9, 1],
+                                  [0, 3, 0.9, 1]]]).astype(np.float32)
+    tris = torch.arange(3 * t + 3, dtype=torch.int32,
+                        device=cuda).reshape(-1, 3)
+    crowd = path.startswith("crowd")
+    if crowd:
+        clip = np.stack([clip, clip * np.float32([0.8, 1.1, 1, 1])])
+    clip = torch.as_tensor(clip, device=cuda)
+    attrs = torch.as_tensor(rng.normal(size=clip.shape[:-1] + (3,)).astype(
+        np.float32), device=cuda)
+    cull = raster.CULL_NONE
+    run = {
+        "attrs": lambda: tr.rasterize_attrs_tiled(clip, tris, attrs, w, h,
+                                                  cull, 2),
+        "msaa": lambda: tr.rasterize_attrs_tiled_msaa(clip, tris, attrs, w, h,
+                                                      cull, 2),
+        "depth": lambda: (tr.rasterize_depth_tiled(clip, tris, w, h, cull,
+                                                   2),),
+        "window": lambda: (tr.rasterize_depth_tiled_window(
+            clip, tris, w, h, cull, 2, 8),),
+        "crowd": lambda: tr.rasterize_attrs_tiled_crowd(clip, tris, attrs, w,
+                                                        h, cull),
+        "crowd_msaa": lambda: tr.rasterize_attrs_tiled_msaa_crowd(
+            clip, tris, attrs, w, h, cull),
+        "crowd_depth": lambda: (tr.rasterize_depth_tiled_crowd(
+            clip, tris, w, h, cull),),
+    }[path]
+    before = tr.scan_launches
+    on_kernel = run()
+    assert tr.scan_launches == before + 1, "the merge must be live"
+    monkeypatch.setattr(tr, "scan_raster", tr.scan_raster_plain)
+    on_plain = run()
+    for a, b in zip(on_kernel, on_plain):
+        if isinstance(a, raster.VisBuffer):
+            _assert_vis_bits(a, b)
+        else:
+            assert torch.equal(a, b)

@@ -203,18 +203,33 @@ def test_double_sided_bins_both_windings(look, monkeypatch):
                        frames[0])
 
 
-def test_options_outside_the_slice_still_raise(look):
-    """With the full look the scan raster, still outside the port, raises
-    naming itself (`proj_transform`, which raised here before, is ported:
-    tests/test_torch_camera.py)."""
-    static, rig, _, _ = look
-    pos = torch.as_tensor(np.asarray(static.positions))
-    nrm = torch.as_tensor(np.asarray(static.normals))
-    cfg = config.RenderConfig(**cfg_kw(OPTIONS))
-    for option, kw in (('raster_mode="scan"', dict(raster_mode="scan")),):
-        with pytest.raises(NotImplementedError, match=option):
-            pipeline.render_frame(rig, pos, nrm,
-                                  dataclasses.replace(cfg, **kw))
+def test_options_outside_the_slice_still_raise(look, ref_frames,
+                                               monkeypatch):
+    """No option of the full look raises any more: the scan raster, the
+    last one that did, is ported. With all four options and
+    `raster_mode="scan"` the frame goes through the scan raster (the
+    shadow map, the edge hull and the character; no binning) and agrees
+    with the reference's full-look frame at the whole-frame tolerance
+    (measured against its tiled frame: largest difference 3.4e-6; the scan
+    frames themselves are held against the reference's in
+    tests/test_torch_scan_raster.py)."""
+    static, _, cube, mmd = look
+    calls = []
+    scan = tr.scan_raster
+
+    def spy(*a, **kw):
+        calls.append(a[:2])
+        return scan(*a, **kw)
+    monkeypatch.setattr(tr, "scan_raster", spy)
+    monkeypatch.setattr(tr, "_bin", None)
+    got = pipeline.render_frame(
+        look[1], torch.as_tensor(np.asarray(static.positions)),
+        torch.as_tensor(np.asarray(static.normals)),
+        config.RenderConfig(raster_mode="scan", **cfg_kw(OPTIONS)),
+        cubemap=convert.cubemap(cube, "cpu"), mmd_maps=convert.mmd_maps(mmd))
+    assert calls == [(64, 64), (W, H), (W, H)]
+    assert_frames_close(got[None].numpy(),
+                        ref_frames[OPTIONS, 1, True][None], "scan")
 
 
 @pytest.fixture(scope="module")

@@ -249,11 +249,16 @@ def test_scene_packed_atlas_cache(scenes):
 ])
 def test_textured_frame_options_outside_the_slice_raise(model, option, kw,
                                                          cfg_kw):
-    """With textures the options still outside the port raise, naming
-    themselves. `proj_transform` and the orthographic camera are ported
-    (tests/test_torch_camera.py holds them against the reference): with
-    textures an identity `proj_transform` gives the plain frame bit for
-    bit, and the orthographic frame is finite and another."""
+    """With textures no option raises any more. `proj_transform` and the
+    orthographic camera are ported (tests/test_torch_camera.py holds them
+    against the reference): with textures an identity `proj_transform`
+    gives the plain frame bit for bit, and the orthographic frame is
+    finite and another. The scan raster is ported too
+    (tests/test_torch_scan_raster.py holds its textured frame against the
+    reference's): with textures, its UVs riding the raster as attributes,
+    it agrees with the tiled frame (deferred UVs) at the whole-frame
+    tolerance (measured: 1.1e-4 of the values beyond 0.02, mean 3.4e-5:
+    the bilinear taps of a few edge pixels)."""
     static, rig = model
     cfg = config.RenderConfig(**{"width": 64, "height": 48,
                                  "shadow_map_size": 64, "show_skybox": False,
@@ -270,7 +275,9 @@ def test_textured_frame_options_outside_the_slice_raise(model, option, kw,
         assert bool(torch.isfinite(got).all())
         assert torch.equal(got, plain) == (option == "proj_transform")
         return
-    with pytest.raises(NotImplementedError) as err:
-        pipeline.render_frame(rig, pos, nrm, cfg,
-                              part_textures=sample_textures(TEXTURES), **kw)
-    assert option in str(err.value)
+    got = pipeline.render_frame(rig, pos, nrm, cfg, part_textures=texs)
+    tiled = pipeline.render_frame(
+        rig, pos, nrm, dataclasses.replace(cfg, raster_mode="auto"),
+        part_textures=texs)
+    assert bool(torch.isfinite(got).all())
+    _assert_frames_close(got[None].numpy(), tiled[None].numpy(), option)
