@@ -168,12 +168,36 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    (`png_pixels`) equal to the frames' uint8 arrays; the trace's pass
    labels; and card-vs-CPU frames (256x192 and an orthographic frame;
    a crowd of 4 with the camera track, rendered instance by instance).
+10. mesh: the multi-device entry points of `parallel.mesh` (`check_mesh`)
+   on the reference dry run's three configurations at the widths above,
+   over meshes that repeat the one card (`make_mesh(["cuda:0"] * n)`: the
+   shards and bands run one after another on it; with more than one card
+   also `make_mesh()` over all of them). The msaa=1 flagship at 1920x1080
+   in 3 row bands of 360 (`frame_jit`: the downsampled lit map with its
+   halo rows) and the msaa=4 + shadow_window flagship in 4 bands of 270
+   (the exact lookup: 270 % 4 != 0): every band's frame-1 kernel calls
+   against their plain versions (`check_calls`), the gathered frame
+   against the unbanded frame of the same state (the whole-frame
+   tolerance; the same lookup) and state' against the unbanded step's
+   (bit for bit); the dense crowd of 64 in 4 shards of 16 (`shard_crowd`,
+   `crowd_jit`) at msaa=1 and 4: every shard's frame-1 kernel calls, the
+   gathered images against `crowd_step_fn` over the 64 on one device (the
+   whole-frame tolerance, state leaves within 1e-4); the scan crowd of 8
+   (density 0.25, 32x32, shadow 32, 2 solver iterations, the per-instance
+   fallback on KS) in 4 shards likewise; each split path and its
+   one-device path timed in turns (4-frame segments, launch counters
+   reset and checked per segment). Then the native PMX parser
+   (`native.get_lib()` built and loaded; the content rig and the
+   density-2.0 sample character, written by `write_pmx`, parse to equal
+   arrays through it and through the Python loop, with each route's
+   seconds).
 
 The line before the last is the kernels' JSON record (`launches`: every
 kernel's launches summed over the timed compiled segments of every main
-path, the scan frame's included, and over the CLI's runs, each counted
-from 0 just before its segment or run; KS's also the tiled paths'
-merges); the last line is {"ok": true, "device": {...}}.
+path, the scan frame's included, over the CLI's runs and over the mesh
+phase's timed segments (split and one-device), each counted from 0 just
+before its segment or run; KS's also the tiled paths' merges); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2639,6 +2663,347 @@ def check_cli(smi: str):
     log(f"cli: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# the mesh phase (`check_mesh`), the reference dry run's three
+# configurations at the flagship's widths on a mesh that repeats the one
+# card (`make_mesh(["cuda:0"] * n)`): the 1080p flagship frames split into
+# BANDS[path] row bands (the msaa=1 frame's 360-row bands keep the
+# downsampled lit map with its halo rows, the msaa=4 + window frame's
+# 270-row bands, which the downsample factor 4 does not divide, take the
+# exact lookup), the dense crowd of CROWD_N over MESH_SHARDS shards at
+# msaa=1 and 4, and the scan crowd (SCAN_CROWD: density, width, height,
+# shadow, solver iterations; 2 instances a shard, the per-instance
+# fallback); MESH_SEGMENT frames a segment, split and one-device in turns
+# (MESH_ORDER: split?)
+BANDS = {M1: 3, M4: 4}
+MESH_SHARDS, MESH_SEGMENT = 4, 4
+MESH_ORDER = (True, False, False, True)
+SCAN_CROWD = (0.25, 32, 32, 32, 2)
+
+
+def mesh_label(mesh) -> str:
+    names = [str(d) for d in mesh.devices]
+    if len(set(names)) == 1:
+        return f"['{names[0]}'] * {len(names)}"
+    return str(names)
+
+
+def checksum(image) -> torch.Tensor:
+    """The mean of an image, or of a Sharded one's equal-sized shards."""
+    from simple_mmd_renderer_tpu_torch.parallel.mesh import Sharded
+
+    if isinstance(image, Sharded):
+        return torch.stack([x.mean().to(image.devices[0])
+                            for x in image.shards]).mean()
+    return image.mean()
+
+
+def mesh_turns(label, steps, expect) -> dict:
+    """`steps` {split?: (step, state)}: the mesh's step and the one-device
+    step, MESH_SEGMENT frames a segment in turns (MESH_ORDER), every launch
+    counter reset just before each segment and read just after; each
+    kernel must launch `expect[split?][kernel]` times a frame (KS, where
+    `expect` does not name it, only in big-triangle merges). -> {split?:
+    ms per frame}."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    states = {split: st for split, (_, st) in steps.items()}
+    seg_ms = {split: [] for split in steps}
+    for split in MESH_ORDER:
+        step = steps[split][0]
+        state, sums = states[split], []
+        reset_counters()
+        t0 = time.perf_counter()
+        for _ in range(MESH_SEGMENT):
+            state, image = step(state)
+            sums.append(checksum(image))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        states[split] = state
+        counts = read_counters()
+        name = f"{label}, {'split' if split else 'one device'}"
+        want = dict(expect[split])
+        if "KS" in want:
+            counts["KS"] = tr.scan_launches
+        else:
+            rasters = sum(v for k, v in want.items() if k != "K3")
+            MAIN_LAUNCHES["KS"] += merge_launches(name, MESH_SEGMENT,
+                                                  rasters)
+        for k, n in counts.items():
+            MAIN_LAUNCHES[k] += n
+        ms = 1000.0 * dt / MESH_SEGMENT
+        seg_ms[split].append(ms)
+        sums = torch.stack(sums).cpu().numpy()
+        log(f"{name}: segment of {MESH_SEGMENT} frames, {ms:.3f} ms/frame; "
+            f"launches {counts}; checksums {sums.min():.5f}..{sums.max():.5f}")
+        if not np.isfinite(sums).all() or not (np.abs(np.diff(sums)) > 0).any():
+            raise AssertionError(f"{name}: frames non-finite or not advancing")
+        for k, n in counts.items():
+            if n != MESH_SEGMENT * want.get(k, 0):
+                raise AssertionError(f"{name}: {k} launched {n} times in "
+                                     f"{MESH_SEGMENT} frames, expected "
+                                     f"{MESH_SEGMENT * want.get(k, 0)}")
+    return {split: sum(v) / len(v) for split, v in seg_ms.items()}
+
+
+def frame_gap(got, want) -> tuple[float, float]:
+    """(share of the pixels off by more than 0.02, mean absolute
+    difference), of the worst instance for [I, H, W, 3] frames."""
+    d = (got - want).abs()
+    if d.dim() == 3:
+        d = d[None]
+    return (max(float((x > 0.02).float().mean()) for x in d),
+            max(float(x.mean()) for x in d))
+
+
+def mesh_bands(name, scene, mesh):
+    """The flagship path `name` (its scene) split into len(mesh) row
+    bands by `frame_jit`: every band's kernel calls of frame 1 against
+    their plain versions (`check_calls`); the gathered frame against the
+    unbanded frame of the same state (the same lookup: the exact one where
+    the bands take it) and state' against the unbanded step's; then banded
+    and unbanded frames timed in turns."""
+    from simple_mmd_renderer_tpu_torch.parallel.mesh import frame_jit
+
+    n = len(mesh)
+    cfg = scene.config.render
+    label = (f"mesh: {name}, {n} bands of {HEIGHT // n} rows over "
+             f"{mesh_label(mesh)}")
+    exact = (HEIGHT // n) % cfg.shadow_lookup_downsample != 0
+    step = frame_jit(scene, mesh)
+    state0 = scene.init_state()
+    one = scene.jit_step(donate=False)
+    expect = {k: n * v for k, v in path_kernels(cfg).items()}
+    check_calls(f"{label}, frame 1", step, state0, expect)
+    state_b, image_b = step(state0)
+    same = (with_render(scene, shadow_lookup_downsample=1) if exact
+            else scene)
+    state_1, image_1 = same.jit_step(donate=False)(state0)
+    frac, mad = frame_gap(image_b.gather(), image_1)
+    state_bad = [i for i, (a, b) in enumerate(zip(sim_leaves(state_b),
+                                                  sim_leaves(state_1)))
+                 if not torch.equal(a, b)]
+    note = ""
+    if exact:
+        f2, m2 = frame_gap(image_b.gather(), one(state0)[1])
+        note = (f" (the bands' exact lookup; against the unbanded frame "
+                f"with the downsampled lookup: |d|>0.02 fraction {f2:.3g}, "
+                f"mean {m2:.3g})")
+    log(f"{label}: the gathered frame {tuple(image_b.gather().shape)} "
+        f"against the unbanded frame of the same state{note}: |d|>0.02 "
+        f"fraction {frac:.3g}, mean abs diff {mad:.3g}; state' leaves "
+        f"unequal to the unbanded step's: {state_bad}")
+    if not (frac <= 2e-3 and mad < 1 / 255) or state_bad:
+        raise AssertionError(f"{label}: the banded frame disagrees")
+    ms = mesh_turns(label, {True: (step, state_b), False: (one, state_1)},
+                    {True: expect, False: path_kernels(cfg)})
+    log(f"{label}: {ms[True]:.3f} ms per banded frame against "
+        f"{ms[False]:.3f} ms unbanded, in turns ({ms[True] - ms[False]:+.3f}"
+        f"); the bands share one card and render one after another, so no "
+        f"gain is expected")
+
+
+def ik_driven_bodies(scene) -> np.ndarray:
+    """[R] bool: the kinematic bodies on a bone that an IK chain moves (a
+    link or target of an IK program, or a bone below one)."""
+    static, ps = scene.rig.host, scene.phys.host
+    seeds = set()
+    for seg in static.pre_segments + static.post_segments:
+        for ik in seg.iks:
+            seeds |= set(ik.links.tolist()) | {ik.target}
+
+    def driven(b):
+        while b >= 0:
+            if b in seeds:
+                return True
+            b = int(static.bone_parent[b])
+        return False
+
+    return np.array([bool(ps.kinematic[i]) and bool(ps.has_bone[i])
+                     and driven(int(ps.bone[i])) for i in range(ps.n_bodies)])
+
+
+def shard_split_check(label, scene, mesh, step, whole, state0):
+    """One frame of the sharded step `step` from `state0` (a crowd state):
+    each shard's images and state equal bit for bit to `whole`
+    (`crowd_step_fn`) on that shard's instances alone (the same batch:
+    shards that share a graph must not overwrite each other's outputs);
+    the gathered images against `whole` over every instance at once (the
+    whole-frame tolerance), the clocks equal and the bodies' positions
+    within 2e-2, the posing tolerance: a product batched over fewer
+    instances may block its sums differently (another cuBLAS kernel), and
+    the CCD steps amplify a last-bit change (PARITY D1). Prints the
+    largest difference of every leaf, on the IK-driven kinematic bodies
+    and on the others. -> (sharded state', images)."""
+    from simple_mmd_renderer_tpu_torch.parallel.mesh import shard_crowd
+    from simple_mmd_renderer_tpu_torch.utils.graph import tree_map
+
+    sharded0 = shard_crowd(state0, mesh)
+    state_s, images_s = step(sharded0)
+    alone_bad = 0
+    for shard0, shard, images in zip(sharded0.shards, state_s.shards,
+                                     images_s.shards):
+        alone_state, alone = whole(tree_map(torch.clone, shard0))
+        alone_bad += int(not torch.equal(images, alone)) + sum(
+            not torch.equal(a, b) for a, b in zip(sim_leaves(shard),
+                                                  sim_leaves(alone_state)))
+    state_1, images_1 = whole(state0)
+    frac, mad = frame_gap(images_s.gather(), images_1)
+    ik = torch.as_tensor(ik_driven_bodies(scene))
+    got, want = state_s.gather(), state_1
+    gaps = {}
+    for name in ("pos", "quat", "vel", "omega"):
+        d = (getattr(got.physics, name) - getattr(want.physics, name)).abs()
+        gaps[name] = (float(d[:, ik].max()) if bool(ik.any()) else 0.0,
+                      float(d[:, ~ik].max()))
+    time_equal = torch.equal(got.time, want.time)
+    log(f"{label}: every shard equal to crowd_step_fn on its own "
+        f"{state_s.shards[0].time.shape[0]} instances (tensors unequal: "
+        f"{alone_bad}); the gathered images {tuple(images_s.gather().shape)}"
+        f" against crowd_step_fn over all {got.time.shape[0]} on one "
+        f"device, worst instance: |d|>0.02 fraction {frac:.3g}, mean abs "
+        f"diff {mad:.3g}; clocks equal {time_equal}; bodies' largest "
+        f"difference (IK-driven kinematic, other): "
+        + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in gaps.items()))
+    if alone_bad or not time_equal or not (frac <= 2e-3 and mad < 1 / 255) \
+            or max(gaps["pos"]) > 2e-2:
+        raise AssertionError(f"{label}: the sharded crowd disagrees")
+    return state_s, images_s, state_1
+
+
+def mesh_crowd(scene, mesh, msaa: bool):
+    """The dense crowd (`scene`: CROWD_N instances' scene) sharded over the
+    mesh by `crowd_jit`: every shard's kernel calls of frame 1 against
+    their plain versions, the shards against `crowd_step_fn`
+    (`shard_split_check`), then sharded and unsharded crowd frames timed
+    in turns."""
+    from simple_mmd_renderer_tpu_torch.parallel.mesh import (crowd_jit,
+                                                             shard_crowd)
+
+    n = len(mesh)
+    label = (f"mesh: crowd-dense {CROWD_LABEL[msaa]}, {n} shards of "
+             f"{CROWD_N // n} over {mesh_label(mesh)}")
+    scene = with_render(scene, msaa=4 if msaa else 1)
+    step, whole = crowd_jit(scene, mesh), crowd_step_fn(scene)
+    state0 = crowd_init(scene, CROWD_N)
+    expect = {k: n * v for k, v in crowd_kernels(msaa).items()}
+    check_calls(f"{label}, frame 1", step, shard_crowd(state0, mesh), expect)
+    state_s, _, state_1 = shard_split_check(label, scene, mesh, step, whole,
+                                            state0)
+    ms = mesh_turns(label, {True: (step, state_s), False: (whole, state_1)},
+                    {True: expect, False: crowd_kernels(msaa)})
+    log(f"{label}: {ms[True]:.3f} ms per sharded crowd frame against "
+        f"{ms[False]:.3f} ms unsharded, in turns ({ms[True] - ms[False]:+.3f}"
+        f"); the shards share one card and run one after another, so no "
+        f"gain is expected")
+
+
+def mesh_scan_crowd(mesh):
+    """The reference dry run's scan crowd (SCAN_CROWD, 2 instances a
+    shard: the per-instance fallback, KS for each instance's shadow map
+    and character) sharded by `crowd_jit`, held against `crowd_step_fn`
+    (`shard_split_check`), then timed in turns."""
+    from simple_mmd_renderer_tpu_torch.parallel.mesh import crowd_jit
+
+    density, w, h, shadow, iters = SCAN_CROWD
+    n, n_inst = len(mesh), 2 * len(mesh)
+    label = (f"mesh: scan crowd of {n_inst} (density {density}, {w}x{h}, "
+             f"shadow {shadow}), {n} shards over {mesh_label(mesh)}")
+    scene = with_render(build_sample_scene(
+        density, w, h, shadow, "cuda", n_frames=90, fps_keys=10,
+        solver_iterations=iters), raster_mode="scan")
+    step, whole = crowd_jit(scene, mesh), crowd_step_fn(scene)
+    state_s, _, state_1 = shard_split_check(label, scene, mesh, step, whole,
+                                            crowd_init(scene, n_inst))
+    per = {"K3": 1, "KS": 2}
+    ms = mesh_turns(label, {True: (step, state_s), False: (whole, state_1)},
+                    {split: {k: n_inst * v for k, v in per.items()}
+                     for split in (True, False)})
+    log(f"{label}: {ms[True]:.3f} ms per sharded crowd frame against "
+        f"{ms[False]:.3f} ms unsharded, in turns")
+
+
+def check_native():
+    """The PMX reader's native vertex parser (`native.get_lib`): built and
+    loaded here (the card's machine has g++: nvcc needs a host compiler);
+    the content rig and the density-2.0 sample character, written by
+    `write_pmx`, parse to equal arrays through it and through the Python
+    loop; the parse seconds of each route."""
+    from simple_mmd_renderer_tpu_torch import native
+    from simple_mmd_renderer_tpu_torch.app.sample import sample_character
+    from simple_mmd_renderer_tpu_torch.formats import pmx as P
+    from simple_mmd_renderer_tpu_torch.formats.writers import write_pmx
+
+    if native.get_lib() is None:
+        raise AssertionError("native: no host compiler, the parser is not "
+                             "built")
+    log(f"native: {native.library_path()} loaded (g++ builds it at a "
+        f"checkout's first PMX parse)")
+    fields = ("positions", "normals", "uvs", "extra_uvs", "skin_type",
+              "skin_bones", "skin_weights", "sdef_c", "sdef_r0", "sdef_r1",
+              "edge_scale", "triangles")
+    get_lib = native.get_lib
+    for label, pm in (("content rig", content_rig(DENSITY)[0]),
+                      (f"sample character, density {DENSITY}",
+                       sample_character(density=DENSITY))):
+        data = write_pmx(pm)
+        t0 = time.perf_counter()
+        fast = P.parse_pmx(data)
+        t1 = time.perf_counter()
+        native.get_lib = lambda: None
+        try:
+            slow = P.parse_pmx(data)
+        finally:
+            native.get_lib = get_lib
+        t2 = time.perf_counter()
+        bad = [f for f in fields if not np.array_equal(getattr(fast, f),
+                                                       getattr(slow, f))]
+        log(f"native: {label} ({len(data)} bytes, {len(fast.positions)} "
+            f"vertices, skin types {np.bincount(fast.skin_type).tolist()}): "
+            f"native parse {t1 - t0:.4f} s, Python loop {t2 - t1:.4f} s; "
+            f"fields differing {bad}")
+        if bad:
+            raise AssertionError(f"native: {label}: the routes disagree")
+
+
+def check_mesh():
+    """The multi-device entry points (`parallel.mesh`) on this machine's
+    cards: the mesh that repeats cuda:0 (shards and bands run in turn on
+    it), and with more than one card also `make_mesh()` over all of them
+    (the band and shard counts its size divides); then the native PMX
+    parser."""
+    from simple_mmd_renderer_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    runs = [({name: make_mesh(["cuda:0"] * n) for name, n in BANDS.items()},
+             make_mesh(["cuda:0"] * MESH_SHARDS))]
+    if count > 1:
+        real = make_mesh()
+        runs.append(({name: real for name in BANDS if HEIGHT % count == 0},
+                     real if CROWD_N % count == 0 else None))
+    log(f"mesh: {count} CUDA device(s); running the mesh that repeats "
+        f"cuda:0" + (" and make_mesh() over all of them" if count > 1 else
+                     " (no second card: make_mesh() over separate cards "
+                     "is not run)"))
+    for bands, shards in runs:
+        for name, mesh in bands.items():
+            scene = build_sample_scene(DENSITY, WIDTH, HEIGHT, SHADOW,
+                                       "cuda", **({} if name == M1
+                                                  else MSAA_PATH))
+            mesh_bands(name, scene, mesh)
+            del scene
+        if shards is not None:
+            scene = build_sample_scene(DENSITY, CROWD_W, CROWD_H,
+                                       CROWD_SHADOW, "cuda",
+                                       n_frames=CROWD_MOTION, fps_keys=5)
+            for msaa in (False, True):
+                mesh_crowd(scene, shards, msaa)
+            del scene
+            mesh_scan_crowd(shards)
+    check_native()
+    log(f"mesh: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2760,6 +3125,7 @@ def main() -> int:
     check_parity_crowd(True, label=f", {CONTENT}", pmx=content_rig(0.25)[0],
                        **content)
     check_cli(smi)
+    check_mesh()
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     for name in RECORDED:

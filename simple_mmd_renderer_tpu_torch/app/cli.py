@@ -15,10 +15,12 @@ Every flag of the reference's means the same here. `--device` (default
 cuda) is the port's counterpart of the reference's platform choice: with
 no card the run stops unless `--device cpu` is passed. Each frame is one
 replay of the scene's compiled step (`Scene.jit_step`: a CUDA graph on the
-card) and the eager render. `--warm` builds the kernels, captures the step,
-renders one frame and exits (the counterpart of the reference's
-compilation-cache warm-up). `--out` writes PNGs with the port's own
-encoder (`utils/png.py`); `--gif` and `--watch` need Pillow.
+card) and the eager render. The kernel libraries are kept in the persistent
+cache of `utils.cache.enable_compilation_cache` (`<repo>/build/kernels`),
+so only the first process builds them; `--warm` builds the kernels into
+it, captures the step, renders one frame and exits (the counterpart of the
+reference's compilation-cache warm-up). `--out` writes PNGs with the port's
+own encoder (`utils/png.py`); `--gif` and `--watch` need Pillow.
 """
 
 from __future__ import annotations
@@ -254,8 +256,10 @@ def parse_args(argv=None):
                          "combined with a .vmd, it fills bones/morphs the "
                          "motion does not key)")
     ap.add_argument("--warm", action="store_true",
-                    help="build the kernels, capture the compiled step, "
-                         "render one frame and exit")
+                    help="build the kernels (into the persistent cache of "
+                         "utils.cache.enable_compilation_cache: later "
+                         "processes load them without compiling), capture "
+                         "the compiled step, render one frame and exit")
     ap.add_argument("--device", default="cuda",
                     help="the device to render on (default: the card; "
                          "'cpu' runs the kernels' plain versions)")
@@ -384,7 +388,10 @@ def main(argv=None):
 
     import torch
 
+    from ..utils.cache import enable_compilation_cache
     from ..utils.png import write_png
+
+    enable_compilation_cache()
 
     scene = build_scene(args, dev)
     cfg = scene.config

@@ -52,6 +52,7 @@ animation pose there, captured once per scene as a CUDA graph on the card.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass
 
@@ -138,6 +139,23 @@ class Scene(nn.Module):
     @property
     def device(self):
         return self.rig.device
+
+    def replica(self, device) -> "Scene":
+        """The scene on `device`, for an entry of a device mesh
+        (`parallel.mesh`): the rig, physics and motion tables built there
+        anew from the same host tables, the skybox and the camera and light
+        tracks copied there, the config, the textures and the MMD maps
+        shared (host objects). It holds no graph and no packed atlas or
+        maps yet: each is made on `device` at its first use. The scene
+        itself is not moved or changed."""
+        def copied(track):
+            return None if track is None else copy.deepcopy(track)
+
+        return Scene(self.rig.host, self.phys.host,
+                     None if self.motion is None else self.motion.host,
+                     self.config, self.part_textures, self.cubemap,
+                     device=device, mmd_maps=self.mmd_maps,
+                     camera=copied(self.camera), light=copied(self.light))
 
     def packed_atlas(self):
         """The scene's texture atlas (render.pipeline.PackedAtlas, with

@@ -9,9 +9,10 @@ constraints. Output is plain NumPy/host data; `core.model` packs it into padded
 device arrays and applies `Model::Normalize` semantics.
 
 The port's own copy of `simple_mmd_renderer_tpu/formats/pmx.py`: the same
-dataclasses, constants and reader, with the vertex records read by the
-Python loop only (the reference's optional native g++ vertex parser is not
-carried over).
+dataclasses, constants and reader. The vertex records are read by the
+native parser (`native/pmx_fast.cpp`, built with g++ at first use) when a
+host compiler is there, else by the Python loop, the semantic reference:
+both give the same arrays.
 """
 
 from __future__ import annotations
@@ -248,6 +249,8 @@ def parse_pmx(data: bytes) -> PmxModel:
     m.description_en = r.read_text(utf8, "description (en)")
 
     # --- vertices: variable-size records (skinning type selects layout).
+    # Hot path is the native C++ parser (native/pmx_fast.cpp); the python
+    # loop below is the fallback and the semantic reference.
     # Min record: 8f basic + extra UVs + type byte + 1 bone index + edge f.
     n_vert = r.read_count(32 + 16 * extra_uv + 1 + sz_bone + 4,
                           "vertex count")
@@ -263,10 +266,32 @@ def parse_pmx(data: bytes) -> PmxModel:
     sdef_r1 = np.zeros((n_vert, 3), np.float32)
     edge_scale = np.empty(n_vert, np.float32)
 
-    _parse_vertices_python(
-        r, n_vert, extra_uv, sz_bone, positions, normals, uvs, extra_uvs,
-        skin_type, skin_bones, skin_weights, sdef_c, sdef_r0, sdef_r1,
-        edge_scale)
+    from ..native import get_lib
+    native = get_lib()
+    if native is not None and n_vert > 0:
+        import ctypes
+        end = ctypes.c_size_t(0)
+
+        def ptr(a):
+            return a.ctypes.data_as(ctypes.c_void_p)
+
+        rc = native.pmx_parse_vertices(
+            data, len(data), r.pos, n_vert, extra_uv, sz_bone,
+            ptr(positions), ptr(normals), ptr(uvs), ptr(extra_uvs),
+            ptr(skin_type), ptr(skin_bones), ptr(skin_weights),
+            ptr(sdef_c), ptr(sdef_r0), ptr(sdef_r1), ptr(edge_scale),
+            ctypes.byref(end))
+        if rc != 0:
+            # rc -1: buffer overrun; rc -2: invalid skinning type — same
+            # failure classes the python fallback types below
+            raise ParseError(f"native PMX vertex parse failed (rc={rc})",
+                             r.pos, "vertices")
+        r.pos = end.value
+    else:
+        _parse_vertices_python(
+            r, n_vert, extra_uv, sz_bone, positions, normals, uvs,
+            extra_uvs, skin_type, skin_bones, skin_weights, sdef_c, sdef_r0,
+            sdef_r1, edge_scale)
 
     m.positions, m.normals, m.uvs = positions, normals, uvs
     m.extra_uvs = extra_uvs

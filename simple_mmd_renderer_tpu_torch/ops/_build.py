@@ -5,7 +5,9 @@ shared library with a plain C interface, all sources at once in parallel,
 at first use, and loaded with `ctypes` (no PyTorch headers: the build takes
 seconds, not minutes). Each library is named after a hash of its source and
 the flags, so an edited source is rebuilt and never served stale. They land
-in `build/kernels/` at the repository root, which `.gitignore` lists.
+in `BUILD_DIR`, by default `build/kernels/` at the repository root, which
+`.gitignore` lists; `utils.cache.enable_compilation_cache(path)` points it
+elsewhere.
 
 Flags: sm_90a (Hopper), -O3, no fast math, and --fmad=false so no multiply
 and add is contracted into an FMA: the kernels' plane and reference-depth
@@ -31,7 +33,9 @@ from types import SimpleNamespace
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parent.parent.parent / "build"
+                     / "kernels")
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false"]
 

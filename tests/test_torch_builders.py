@@ -83,11 +83,15 @@ def test_sample_motion_matches_reference(length, fps_keys):
     _assert_same(got, sample_motion(length, fps_keys=fps_keys))
 
 
-def test_pmx_parse_matches_reference():
+def test_pmx_parse_matches_reference(monkeypatch):
     """The same PMX bytes (every skinning type, every morph kind the
     fixtures hold, the sample rig's bodies and joints) through both
-    readers: the port's Python vertex loop gives the reference's arrays."""
+    readers: the port's Python vertex loop gives the reference's arrays
+    (its native vertex parser: tests/test_torch_native.py)."""
     from fixtures import ik_leg, two_bone_arm
+
+    from simple_mmd_renderer_tpu_torch import native
+    monkeypatch.setattr(native, "get_lib", lambda: None)
 
     for pm in (two_bone_arm(), ik_leg(), sample_character(density=0.5)):
         data = ref_writers.write_pmx(pm)

@@ -1383,3 +1383,98 @@ def test_big_triangle_merge_on_the_scan_kernel(cuda, monkeypatch, path):
             _assert_vis_bits(a, b)
         else:
             assert torch.equal(a, b)
+
+
+def _calls_bit_exact(seen):
+    """Every recorded kernel call (chip_smoke.capture_frame) against its
+    plain version on the call's own arguments: every plane bit-exact and
+    equal to what the frame computed, the attributes within 1e-6."""
+    import chip_smoke
+
+    table = chip_smoke._kernel_table()
+    for key, calls in seen.items():
+        fn, plain, n_args, attr_at = table[key]
+        for args, out in calls:
+            got, want = fn(*args), plain(*args[:n_args])
+            got, want, out = ((x,) if isinstance(x, torch.Tensor) else x
+                              for x in (got, want, out))
+            for j, (a, b, c) in enumerate(zip(got, want, out)):
+                if j == attr_at:
+                    assert float((a - b).abs().max()) <= 1e-6, key
+                else:
+                    assert torch.equal(a, b) and torch.equal(a, c), key
+
+
+@pytest.mark.parametrize("built_on", ["cuda", "cpu"])
+def test_banded_frame_on_a_repeated_mesh(cuda, built_on):
+    """`frame_jit` over `make_mesh(["cuda:0"] * 2)`: both bands' kernel
+    calls bit-exact against their plain versions, the gathered frame
+    within the image tolerance of the unbanded frame of the same state,
+    state' equal to the unbanded step's. A scene built on the CPU is
+    replicated to the card (`Scene.replica`) and gives the same frame."""
+    import chip_smoke
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+    from simple_mmd_renderer_tpu_torch.utils.graph import tree_map
+
+    scene = build_sample_scene(0.5, 256, 192, 256, built_on, n_frames=30,
+                               fps_keys=10, solver_iterations=2)
+    step = mesh.frame_jit(scene, mesh.make_mesh(["cuda:0"] * 2))
+    state0 = scene.init_state()
+    state, image, seen = chip_smoke.capture_frame(
+        step, state0, {"K1": 2, "K2": 2, "K3": 2})
+    _calls_bit_exact(seen)
+    assert image.devices == (torch.device("cuda", 0),) * 2
+    assert all(b.is_cuda and b.shape == (96, 256, 3) for b in image.shards)
+    card = scene if built_on == "cuda" else scene.replica("cuda")
+    state_1, full = card.jit_step(donate=False)(
+        tree_map(lambda t: t.to(card.device), state0))
+    d = (image.gather() - full).abs()
+    assert float((d > 0.02).float().mean()) < 2e-3
+    assert float(d.mean()) < 1 / 255
+    assert torch.equal(state.physics.pos, state_1.physics.pos)
+    assert torch.equal(state.time, state_1.time)
+
+
+def test_sharded_crowd_on_a_repeated_mesh(cuda):
+    """`crowd_jit` over `make_mesh(["cuda:0"] * 2)`: both shards' kernel
+    calls bit-exact against their plain versions; the gathered images and
+    state against `crowd_step_fn` over all 4 instances on the card (the
+    image tolerance; state 1e-4), the shards' outputs their own tensors."""
+    import chip_smoke
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+
+    scene = build_sample_scene(0.25, 128, 64, 64, "cuda", n_frames=60,
+                               fps_keys=10, solver_iterations=4)
+    m = mesh.make_mesh(["cuda:0"] * 2)
+    step = mesh.crowd_jit(scene, m)
+    state0 = mesh.crowd_init(scene, 4)
+    state, images, seen = chip_smoke.capture_frame(
+        step, mesh.shard_crowd(state0, m), {"K5c": 2, "K5a": 2, "K3": 2})
+    _calls_bit_exact(seen)
+    assert len({x.data_ptr() for x in images.shards}) == 2
+    state_1, images_1 = mesh.crowd_step_fn(scene)(state0)
+    d = (images.gather() - images_1).abs()
+    assert float((d > 0.02).float().mean()) < 2e-3
+    assert float(d.mean()) < 1 / 255
+    whole = state.gather()
+    for name in ("pos", "quat", "vel", "omega"):
+        gap = (getattr(whole.physics, name) - getattr(state_1.physics, name))
+        assert float(gap.abs().max()) <= 1e-4, name
+
+
+def test_native_pmx_parser_loads(cuda, monkeypatch):
+    """The card's machine has a host compiler (nvcc needs one), so the
+    PMX reader's native vertex parser builds and loads there and reads the
+    sample character as the Python loop does."""
+    from simple_mmd_renderer_tpu_torch import native
+    from simple_mmd_renderer_tpu_torch.formats import pmx
+    from simple_mmd_renderer_tpu_torch.formats.writers import write_pmx
+
+    assert native.get_lib() is not None
+    data = write_pmx(sample_character(density=0.5))
+    fast = pmx.parse_pmx(data)
+    monkeypatch.setattr(native, "get_lib", lambda: None)
+    slow = pmx.parse_pmx(data)
+    for f in ("positions", "normals", "uvs", "skin_type", "skin_bones",
+              "skin_weights", "sdef_c", "edge_scale", "triangles"):
+        assert np.array_equal(getattr(fast, f), getattr(slow, f)), f

@@ -266,7 +266,8 @@ def test_port_imports_nothing_of_the_reference():
                    ("formats", "vpd.py"), ("formats", "writers.py"),
                    ("models", "__init__.py"), ("render", "camera_anim.py"),
                    ("utils", "checkpoint.py"), ("utils", "png.py"),
-                   ("app", "cli.py")):
+                   ("app", "cli.py"), ("native", "__init__.py"),
+                   ("utils", "cache.py")):
         assert os.path.join(REPO, "simple_mmd_renderer_tpu_torch",
                             *module) in files
     seen = set()
