@@ -104,22 +104,28 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    and mmd of the full look, the morph consumers (`morphs`) of the
    content path, each pass's host and device ms a frame, its byte bound
    and its operators by device time.
-6. scan: the exact scan raster (`raster_mode="scan"`, KS: `check_scan`).
-   KS against its plain version bit for bit on the frame-1 calls of the
-   256x192 scan frame (density 0.5, shadow 256^2, edge outlines on: the
-   shadow map, the edge hull, the character), on the character from the
-   hull's buffer and on two instances; each flagship path's big-triangle
+6. scan: the exact scan raster (`raster_mode="scan"`, KSb's tile bins and
+   KS's walk over them: `check_scan`). KS against its plain version bit
+   for bit on the frame-1 calls of the 256x192 scan frame (density 0.5,
+   shadow 256^2, edge outlines on: the shadow map, the edge hull, the
+   character), on the character from the hull's buffer and on two
+   instances, and KSb's words against `scan_bins_plain`'s on the same
+   calls; each flagship path's big-triangle
    counts on frame 1 (`binning_stats`: the triangles its tiled rasters
    merge through KS); the seven golden configurations of
    tests/test_golden_frames.py (192x144) on the card against the CPU
    (the whole-frame tolerance of the parity phase; KS and K3 launch
    counts); the 1080p scan frame (density 2.0, shadow 2048^2, msaa=1, the
-   msaa=1 flagship's scene with raster_mode="scan"): KS on its frame-1
-   shadow and character calls, host-paced and back to back, beside its
-   bound (`scan_bound`), the plain version once on the character (bits
-   and time), 4-frame segments through the compiled rollout in turns with
+   msaa=1 flagship's scene with raster_mode="scan"): the wrapper on its
+   frame-1 shadow and character calls, host-paced and back to back,
+   beside KS's bound (`scan_bound`), then KSb and KS alone at every
+   coarse tile of SCAN_SWEEP (`scan_parts`: words and planes bit for bit,
+   both back to back, and at the default tile host-paced, KSb beside its
+   own bound), the plain version once on the character (bits and time),
+   4-frame segments through the compiled rollout in turns with
    the tiled msaa=1 flagship (scan, tiled, tiled, scan; the scan
-   segments' counters: KS twice and K3 once a frame, nothing else), and
+   segments' counters: KSb and KS twice and K3 once a frame, nothing
+   else), and
    the scan frame against the tiled frame of the same state. The tiled
    paths' segments (flagship, crowd, CLI) print KS's launches: their
    big-triangle merges.
@@ -196,7 +202,8 @@ The line before the last is the kernels' JSON record (`launches`: every
 kernel's launches summed over the timed compiled segments of every main
 path, the scan frame's included, over the CLI's runs and over the mesh
 phase's timed segments (split and one-device), each counted from 0 just
-before its segment or run; KS's also the tiled paths' merges); the last
+before its segment or run; KS's and KSb's also the tiled paths'
+merges); the last
 line is {"ok": true, "device": {...}}.
 """
 
@@ -297,8 +304,9 @@ CONTENT_UV, CONTENT_MATERIAL = "UVスクロール", "色変化"
 KERNELS = ("K1", "K2", "K3", "K4", "K6", "K5a", "K5b", "K5c")
 # the kernels of the record: the TPU kernels' ports and KS, the scan
 # raster's body (no TPU kernel: the reference's scan is an XLA lax.scan),
-# which the tiled paths' big-triangle merges also launch
-RECORDED = KERNELS + ("KS",)
+# which the tiled paths' big-triangle merges also launch, with KSb, its bin
+# pass (one launch before each of KS's)
+RECORDED = KERNELS + ("KS", "KSb")
 ROW_LANES = 11   # lanes of a setup row that visibility reads (lanes 0-10)
 
 # the crowd: instances, frame, shadow map, motion length; timed frames per
@@ -333,6 +341,8 @@ SCAN_ORDER = (True, False, False, True)
 GOLDEN = ("flat", "textured", "msaa4", "toon_sph", "edges", "double_sided",
           "skybox")
 GOLDEN_SIZE = (192, 144)
+# the coarse tiles of KS's bins swept at the 1080p scan frame's calls
+SCAN_SWEEP = (16, 32, 64, 128)
 # KS's fp32 operations per (triangle, pixel of its box): three edge
 # functions (two differences, two products and their difference: 15),
 # their scaling by 1 / area (3), zp (three products, two sums: 5) and six
@@ -772,7 +782,7 @@ def reset_counters():
     tr.depth_launches = tr.raster_launches = 0
     tr.raster_ms_launches = tr.depth_win_launches = 0
     tr.raster_multi_launches = tr.raster_ms_multi_launches = 0
-    tr.depth_multi_launches = tr.scan_launches = 0
+    tr.depth_multi_launches = tr.scan_launches = tr.scan_bin_launches = 0
 
 
 def read_counters() -> dict:
@@ -786,18 +796,33 @@ def read_counters() -> dict:
             "K5c": tr.depth_multi_launches}
 
 
+def scan_counts() -> dict:
+    """KS's and KSb's launches since the last reset."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    return {"KS": tr.scan_launches, "KSb": tr.scan_bin_launches}
+
+
 def merge_launches(label, frames, rasters) -> int:
     """KS's launches since the last reset, on a tiled path: the
     big-triangle merges, one a raster whose frame has a triangle over more
-    tiles than its binning's e_max (at most `rasters` a frame)."""
-    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
-
-    n = tr.scan_launches
+    tiles than its binning's e_max (at most `rasters` a frame), each after
+    one launch of KSb."""
+    counts = scan_counts()
+    n = counts["KS"]
     log(f"{label}: KS (big-triangle merges) launched {n} times in {frames} "
-        f"frames")
+        f"frames, KSb {counts['KSb']}")
     if n > frames * rasters:
         raise AssertionError(f"{label}: more merges than rasters")
+    if counts["KSb"] != n:
+        raise AssertionError(f"{label}: KSb and KS launched {counts}")
     return n
+
+
+def add_merges(n: int) -> None:
+    """Counts `n` merges (a KSb and a KS launch each) to the record."""
+    MAIN_LAUNCHES["KS"] += n
+    MAIN_LAUNCHES["KSb"] += n
 
 
 def path_kernels(cfg) -> dict:
@@ -1269,7 +1294,7 @@ def time_segment(paths, name, compiled: bool, note=""):
     if compiled:
         for k, n in counts.items():
             MAIN_LAUNCHES[k] += n
-        MAIN_LAUNCHES["KS"] += merges
+        add_merges(merges)
 
     sums = sums.cpu().numpy()
     ms = 1000.0 * dt / frames
@@ -1781,9 +1806,8 @@ def time_crowd_segment(step, state, msaa: bool, label: str,
     counts = read_counters()
     for k, n in counts.items():
         MAIN_LAUNCHES[k] += n
-    MAIN_LAUNCHES["KS"] += merge_launches(
-        f"crowd ({label}, {CROWD_LABEL[msaa]})", CROWD_SEGMENT,
-        3 if edges else 2)
+    add_merges(merge_launches(f"crowd ({label}, {CROWD_LABEL[msaa]})",
+                              CROWD_SEGMENT, 3 if edges else 2))
     sums = torch.stack(sums).cpu().numpy()
     ms = 1000.0 * dt / CROWD_SEGMENT
     log(f"crowd ({label}, {CROWD_LABEL[msaa]}): segment of {CROWD_SEGMENT} "
@@ -2154,6 +2178,76 @@ def scan_bound(width, height, s):
     return bound(n_bytes, evals * OPS_SCAN), evals
 
 
+def bins_bad(width, height, s, tile=None):
+    """KSb against scan_bins_plain on a setup's table at `tile` (default:
+    the launch's own, `scan_tile`) -> (mismatched words, table, KSb's
+    bins)."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    n = s["xy"].shape[-3]
+    table = tr._scan_table(s).reshape(-1, n, 16).contiguous()
+    if tile is None:
+        tile = tr.scan_tile(table.shape[0], n, width, height)
+    bins = tr.scan_bins(table, width, height, tile)
+    want = tr.scan_bins_plain(table, width, height, tile)
+    return int((bins != want).sum()), table, bins
+
+
+def scan_parts(label, args, out, bnd) -> dict:
+    """KSb and KS alone on a 1080p scan call (`args`, whose result the
+    frame gave as `out`), at every tile of SCAN_SWEEP: KSb's words against
+    scan_bins_plain's and KS's planes over them against `out`, both bit
+    for bit; each kernel back to back (`back_to_back_runs`), and at
+    SCAN_TILE also host-paced, beside KSb's byte bound (the words written,
+    the table's valid and box columns read) and KS's (`bnd`) -> the
+    record's numbers at SCAN_TILE: {"KS": ms, "KSb": ms, "KSb plain": ms,
+    "KSb err": max word difference, "KSb bound": bound}."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+    from simple_mmd_renderer_tpu_torch.render import raster
+
+    width, height, s = args[:3]
+    res = {}
+    for tile in SCAN_SWEEP:
+        n_bad, table, bins = bins_bad(width, height, s, tile)
+        planes = tr._scan_start(args[3], (), width, height, table.device)
+        tr.scan_walk(table, bins, tile, *planes)
+        n_bad += scan_bad(raster.VisBuffer(*planes), out)
+
+        def ksb(table=table, tile=tile):
+            return tr.scan_bins(table, width, height, tile)
+
+        def ks(table=table, bins=bins, tile=tile, planes=planes):
+            tr.scan_walk(table, bins, tile, *planes)
+        ksb_runs, ks_runs = back_to_back_runs(ksb), back_to_back_runs(ks)
+        ksb_bnd = bound(4 * bins.numel() + 4 * 5 * table.shape[:2].numel(),
+                        0)
+        log(f"scan: sweep {label} tile {tile} ({bins.shape[1]} tiles, bins "
+            f"{4 * bins.numel() / 1e6:.3f} MB): KSb back to back "
+            f"{back_to_back(ksb, ksb_runs)} (bound {ksb_bnd[0]:.5f} ms, "
+            f"{ksb_bnd[1]}), KS {back_to_back(ks, ks_runs)} (bound "
+            f"{bnd[0]:.5f} ms), together least "
+            f"{ksb_runs[0] + ks_runs[0]:.4f} ms; mismatches {n_bad}")
+        if n_bad:
+            raise AssertionError(f"scan: KSb or KS disagrees at tile {tile}")
+        if tile == tr.SCAN_TILE:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = tr.scan_bins_plain(table, width, height, tile)
+            end.record()
+            torch.cuda.synchronize()
+            res = {"KS": cuda_ms(ks, 20), "KSb": cuda_ms(ksb, 20),
+                   "KSb plain": start.elapsed_time(end),
+                   "KSb err": float((ksb().long() - want.long()).abs().max()),
+                   "KSb bound": ksb_bnd}
+            log(f"scan: {label} at tile {tile}, host-paced: KSb "
+                f"{res['KSb']:.4f} ms (plain {res['KSb plain']:.3f} ms), KS "
+                f"{res['KS']:.4f} ms; card / bound: KSb "
+                f"{res['KSb'] / ksb_bnd[0]:.1f}, KS {res['KS'] / bnd[0]:.1f} "
+                f"(back to back {ks_runs[0] / bnd[0]:.1f})")
+    return res
+
+
 def golden_frame(name, device):
     """tests/test_golden_frames.py's configuration `name` (the sample
     character at density 0.5, rest pose, 192x144, shadow 128^2, its
@@ -2277,6 +2371,13 @@ def check_scan(paths, results):
         f"mismatches {bad}")
     if any(bad.values()) or torch.equal(got.tri[0], got.tri[1]):
         raise AssertionError("scan: KS disagrees with its plain version")
+    bad = {label: bins_bad(*args[:3])[0] for label, (args, _) in zip(
+        ("shadow", "edge hull", "character"), calls)}
+    bad["two instances"] = bins_bad(w, h, pair)[0]
+    log(f"scan: KSb on the same calls against scan_bins_plain (tile "
+        f"{tr.SCAN_TILE}): mismatched words {bad}")
+    if any(bad.values()):
+        raise AssertionError("scan: KSb disagrees with its plain version")
 
     for name, path in paths.items():
         big_triangles(name, path["scene"])
@@ -2284,9 +2385,10 @@ def check_scan(paths, results):
     for name in GOLDEN:
         reset_counters()
         card = golden_frame(name, "cuda")
-        counts = dict(read_counters(), KS=tr.scan_launches)
+        counts = dict(read_counters(), **scan_counts())
         want = dict.fromkeys(RECORDED, 0)
-        want.update(K3=1, KS=3 if name == "edges" else 2)
+        rasters = 3 if name == "edges" else 2
+        want.update(K3=1, KS=rasters, KSb=rasters)
         d = np.abs(card.cpu().numpy() - golden_frame(name, "cpu").numpy())
         frac, mad = float((d > 0.02).mean()), float(d.mean())
         log(f"scan: golden configuration {name} ({GOLDEN_SIZE[0]}x"
@@ -2313,11 +2415,13 @@ def check_scan(paths, results):
         n = args[2]["xy"].shape[0]
         log(f"scan: KS {label} {args[0]}x{args[1]}, {n} triangles "
             f"({int(args[2]['valid'].sum())} valid, {evals} triangle-pixel "
-            f"evaluations by the box rule): host-paced {host:.4f} ms, back "
-            f"to back least {runs[0]:.4f}, median {runs[1]:.4f} ms; bound "
-            f"{bnd[0]:.5f} ms ({bnd[1]}), card / bound {host / bnd[0]:.1f} "
-            f"(back to back {runs[0] / bnd[0]:.1f}); covers "
+            f"evaluations by the box rule): the wrapper (table, KSb, KS) "
+            f"host-paced {host:.4f} ms, back to back least {runs[0]:.4f}, "
+            f"median {runs[1]:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}), "
+            f"card / bound {host / bnd[0]:.1f} (back to back "
+            f"{runs[0] / bnd[0]:.1f}); covers "
             f"{100 * float((out.tri >= 0).float().mean()):.2f}% of the map")
+        parts = scan_parts(label, args, out, bnd)
         if label == "character":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2335,8 +2439,14 @@ def check_scan(paths, results):
                 raise AssertionError("scan: KS disagrees at 1080p")
             record(results, "KS", "KS scan_raster (the exact scan raster: "
                    "the scan frame's shadow, edge hull and character; the "
-                   "tiled paths' big-triangle merges)", "scan_raster.cu",
-                   "render/raster.py:111", err, host, plain_ms, bnd)
+                   "tiled paths' big-triangle merges), the walk over KSb's "
+                   "bins", "scan_raster.cu", "render/raster.py:111", err,
+                   parts["KS"], plain_ms, bnd)
+            record(results, "KSb", "KSb scan_bins (the scan raster's tile "
+                   "bins: a bit per triangle and coarse tile its pixel box "
+                   "meets)", "scan_raster.cu", "render/raster.py:111",
+                   parts["KSb err"], parts["KSb"], parts["KSb plain"],
+                   parts["KSb bound"])
 
     seg = {True: [], False: []}
     for is_scan in SCAN_ORDER:
@@ -2348,14 +2458,15 @@ def check_scan(paths, results):
         torch.cuda.synchronize()
         seg[is_scan].append(1000.0 * (time.perf_counter() - t0)
                             / SCAN_SEGMENT)
-        counts = dict(read_counters(), KS=tr.scan_launches)
+        counts = dict(read_counters(), **scan_counts())
         sums = sums.cpu().numpy()
         if not (np.isfinite(sums).all() and (np.diff(sums) != 0).any()):
             raise AssertionError("scan: frames not finite or not advancing")
         if is_scan:
             state = st
             want = dict.fromkeys(RECORDED, 0)
-            want.update(K3=SCAN_SEGMENT, KS=2 * SCAN_SEGMENT)
+            want.update(K3=SCAN_SEGMENT, KS=2 * SCAN_SEGMENT,
+                        KSb=2 * SCAN_SEGMENT)
             if counts != want:
                 raise AssertionError(f"scan: 1080p launches {counts}")
             for k, n in counts.items():
@@ -2613,8 +2724,7 @@ def check_cli(smi: str):
             counts = read_counters()
             for k, n in counts.items():
                 MAIN_LAUNCHES[k] += n
-            MAIN_LAUNCHES["KS"] += merge_launches(f"cli ({label})",
-                                                  CLI_FRAMES, 2)
+            add_merges(merge_launches(f"cli ({label})", CLI_FRAMES, 2))
             want = {k: CLI_FRAMES * path_kernels(cfg).get(k, 0)
                     for k in KERNELS}
             fps = next(line for line in lines if " frames in " in line)
@@ -2704,8 +2814,6 @@ def mesh_turns(label, steps, expect) -> dict:
     kernel must launch `expect[split?][kernel]` times a frame (KS, where
     `expect` does not name it, only in big-triangle merges). -> {split?:
     ms per frame}."""
-    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
-
     states = {split: st for split, (_, st) in steps.items()}
     seg_ms = {split: [] for split in steps}
     for split in MESH_ORDER:
@@ -2723,11 +2831,10 @@ def mesh_turns(label, steps, expect) -> dict:
         name = f"{label}, {'split' if split else 'one device'}"
         want = dict(expect[split])
         if "KS" in want:
-            counts["KS"] = tr.scan_launches
+            counts.update(scan_counts())
         else:
             rasters = sum(v for k, v in want.items() if k != "K3")
-            MAIN_LAUNCHES["KS"] += merge_launches(name, MESH_SEGMENT,
-                                                  rasters)
+            add_merges(merge_launches(name, MESH_SEGMENT, rasters))
         for k, n in counts.items():
             MAIN_LAUNCHES[k] += n
         ms = 1000.0 * dt / MESH_SEGMENT
@@ -2914,7 +3021,7 @@ def mesh_scan_crowd(mesh):
     step, whole = crowd_jit(scene, mesh), crowd_step_fn(scene)
     state_s, _, state_1 = shard_split_check(label, scene, mesh, step, whole,
                                             crowd_init(scene, n_inst))
-    per = {"K3": 1, "KS": 2}
+    per = {"K3": 1, "KS": 2, "KSb": 2}
     ms = mesh_turns(label, {True: (step, state_s), False: (whole, state_1)},
                     {split: {k: n_inst * v for k, v in per.items()}
                      for split in (True, False)})

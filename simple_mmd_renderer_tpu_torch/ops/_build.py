@@ -57,7 +57,8 @@ SIGNATURES = {
                                _P, _P, _P, _P, _I, _I, _P],
     "smr_raster_tiles_ms_multi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                                   _P, _P, _P, _P, _P, _I, _I, _P],
-    "smr_scan_raster": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "smr_scan_bins": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "smr_scan_raster": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

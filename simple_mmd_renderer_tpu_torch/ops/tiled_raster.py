@@ -28,9 +28,10 @@ goes to the larger triangle id):
    carried into entry order by the binning); the plain versions stay brute
    force over the whole tile, so the comparison also checks the boxes.
 3. Triangles covering more than `e_max` tiles (at most BIG_TRI_CAP of them)
-   are rasterized exactly by the scan raster (`scan_raster`: KS on the
-   card) and merged by depth, a big triangle winning a tie. When `e_max`
-   covers the whole tile grid the merge cannot trigger and is skipped.
+   are rasterized exactly by the scan raster (`scan_raster`: KSb's tile
+   bins and KS's walk on the card) and merged by depth, a big triangle
+   winning a tie. When `e_max` covers the whole tile grid the merge cannot
+   trigger and is skipped.
 
 Kept from the reference because they change output: BIG_TRI_CAP, the merge's
 `<=` tie rule, the kernel's id tie rule, `_covers_all`, zeroed attributes
@@ -198,8 +199,9 @@ def _pixel_boxes(s, sample_extent=0.0):
     hi = torch.stack([torch.floor(x_hi - 0.5 + e),
                       torch.floor(y_hi - 0.5 + e)], -1) + BOX_MARGIN
     box = torch.cat([lo, hi], -1)
-    whole = torch.tensor([_BOX_MIN, _BOX_MIN, _BOX_MAX, _BOX_MAX],
-                         dtype=torch.float32, device=xy.device)
+    # the whole range, made on the device (no host copy: capturable)
+    whole = torch.where(torch.arange(4, device=xy.device) < 2,
+                        float(_BOX_MIN), float(_BOX_MAX))
     box = torch.where(trusted[..., None], box, whole)
     return torch.clamp(box, _BOX_MIN, _BOX_MAX).to(torch.int16)
 
@@ -847,8 +849,17 @@ def binning_stats(clip, tris, width, height, cull=raster.CULL_BACK, e_max=6,
 # triangles is this over the frame's pixels, at most SCAN_CHUNK)
 SCAN_CHUNK_ELEMS = 1 << 20
 SCAN_CHUNK = 64
+# KS's coarse tiles (pixels a side, a multiple of its 16 x 16 block):
+# chip_smoke.py's `scan:` phase sweeps 16 to 128 at the 1080p character and
+# the 2048^2 shadow map, where KSb + KS took least time at 32 (PERF.md §6);
+# a launch whose bins would pass SCAN_BINS_MAX bytes takes the least
+# doubling of it under that
+SCAN_TILE = 32
+SCAN_BLOCK = 16
+SCAN_BINS_MAX = 1 << 26
 
 scan_launches = 0          # KS
+scan_bin_launches = 0      # KSb
 
 
 def _scan_start(vis, lead, width, height, dev):
@@ -971,11 +982,140 @@ def _scan_table(s):
         _pixel_boxes(s, 0.0).to(torch.float32)], -1)
 
 
+def _scan_words(n):
+    return -(-n // 32)
+
+
+def scan_tile(n_inst, n, width, height):
+    """KS's coarse tile for a launch: SCAN_TILE, doubled while the bins
+    (`n_inst` x tiles x (ceil(n / 32) + 1) words) would pass SCAN_BINS_MAX
+    bytes and a tile is smaller than the frame. It follows from the shapes
+    alone, so the launch reads nothing on the host."""
+    tile = SCAN_TILE
+    while (tile < max(width, height)
+           and 4 * n_inst * (_scan_words(n) + 1) * -(-width // tile)
+           * -(-height // tile) > SCAN_BINS_MAX):
+        tile *= 2
+    return tile
+
+
+def scan_bins_plain(table, width, height, tile):
+    """Plain version of KSb: for each instance and coarse tile of `tile` x
+    `tile` pixels, bit k of word k // 32 set when triangle k of `table`
+    (`_scan_table`, [n_inst, n, 16]) is valid and its pixel box, clipped
+    to the frame, meets the tile, and a last word, the tile's flag, 1 when
+    any bit is -> int32 [n_inst, tiles_y * tiles_x, ceil(n / 32) + 1]
+    holding the words' bits (tiles row-major)."""
+    n_inst, n = table.shape[:2]
+    dev = table.device
+    tiles_x, tiles_y = -(-width // tile), -(-height // tile)
+    words = _scan_words(n)
+    box = table[..., 12:16]
+    keep = ((table[..., 10] > 0) & (box[..., 0] <= width - 1)
+            & (box[..., 2] >= 0) & (box[..., 1] <= height - 1)
+            & (box[..., 3] >= 0))
+    box = torch.where(keep[..., None], box, 0.0).long()
+    t_lo = torch.clamp(box[..., :2], min=0) // tile
+    t_hi = torch.stack([torch.clamp(box[..., 2], max=width - 1),
+                        torch.clamp(box[..., 3], max=height - 1)], -1) // tile
+    tx = torch.arange(tiles_x, device=dev)
+    ty = torch.arange(tiles_y, device=dev)
+    out = torch.zeros((n_inst, tiles_y * tiles_x, words), dtype=torch.int64,
+                      device=dev)
+    weight = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(
+        32, device=dev)
+    step = 64 * 32                   # triangles a pass (64 words)
+    for k0 in range(0, n, step):
+        k1 = min(n, k0 + step)
+        in_x = ((tx >= t_lo[:, k0:k1, 0, None])
+                & (tx <= t_hi[:, k0:k1, 0, None]))
+        in_y = ((ty >= t_lo[:, k0:k1, 1, None])
+                & (ty <= t_hi[:, k0:k1, 1, None]))
+        hit = (keep[:, k0:k1, None, None] & in_y[..., :, None]
+               & in_x[..., None, :]).reshape(n_inst, k1 - k0, -1)
+        hit = torch.nn.functional.pad(hit, (0, 0, 0, (-(k1 - k0)) % 32))
+        bits = hit.reshape(n_inst, -1, 32, hit.shape[-1]).long()
+        out[..., k0 // 32:-(-k1 // 32)] = (
+            bits * weight[:, None]).sum(-2).transpose(-1, -2)
+    out = torch.cat([out, (out != 0).any(-1, keepdim=True).long()], -1)
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
+
+
+def _scan_shapes(table, width, height, tile, who):
+    """Checks KSb's and KS's common arguments -> (n_inst, n, tiles)."""
+    if table.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {table.device}")
+    if max(width, height) > _BOX_MAX:
+        raise ValueError(f"{who}: frame beyond the boxes' range")
+    if (table.dim() != 3 or table.shape[-1] != 16
+            or table.dtype != torch.float32 or not table.is_contiguous()):
+        raise ValueError(f"{who}: the table must be contiguous f32 "
+                         "[n_inst, n, 16]")
+    if tile <= 0 or tile % SCAN_BLOCK:
+        raise ValueError(f"{who}: tile {tile} is not a positive multiple "
+                         f"of {SCAN_BLOCK}")
+    n_inst, n = table.shape[:2]
+    return n_inst, n, -(-width // tile) * -(-height // tile)
+
+
+def scan_bins(table, width, height, tile):
+    """KSb dispatch: the scan raster's tile bins (see scan_bins_plain) —
+    the plain version for a CPU table, the CUDA kernel (a clear and a
+    launch on the stream, no host read) for a CUDA one."""
+    global scan_bin_launches
+    dev = table.device
+    if dev.type == "cpu":
+        return scan_bins_plain(table, width, height, tile)
+    n_inst, n, tiles = _scan_shapes(table, width, height, tile, "scan_bins")
+    shape = (n_inst, tiles, _scan_words(n) + 1)
+    if not (n and n_inst and tiles):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+    bins = torch.empty(shape, dtype=torch.int32, device=dev)
+    rc = _build.lib().smr_scan_bins(
+        table.data_ptr(), n, n_inst, width, height, tile,
+        bins.data_ptr(), _build.stream_ptr(dev))
+    _build.check(rc, "smr_scan_bins")
+    scan_bin_launches += 1
+    return bins
+
+
+def scan_walk(table, bins, tile, depth, tri_id, bary):
+    """KS: the scan over `table` ([n_inst, n, 16], `_scan_table`) through
+    the bins KSb built from it at `tile`, into the start buffer depth /
+    tri_id [n_inst, H, W], bary [n_inst, H, W, 2] (contiguous, on the
+    card), in place."""
+    global scan_launches
+    height, width = depth.shape[-2:]
+    n_inst, n, tiles = _scan_shapes(table, width, height, tile, "scan_walk")
+    if (bins.shape != (n_inst, tiles, _scan_words(n) + 1)
+            or bins.dtype != torch.int32 or not bins.is_contiguous()
+            or bins.device != table.device):
+        raise ValueError(f"scan_walk: bins {tuple(bins.shape)} do not fit "
+                         f"the table and tile {tile}")
+    pixels = n_inst * height * width
+    for plane, dtype, size in ((depth, torch.float32, pixels),
+                               (tri_id, torch.int32, pixels),
+                               (bary, torch.float32, 2 * pixels)):
+        if (plane.dtype != dtype or plane.numel() != size
+                or not plane.is_contiguous()
+                or plane.device != table.device):
+            raise ValueError("scan_walk: the start buffer does not fit the "
+                             "table")
+    rc = _build.lib().smr_scan_raster(
+        table.data_ptr(), bins.data_ptr(), n, n_inst, width, height, tile,
+        depth.data_ptr(), tri_id.data_ptr(), bary.data_ptr(),
+        _build.stream_ptr(table.device))
+    _build.check(rc, "smr_scan_raster")
+    scan_launches += 1
+
+
 def scan_raster(width, height, s, vis=None):
     """KS dispatch: the exact scan raster (see scan_raster_plain) — the
-    plain version for CPU tensors, the CUDA kernel for CUDA tensors, which
-    evaluates a triangle only in the blocks of pixels its box reaches."""
-    global scan_launches
+    plain version for CPU tensors; for CUDA tensors KSb (`scan_bins`) bins
+    the triangles by their pixel boxes into coarse tiles (`scan_tile`) and
+    KS (`scan_walk`) evaluates, in every block of pixels, only the
+    triangles of its tile whose box reaches it. No host read on the
+    card."""
     dev = s["xy"].device
     if dev.type == "cpu":
         return scan_raster_plain(width, height, s, vis)
@@ -989,11 +1129,9 @@ def scan_raster(width, height, s, vis=None):
     n_inst = math.prod(lead)
     if n and n_inst and width and height:
         table = _scan_table(s).reshape(n_inst, n, 16).contiguous()
-        rc = _build.lib().smr_scan_raster(
-            table.data_ptr(), n, n_inst, width, height, depth.data_ptr(),
-            tri_id.data_ptr(), bary.data_ptr(), _build.stream_ptr(dev))
-        _build.check(rc, "smr_scan_raster")
-        scan_launches += 1
+        tile = scan_tile(n_inst, n, width, height)
+        scan_walk(table, scan_bins(table, width, height, tile), tile, depth,
+                  tri_id, bary)
     return raster.VisBuffer(depth=depth, tri=tri_id, bary=bary)
 
 

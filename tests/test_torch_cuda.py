@@ -31,6 +31,10 @@ renderer's Scene (`app.cli.build_scene`) with VMD camera and light tracks:
 its frames (msaa=1 and 4, an orthographic frame, a crowd with the camera
 track) match the CPU's, the captured `Scene.seek` equals the eager one bit
 for bit, and the tracks' sampling runs under sync debug mode "error".
+The scan raster's KS and its bin pass KSb are held bit for bit against
+`scan_raster_plain` and `scan_bins_plain` at every coarse tile that
+chip_smoke.py sweeps, and KSb + KS captured in a CUDA graph under sync
+debug mode "error" replay the eager call's bits.
 """
 
 import dataclasses
@@ -1275,20 +1279,50 @@ def _assert_vis_bits(got, want):
 
 SCAN_CASES = {"random": dict(t=699), "back": dict(t=300, cull=1),
               "stage": dict(t=255), "one": dict(t=0),
-              "start": dict(t=700), "crowd": dict(t=515, n_inst=3)}
+              "start": dict(t=700), "crowd": dict(t=515, n_inst=3),
+              "off_frame": None, "ragged": None, "off_frame_pair": None,
+              "corner_start": None}
+# the coarse tiles chip_smoke.py sweeps (tr.SCAN_TILE among them)
+SCAN_TILES = (16, 32, 64, 128)
 
 
-@pytest.mark.parametrize("case", list(SCAN_CASES))
-def test_scan_kernel_bit_exact(cuda, case):
-    """KS against its plain version: depth, triangle ids and barycentrics
-    bit for bit (triangle counts 1, 256, 301, 516, 700 and 701 against
-    the staging chunk of 256), from a start buffer, over three instances; a
-    second run gives the same bits; the counter counts the launch."""
-    w, h = 333, 197
+def _scan_case(device, case, w, h):
+    """The setup of SCAN_CASES[case] on the device: `_scan_setup`'s random
+    meshes, or tests/test_torch_scan_bins.py's with triangles over the
+    whole frame, off it, across its corner, beyond it at `_BOX_MAX` and of
+    zero area ("off_frame": n = 206; "ragged": n = 33; "off_frame_pair":
+    two instances); "corner_start": 300 triangles near the top-left
+    corner, so that most tiles are empty."""
+    from test_torch_scan_bins import _random_setup
+
     kw = SCAN_CASES[case]
-    s = _scan_setup(cuda, seed=len(case), w=w, h=h, **kw)
+    if kw is not None:
+        return _scan_setup(device, seed=len(case), w=w, h=h, **kw)
+    if case == "corner_start":
+        xy, z = screen_triangles("random", 5, 300, w, h)
+        s = screen_setup(xy * np.float32(0.3), z, 0.0)
+        return {k: v.to(device) for k, v in s.items()}
+    t, n_inst = {"off_frame": (200, None), "ragged": (27, None),
+                 "off_frame_pair": (150, 2)}[case]
+    s = _random_setup(len(case), t, w, h, n_inst)
+    return {k: v.to(device) for k, v in s.items()}
+
+
+@pytest.mark.parametrize("tile", SCAN_TILES)
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_scan_kernel_bit_exact(cuda, monkeypatch, case, tile):
+    """KS against its plain version: depth, triangle ids and barycentrics
+    bit for bit (triangle counts 1, 33, 256, 301, 516, 700 and 701 against
+    the staging chunk of 256 and the 32-bit words of the bins), from a
+    start buffer, over two and three instances, with triangles off the
+    frame, over it and at the boxes' limit, in a corner only (the blocks
+    of empty tiles keep the start buffer), at every swept tile (none
+    divides 333 x 197); a second run gives the same bits; the counters
+    count one KSb and one KS launch."""
+    w, h = 333, 197
+    s = _scan_case(cuda, case, w, h)
     vis = None
-    if case == "start":
+    if case in ("start", "corner_start"):
         rng = np.random.default_rng(3)
         vis = raster.VisBuffer(
             torch.as_tensor(rng.uniform(0.3, 1.0, (h, w)).astype(np.float32),
@@ -1297,36 +1331,124 @@ def test_scan_kernel_bit_exact(cuda, case):
                             device=cuda),
             torch.as_tensor(rng.uniform(size=(h, w, 2)).astype(np.float32),
                             device=cuda))
-    before = tr.scan_launches
+    monkeypatch.setattr(tr, "SCAN_TILE", tile)
+    before = tr.scan_launches, tr.scan_bin_launches
     got = tr.scan_raster(w, h, s, vis)
-    assert tr.scan_launches == before + 1
+    assert (tr.scan_launches, tr.scan_bin_launches) == (before[0] + 1,
+                                                        before[1] + 1)
     want = tr.scan_raster_plain(w, h, s, vis)
     _assert_vis_bits(got, want)
     _assert_vis_bits(tr.scan_raster(w, h, s, vis), got)
     assert (got.tri >= 0).float().mean() > 0.3
-    if case == "crowd":
-        assert got.depth.shape == (3, h, w)
+    if case in ("crowd", "off_frame_pair"):
+        assert got.depth.shape == (s["xy"].shape[0], h, w)
         assert not torch.equal(got.tri[0], got.tri[1])
 
 
+@pytest.mark.parametrize("tile", SCAN_TILES)
 @pytest.mark.parametrize("kind", KINDS)
-def test_scan_kernel_adversarial_boxes(cuda, kind):
-    """KS skips a triangle where its pixel box misses the block: on the
-    adversarial sets (slivers, vertices on centres, samples and edges,
-    ties) it must still equal the brute-force plain version."""
+def test_scan_kernel_adversarial_boxes(cuda, monkeypatch, kind, tile):
+    """KS skips a triangle where its pixel box misses the block, and KSb
+    leaves it out of a tile its box misses: on the adversarial sets
+    (slivers, vertices on centres, samples and edges, ties) it must still
+    equal the brute-force plain version, at every swept tile."""
     w, h = 320, 192
     s = screen_setup(*screen_triangles(kind, 11, 600, w, h), 0.0)
     s = {k: v.to(cuda) for k, v in s.items()}
+    monkeypatch.setattr(tr, "SCAN_TILE", tile)
     _assert_vis_bits(tr.scan_raster(w, h, s), tr.scan_raster_plain(w, h, s))
+
+
+@pytest.mark.parametrize("tile", SCAN_TILES)
+@pytest.mark.parametrize("case", ["off_frame", "ragged", "off_frame_pair",
+                                  "crowd", "slivers", "edges", "random"])
+def test_scan_bins_kernel_bit_exact(cuda, case, tile):
+    """KSb's words against scan_bins_plain's bit for bit (the clear
+    included: the buffer is filled with ones first), on the random,
+    off-frame, ragged and crowd setups and on adversarial sets; the
+    counter counts the launch, and KS is not launched."""
+    w, h = 333, 197
+    if case in KINDS:
+        s = screen_setup(*screen_triangles(case, 7, 600, w, h), 0.0)
+        s = {k: v.to(cuda) for k, v in s.items()}
+    else:
+        s = _scan_case(cuda, case, w, h)
+    n = s["xy"].shape[-3]
+    table = tr._scan_table(s).reshape(-1, n, 16).contiguous()
+    before = tr.scan_launches, tr.scan_bin_launches
+    fill = torch.empty(1 << 24, dtype=torch.int32, device=cuda).fill_(-1)
+    del fill                 # the allocator hands the ones out again
+    got = tr.scan_bins(table, w, h, tile)
+    assert (tr.scan_launches, tr.scan_bin_launches) == (before[0],
+                                                        before[1] + 1)
+    want = tr.scan_bins_plain(table, w, h, tile)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert want.any() and (want != -1).any()
+
+
+@pytest.mark.parametrize("n_big", [1, tr.BIG_TRI_CAP])
+def test_scan_kernel_big_triangle_subset(cuda, n_big):
+    """A big-triangle subset as the tiled rasters' merges hand it to KS
+    (`_big_subset`: the first 1 or BIG_TRI_CAP oversized triangles of a
+    mesh, at 1920 x 1080): the same bits as the plain scan."""
+    w, h = 1920, 1080
+    rng = np.random.default_rng(n_big)
+    t = 200
+    v0 = rng.uniform(-0.9, 0.9, (t, 2))
+    verts = np.stack([v0, v0 + rng.uniform(-1.2, 1.2, (t, 2)),
+                      v0 + rng.uniform(-1.2, 1.2, (t, 2))], 1).reshape(-1, 2)
+    zs = rng.uniform(0.05, 0.95, 3 * t)
+    clip = torch.as_tensor(np.concatenate(
+        [verts, zs[:, None], np.ones((3 * t, 1))], -1).astype(np.float32),
+        device=cuda)
+    tris = torch.arange(3 * t, dtype=torch.int32, device=cuda).reshape(-1, 3)
+    s = raster.setup(clip, tris, w, h, raster.CULL_NONE)
+    big = s["valid"] & (torch.cumsum(s["valid"].int(), 0) <= n_big)
+    _, s_big = tr._big_subset(s, big)
+    assert s_big["xy"].shape[0] == n_big
+    got = tr.scan_raster(w, h, s_big)
+    _assert_vis_bits(got, tr.scan_raster_plain(w, h, s_big))
+    assert (got.tri >= 0).any()
+
+
+def test_scan_kernel_captured(cuda):
+    """KSb and KS captured in a CUDA graph under sync debug mode "error"
+    (no host read: the tile follows from the shapes, the bins are
+    allocated from the graph's pool and cleared on the stream), replayed
+    equal to the eager call, also after the inputs change in place."""
+    w, h = 333, 197
+    s = _scan_setup(cuda, 699, w, h, 5, n_inst=2)
+    eager = tr.scan_raster(w, h, s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = tr.scan_launches, tr.scan_bin_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.graph(graph):
+            out = tr.scan_raster(w, h, s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (tr.scan_launches, tr.scan_bin_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_vis_bits(out, eager)
+    for key, value in _scan_setup(cuda, 699, w, h, 6, n_inst=2).items():
+        s[key].copy_(value)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_vis_bits(out, tr.scan_raster_plain(w, h, s))
+    assert not torch.equal(out.tri, eager.tri)
 
 
 def test_scan_kernel_on_nothing(cuda):
     """No triangle, or no pixel: the start buffer comes back, no launch."""
     s = _scan_setup(cuda, 10, 64, 48, 1)
     empty = {k: v[:0] for k, v in s.items()}
-    before = tr.scan_launches
+    before = tr.scan_launches, tr.scan_bin_launches
     got = tr.scan_raster(64, 48, empty)
-    assert tr.scan_launches == before
+    assert (tr.scan_launches, tr.scan_bin_launches) == before
     assert (got.depth == 1).all() and (got.tri == -1).all()
     assert not got.bary.any()
 
