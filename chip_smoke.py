@@ -628,6 +628,14 @@ def pcf_line(label, fn, bnd) -> str:
             f"{bnd[0]:.5f} ms ({bnd[1]}), card / bound {ratio:.2f}{note}")
 
 
+def pcf_bound(args, lit, planes=1) -> tuple[float, str]:
+    """K3's bound on `args` (the maps, z0, zc, zr): the maps read once, the
+    lit maps written once and `planes` rows of (z0, zc, zr) read (1 for a
+    shared plane, one a map for per-map planes); OPS_PCF a texel."""
+    return bound(4 * (args[0].numel() + lit.numel()) + 12 * planes,
+                 lit.numel() * OPS_PCF)
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """The least time the card could take (ms): the larger of the bytes
     over the memory rate and the operations over the fp32 rate."""
@@ -966,8 +974,7 @@ def check_kernels(scene, state, results):
         f"{k3_ms:.4f} ms vs plain {k3_plain:.4f} ms; 10 groups of 50 "
         f"launches: min {min(k3_groups):.4f}, median "
         f"{sorted(k3_groups)[5]:.4f}, max {max(k3_groups):.4f} ms")
-    k3_bound = bound(4 * (k3_args[0].numel() + k3_args[1].numel()
-                          + lit.numel()), lit.numel() * OPS_PCF)
+    k3_bound = pcf_bound(k3_args, lit)
     log(pcf_line(f"K3 pcf_lit_map {tuple(lit.shape)}",
                  lambda: shadow_pcf.pcf_lit_map(*k3_args), k3_bound))
 
@@ -1552,7 +1559,7 @@ def _kernel_table():
     return {
         "K1": (tr.depth_tiles, tr.depth_tiles_plain, 5, None),
         "K2": (tr.raster_tiles, tr.raster_tiles_plain, 6, 4),
-        "K3": (shadow_pcf.pcf_lit_map, shadow_pcf.pcf_lit_map_plain, 2,
+        "K3": (shadow_pcf.pcf_lit_map, shadow_pcf.pcf_lit_map_plain, 4,
                None),
         "K4": (tr.raster_tiles_ms, tr.raster_tiles_ms_plain, 6, 4),
         "K6": (tr.depth_tiles_win, tr.depth_tiles_win_plain, 7, None),
@@ -1655,6 +1662,102 @@ def instance_bins(starts, counts, i, n_tiles):
             counts[sl].contiguous())
 
 
+def check_pcf_per_map(args, shared_bound) -> int:
+    """K3 on the crowd's maps with a plane each (per-map planes, the
+    counterpart of the reference's vmap over batched planes: z0 spread
+    over +-0.125 around the frame's own plane, the slopes scaled by up to
+    +-32 %, and the last map's z0 above every depth, so that it is unlit),
+    held bit-exact against the plain version and each map against its own
+    launch with its plane as scalars, timed back to back in turns with the
+    frame's shared plane. -> mismatches."""
+    from simple_mmd_renderer_tpu_torch.ops import shadow_pcf
+
+    maps, z0, zc, zr = args
+    n = maps.shape[0]
+    k = torch.arange(n, dtype=torch.float32, device=maps.device)
+    shift = torch.where(k == n - 1, 2.0 - z0, (k - n / 2) * (0.25 / n))
+    planes = (z0 + shift, zc * (1.0 + (k - n / 2) * (0.64 / n)),
+              zr * (1.0 - (k - n / 2) * (0.64 / n)))
+    lit = shadow_pcf.pcf_lit_map(maps, *planes)
+    bad = mismatches(lit, shadow_pcf.pcf_lit_map_plain(maps, *planes))
+    alone = sum(mismatches(lit[i], shadow_pcf.pcf_lit_map(
+        maps[i], *(float(p[i]) for p in planes))) for i in (0, n // 2, n - 1))
+    shared = shadow_pcf.pcf_lit_map(*args)
+    differ = int((lit != shared).sum())
+    per_map_bound = pcf_bound(args, lit, n)
+    runs = {"shared": [], "per-map": []}
+    for name in ("shared", "per-map", "per-map", "shared"):
+        call = ((lambda: shadow_pcf.pcf_lit_map(*args)) if name == "shared"
+                else (lambda: shadow_pcf.pcf_lit_map(maps, *planes)))
+        runs[name] += back_to_back_runs(call)
+    shared_runs, per_map_runs = sorted(runs["shared"]), sorted(
+        runs["per-map"])
+    log(f"kernels: K3 pcf_lit_map on the crowd's maps {tuple(lit.shape)} "
+        f"with {n} per-map planes: mismatches {bad}, maps 0, {n // 2}, "
+        f"{n - 1} against their own launches {alone}, {differ} texels "
+        f"differ from the shared plane's; back to back in turns (12 means "
+        f"of 20 launches each): shared least {shared_runs[0]:.4f}, median "
+        f"{shared_runs[6]:.4f} ms (bound {shared_bound[0]:.5f}), per-map "
+        f"least {per_map_runs[0]:.4f}, median {per_map_runs[6]:.4f} ms "
+        f"(bound {per_map_bound[0]:.5f})")
+    if not differ:
+        raise AssertionError("K3's per-map planes changed no texel")
+    return bad + alone
+
+
+def check_depth_nocull(scene, state):
+    """K1 through `rasterize_depth_tiled(..., nocull=)` on the flagship's
+    2048^2 shadow map: the casters of a frame of the full look (whose
+    shadow pass is K6's), with its double-sided mask, culled as the shadow
+    pass culls. K1's call held bit-exact against its plain version; its
+    entries against those of the same raster without the mask."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+    from simple_mmd_renderer_tpu_torch.render import pipeline, raster
+
+    seen = {}
+    real_pass, real_k1 = pipeline.shadow_pass, tr.depth_tiles
+
+    def spy_pass(*args, **kw):
+        seen.setdefault("pass", args[:4])
+        return real_pass(*args, **kw)
+
+    def spy_k1(*args, **kw):
+        seen.setdefault("K1", []).append(args)
+        return real_k1(*args, **kw)
+
+    try:
+        pipeline.shadow_pass = spy_pass
+        scene.step_and_render(state)
+    finally:
+        pipeline.shadow_pass = real_pass
+    verts_m, tris, light_mvp, size = seen["pass"]
+    mask = scene.rig.nocull_tris
+    clip = raster.transform_clip(verts_m, light_mvp)
+    e_max = pipeline._tiled_e_max(size, size)
+    try:
+        tr.depth_tiles = spy_k1
+        maps = [tr.rasterize_depth_tiled(clip, tris, size, size,
+                                         raster.CULL_FRONT, e_max=e_max,
+                                         nocull=nc) for nc in (mask, None)]
+    finally:
+        tr.depth_tiles = real_k1
+    args = seen["K1"][0]           # with the mask; [1] without it
+    entries = [int(a[2].sum()) for a in seen["K1"]]
+    got = tr.depth_tiles(*args)
+    want = tr.depth_tiles_plain(*args[:5])
+    bad = mismatches(got, want)
+    ms = cuda_ms(lambda: tr.depth_tiles(*args), 20)
+    differ = int((maps[0] != maps[1]).sum())
+    log(f"kernels: K1 depth_tiles with nocull ({int(mask.sum())} double-"
+        f"sided of {mask.shape[0]} triangles, {FULL}, {size}^2): "
+        f"mismatches {bad}, {entries[0]} entries with the mask, "
+        f"{entries[1]} without, {differ} texels differ; {ms:.4f} ms, back "
+        f"to back {back_to_back(lambda: tr.depth_tiles(*args))}")
+    if bad or entries[0] <= entries[1] or not differ:
+        raise AssertionError("K1 with nocull disagrees with its plain "
+                             "version or the mask changed nothing")
+
+
 def check_kernels_crowd(crowd, results):
     """K5c, K5a and K5b on the arguments of frame 1 of the dense crowd (K5a
     from the msaa=1 step, K5b from the msaa=4 step), K3 on its batch of
@@ -1725,13 +1828,11 @@ def check_kernels_crowd(crowd, results):
     k3_bad = mismatches(lit, lit_plain, k3_out)
     k3_ms = cuda_ms(lambda: shadow_pcf.pcf_lit_map(*k3_args), 50)
     k3_plain = cuda_ms(lambda: shadow_pcf.pcf_lit_map_plain(*k3_args), 5)
-    k3_bound = bound(4 * (k3_args[0].numel() + k3_args[1].numel()
-                          + lit.numel()), lit.numel() * OPS_PCF)
+    k3_bound = pcf_bound(k3_args, lit)
     log(f"kernels: K3 pcf_lit_map on the crowd's maps {tuple(lit.shape)}: "
         f"mismatches {k3_bad}, {k3_ms:.4f} ms vs plain {k3_plain:.4f} ms, "
         f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
-    log(pcf_line(f"K3 pcf_lit_map on the crowd's maps {tuple(lit.shape)}",
-                 lambda: shadow_pcf.pcf_lit_map(*k3_args), k3_bound))
+    k3_bad += check_pcf_per_map(k3_args, k3_bound)
 
     # K5a and K5b on all instances' character bins (A = 3: normals)
     for key, args in (("K5a", a_args), ("K5b", b_args)):
@@ -3145,6 +3246,7 @@ def main() -> int:
     scene = paths[FULL]["scene"]
     check_calls(FULL, scene.step_and_render, paths[FULL]["state"],
                 path_kernels(scene.config.render), nocull=True)
+    check_depth_nocull(scene, paths[FULL]["state"])
     scene = paths[CONTENT]["scene"]
     check_calls(CONTENT, scene.step_and_render, paths[CONTENT]["state"],
                 path_kernels(scene.config.render))

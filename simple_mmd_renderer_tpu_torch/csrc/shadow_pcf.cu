@@ -3,7 +3,10 @@
 // Replaces the Pallas kernel `_pcf_kernel` of
 // simple_mmd_renderer_tpu/ops/shadow_pcf.py (launched by
 // `pcf_lit_map_tiled`). For every texel (row, col) of each [S,S] shadow
-// map in a batch of B:
+// map b in a batch of B, with map b's plane (z0, zc, zr) read from element
+// b * plane_stride of three device arrays (a stride of 0 shares one plane,
+// as the reference's unbatched call; 1 gives each map its own, as its vmap
+// over batched planes):
 //
 //     zref  = (z0 + zc*col) + zr*row          (bias already folded into z0)
 //     count = #{3x3 taps, clamped to the map's edge, with zref < depth}
@@ -95,7 +98,9 @@ __device__ __forceinline__ int taps(const Row<V>& w, int j, float zref) {
 template <int V>
 __global__ void __launch_bounds__(32 * PCF_WARPS_X * PCF_WARPS_Y)
 pcf_lit_map_kernel(const float* __restrict__ maps,
-                   const float* __restrict__ params,
+                   const float* __restrict__ z0s,
+                   const float* __restrict__ zcs,
+                   const float* __restrict__ zrs, int plane_stride,
                    float* __restrict__ out, int s) {
   const int q = s / V;                                   // units a row
   const int u = blockIdx.x * blockDim.x + threadIdx.x;   // this unit
@@ -107,9 +112,10 @@ pcf_lit_map_kernel(const float* __restrict__ maps,
   const size_t plane = static_cast<size_t>(s) * static_cast<size_t>(s);
   const float* m = maps + static_cast<size_t>(blockIdx.z) * plane;
   float* o = out + static_cast<size_t>(blockIdx.z) * plane;
-  const float z0 = params[0];
-  const float zc = params[1];
-  const float zr = params[2];
+  const int pb = static_cast<int>(blockIdx.z) * plane_stride;
+  const float z0 = z0s[pb];   // this map's plane
+  const float zc = zcs[pb];
+  const float zr = zrs[pb];
   float a[V];   // z0 + zc*col of the thread's columns
 #pragma unroll
   for (int j = 0; j < V; ++j)
@@ -147,32 +153,40 @@ pcf_lit_map_kernel(const float* __restrict__ maps,
 }
 
 template <int V>
-cudaError_t launch(const float* maps, const float* params, float* out, int b,
-                   int s, cudaStream_t stream) {
+cudaError_t launch(const float* maps, const float* const* planes,
+                   int plane_stride, float* out, int b, int s,
+                   cudaStream_t stream) {
   const dim3 block(32 * PCF_WARPS_X, PCF_WARPS_Y);
   const int strips = (s + PCF_ROWS - 1) / PCF_ROWS;
   const dim3 grid((s / V + block.x - 1) / block.x,
                   (strips + block.y - 1) / block.y, b);
-  pcf_lit_map_kernel<V><<<grid, block, 0, stream>>>(maps, params, out, s);
+  pcf_lit_map_kernel<V><<<grid, block, 0, stream>>>(
+      maps, planes[0], planes[1], planes[2], plane_stride, out, s);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// maps: f32 [b, s, s] contiguous; params: f32 [3] = (z0, zc, zr) on the
-// device; out: f32 [b, s, s]. Four columns a thread where s is a multiple
+// maps: f32 [b, s, s] contiguous; z0, zc, zr: f32 on the device, map i's
+// plane at element i * plane_stride of each (0: one plane for all, 1: [b]
+// arrays); out: f32 [b, s, s]. Four columns a thread where s is a multiple
 // of 4 and both bases are 16-byte aligned, else one. Returns
 // cudaGetLastError() after the launch.
-extern "C" int smr_pcf_lit_map(const void* maps, const void* params, void* out,
-                               int b, int s, void* stream) {
+extern "C" int smr_pcf_lit_map(const void* maps, const void* z0,
+                               const void* zc, const void* zr,
+                               int plane_stride, void* out, int b, int s,
+                               void* stream) {
   if (b <= 0 || s <= 0) return 0;
-  if (b > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (b > 65535 || plane_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto m = static_cast<const float*>(maps);
-  const auto p = static_cast<const float*>(params);
+  const float* p[3] = {static_cast<const float*>(z0),
+                       static_cast<const float*>(zc),
+                       static_cast<const float*>(zr)};
   const auto o = static_cast<float*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   const bool vec = s % 4 == 0 && reinterpret_cast<size_t>(maps) % 16 == 0
                    && reinterpret_cast<size_t>(out) % 16 == 0;
-  return static_cast<int>(vec ? launch<4>(m, p, o, b, s, st)
-                              : launch<1>(m, p, o, b, s, st));
+  return static_cast<int>(vec ? launch<4>(m, p, plane_stride, o, b, s, st)
+                              : launch<1>(m, p, plane_stride, o, b, s, st));
 }

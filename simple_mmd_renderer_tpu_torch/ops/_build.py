@@ -43,7 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entry points (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "smr_pcf_lit_map": [_P, _P, _P, _I, _I, _P],
+    "smr_pcf_lit_map": [_P, _P, _P, _P, _I, _P, _I, _I, _P],
     "smr_depth_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     "smr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                          _P, _I, _I, _P],

@@ -73,6 +73,10 @@ MAX_ATTRS = 36   # attribute planes a setup row may carry (as the reference)
 
 WIN_TILE_H = (8, 32)   # tile heights K6 is built for
 
+# the reference's `chunk` (the entries of a tile it streams at once) must
+# be a multiple of its GROUP; no kernel here streams in chunks
+CHUNK_GROUP = 8
+
 # launches of the CUDA kernels since the last reset (plain counters: a run
 # shows the main path went through the kernels)
 depth_launches = 0         # K1
@@ -1178,11 +1182,28 @@ def _merge_big(vis, attr, clip, tris, width, height, s, big, attrs):
 # Entry points
 # ---------------------------------------------------------------------------
 
+def _check_chunk(chunk, who):
+    """The reference's `chunk` is its DMA unit of a tile's entries and
+    changes no result; the port takes it and checks it as the reference
+    asserts it (a positive multiple of CHUNK_GROUP), and every valid value
+    gives the same bits."""
+    if (not isinstance(chunk, int) or isinstance(chunk, bool) or chunk <= 0
+            or chunk % CHUNK_GROUP):
+        raise ValueError(f"{who}: chunk must be a positive multiple of "
+                         f"{CHUNK_GROUP}, got {chunk!r}")
+
+
 def rasterize_depth_tiled(clip, tris, width, height, cull=raster.CULL_BACK,
-                          e_max=9, compact=True, cv=None):
+                          e_max=9, chunk=256, nocull=None, compact=True,
+                          cv=None):
     """Depth-only binned rasterization (shadow maps) -> [H, W] depth. `cv`
-    may pass pre-gathered per-corner clip coords [T,3,4]."""
-    s = raster.setup(clip, tris, width, height, cull, cv=cv)
+    may pass pre-gathered per-corner clip coords [T,3,4]. `nocull` [T]
+    bool exempts double-sided triangles from face culling (in the setup's
+    validity: the binning, K1 and the big-triangle merge all see it).
+    `chunk` is the reference's streaming unit: checked, and the same bits
+    for every valid value."""
+    _check_chunk(chunk, "rasterize_depth_tiled")
+    s = raster.setup(clip, tris, width, height, cull, cv=cv, nocull=nocull)
     t = tris.shape[0]
     rows = _setup_rows(s, torch.arange(t, device=clip.device))
     # boxes: [entry-order boxes] on the card, [] on the CPU
@@ -1200,10 +1221,11 @@ def rasterize_depth_tiled(clip, tris, width, height, cull=raster.CULL_BACK,
 
 
 def rasterize_tiled(clip, tris, width, height, cull=raster.CULL_BACK,
-                    e_max=9, compact=True) -> raster.VisBuffer:
+                    e_max=9, chunk=256, compact=True) -> raster.VisBuffer:
     """Visibility only (K2 at A = 0), with rasterize_attrs_tiled's
     compaction and big-triangle merge -> VisBuffer [H, W] (the single
-    frame's edge hull)."""
+    frame's edge hull). `chunk` as rasterize_depth_tiled takes it."""
+    _check_chunk(chunk, "rasterize_tiled")
     s = raster.setup(clip, tris, width, height, cull)
     t = tris.shape[0]
     rows = _setup_rows(s, torch.arange(t, device=clip.device))
@@ -1220,15 +1242,16 @@ def rasterize_tiled(clip, tris, width, height, cull=raster.CULL_BACK,
 
 
 def rasterize_attrs_tiled(clip, tris, attrs, width, height,
-                          cull=raster.CULL_BACK, e_max=9, compact=True,
-                          cv=None, va=None, nocull=None):
+                          cull=raster.CULL_BACK, e_max=9, chunk=256,
+                          nocull=None, compact=True, cv=None, va=None):
     """Raster + in-kernel perspective-correct attribute interpolation.
 
     attrs: [V, A] per-vertex attributes. Returns (VisBuffer, attr_img
     [H, W, A]) with zeros on empty pixels. `cv`/`va` may pass pre-gathered
     per-corner clip coords [T,3,4] and attributes [T,3,A]. `nocull` [T]
     bool exempts double-sided triangles from face culling: both windings
-    bin together."""
+    bin together. `chunk` as rasterize_depth_tiled takes it."""
+    _check_chunk(chunk, "rasterize_attrs_tiled")
     if cv is None:
         g = torch.cat([clip, attrs], -1)[tris.long()]
         cv, va = g[..., :4], g[..., 4:]
@@ -1252,16 +1275,17 @@ def rasterize_attrs_tiled(clip, tris, attrs, width, height,
 
 
 def rasterize_attrs_tiled_msaa(clip, tris, attrs, width, height,
-                               cull=raster.CULL_BACK, e_max=9, compact=True,
-                               cv=None, va=None, nocull=None):
+                               cull=raster.CULL_BACK, e_max=9, chunk=256,
+                               nocull=None, compact=True, cv=None, va=None):
     """4x-MSAA raster: centre visibility + attributes like
     rasterize_attrs_tiled (with any-sample coverage, K4), plus per-sample
     depth [4, H, W] at MSAA4_OFFSETS; a sample is covered iff its depth is
     below 1. The sample-point cull is widened by the samples' 0.375 px
     reach. Where a big triangle wins the merge, its centre depth bounds all
     four samples (oversized triangles are interior-dominated), as in the
-    reference. `nocull` as rasterize_attrs_tiled takes it. Returns
-    (VisBuffer, attr_img [H, W, A], sdepth)."""
+    reference. `nocull` and `chunk` as rasterize_attrs_tiled takes them.
+    Returns (VisBuffer, attr_img [H, W, A], sdepth)."""
+    _check_chunk(chunk, "rasterize_attrs_tiled_msaa")
     if cv is None:
         g = torch.cat([clip, attrs], -1)[tris.long()]
         cv, va = g[..., :4], g[..., 4:]
@@ -1325,8 +1349,8 @@ def _caster_window(s, width, height, tile_h):
 
 
 def rasterize_depth_tiled_window(clip, tris, width, height,
-                                 cull=raster.CULL_BACK, e_max=9, tile_h=8,
-                                 compact=True, cv=None):
+                                 cull=raster.CULL_BACK, e_max=9, chunk=256,
+                                 tile_h=8, cv=None, compact=True):
     """Depth-only rasterization restricted to the casters' tile bounding
     box (K6), pasted into a map of 1.0: equal to rasterize_depth_tiled's
     map wherever no triangle falls to the big-triangle merge, since the
@@ -1334,7 +1358,10 @@ def rasterize_depth_tiled_window(clip, tris, width, height,
     is the exact box, sized on the device (the reference picks it from a
     static ladder of extents for its compiler; every extent that holds the
     box gives the same map). Bins are over tile_h x TILE_W tiles, so the
-    big-triangle threshold (more than e_max tiles) is at this grid."""
+    big-triangle threshold (more than e_max tiles) is at this grid.
+    `chunk` as rasterize_depth_tiled takes it; `compact` (the port's alone,
+    after the reference's parameters) as there."""
+    _check_chunk(chunk, "rasterize_depth_tiled_window")
     s = raster.setup(clip, tris, width, height, cull, cv=cv)
     t = tris.shape[0]
     rows = _setup_rows(s, torch.arange(t, device=clip.device))
@@ -1638,8 +1665,8 @@ def _crowd_attr_out(vis, attr):
 
 
 def rasterize_attrs_tiled_crowd(clip, tris, attrs, width, height,
-                                cull=raster.CULL_BACK, cv=None, va=None,
-                                nocull=None):
+                                cull=raster.CULL_BACK, chunk=256, cv=None,
+                                va=None, nocull=None):
     """Multi-instance raster + attribute interpolation in one binning and
     one launch of K5a.
 
@@ -1649,7 +1676,8 @@ def rasterize_attrs_tiled_crowd(clip, tris, attrs, width, height,
     the capped scan, per instance. Per pixel and per entry the semantics
     are rasterize_attrs_tiled's. `cv` [I,T,3,4] / `va` [I,T,3,A] may pass
     pre-gathered corner tables; `nocull` [T] (double-sided triangles) is
-    shared by the instances."""
+    shared by the instances. `chunk` as rasterize_depth_tiled takes it."""
+    _check_chunk(chunk, "rasterize_attrs_tiled_crowd")
     s, rows = _crowd_setup(clip, tris, attrs, width, height, cull, cv, va,
                            nocull)
     # boxes: [entry-order boxes] on the card, [] on the CPU
@@ -1665,12 +1693,14 @@ def rasterize_attrs_tiled_crowd(clip, tris, attrs, width, height,
 
 
 def rasterize_attrs_tiled_msaa_crowd(clip, tris, attrs, width, height,
-                                     cull=raster.CULL_BACK, cv=None, va=None,
-                                     nocull=None):
+                                     cull=raster.CULL_BACK, chunk=256,
+                                     cv=None, va=None, nocull=None):
     """Multi-instance 4x-MSAA raster (K5b): rasterize_attrs_tiled_crowd's
     outputs plus per-sample depth [I,4,H,W], per instance the semantics of
     rasterize_attrs_tiled_msaa. Where a big triangle wins the merge its
-    centre depth bounds all four samples."""
+    centre depth bounds all four samples. `chunk` as rasterize_depth_tiled
+    takes it."""
+    _check_chunk(chunk, "rasterize_attrs_tiled_msaa_crowd")
     s, rows = _crowd_setup(clip, tris, attrs, width, height, cull, cv, va,
                            nocull, sample_extent=MSAA4_EXTENT)
     # boxes: [entry-order boxes] on the card, [] on the CPU
@@ -1690,10 +1720,12 @@ def rasterize_attrs_tiled_msaa_crowd(clip, tris, attrs, width, height,
 
 
 def rasterize_depth_tiled_crowd(clip, tris, width, height,
-                                cull=raster.CULL_FRONT, cv=None):
+                                cull=raster.CULL_FRONT, chunk=256, cv=None):
     """Multi-instance depth-only raster (crowd shadow maps, K5c): clip
     [I,V,4], tris [T,3] -> depth [I,H,W]. `cv` [I,T,3,4] may pass
-    pre-gathered corner clip coords."""
+    pre-gathered corner clip coords. `chunk` as rasterize_depth_tiled
+    takes it."""
+    _check_chunk(chunk, "rasterize_depth_tiled_crowd")
     s, rows = _crowd_setup(clip, tris, None, width, height, cull, cv, None,
                            None)
     # boxes: [entry-order boxes] on the card, [] on the CPU

@@ -1,8 +1,7 @@
 """Frame pipeline: shadow pass -> ground -> character -> shading.
 
-Port of `simple_mmd_renderer_tpu/render/pipeline.py` less the scan
-raster: `build_matrices` (with the orthographic camera, `model_mat` and
-`proj_transform`), `ground_pass` (with its row0/rows halo),
+Port of `simple_mmd_renderer_tpu/render/pipeline.py`: `build_matrices`
+(with the orthographic camera, `model_mat` and `proj_transform`), `ground_pass` (with its row0/rows halo),
 `unproject_depth`, `upsample_bilinear_int`, `_tiled_e_max`, `shadow_pass`
 (with the caster window), the textures (the shelf-packed atlas with its
 mip chain, `PackedAtlas`, deferred-UV albedo from the visibility buffer,
@@ -15,11 +14,14 @@ sphere maps (`MmdMaps`, packed once), and the extended morphs'
 consumers: UV offsets added to the UVs before the raster or the deferred
 albedo reads them, and the material morphs' per-part colour
 (`part_color` = (mul, add)) applied to the albedo by the pixel's part.
-The rasterizer is the binned tile raster (`ops/tiled_raster.py`) on every
-device; its kernels (K1/K6 shadow depth,
-K2/K4 character) and the ground's PCF kernel (K3) run as hand-written CUDA
-on the card. The albedo pass is gathers (plain PyTorch), as it is XLA
-gathers in the reference.
+`RenderConfig.raster_mode` picks the rasterizer, as the reference's
+`_pick_raster` does: "scan" takes the exact scan raster
+(`render/raster.rasterize`, kernels KSb and KS), "tiled" and "auto" the
+binned tile raster (`ops/tiled_raster.py`; the reference's "auto" takes
+the scan raster off the TPU, the port the tiled one on every device),
+whose kernels (K1/K6 shadow depth, K2/K4 character) run as hand-written
+CUDA on the card, as does the ground's PCF kernel (K3). The albedo pass
+is gathers (plain PyTorch), as it is XLA gathers in the reference.
 
 `crowd_render_frame` is the multi-instance frame: one binning and one
 kernel launch for all instances' shadow maps (K5c) and character rasters
@@ -29,7 +31,10 @@ instance from one shared atlas, the edge hull through K5a, and the MMD
 shading over the instance axis, with per-instance UV offsets and part
 colours.
 
-Options outside the slice raise NotImplementedError naming the option.
+The single frame takes every option of the reference's. Like the
+reference's, `crowd_render_frame` raises NotImplementedError for
+`msaa_supersample` and `raster_mode="scan"`; `parallel.mesh.crowd_step_fn`
+renders those instance by instance.
 """
 
 from __future__ import annotations
@@ -216,29 +221,32 @@ def _tiled_e_max(width, height, default=6):
     return n_tiles if n_tiles <= 16 else default
 
 
-def shadow_pass(verts_m, tris_flipped, light_mvp, size, window=False,
-                compact=True, corner_pos=None, scan=False):
-    """Depth-only character raster from the light (front-face cull).
-    `window` restricts it to the casters' tile bounding box (K6) for maps
-    of at least 1024^2. `corner_pos` [T,3,3] may pass pre-gathered
-    per-corner world positions shared with the main pass. `scan` takes the
-    exact scan raster's depth instead (`raster.rasterize`, KS), as the
-    reference does for its scan raster_fn."""
-    from ..ops.tiled_raster import (rasterize_depth_tiled,
-                                    rasterize_depth_tiled_window)
+def shadow_pass(verts_m, tris_flipped, light_mvp, size, raster_fn=None,
+                window=False, compact=True, corner_pos=None):
+    """Depth-only character raster from the light (front-face cull), as
+    the reference's: `raster_fn=None` (or `raster.rasterize`) takes the
+    exact scan raster's depth (KS on the card); any other raster function
+    takes the binned depth kernels, K1, or K6 with `window` at maps of at
+    least 1024^2 (the casters' tile bounding box). `corner_pos` [T,3,3]
+    may pass pre-gathered per-corner world positions shared with the main
+    pass (the tiled kernels use it)."""
+    raster_fn = raster_fn or raster.rasterize
     clip = raster.transform_clip(verts_m, light_mvp)
-    if scan:
+    if raster_fn is raster.rasterize:
         return raster.rasterize(clip, tris_flipped, size, size,
                                 raster.CULL_FRONT).depth
+    from ..ops.tiled_raster import (rasterize_depth_tiled,
+                                    rasterize_depth_tiled_window)
     cv = (raster.transform_clip(corner_pos, light_mvp)
           if corner_pos is not None else None)
     if window and size >= 1024:
-        return rasterize_depth_tiled_window(clip, tris_flipped, size, size,
-                                            raster.CULL_FRONT,
-                                            _tiled_e_max(size, size), 32,
-                                            compact=compact, cv=cv)
+        return rasterize_depth_tiled_window(
+            clip, tris_flipped, size, size, raster.CULL_FRONT,
+            e_max=_tiled_e_max(size, size), tile_h=32, cv=cv,
+            compact=compact)
     return rasterize_depth_tiled(clip, tris_flipped, size, size,
-                                 raster.CULL_FRONT, _tiled_e_max(size, size),
+                                 raster.CULL_FRONT,
+                                 e_max=_tiled_e_max(size, size),
                                  compact=compact, cv=cv)
 
 
@@ -931,8 +939,8 @@ def _edge_hull(static, positions_mmd, normals, cfg, mats, width, height,
         else:
             vis_e = rasterize_tiled(clip_e, etris, width, height,
                                     raster.CULL_FRONT,
-                                    _tiled_e_max(width, height),
-                                    cfg.compact_bin)
+                                    e_max=_tiled_e_max(width, height),
+                                    compact=cfg.compact_bin)
         pid_e = static.edge_tri_part[torch.clamp(vis_e.tri, min=0).long()]
         color = static.edge_colors[pid_e][..., :3]
         return (vis_e.tri >= 0) & (vis_e.depth <= ground_depth), color
@@ -1082,11 +1090,16 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
 
     shadow_map = None
     if cfg.shadows_enabled:
+        from ..ops.tiled_raster import rasterize_tiled
         with pass_scope("shadow"):
+            # the raster function, as the reference's _pick_raster gives it
             shadow_map = shadow_pass(verts_m, tris, mats["light_mvp"],
-                                     cfg.shadow_map_size, cfg.shadow_window,
+                                     cfg.shadow_map_size,
+                                     raster.rasterize if scan
+                                     else rasterize_tiled,
+                                     cfg.shadow_window,
                                      compact=cfg.compact_bin,
-                                     corner_pos=corner_pos, scan=scan)
+                                     corner_pos=corner_pos)
 
     color, ground_depth = _background(cfg, mats, shadow_map, (), width,
                                       height, dev, cubemap)
@@ -1109,8 +1122,8 @@ def render_frame(static, positions_mmd, normals, cfg, part_textures=None,
                          else rasterize_attrs_tiled)
             vis, attr_px, *ms = raster_fn(
                 clip, tris, attrs, width, height, raster.CULL_BACK,
-                _tiled_e_max(width, height), cfg.compact_bin, cv=cv,
-                va=corner_va, nocull=nocull)
+                e_max=_tiled_e_max(width, height), nocull=nocull,
+                compact=cfg.compact_bin, cv=cv, va=corner_va)
             sdepth = ms[0] if ms else None
     world_px, nrm_px = _surface(cfg, mats, vis, attr_px, nocull, width,
                                 height)

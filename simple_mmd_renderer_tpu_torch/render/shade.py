@@ -146,8 +146,7 @@ def ground_lit_map(shadow_map, light_vp, bias=0.001):
     launches kernel K3 (ops/shadow_pcf.py) at every map size."""
     s = shadow_map.shape[-1]
     z0, zc, zr = _ground_zref_plane(s, light_vp, bias)
-    params = torch.stack([z0, zc, zr]).to(torch.float32)
-    return shadow_pcf.pcf_lit_map(shadow_map, params)
+    return shadow_pcf.pcf_lit_map(shadow_map, z0, zc, zr)
 
 
 def ground_shadow_lookup(light_space_pos, lit_map, enabled=True):

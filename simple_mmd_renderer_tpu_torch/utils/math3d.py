@@ -206,11 +206,18 @@ def quat_slerp(a, b, t):
 # 4x4 affines — column convention, p' = M @ p
 # ---------------------------------------------------------------------------
 
-def affine(rot3=None, trans=None):
-    """Build 4x4 from 3x3 rotation block and/or translation (batched)."""
-    ref = rot3 if rot3 is not None else trans
-    batch = rot3.shape[:-2] if rot3 is not None else trans.shape[:-1]
-    m = torch.eye(4, dtype=ref.dtype, device=ref.device).expand(
+def affine(rot3=None, trans=None, dtype=torch.float32):
+    """Build 4x4 from 3x3 rotation block and/or translation (batched).
+    The dtype and device come from `rot3`, else from `trans`; `affine()`
+    is eye(4) of `dtype` (on the default device)."""
+    device = None
+    if rot3 is not None:
+        batch, dtype, device = rot3.shape[:-2], rot3.dtype, rot3.device
+    elif trans is not None:
+        batch, dtype, device = trans.shape[:-1], trans.dtype, trans.device
+    else:
+        batch = ()
+    m = torch.eye(4, dtype=dtype, device=device).expand(
         tuple(batch) + (4, 4)).clone()
     if rot3 is not None:
         m[..., :3, :3] = rot3

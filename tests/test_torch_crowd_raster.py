@@ -272,7 +272,7 @@ def test_crowd_rasters_with_nocull_equal_the_single_instance_ones(msaa):
     for i in range(clip.shape[0]):
         one = single_fn(torch.as_tensor(clip[i]), torch.as_tensor(tris),
                         torch.as_tensor(attrs[i]), w, h, raster.CULL_BACK,
-                        tr._crowd_e_max(w, h), False, nocull=nc)
+                        tr._crowd_e_max(w, h), compact=False, nocull=nc)
         for a, b in zip((got[0].depth, got[0].tri, got[0].bary, *got[1:]),
                         (one[0].depth, one[0].tri, one[0].bary, *one[1:])):
             assert torch.equal(a[i], b), i

@@ -134,22 +134,33 @@ PCF_CASES = ([(s, b) for s in (1, 3, 5, 130, 256, 2048) for b in (1, 3)]
              + [(256, 64), (200, 2)])
 
 
+@pytest.mark.parametrize("per_map", [False, True], ids=["shared", "per_map"])
 @pytest.mark.parametrize("s,b", PCF_CASES)
-def test_pcf_kernel_bit_exact(cuda, s, b):
+def test_pcf_kernel_bit_exact(cuda, s, b, per_map):
     """K3 against its plain version, bit for bit, one launch each: random
     maps with exact ties zref == depth, zero columns and rows at the edges
     (the edge-clamped taps), and the same maps at a base 4 bytes past a
     16-byte boundary (a view of a larger buffer: the one-column variant,
-    as for S not a multiple of 4)."""
+    as for S not a multiple of 4). The plane is shared (three Python
+    floats, the reference's call) or given per map ([b] tensors, its vmap
+    over batched planes); per map, each map also equals its own launch
+    with its plane as scalars."""
     rng = np.random.default_rng(s + b)
     maps = torch.as_tensor(rng.random((b, s, s), np.float32), device=cuda)
-    params = torch.tensor([0.5, 1e-3, -2e-3], dtype=torch.float32,
-                          device=cuda)
+    if per_map:
+        k = torch.arange(b, dtype=torch.float32, device=cuda)
+        z0, zc, zr = 0.5 - 0.03 * k, 1e-3 * (1.0 + k), -2e-3 + 1e-4 * k
+        planes = torch.stack([z0, zc, zr], -1)[:, :, None, None]
+    else:
+        z0, zc, zr = 0.5, 1e-3, -2e-3
+        planes = torch.tensor([z0, zc, zr], dtype=torch.float32,
+                              device=cuda)[None, :, None, None]
     # the reference depth in the plain version's order, planted as the
     # depth of a quarter of the texels: ties on their own taps
     col = torch.arange(s, dtype=torch.float32, device=cuda)[None, :]
     row = torch.arange(s, dtype=torch.float32, device=cuda)[:, None]
-    zref = (params[0] + params[1] * col + params[2] * row).expand(b, s, s)
+    zref = (planes[:, 0] + planes[:, 1] * col + planes[:, 2] * row).expand(
+        b, s, s)
     tie = torch.as_tensor(rng.random((b, s, s)) < 0.25, device=cuda)
     maps = torch.where(tie, zref, maps)
     maps[:, :, 0] = 0.0
@@ -157,7 +168,7 @@ def test_pcf_kernel_bit_exact(cuda, s, b):
     if b > 1:
         maps[1:, 0, :] = 0.0
         maps[1:, :, -1] = 0.0
-    want = shadow_pcf.pcf_lit_map_plain(maps, params)
+    want = shadow_pcf.pcf_lit_map_plain(maps, z0, zc, zr)
     if s > 1:      # (a map of one texel is all edge: zero, unlit)
         assert bool((want > 0).any()) and bool((want < 1).any())
     buf = torch.empty(b * s * s + 4, dtype=torch.float32, device=cuda)
@@ -166,9 +177,14 @@ def test_pcf_kernel_bit_exact(cuda, s, b):
     assert shifted.data_ptr() % 16 == 4
     for m in (maps, shifted):
         before = shadow_pcf.launches
-        got = shadow_pcf.pcf_lit_map(m, params)
+        got = shadow_pcf.pcf_lit_map(m, z0, zc, zr)
         assert shadow_pcf.launches == before + 1
         assert torch.equal(got, want)
+    if per_map:
+        for i in range(b):
+            one = shadow_pcf.pcf_lit_map_tiled(
+                maps[i], float(z0[i]), float(zc[i]), float(zr[i]))
+            assert torch.equal(one, want[i])
 
 
 def test_kernels_on_empty_bins(cuda):
@@ -216,8 +232,11 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         tr.raster_tiles(rows[:, :12], starts, counts, 128, 64, 3)
     with pytest.raises(ValueError):
-        shadow_pcf.pcf_lit_map(torch.zeros((4, 8), device=cuda),
-                               torch.zeros(3, device=cuda))
+        shadow_pcf.pcf_lit_map(torch.zeros((4, 8), device=cuda), 0.0, 0.0,
+                               0.0)
+    with pytest.raises(ValueError):
+        shadow_pcf.pcf_lit_map(torch.zeros((2, 8, 8), device=cuda),
+                               torch.zeros(3, device=cuda), 0.0, 0.0)
     with pytest.raises(ValueError):
         tr.raster_tiles_ms(rows[:, :12], starts, counts, 128, 64, 3)
     with pytest.raises(ValueError):
@@ -958,12 +977,13 @@ def test_edge_hull_crowd_raster_kernel_bit_exact(cuda, case):
         assert torch.equal(g, p)
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4", "K5a", "K5b"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "K5a", "K5b"])
 @pytest.mark.parametrize("case", ["random", "dense"])
 def test_raster_kernels_bit_exact_with_nocull(cuda, kernel, case):
     """Back culling with every other triangle double-sided: both windings
     in one bin (some tile holds both), each kernel bit-exact against its
-    plain version (the attributes within 1e-6)."""
+    plain version (the attributes within 1e-6). K1 is the depth raster's
+    (`rasterize_depth_tiled(nocull=)`)."""
     ms = kernel in ("K4", "K5b")
     ext = 0.375 if ms else 0.0
     crowd = kernel.startswith("K5")
@@ -988,11 +1008,44 @@ def test_raster_kernels_bit_exact_with_nocull(cuda, kernel, case):
                      else (tr.raster_tiles, tr.raster_tiles_plain))
     neg, pos, both = _windings(rows, starts, counts)
     assert neg > 0 and pos > 0 and both > 0
+    if kernel == "K1":
+        args = args[:5]
+        assert torch.equal(tr.depth_tiles(*args, boxes),
+                           tr.depth_tiles_plain(*args))
+        return
     got = fn(*args, boxes)
     want = plain(*args)
     for i in ((0, 1, 2, 3, 5) if ms else (0, 1, 2, 3)):
         assert torch.equal(got[i], want[i]), i
     assert float((got[4] - want[4]).abs().max()) <= 1e-6
+
+
+def test_depth_entry_with_nocull_on_the_card_matches_the_cpu(cuda):
+    """`rasterize_depth_tiled(..., nocull=)` on the card (K1 on the
+    double-sided triangles' bins, their big-triangle merge on KSb + KS)
+    equals the same call on the CPU (the plain versions), bit for bit, and
+    differs from the call without the exemption."""
+    rng = np.random.default_rng(21)
+    t = 400
+    v0 = rng.uniform(-0.9, 0.9, (t, 2))
+    verts = np.stack([v0, v0 + rng.uniform(-0.3, 0.3, (t, 2)),
+                      v0 + rng.uniform(-0.3, 0.3, (t, 2))], 1).reshape(-1, 2)
+    verts[:3] = [[-1.0, -1.0], [1.0, -1.0], [0.0, 1.0]]   # a big one
+    clip = np.concatenate([verts, rng.uniform(0.1, 0.9, (3 * t, 1)),
+                           np.ones((3 * t, 1))], -1).astype(np.float32)
+    tris = np.arange(3 * t, dtype=np.int32).reshape(t, 3)
+    nocull = np.arange(t) % 2 == 0
+    out = {}
+    for dev in ("cpu", cuda):
+        c, tt = torch.as_tensor(clip, device=dev), torch.as_tensor(
+            tris, device=dev)
+        out[str(dev)] = [tr.rasterize_depth_tiled(
+            c, tt, 256, 256, raster.CULL_BACK, 2,
+            nocull=None if nc is None else torch.as_tensor(nc, device=dev))
+            for nc in (nocull, None)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(got.cpu(), want)
+    assert not torch.equal(out["cpu"][0], out["cpu"][1])
 
 
 def _look(n_parts=2):
@@ -1487,7 +1540,7 @@ def test_big_triangle_merge_on_the_scan_kernel(cuda, monkeypatch, path):
         "depth": lambda: (tr.rasterize_depth_tiled(clip, tris, w, h, cull,
                                                    2),),
         "window": lambda: (tr.rasterize_depth_tiled_window(
-            clip, tris, w, h, cull, 2, 8),),
+            clip, tris, w, h, cull, 2, tile_h=8),),
         "crowd": lambda: tr.rasterize_attrs_tiled_crowd(clip, tris, attrs, w,
                                                         h, cull),
         "crowd_msaa": lambda: tr.rasterize_attrs_tiled_msaa_crowd(

@@ -145,6 +145,33 @@ def test_affine_helpers():
     np.testing.assert_allclose(back.numpy(), p, atol=1e-5)
 
 
+@pytest.mark.parametrize("form", ["empty", "float16", "rot3", "trans",
+                                  "both"])
+def test_affine_matches_reference(form):
+    """`affine` as the reference takes it: `affine()` is eye(4) of float32,
+    `dtype` sets an empty one's type, and the dtype otherwise comes from
+    rot3 (else trans), whatever `dtype` says. Exact."""
+    rng = np.random.default_rng(8)
+    rot3 = rng.normal(size=(5, 3, 3))
+    trans = rng.normal(size=(5, 3))
+    args = {"empty": ({}, {}),
+            "float16": ({}, dict(dtype=(jnp.float16, torch.float16))),
+            "rot3": (dict(rot3=rot3.astype(np.float32)),
+                     dict(dtype=(jnp.float16, torch.float16))),
+            "trans": (dict(trans=trans.astype(np.float32)), {}),
+            "both": (dict(rot3=rot3.astype(np.float32),
+                          trans=trans.astype(np.float32)), {})}[form]
+    arrays, dtype = args
+    ref_kw = {**{k: jnp.asarray(v) for k, v in arrays.items()},
+              **{k: v[0] for k, v in dtype.items()}}
+    kw = {**{k: torch.as_tensor(v) for k, v in arrays.items()},
+          **{k: v[1] for k, v in dtype.items()}}
+    want = np.asarray(ref_m3.affine(**ref_kw))
+    got = m3.affine(**kw).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want)
+
+
 def test_linear_lut():
     assert bezier.LINEAR_LUT.dtype == ref_bezier.LINEAR_LUT.dtype
     assert np.array_equal(bezier.LINEAR_LUT, ref_bezier.LINEAR_LUT)

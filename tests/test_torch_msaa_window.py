@@ -159,7 +159,7 @@ def test_window_depth_matches_reference(mesh, tile_h):
             tile_h)
         got = tr.rasterize_depth_tiled_window(
             torch.as_tensor(clip), torch.as_tensor(tris), 512, 512, cull, 6,
-            tile_h)
+            64, tile_h)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
         assert (got.numpy() < 1.0).mean() > 0.002
     if mesh == "clustered":     # a window of at most 1/8 of the tiles
@@ -179,7 +179,8 @@ def test_window_depth_equals_full_raster(mesh, tile_h):
     clip, tris = _window_meshes()[mesh]
     c, t = torch.as_tensor(clip), torch.as_tensor(tris)
     for cull in (raster.CULL_NONE, raster.CULL_FRONT):
-        got = tr.rasterize_depth_tiled_window(c, t, 512, 512, cull, 6, tile_h)
+        got = tr.rasterize_depth_tiled_window(c, t, 512, 512, cull, 6,
+                                              tile_h=tile_h)
         assert torch.equal(got, tr.rasterize_depth_tiled(c, t, 512, 512,
                                                          cull, 6))
 
@@ -194,7 +195,7 @@ def test_window_depth_empty_scene():
         64, 8)
     got = tr.rasterize_depth_tiled_window(
         torch.as_tensor(clip), torch.as_tensor(tris), 256, 256,
-        raster.CULL_NONE, 6, 8)
+        raster.CULL_NONE, 6, 64, 8)
     assert (np.asarray(ref) == 1.0).all() and bool((got == 1.0).all())
 
 
@@ -227,7 +228,8 @@ def test_shadow_pass_window_at_1024_matches_reference(monkeypatch):
             ref_tr.rasterize_tiled, True)
         got = pipeline.shadow_pass(torch.as_tensor(verts),
                                    torch.as_tensor(tris),
-                                   torch.as_tensor(light), size, True)
+                                   torch.as_tensor(light), size,
+                                   tr.rasterize_tiled, True)
         assert calls == want, size
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
         assert (got.numpy() < 1.0).any()

@@ -2,11 +2,16 @@
 
 The reference runs its Pallas `pcf_lit_map_tiled` in interpret mode on the
 CPU; the port runs its plain PyTorch version (`pcf_lit_map_plain`, what
-the CUDA kernel is checked against on the card).
+the CUDA kernel is checked against on the card). Both take the plane as
+the reference does, (shadow_map, z0, zc, zr): a shared plane as Python
+floats or 0-d arrays, or per-map planes against the reference's
+`jax.vmap(pcf_lit_map)` over batched planes.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from simple_mmd_renderer_tpu.config import RenderConfig
@@ -51,9 +56,8 @@ def test_pcf_plain_matches_pallas_kernel():
     z0, zc, zr = ref_shade._ground_zref_plane(s, jnp.asarray(_light_vp()),
                                               0.001)
     ref = np.asarray(ref_pcf.pcf_lit_map_tiled(jnp.asarray(smap), z0, zc, zr))
-    params = torch.tensor([float(z0), float(zc), float(zr)],
-                          dtype=torch.float32)
-    got = shadow_pcf.pcf_lit_map(torch.as_tensor(smap), params).numpy()
+    got = shadow_pcf.pcf_lit_map(torch.as_tensor(smap), float(z0), float(zc),
+                                 float(zr)).numpy()
     assert _count_off_by_ninth(got, ref) <= 1e-4 * s * s
 
 
@@ -65,13 +69,65 @@ def test_pcf_plain_batched_and_edges():
     maps = rng.random((2, s, s), np.float32)
     maps[1, :, 0] = 0.0
     maps[1, -1, :] = 1.0
-    params = torch.tensor([0.5, 1e-3, -2e-3], dtype=torch.float32)
-    got = shadow_pcf.pcf_lit_map(torch.as_tensor(maps), params).numpy()
+    got = shadow_pcf.pcf_lit_map(torch.as_tensor(maps), 0.5, 1e-3,
+                                 -2e-3).numpy()
     for b in range(2):
         ref = np.asarray(ref_pcf.pcf_lit_map_tiled(
             jnp.asarray(maps[b]), jnp.float32(0.5), jnp.float32(1e-3),
             jnp.float32(-2e-3)))
         assert _count_off_by_ninth(got[b], ref) <= 1e-4 * s * s
+
+
+@pytest.fixture(scope="module")
+def planes_case():
+    """B = 3 maps of S = 128 with a plane each, and the reference's lit
+    maps: `pcf_lit_map` with the first plane shared (the three scalars)
+    and `jax.vmap(pcf_lit_map)` over the batched planes (its
+    `_pcf_lit_map_vmap` branch)."""
+    rng = np.random.default_rng(12)
+    b, s = 3, 128
+    maps = rng.random((b, s, s), np.float32)
+    z0 = np.float32([0.5, 0.45, 0.55])
+    zc = np.float32([1e-3, 2e-3, -1e-3])
+    zr = np.float32([-2e-3, 1e-3, 5e-4])
+    shared = np.asarray(ref_pcf.pcf_lit_map(jnp.asarray(maps), z0[0], zc[0],
+                                            zr[0]))
+    per_map = np.asarray(jax.vmap(ref_pcf.pcf_lit_map)(
+        jnp.asarray(maps), jnp.asarray(z0), jnp.asarray(zc),
+        jnp.asarray(zr)))
+    return maps, (z0, zc, zr), shared, per_map
+
+
+@pytest.mark.parametrize("fn", ["pcf_lit_map", "pcf_lit_map_tiled"])
+@pytest.mark.parametrize("form", ["floats", "0-d", "per_map"])
+def test_pcf_planes_match_reference(planes_case, fn, form):
+    """Scalar, 0-d and per-map planes through the port's `pcf_lit_map` and
+    `pcf_lit_map_tiled` equal the reference's (B = 3, S = 128). Expected
+    bit-exact; at most 1e-4 of texels may differ, each by exactly 1/9 (as
+    test_pcf_plain_matches_pallas_kernel). Measured: 0 texels differ."""
+    maps, (z0, zc, zr), shared, per_map = planes_case
+    if form == "floats":
+        args, ref = (float(z0[0]), float(zc[0]), float(zr[0])), shared
+    elif form == "0-d":
+        args = tuple(torch.tensor(v[0]) for v in (z0, zc, zr))
+        ref = shared
+    else:
+        args, ref = tuple(torch.as_tensor(v) for v in (z0, zc, zr)), per_map
+    got = getattr(shadow_pcf, fn)(torch.as_tensor(maps), *args).numpy()
+    assert _count_off_by_ninth(got, ref) <= 1e-4 * got.size
+    # per map, each map is its own plane's lit map
+    if form == "per_map":
+        for i in range(3):
+            one = shadow_pcf.pcf_lit_map(torch.as_tensor(maps[i]),
+                                         float(z0[i]), float(zc[i]),
+                                         float(zr[i])).numpy()
+            assert np.array_equal(one, got[i])
+
+
+def test_pcf_rejects_planes_of_another_batch():
+    with pytest.raises(ValueError, match="z0"):
+        shadow_pcf.pcf_lit_map(torch.zeros((2, 8, 8)), torch.zeros(3), 0.0,
+                               0.0)
 
 
 def test_ground_lit_map_matches_reference():

@@ -55,19 +55,27 @@ def _boxed(ps):
     return dataclasses.replace(ps, shape=shape, dims=dims.astype(np.float32))
 
 
-def _react_three_frames(static, motion, ps, cfg, atol):
+@pytest.fixture(scope="module")
+def ref_poses(rig):
+    """The reference's animated pose of frames 0-3 (pre_physics_posing,
+    jitted once), which both solver comparisons step through."""
+    static, motion = rig
     pre = jax.jit(lambda a, b, c: ref_pose.pre_physics_posing(static, a, b,
                                                               c))
+    return {fr: pre(*ref_anim.sample_motion(motion, jnp.float32(fr)))
+            for fr in (0.0, 1.0, 2.0, 3.0)}
+
+
+def _react_three_frames(static, poses, ps, cfg, atol):
     react = jax.jit(lambda st, p: ref_physics.physics_react(static, ps, st,
                                                             p, cfg))
     tables = ModelTables(static, device="cpu")
     ptables = physics.PhysicsTables(ps, device="cpu")
-    ref_state = ref_physics.physics_reset(ps, pre(*ref_anim.sample_motion(
-        motion, jnp.float32(0.0))))
+    ref_state = ref_physics.physics_reset(ps, poses[0.0])
     state = physics.PhysicsState(**{k: _t(getattr(ref_state, k))
                                     for k in LEAVES})
     for fr in (1.0, 2.0, 3.0):
-        ref_p = pre(*ref_anim.sample_motion(motion, jnp.float32(fr)))
+        ref_p = poses[fr]
         ref_state, ref_out = react(ref_state, ref_p)
         state, out = physics.physics_react(
             tables, ptables, state,
@@ -81,18 +89,18 @@ def _react_three_frames(static, motion, ps, cfg, atol):
                                    atol=atol, err_msg=f"frame {fr} skin")
 
 
-def test_physics_react_three_frames(rig):
-    static, motion = rig
-    _react_three_frames(static, motion, ref_physics.build_physics(static),
+def test_physics_react_three_frames(rig, ref_poses):
+    static, _ = rig
+    _react_three_frames(static, ref_poses, ref_physics.build_physics(static),
                         PhysicsConfig(solver_iterations=4), 1e-4)
 
 
-def test_physics_react_with_boxes(rig):
+def test_physics_react_with_boxes(rig, ref_poses):
     """Box bodies switch on the manifold contacts (4 slots per pair, SAT for
     box-box) and the rotation-aware anchors."""
-    static, motion = rig
+    static, _ = rig
     ps = _boxed(ref_physics.build_physics(static))
-    _react_three_frames(static, motion, ps,
+    _react_three_frames(static, ref_poses, ps,
                         PhysicsConfig(solver_iterations=2), 1e-4)
 
 

@@ -123,12 +123,22 @@ def test_sample_motion_matches_reference(rig, frame):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-6)
 
 
-def _compare_posing(static, motion, frames, atol_ik_rot, atol_ik_pos):
+@pytest.fixture(scope="module")
+def ref_pre(rig):
+    """The reference's pre_physics_posing on the rig, jitted once for the
+    module (the full-IK comparison and the skinning test's pose)."""
+    static, _ = rig
+    return jax.jit(lambda a, b, c: ref_pose.pre_physics_posing(static, a, b,
+                                                               c))
+
+
+def _compare_posing(static, motion, frames, atol_ik_rot, atol_ik_pos,
+                    pre=None):
     tables = ModelTables(static, device="cpu")
     mt = anim.MotionTables(motion, device="cpu")
     ik = _ik_affected(static)
-    pre = jax.jit(lambda a, b, c: ref_pose.pre_physics_posing(static, a, b,
-                                                              c))
+    pre = pre or jax.jit(lambda a, b, c: ref_pose.pre_physics_posing(
+        static, a, b, c))
     worst = {"rot": 0.0, "pos": 0.0}
     for fr in frames:
         inputs = ref_anim.sample_motion(motion, jnp.float32(fr))
@@ -172,14 +182,14 @@ def test_posing_matches_reference_at_two_ik_iterations(rig):
     _compare_posing(short, motion, [1.0, 30.0, 61.0], 1e-3, 2e-3)
 
 
-def test_posing_matches_reference_full_ik(rig):
+def test_posing_matches_reference_full_ik(rig, ref_pre):
     """The sample rig's own IK (40 iterations on the legs). FK-only bones at
     atol 1e-4; IK-driven bones at the PARITY D1 level: measured over these
     frames, rotations differ by up to 9.4e-4 and world/skin translations by
     up to 8.5e-3 MMD units (about 1 mm on the 1.6 m figure); held at 2e-3
     and 2e-2."""
     static, motion = rig
-    _compare_posing(static, motion, [1.0, 2.0, 45.0], 2e-3, 2e-2)
+    _compare_posing(static, motion, [1.0, 2.0, 45.0], 2e-3, 2e-2, ref_pre)
 
 
 def test_apply_morphs_overlapping_entries_bit_equal(rig):
@@ -204,12 +214,12 @@ def test_apply_morphs_overlapping_entries_bit_equal(rig):
                                    atol=1e-6)
 
 
-def test_deform_matches_reference(rig):
-    """Skinning from the same pose: the bone-palette matmul and the 4-wide
-    gather path."""
+def test_deform_matches_reference(rig, ref_pre):
+    """Skinning from the same pose (the reference's, jitted, given to
+    both): the bone-palette matmul and the 4-wide gather path."""
     static, motion = rig
     inputs = ref_anim.sample_motion(motion, jnp.float32(12.0))
-    ref_p = ref_pose.pre_physics_posing(static, *inputs)
+    ref_p = ref_pre(*inputs)
     tables = ModelTables(static, device="cpu")
     for use_matmul in (True, False):
         got = pose.deform(tables, _to_port_pose(ref_p), use_matmul=use_matmul)

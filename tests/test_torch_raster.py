@@ -77,7 +77,7 @@ def _both_attrs(clip, tris, attrs, w, h, cull, e_max, chunk=256):
         e_max, chunk)
     vis, attr = tr.rasterize_attrs_tiled(
         torch.as_tensor(clip), torch.as_tensor(tris), torch.as_tensor(attrs),
-        w, h, cull, e_max)
+        w, h, cull, e_max, chunk)
     same = _assert_vis_equal(vis, ref_vis)
     np.testing.assert_allclose(attr.numpy()[same], np.asarray(ref_attr)[same],
                                atol=1e-4)
@@ -88,9 +88,139 @@ def _both_depth(clip, tris, w, h, cull, e_max, chunk=256):
     ref = ref_tr.rasterize_depth_tiled(jnp.asarray(clip), jnp.asarray(tris),
                                        w, h, cull, e_max, chunk)
     got = tr.rasterize_depth_tiled(torch.as_tensor(clip),
-                                   torch.as_tensor(tris), w, h, cull, e_max)
+                                   torch.as_tensor(tris), w, h, cull, e_max,
+                                   chunk)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
     return got
+
+
+def _back_facing_half(t=300, seed=41):
+    """A mesh for 96x96 whose even triangles face away (wound so that
+    back-face culling drops them) and are marked double-sided: (clip,
+    tris, nocull [t] bool)."""
+    rng = np.random.default_rng(seed)
+    clip, tris = _random_mesh(rng, t=t, size=0.2)
+    c = torch.as_tensor(clip)
+    front = raster.setup(c, torch.as_tensor(tris), 96, 96,
+                         raster.CULL_BACK)["valid"].numpy()
+    seen = raster.setup(c, torch.as_tensor(tris), 96, 96,
+                        raster.CULL_NONE)["valid"].numpy()
+    even = np.arange(t) % 2 == 0
+    flip = even == front        # even and front-facing, or odd and back
+    tris[flip] = tris[flip][:, ::-1]
+    nocull = even & seen
+    return clip, tris, nocull
+
+
+def test_depth_tiled_nocull_matches_reference():
+    """`rasterize_depth_tiled(..., nocull=)` at 96x96: 300 triangles, half
+    of them back-facing and double-sided, culled back. The port equals the
+    reference's (Pallas K1 in interpret mode) at the depth tolerance
+    (2e-5; measured 0), and the exemption shows: the double-sided
+    triangles are drawn, and the map differs from the one without it."""
+    clip, tris, nocull = _back_facing_half()
+    assert nocull.sum() > 100
+    ref = ref_tr.rasterize_depth_tiled(
+        jnp.asarray(clip), jnp.asarray(tris), 96, 96, raster.CULL_BACK, 9,
+        256, jnp.asarray(nocull))
+    got = tr.rasterize_depth_tiled(
+        torch.as_tensor(clip), torch.as_tensor(tris), 96, 96,
+        raster.CULL_BACK, 9, 256, torch.as_tensor(nocull))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+    culled = tr.rasterize_depth_tiled(
+        torch.as_tensor(clip), torch.as_tensor(tris), 96, 96,
+        raster.CULL_BACK)
+    drawn = got.numpy() < 1.0
+    assert drawn.mean() > 0.3
+    assert (got.numpy() < culled.numpy()).mean() > 0.1
+
+
+def _entry_case(name):
+    """(entry point, reference-form positional args, the same call by
+    keyword) for each of the eight tiled entry points, on a 160x96 mesh
+    with a big triangle (the merge runs at e_max 2) and every other
+    triangle double-sided where the entry takes `nocull`."""
+    rng = np.random.default_rng(43)
+    clip, tris = _with_big(*_random_mesh(rng, t=80, size=0.2))
+    attrs = rng.normal(size=(clip.shape[0], 3)).astype(np.float32)
+    c, t, a = map(torch.as_tensor, (clip, tris, attrs))
+    nocull = torch.arange(t.shape[0]) % 2 == 0
+    w, h, cull = 160, 96, raster.CULL_BACK
+    g = torch.cat([c, a], -1)[t.long()]
+    cv, va = g[..., :4], g[..., 4:]
+    crowd = torch.stack([c, c * torch.tensor([0.5, 0.5, 1.0, 1.0])])
+    crowd_a = torch.stack([a, -a])
+    gc = torch.cat([crowd, crowd_a], -1)[:, t.long()]
+    ccv, cva = gc[..., :4], gc[..., 4:]
+    return {
+        "rasterize_depth_tiled": (
+            (c, t, w, h, cull, 2, 64, nocull, False, cv),
+            dict(clip=c, tris=t, width=w, height=h, cull=cull, e_max=2,
+                 nocull=nocull, compact=False, cv=cv)),
+        "rasterize_tiled": (
+            (c, t, w, h, cull, 2, 64, False),
+            dict(clip=c, tris=t, width=w, height=h, cull=cull, e_max=2,
+                 compact=False)),
+        "rasterize_attrs_tiled": (
+            (c, t, a, w, h, cull, 2, 64, nocull, False, cv, va),
+            dict(clip=c, tris=t, attrs=a, width=w, height=h, cull=cull,
+                 e_max=2, nocull=nocull, compact=False, cv=cv, va=va)),
+        "rasterize_attrs_tiled_msaa": (
+            (c, t, a, w, h, cull, 2, 64, nocull, False, cv, va),
+            dict(clip=c, tris=t, attrs=a, width=w, height=h, cull=cull,
+                 e_max=2, nocull=nocull, compact=False, cv=cv, va=va)),
+        "rasterize_depth_tiled_window": (
+            (c, t, w, h, cull, 2, 64, 32, cv),
+            dict(clip=c, tris=t, width=w, height=h, cull=cull, e_max=2,
+                 tile_h=32, cv=cv)),
+        "rasterize_attrs_tiled_crowd": (
+            (crowd, t, crowd_a, w, h, cull, 64, ccv, cva, nocull),
+            dict(clip=crowd, tris=t, attrs=crowd_a, width=w, height=h,
+                 cull=cull, cv=ccv, va=cva, nocull=nocull)),
+        "rasterize_attrs_tiled_msaa_crowd": (
+            (crowd, t, crowd_a, w, h, cull, 64, ccv, cva, nocull),
+            dict(clip=crowd, tris=t, attrs=crowd_a, width=w, height=h,
+                 cull=cull, cv=ccv, va=cva, nocull=nocull)),
+        "rasterize_depth_tiled_crowd": (
+            (crowd, t, w, h, raster.CULL_FRONT, 64, ccv),
+            dict(clip=crowd, tris=t, width=w, height=h,
+                 cull=raster.CULL_FRONT, cv=ccv)),
+    }[name]
+
+
+def _leaves(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, raster.VisBuffer):
+        return [out.depth, out.tri, out.bary]
+    return [x for o in out for x in _leaves(o)]
+
+
+ENTRY_POINTS = ["rasterize_depth_tiled", "rasterize_tiled",
+                "rasterize_attrs_tiled", "rasterize_attrs_tiled_msaa",
+                "rasterize_depth_tiled_window", "rasterize_attrs_tiled_crowd",
+                "rasterize_attrs_tiled_msaa_crowd",
+                "rasterize_depth_tiled_crowd"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_takes_the_reference_positional_form(name):
+    """Each tiled entry point called positionally in the reference's
+    parameter order (`chunk` at its place, here 64) gives the same bits as
+    the same call by keyword (`chunk` at its default of 256) and at chunk
+    8; a `chunk` the reference asserts against (not a positive multiple of
+    its GROUP of 8) raises ValueError naming it."""
+    fn = getattr(tr, name)
+    args, kw = _entry_case(name)
+    want = _leaves(fn(**kw))
+    for got in (fn(*args), fn(**kw, chunk=8)):
+        got = _leaves(got)
+        assert len(got) == len(want)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert bool((want[0] < 1.0).any())
+    for bad in (12, 0, -8, 64.0):
+        with pytest.raises(ValueError, match="chunk"):
+            fn(**kw, chunk=bad)
 
 
 @pytest.mark.parametrize("cull", CULLS, ids=["none", "back", "front"])

@@ -7,8 +7,10 @@ sample_motion(90, fps_keys=10), raster_mode="tiled" on the reference side.
 The port's Scene is built from the reference's objects through
 `simple_mmd_renderer_tpu_torch.convert` (config included, `app_config`);
 both packages start from one converted `init_state` and step 3 frames.
-`compare_slice` is shared with tests/test_torch_slice_msaa.py (the msaa=4
-and supersampled frames).
+`compare_slice` (`slice_frames`, then `check_slice`) is shared with
+tests/test_torch_slice_msaa.py (the msaa=4 and supersampled frames) and
+tests/test_torch_wild_assets.py; with `renders` both packages step once a
+frame and render that pose under several render configs.
 
 Per frame: fewer than 2e-3 of pixels off by more than 0.02 and mean
 absolute difference below 1/255 (`__graft_entry__`'s image tolerance),
@@ -24,6 +26,8 @@ pose, physics_react holds every body, these included, at 1e-4
 """
 
 import ast
+import copy
+import dataclasses
 import glob
 import os
 import subprocess
@@ -33,6 +37,7 @@ import textwrap
 import numpy as np
 import jax
 
+from simple_mmd_renderer_tpu.render import pipeline as ref_pipeline
 from simple_mmd_renderer_tpu_torch import convert
 from simple_mmd_renderer_tpu_torch.core.scene import Scene
 
@@ -59,11 +64,75 @@ def _ik_driven_bodies(static, ps):
                      for i in range(ps.n_bodies)])
 
 
-def compare_slice(ref, n_frames):
+# the module's physics tolerances: every leaf at BODY_ATOL, and the pos
+# and quat of kinematic bodies on IK-driven bones at IK_ATOL (PARITY D1)
+BODY_ATOL = 1e-4
+IK_ATOL = {"pos": 6e-3, "quat": 1.5e-3}
+
+
+def _reference_frames(ref, state, n_frames, renders):
+    """The reference's frames, jitted: [(state, {name: image})]. Without
+    `renders` the scene's own `step_and_render` (name None); with them
+    `step_pose` once a frame, then `render_frame` once a render config (the
+    scene's, with each entry's changes), each jitted alone: that is
+    step_and_render's composition where the scene has no camera or light
+    track, textures, skybox, MMD maps or extended morphs."""
+    frames = []
+    if renders is None:
+        step = jax.jit(ref.step_and_render)
+        for _ in range(n_frames):
+            state, image = step(state)
+            frames.append((state, {None: np.asarray(image)}))
+        return frames
+    assert (ref.camera is None and ref.light is None
+            and ref.part_textures is None and ref.cubemap is None
+            and ref.mmd_maps is None
+            and not ref.config.apply_extended_morphs)
+    step = jax.jit(ref.step_pose)
+    cfgs = {name: dataclasses.replace(ref.config.render, **changes)
+            for name, changes in renders.items()}
+    draw = {name: jax.jit(lambda p, n, cfg=cfg: ref_pipeline.render_frame(
+        ref.static, p, n, cfg)) for name, cfg in cfgs.items()}
+    for _ in range(n_frames):
+        state, _, positions, normals = step(state)
+        frames.append((state, {name: np.asarray(fn(positions, normals))
+                               for name, fn in draw.items()}))
+    return frames
+
+
+def _port_frames(port, state, n_frames, renders):
+    """The port's frames, as _reference_frames takes them: its own
+    `step_and_render`, or `step_pose` once a frame and the scene's render
+    once a render config (a copy of the scene whose render config has the
+    entry's changes)."""
+    frames = []
+    if renders is None:
+        for _ in range(n_frames):
+            state, image = port.step_and_render(state)
+            frames.append((state, {None: image.numpy()}))
+        return frames
+    scenes = {}
+    for name, changes in renders.items():
+        scenes[name] = copy.copy(port)
+        scenes[name].config = copy.copy(port.config)
+        scenes[name].config.render = dataclasses.replace(port.config.render,
+                                                         **changes)
+    for _ in range(n_frames):
+        state, pose, positions, normals = port.step_pose(state)
+        frames.append((state, {
+            name: scene._render(state.time, pose, positions, normals, None,
+                                None).numpy()
+            for name, scene in scenes.items()}))
+    return frames
+
+
+def slice_frames(ref, n_frames, renders=None):
     """Step the reference Scene `ref` (jitted) and the port built from it
     (converted field by field, on the CPU) from one init_state, n_frames
-    frames, holding images, time and physics leaves at the module's
-    tolerances."""
+    frames. `renders` ({name: render config changes}) renders each frame's
+    pose under each of these configs in both packages (see
+    _reference_frames); None renders the scene's own frame. -> the frames
+    for check_slice."""
     port = Scene(convert.model_static(ref.static),
                  convert.physics_static(ref.phys_static),
                  convert.motion_arrays(ref.motion),
@@ -72,26 +141,50 @@ def compare_slice(ref, n_frames):
     state = convert.sim_state_to_torch(ref_state, device="cpu")
     ik_bodies = _ik_driven_bodies(ref.static, ref.phys_static)
     assert 0 < ik_bodies.sum() < ref.phys_static.n_bodies
-    step = jax.jit(ref.step_and_render)
-    h, w = ref.config.render.height, ref.config.render.width
-    for frame in range(n_frames):
-        ref_state, ref_img = step(ref_state)
-        state, img = port.step_and_render(state)
-        ref_img, img = np.asarray(ref_img), img.numpy()
-        assert img.shape == ref_img.shape == (h, w, 3)
-        d = np.abs(img - ref_img)
-        assert (d > 0.02).mean() < 2e-3, f"frame {frame}"
-        assert d.mean() < 1 / 255, f"frame {frame}"
+    sizes = {name: (dataclasses.replace(ref.config.render, **changes).height,
+                    dataclasses.replace(ref.config.render, **changes).width)
+             for name, changes in (renders or {None: {}}).items()}
+    return (ik_bodies, sizes,
+            _reference_frames(ref, ref_state, n_frames, renders),
+            _port_frames(port, state, n_frames, renders))
+
+
+def check_slice(frames, names=None, body_atol=None, ik_atol=None):
+    """Hold slice_frames' frames (the images of `names`, default all) at
+    the module's tolerances: the images, time, and the physics leaves.
+    `body_atol` ({leaf: atol}) holds the leaves of the bodies that are not
+    IK-driven and kinematic where a scene needs other tolerances than
+    BODY_ATOL (a leaf it does not name stays at BODY_ATOL); `ik_atol`
+    replaces IK_ATOL."""
+    ik_bodies, sizes, ref_frames, port_frames = frames
+    for frame, ((ref_state, ref_imgs), (state, imgs)) in enumerate(
+            zip(ref_frames, port_frames)):
+        for name in names or imgs:
+            img, ref_img = imgs[name], ref_imgs[name]
+            assert img.shape == ref_img.shape == sizes[name] + (3,)
+            d = np.abs(img - ref_img)
+            assert (d > 0.02).mean() < 2e-3, f"frame {frame} {name}"
+            assert d.mean() < 1 / 255, f"frame {frame} {name}"
         got = convert.sim_state_to_numpy(state)
         assert got["time"] == np.asarray(ref_state.time)
         for k in convert.PHYSICS_LEAVES:
             g = got[k]
             r = np.asarray(getattr(ref_state.physics, k))
-            np.testing.assert_allclose(g[~ik_bodies], r[~ik_bodies],
-                                       atol=1e-4, err_msg=f"{frame} {k}")
+            np.testing.assert_allclose(
+                g[~ik_bodies], r[~ik_bodies], err_msg=f"{frame} {k}",
+                atol=(body_atol or {}).get(k, BODY_ATOL))
             np.testing.assert_allclose(
                 g[ik_bodies], r[ik_bodies], err_msg=f"{frame} {k} (IK)",
-                atol={"pos": 6e-3, "quat": 1.5e-3}.get(k, 1e-4))
+                atol=(ik_atol or IK_ATOL).get(k, BODY_ATOL))
+
+
+def compare_slice(ref, n_frames, renders=None, body_atol=None,
+                  ik_atol=None):
+    """slice_frames then check_slice: the reference Scene `ref` and the
+    port built from it, n_frames frames, held at the module's tolerances
+    (or the ones given)."""
+    check_slice(slice_frames(ref, n_frames, renders), body_atol=body_atol,
+                ik_atol=ik_atol)
 
 
 def test_slice_matches_reference_three_frames():

@@ -13,7 +13,9 @@ than 0.02 and a mean absolute difference below 1/255. Measured: no pixel
 beyond 0.02 at msaa=1 (mean at most 4.3e-8); at msaa=4 one pixel of
 12,288 in instance 0, off by 0.138 without mips and 0.024 with (mean at
 most 7.0e-6): the pixel the untextured msaa=4 crowd frame has off too
-(0.031), an edge pixel whose centre lies outside its triangle.
+(0.031), an edge pixel whose centre lies outside its triangle. The
+reference's four frame configurations are traced into one jax.jit
+(`reference_frames`).
 """
 
 import dataclasses
@@ -48,30 +50,50 @@ def crowd_model():
     return static, rig, pos.astype(np.float32), nrm.astype(np.float32)
 
 
+def _frame_cfg(msaa, mips):
+    return RenderConfig(width=128, height=96, shadow_map_size=64,
+                        show_skybox=False, raster_mode="tiled", msaa=msaa,
+                        texture_mips=mips)
+
+
+@pytest.fixture(scope="module")
+def reference_frames(crowd_model):
+    """The reference's fused crowd frame with the shared atlas at msaa 1 and
+    4, without mips and with 4, the four configurations traced into one
+    jax.jit. -> (textures, {mips: atlas}, {(msaa, mips): images})."""
+    static, _, pos, nrm = crowd_model
+    texs = sample_textures(TEXTURES)
+    atlases = {mips: ref_pipeline.build_packed_atlas(texs, mip_levels=mips)
+               for mips in (0, 4)}
+
+    def frames(p, n, atlases):
+        return {(msaa, mips): ref_pipeline.crowd_render_frame(
+            static, p, n, _frame_cfg(msaa, mips), part_textures=texs,
+            atlas=atlases[mips]) for msaa in (1, 4) for mips in (0, 4)}
+
+    want = jax.jit(frames)(pos, nrm, atlases)
+    return texs, atlases, {k: np.asarray(v) for k, v in want.items()}
+
+
 @pytest.mark.parametrize("msaa", [1, 4])
 @pytest.mark.parametrize("mips", [0, 4])
-def test_textured_crowd_frame_matches_reference(crowd_model, monkeypatch,
-                                                msaa, mips):
+def test_textured_crowd_frame_matches_reference(crowd_model, reference_frames,
+                                                monkeypatch, msaa, mips):
     """The fused crowd frame with the shared atlas: the UVs ride K5a/K5b as
     attributes 3-4 (A = 5); a mip atlas selects each triangle's level per
     instance."""
-    static, rig, pos, nrm = crowd_model
-    texs = sample_textures(TEXTURES)
-    cfg = RenderConfig(width=128, height=96, shadow_map_size=64,
-                       show_skybox=False, raster_mode="tiled", msaa=msaa,
-                       texture_mips=mips)
-    atlas = ref_pipeline.build_packed_atlas(texs, mip_levels=mips)
-    want = jax.jit(lambda p, n, a: ref_pipeline.crowd_render_frame(
-        static, p, n, cfg, part_textures=texs, atlas=a))(pos, nrm, atlas)
+    _, rig, pos, nrm = crowd_model
+    texs, atlases, want = reference_frames
+    cfg = _frame_cfg(msaa, mips)
     seen = []
     name = "raster_tiles_multi" if msaa == 1 else "raster_tiles_ms_multi"
     fn = getattr(tr, name)
     monkeypatch.setattr(tr, name, lambda *a: seen.append(a[6]) or fn(*a))
     got = pipeline.crowd_render_frame(
         rig, torch.as_tensor(pos), torch.as_tensor(nrm), _port_cfg(cfg),
-        part_textures=texs, atlas=convert.packed_atlas(atlas, "cpu"))
+        part_textures=texs, atlas=convert.packed_atlas(atlases[mips], "cpu"))
     assert seen == [5]
-    _assert_frames_close(got.numpy(), np.asarray(want),
+    _assert_frames_close(got.numpy(), want[msaa, mips],
                          f"msaa={msaa} mips={mips}")
     assert float((got[0] - got[1]).abs().max()) > 0.1
 

@@ -70,21 +70,50 @@ def model():
     return _model(0.5)
 
 
-def _frames(model, sizes, ref=True, **cfg_kw):
-    """(the reference's frame or None, the port's) of the rest pose."""
-    static, rig = model
-    texs = sample_textures(sizes)
-    cfg = RenderConfig(width=192, height=144, shadow_map_size=256,
-                       show_skybox=False, raster_mode="tiled", **cfg_kw)
+def _cfg(**cfg_kw):
+    return RenderConfig(width=192, height=144, shadow_map_size=256,
+                        show_skybox=False, raster_mode="tiled", **cfg_kw)
+
+
+# the rest-pose frames compared with the reference: {id: (texture sizes,
+# render config)}
+FRAMES = {
+    "msaa1-deferred": (TEXTURES, dict(msaa=1, albedo_window=True)),
+    "msaa1-kernel-uv": (TEXTURES, dict(msaa=1, albedo_window=False)),
+    "msaa4-deferred": (TEXTURES, dict(msaa=4, albedo_window=True)),
+    "msaa4-kernel-uv": (TEXTURES, dict(msaa=4, albedo_window=False)),
+    "mips": ((8, 4), dict(texture_mips=4, texture_resident=0)),
+    "resident": ((16, 8), dict(texture_mips=3, texture_resident=1)),
+    "resident-capped": ((16, 8), dict(texture_mips=3, texture_resident=8)),
+}
+
+
+@pytest.fixture(scope="module")
+def ref_frames(model):
+    """The reference's rest-pose frame of every FRAMES entry, all traced
+    into one jax.jit."""
+    static, _ = model
     pos, nrm = np.asarray(static.positions), np.asarray(static.normals)
-    want = None
-    if ref:
-        want = np.asarray(jax.jit(lambda p, n: ref_pipeline.render_frame(
-            static, p, n, cfg, part_textures=texs))(pos, nrm))
+    looks = {name: (sample_textures(sizes), _cfg(**cfg_kw))
+             for name, (sizes, cfg_kw) in FRAMES.items()}
+
+    def frames(p, n):
+        return {name: ref_pipeline.render_frame(static, p, n, cfg,
+                                                part_textures=texs)
+                for name, (texs, cfg) in looks.items()}
+
+    return {k: np.asarray(v) for k, v in jax.jit(frames)(pos, nrm).items()}
+
+
+def _port_frame(model, sizes, **cfg_kw):
+    """The port's frame of the rest pose."""
+    static, rig = model
+    pos, nrm = np.asarray(static.positions), np.asarray(static.normals)
     got = pipeline.render_frame(rig, torch.as_tensor(pos),
-                                torch.as_tensor(nrm), _port_cfg(cfg),
-                                part_textures=texs)
-    return want, got.numpy()
+                                torch.as_tensor(nrm),
+                                _port_cfg(_cfg(**cfg_kw)),
+                                part_textures=sample_textures(sizes))
+    return got.numpy()
 
 
 def _spy_raster(monkeypatch):
@@ -104,24 +133,24 @@ def _spy_raster(monkeypatch):
                                          (4, False)],
                          ids=["msaa1-deferred", "msaa1-kernel-uv",
                               "msaa4-deferred", "msaa4-kernel-uv"])
-def test_textured_frame_matches_reference(model, monkeypatch, msaa, window):
+def test_textured_frame_matches_reference(model, ref_frames, monkeypatch,
+                                          msaa, window):
     """Deferred UVs ride no attribute (A = 3: normals); without the window
     the UVs ride the raster as attributes 3-4 (A = 5)."""
     seen = _spy_raster(monkeypatch)
-    want, got = _frames(model, TEXTURES, msaa=msaa, albedo_window=window)
+    got = _port_frame(model, TEXTURES, msaa=msaa, albedo_window=window)
+    want = ref_frames[f"msaa{msaa}-{'deferred' if window else 'kernel-uv'}"]
     assert seen == [("raster_tiles" if msaa == 1 else "raster_tiles_ms",
                      3 if window else 5)]
     _assert_frames_close(got[None], want[None], f"msaa={msaa}")
     assert got.std() > 0.05
 
 
-@pytest.mark.parametrize("sizes,cfg_kw,same_as", [
-    ((8, 4), dict(texture_mips=4, texture_resident=0), None),
-    ((16, 8), dict(texture_mips=3, texture_resident=1), {}),
-    ((16, 8), dict(texture_mips=3, texture_resident=8),
-     dict(texture_mips=3, texture_resident=0)),
+@pytest.mark.parametrize("name,same_as", [
+    ("mips", None), ("resident", {}),
+    ("resident-capped", dict(texture_mips=3, texture_resident=0)),
 ], ids=["mips", "resident", "resident-capped"])
-def test_mip_frames_at_magnification_match_reference(model, sizes, cfg_kw,
+def test_mip_frames_at_magnification_match_reference(model, ref_frames, name,
                                                      same_as):
     """Tiny textures, magnified wherever a triangle covers pixels: the
     per-triangle mip rows (76 % of the triangles at level 0, the rest
@@ -131,11 +160,11 @@ def test_mip_frames_at_magnification_match_reference(model, sizes, cfg_kw,
     bit), or with an 8-texel slot part 0's does not, and the frame falls
     back to the big mip atlas (bit for bit the frame without the resident
     path)."""
-    want, got = _frames(model, sizes, **cfg_kw)
-    _assert_frames_close(got[None], want[None], str(cfg_kw))
+    sizes, cfg_kw = FRAMES[name]
+    got = _port_frame(model, sizes, **cfg_kw)
+    _assert_frames_close(got[None], ref_frames[name][None], str(cfg_kw))
     if same_as is not None:
-        _, same = _frames(model, sizes, ref=False, **same_as)
-        assert np.array_equal(got, same)
+        assert np.array_equal(got, _port_frame(model, sizes, **same_as))
 
 
 def test_resident_choice_builds_the_mini_atlas_only_when_it_fits(
