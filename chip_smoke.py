@@ -45,11 +45,15 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    boxes the frame passed them (asserted); their plain versions take none
    and evaluate every entry over its whole tile, and K1's, K2's, K4's and
    K5c's dense tiles run with boxes and without. Prints mismatch counts,
-   both times (CUDA events; the record's host-paced, and for K1, K6, K5c
-   and K3 also back to back, `primed_ms`) and each kernel's bound (for the
-   seven kernels with boxes by two rules: each entry over its tile's
-   columns, as for the kernels without boxes, and over its exact box, the
-   rule their record carries).
+   the record's time of every kernel and of every call `check_calls` holds
+   (CUDA events, back to back: `back_to_back_runs`, 6 means of 20 launches
+   of the wrapper on the call's arguments while a sleep kernel holds the
+   stream, least and median; the plain versions by the same timer) and
+   each kernel's bound (for the seven kernels with boxes by two rules:
+   each entry over its tile's columns, as for the kernels without boxes,
+   and over its exact box, the rule their record carries). Host-paced
+   times (`host_paced_ms`) are kept only for a wrapper's cost to the frame
+   (the scan raster's wrapper) and the seek's replay.
    The crowd kernels K5c, K5a and K5b are held the same way on the
    arguments of frame 1 of the 64-instance crowd, K3 on its [64,256,256]
    batch of shadow maps, and one instance's planes must equal the
@@ -117,11 +121,12 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    (the whole-frame tolerance of the parity phase; KS and K3 launch
    counts); the 1080p scan frame (density 2.0, shadow 2048^2, msaa=1, the
    msaa=1 flagship's scene with raster_mode="scan"): the wrapper on its
-   frame-1 shadow and character calls, host-paced and back to back,
-   beside KS's bound (`scan_bound`), then KSb and KS alone at every
-   coarse tile of SCAN_SWEEP (`scan_parts`: words and planes bit for bit,
-   both back to back, and at the default tile host-paced, KSb beside its
-   own bound), the plain version once on the character (bits and time),
+   frame-1 shadow and character calls, back to back and host-paced (its
+   cost to the frame), beside KS's bound (`scan_bound`), then KSb and KS
+   alone at every coarse tile of SCAN_SWEEP (`scan_parts`: words and
+   planes bit for bit, both back to back, KSb beside its own bound; the
+   record's at the default tile), the plain version once on the character
+   (bits and time),
    4-frame segments through the compiled rollout in turns with
    the tiled msaa=1 flagship (scan, tiled, tiled, scan; the scan
    segments' counters: KSb and KS twice and K3 once a frame, nothing
@@ -574,8 +579,11 @@ def smi_name_power() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` launches (after one warm-up)."""
+def host_paced_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` calls (after one warm-up), at
+    the host's pace: a call's cost to the frame, the wrapper's Python
+    included where the device waits for it. Not the kernels' record
+    (`back_to_back_runs`)."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -591,7 +599,8 @@ def primed_ms(fn, reps: int) -> float:
     """Mean device time of fn() over `reps` launches run back to back
     (after one warm-up): a sleep kernel holds the stream while the host
     queues them, so that a kernel shorter than its wrapper's Python is not
-    timed at the host's pace, as `cuda_ms` times it."""
+    timed at the host's pace (`host_paced_ms`). The kernels' record and
+    the plain versions' times use it."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -605,7 +614,8 @@ def primed_ms(fn, reps: int) -> float:
 
 
 def back_to_back_runs(fn) -> list[float]:
-    """6 `primed_ms` means of 20 launches, least first."""
+    """6 `primed_ms` means of 20 launches, least first: the kernels'
+    record's timer (its `ms` is the least)."""
     return sorted(primed_ms(fn, 20) for _ in range(6))
 
 
@@ -613,18 +623,18 @@ def back_to_back(fn, runs=None) -> str:
     """The least and the median of 6 `primed_ms` means of 20 launches (or
     of `runs`, as back_to_back_runs gives them)."""
     runs = runs or back_to_back_runs(fn)
-    return f"least {runs[0]:.4f}, median {runs[3]:.4f} ms"
+    return f"least {runs[0]:.4f}, median {runs[len(runs) // 2]:.4f} ms"
 
 
-def pcf_line(label, fn, bnd) -> str:
-    """K3's time back to back beside its bound; a card / bound under 1
-    means the maps stayed in the 50 MB L2 cache between the launches (the
-    bound counts them read from device memory)."""
-    runs = back_to_back_runs(fn)
+def pcf_line(label, runs, bnd) -> str:
+    """K3's time back to back (`back_to_back_runs`) beside its bound; a
+    card / bound under 1 means the maps stayed in the 50 MB L2 cache
+    between the launches (the bound counts them read from device
+    memory)."""
     ratio = runs[0] / bnd[0]
     note = (" (under 1: the maps stay in the L2 cache from one launch to the "
             "next)" if ratio < 1 else "")
-    return (f"kernels: {label} back to back {back_to_back(fn, runs)}; bound "
+    return (f"kernels: {label} back to back {back_to_back(None, runs)}; bound "
             f"{bnd[0]:.5f} ms ({bnd[1]}), card / bound {ratio:.2f}{note}")
 
 
@@ -765,21 +775,55 @@ def depth_bound(key, bins, tile_h, boxes, out_bytes, ms):
     return rules[1]
 
 
-def record(results, key, name, source, line, err, ms, plain_ms, bnd):
-    """The record line of kernel `key`; `line` is the file:line it
-    replaces in the reference package (KS: the reference scan raster's
+def kernel_bound(key, args, out) -> tuple[float, str]:
+    """The bound of kernel `key`'s call on `args` (as its wrapper takes
+    them) that returned `out`, by the rule its record carries: K1, K6 and
+    K5c by `bin_work` over the entries' exact boxes, their map (K6: and its
+    window) written; K2, K4, K5a and K5b by `raster_bound` with the boxes;
+    K3 by `pcf_bound`, one plane row for a shared plane, one a map for
+    per-map planes."""
+    from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
+
+    if key == "K3":
+        return pcf_bound(args, out, 1 if np.ndim(args[1]) == 0
+                         else args[0].shape[0])
+    if key == "K1":
+        bins, tile_h, boxes, window = args[:5], tr.TILE_H, args[5], 0
+    elif key == "K6":
+        bins, tile_h, boxes = args[:3] + args[4:6], args[6], args[7]
+        window = args[3].numel()
+    elif key == "K5c":     # args[3]: the instance count
+        bins, tile_h, boxes, window = (args[:3] + args[4:6], tr.TILE_H,
+                                       args[6], 0)
+    else:
+        multi = key in ("K5a", "K5b")
+        bins, boxes = ((args[:3] + args[4:7], args[7]) if multi
+                       else (args[:6], args[6]))
+        if key in ("K4", "K5b"):
+            return raster_bound(bins, out, OPS_RASTER_MS, (0.0,) + tuple(
+                oy for _, oy in tr.MSAA4_OFFSETS), boxes)
+        return raster_bound(bins, out, OPS_RASTER, boxes=boxes)
+    n_bytes, evals = bin_work(*bins, tile_h, ROW_LANES, boxes=boxes)
+    return bound(n_bytes + 4 * (out.numel() + window), evals * OPS_DEPTH)
+
+
+def record(results, key, name, source, line, err, runs, plain, bnd):
+    """The record line of kernel `key` from its back-to-back `runs`
+    (`back_to_back_runs`: its `ms` is the least); `line` is the file:line
+    it replaces in the reference package (KS: the reference scan raster's
     lax.scan)."""
     results[key] = dict(
         name=name, route="cuda",
         source=f"simple_mmd_renderer_tpu_torch/csrc/{source}",
         replaces=f"simple_mmd_renderer_tpu/{line}",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+        max_abs_err=err, ms=runs[0], plain_ms=plain, bound_ms=bnd[0],
         bound_by=bnd[1],
         # no single PyTorch call computes a binned tile raster or a
         # per-texel-reference PCF
-        library_ms=None)
-    log(f"kernels: {key} bound {bnd[0]:.4f} ms ({bnd[1]}), measured "
-        f"{ms:.4f} ms = {100 * bnd[0] / ms:.1f}% of the bound's rate")
+        library_ms=None, median_ms=runs[len(runs) // 2])
+    log(f"kernels: {key} record: back to back {back_to_back(None, runs)}, "
+        f"bound {bnd[0]:.5f} ms ({bnd[1]}), card / bound "
+        f"{runs[0] / bnd[0]:.2f}, plain {plain:.4f} ms")
 
 
 def reset_counters():
@@ -952,31 +996,25 @@ def check_kernels(scene, state, results):
     want = tr.depth_tiles_plain(*k1_args[:5])
     k1_bad = mismatches(got, want, k1_out)
     k1_err = float((got - want).abs().max())
-    k1_ms = cuda_ms(lambda: tr.depth_tiles(*k1_args), 20)
-    k1_plain = cuda_ms(lambda: tr.depth_tiles_plain(*k1_args[:5]), 3)
+    k1_runs = back_to_back_runs(lambda: tr.depth_tiles(*k1_args))
+    k1_plain = primed_ms(lambda: tr.depth_tiles_plain(*k1_args[:5]), 3)
     log(f"kernels: K1 depth_tiles {tuple(got.shape)}: mismatches {k1_bad}, "
-        f"{k1_ms:.4f} ms vs plain {k1_plain:.4f} ms; back to back "
-        f"{back_to_back(lambda: tr.depth_tiles(*k1_args))}")
+        f"back to back {back_to_back(None, k1_runs)} vs plain "
+        f"{k1_plain:.4f} ms")
     k1_bound = depth_bound("K1", k1_args[:5], tr.TILE_H, k1_args[5],
-                           4 * got.numel(), k1_ms)
+                           4 * got.numel(), k1_runs[0])
 
     # K3 at bench shapes, on the frame's shadow map
     lit = shadow_pcf.pcf_lit_map(*k3_args)
     lit_plain = shadow_pcf.pcf_lit_map_plain(*k3_args)
     k3_bad = mismatches(lit, lit_plain, k3_out)
     k3_err = float((lit - lit_plain).abs().max())
-    # a ~30 us kernel: 10 groups of 50 launches, to tell a shift from noise
-    k3_groups = [cuda_ms(lambda: shadow_pcf.pcf_lit_map(*k3_args), 50)
-                 for _ in range(10)]
-    k3_ms = sum(k3_groups) / len(k3_groups)
-    k3_plain = cuda_ms(lambda: shadow_pcf.pcf_lit_map_plain(*k3_args), 5)
-    log(f"kernels: K3 pcf_lit_map {tuple(lit.shape)}: mismatches {k3_bad}, "
-        f"{k3_ms:.4f} ms vs plain {k3_plain:.4f} ms; 10 groups of 50 "
-        f"launches: min {min(k3_groups):.4f}, median "
-        f"{sorted(k3_groups)[5]:.4f}, max {max(k3_groups):.4f} ms")
+    k3_plain = primed_ms(lambda: shadow_pcf.pcf_lit_map_plain(*k3_args), 5)
     k3_bound = pcf_bound(k3_args, lit)
-    log(pcf_line(f"K3 pcf_lit_map {tuple(lit.shape)}",
-                 lambda: shadow_pcf.pcf_lit_map(*k3_args), k3_bound))
+    k3_runs = back_to_back_runs(lambda: shadow_pcf.pcf_lit_map(*k3_args))
+    log(f"kernels: K3 pcf_lit_map {tuple(lit.shape)}: mismatches {k3_bad}, "
+        f"plain {k3_plain:.4f} ms")
+    log(pcf_line(f"K3 pcf_lit_map {tuple(lit.shape)}", k3_runs, k3_bound))
 
     # K2 at bench shapes (A = 3: normals)
     k2 = tr.raster_tiles(*k2_args)
@@ -986,12 +1024,13 @@ def check_kernels(scene, state, results):
     k2_attr_err = float((k2[4] - k2p[4]).abs().max())
     k2_err = max(k2_attr_err, max(float((a.float() - b.float()).abs().max())
                                   for a, b in zip(k2[:4], k2p[:4])))
-    k2_ms = cuda_ms(lambda: tr.raster_tiles(*k2_args), 20)
-    k2_plain = cuda_ms(lambda: tr.raster_tiles_plain(*k2_args[:6]), 3)
+    k2_runs = back_to_back_runs(lambda: tr.raster_tiles(*k2_args))
+    k2_plain = primed_ms(lambda: tr.raster_tiles_plain(*k2_args[:6]), 3)
     log(f"kernels: K2 raster_tiles {tuple(k2[0].shape)}, {k2_args[5]} "
         f"attributes: depth/tri/b1/b2 mismatches {k2_bad}, attr max err "
-        f"{k2_attr_err:.3g}, {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms")
-    k2_bound = boxed_bound("K2", k2_args[:6], k2_args[6], k2, k2_ms)
+        f"{k2_attr_err:.3g}, back to back {back_to_back(None, k2_runs)} vs "
+        f"plain {k2_plain:.4f} ms")
+    k2_bound = boxed_bound("K2", k2_args[:6], k2_args[6], k2, k2_runs[0])
 
     # dense tile: more entries than a block takes at once, all at one depth
     # (K1 and K2 with their boxes: small ones, a thread each; and with none,
@@ -1016,12 +1055,12 @@ def check_kernels(scene, state, results):
         raise AssertionError("K2 attributes beyond 1e-6 of the plain version")
 
     record(results, "K1", "K1 depth_tiles (shadow depth)", "tiled_raster.cu",
-           "ops/tiled_raster.py:1139", k1_err, k1_ms, k1_plain, k1_bound)
+           "ops/tiled_raster.py:1139", k1_err, k1_runs, k1_plain, k1_bound)
     record(results, "K2", "K2 raster_tiles (character visibility + "
            "attributes)", "tiled_raster.cu", "ops/tiled_raster.py:430",
-           k2_err, k2_ms, k2_plain, k2_bound)
+           k2_err, k2_runs, k2_plain, k2_bound)
     record(results, "K3", "K3 pcf_lit_map (ground 3x3 PCF)", "shadow_pcf.cu",
-           "ops/shadow_pcf.py:37", k3_err, k3_ms, k3_plain, k3_bound)
+           "ops/shadow_pcf.py:37", k3_err, k3_runs, k3_plain, k3_bound)
 
 
 def check_kernels_msaa(scene, state, results):
@@ -1057,20 +1096,19 @@ def check_kernels_msaa(scene, state, results):
     k6_err = float((got - want).abs().max())
     bins6 = (rows6, starts6, counts6, width6, height6)
     k6_vs_k1 = mismatches(got, tr.depth_tiles(*bins6, boxes6))
-    k6_ms = cuda_ms(lambda: tr.depth_tiles_win(*k6_args), 20)
-    k6_plain = cuda_ms(lambda: tr.depth_tiles_win_plain(*k6_args[:7]), 3)
+    k6_runs = back_to_back_runs(lambda: tr.depth_tiles_win(*k6_args))
+    k6_plain = primed_ms(lambda: tr.depth_tiles_win_plain(*k6_args[:7]), 3)
     log(f"kernels: K6 depth_tiles_win {tuple(got.shape)}: mismatches "
-        f"{k6_bad}, vs K1 on the same bins and boxes {k6_vs_k1}, "
-        f"{k6_ms:.4f} ms vs plain {k6_plain:.4f} ms")
+        f"{k6_bad}, vs K1 on the same bins and boxes {k6_vs_k1}, back to "
+        f"back {back_to_back(None, k6_runs)} vs plain {k6_plain:.4f} ms")
     # K6's wrapper fills the map with 1.0, then the kernel writes the
     # window's tiles; K1 on the same bins writes every tile itself
-    k6_b2b = back_to_back(lambda: tr.depth_tiles_win(*k6_args))
     fill_b2b = back_to_back(lambda: torch.ones_like(got))
     k1_b2b = back_to_back(lambda: tr.depth_tiles(*bins6, boxes6))
-    log(f"kernels: K6 back to back {k6_b2b}; its fill alone {fill_b2b}; K1 "
-        f"on the same bins and boxes {k1_b2b}")
+    log(f"kernels: K6's fill alone back to back {fill_b2b}; K1 on the same "
+        f"bins and boxes {k1_b2b}")
     k6_bound = depth_bound("K6", bins6, tile_h6, boxes6,
-                           4 * (window.numel() + got.numel()), k6_ms)
+                           4 * (window.numel() + got.numel()), k6_runs[0])
 
     # K4 at bench shapes (A = 3: normals)
     k4 = tr.raster_tiles_ms(*k4_args)
@@ -1081,14 +1119,15 @@ def check_kernels_msaa(scene, state, results):
     k4_err = max(k4_attr_err, max(float((k4[i].float()
                                          - k4p[i].float()).abs().max())
                                   for i in exact))
-    k4_ms = cuda_ms(lambda: tr.raster_tiles_ms(*k4_args), 20)
-    k4_plain = cuda_ms(lambda: tr.raster_tiles_ms_plain(*k4_args[:6]), 3)
+    k4_runs = back_to_back_runs(lambda: tr.raster_tiles_ms(*k4_args))
+    k4_plain = primed_ms(lambda: tr.raster_tiles_ms_plain(*k4_args[:6]), 3)
     edge = float(((k4[1] >= 0) & ~(k4[5] < 1.0).all(0)).float().mean())
     log(f"kernels: K4 raster_tiles_ms {tuple(k4[0].shape)}, {k4_args[5]} "
         f"attributes: depth/tri/b1/b2/sdepth mismatches {k4_bad}, attr max "
-        f"err {k4_attr_err:.3g}, {k4_ms:.4f} ms vs plain {k4_plain:.4f} ms; "
-        f"{100 * edge:.3f}% of pixels won with some sample uncovered")
-    k4_bound = boxed_bound("K4", k4_args[:6], k4_args[6], k4, k4_ms)
+        f"err {k4_attr_err:.3g}, back to back {back_to_back(None, k4_runs)} "
+        f"vs plain {k4_plain:.4f} ms; {100 * edge:.3f}% of pixels won with "
+        f"some sample uncovered")
+    k4_bound = boxed_bound("K4", k4_args[:6], k4_args[6], k4, k4_runs[0])
 
     # dense tile for K4, binned with the MSAA sample-point cull
     # (with its boxes: small ones, a thread each; and with none, so that
@@ -1111,10 +1150,10 @@ def check_kernels_msaa(scene, state, results):
 
     record(results, "K4", "K4 raster_tiles_ms (4x MSAA visibility + "
            "attributes + per-sample depth)", "tiled_raster.cu",
-           "ops/tiled_raster.py:660", k4_err, k4_ms, k4_plain, k4_bound)
+           "ops/tiled_raster.py:660", k4_err, k4_runs, k4_plain, k4_bound)
     record(results, "K6", "K6 depth_tiles_win (shadow depth over the "
            "casters' tile window)", "tiled_raster.cu",
-           "ops/tiled_raster.py:1156", k6_err, k6_ms, k6_plain, k6_bound)
+           "ops/tiled_raster.py:1156", k6_err, k6_runs, k6_plain, k6_bound)
 
 
 def eager_steps(scene, state, n: int):
@@ -1575,7 +1614,9 @@ def check_calls(label, step, state, expect, nocull=False, attrs=None):
     kernels are `expect`, {kernel: calls}) against its plain version on
     the call's own arguments: every plane bit-exact and equal to what the
     frame computed, the attributes within 1e-6; each call's time as the
-    record takes it (`cuda_ms`, 20 launches). For the raster kernels the
+    record takes it (`back_to_back_runs`: the wrapper's own launches on the
+    call's arguments) beside its bound (`kernel_bound`). For the raster
+    kernels the
     bins' windings are printed: the edge hull's rasters (K2 at A = 0, K5a
     at A = 1) must hold front faces only (culled the other way), and with
     `nocull` the character's raster (K4 or K5b here) must hold both
@@ -1595,10 +1636,13 @@ def check_calls(label, step, state, expect, nocull=False, attrs=None):
                    in enumerate(zip(got, want, out)) if j != attr_at]
             attr_err = (0.0 if attr_at is None else
                         float((got[attr_at] - want[attr_at]).abs().max()))
-            ms = cuda_ms(lambda: fn(*args), 20)
+            runs = back_to_back_runs(lambda: fn(*args))
+            bnd = kernel_bound(key, args, got[0] if len(got) == 1 else got)
             line = (f"kernels: {key} ({label}, call {i + 1} of "
                     f"{len(calls)}) {tuple(got[0].shape)}: mismatches "
-                    f"{bad}, {ms:.4f} ms")
+                    f"{bad}, back to back {back_to_back(None, runs)}, bound "
+                    f"{bnd[0]:.5f} ms ({bnd[1]}), card / bound "
+                    f"{runs[0] / bnd[0]:.2f}")
             if attr_at is not None:
                 n_attrs = args[n_args - 1]
                 neg, pos, mixed = windings(*args[:3])
@@ -1746,13 +1790,15 @@ def check_depth_nocull(scene, state):
     got = tr.depth_tiles(*args)
     want = tr.depth_tiles_plain(*args[:5])
     bad = mismatches(got, want)
-    ms = cuda_ms(lambda: tr.depth_tiles(*args), 20)
+    runs = back_to_back_runs(lambda: tr.depth_tiles(*args))
+    bnd = kernel_bound("K1", args, got)
     differ = int((maps[0] != maps[1]).sum())
     log(f"kernels: K1 depth_tiles with nocull ({int(mask.sum())} double-"
         f"sided of {mask.shape[0]} triangles, {FULL}, {size}^2): "
         f"mismatches {bad}, {entries[0]} entries with the mask, "
-        f"{entries[1]} without, {differ} texels differ; {ms:.4f} ms, back "
-        f"to back {back_to_back(lambda: tr.depth_tiles(*args))}")
+        f"{entries[1]} without, {differ} texels differ; back to back "
+        f"{back_to_back(None, runs)}, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+        f"card / bound {runs[0] / bnd[0]:.2f}")
     if bad or entries[0] <= entries[1] or not differ:
         raise AssertionError("K1 with nocull disagrees with its plain "
                              "version or the mask changed nothing")
@@ -1798,15 +1844,15 @@ def check_kernels_crowd(crowd, results):
     c_fold = mismatches(got[mid], tr.depth_tiles(
         c_args[0], *instance_bins(c_args[1], cc, mid, s_tiles), *c_args[4:6],
         c_boxes))
-    c_ms = cuda_ms(lambda: tr.depth_tiles_multi(*c_args), 20)
-    c_plain = cuda_ms(lambda: tr.depth_tiles_multi_plain(*c_args[:6]), 3)
+    c_runs = back_to_back_runs(lambda: tr.depth_tiles_multi(*c_args))
+    c_plain = primed_ms(lambda: tr.depth_tiles_multi_plain(*c_args[:6]), 3)
     log(f"kernels: K5c depth_tiles_multi {tuple(got.shape)}: mismatches "
         f"{c_bad}, instance {mid} vs K1 on its own bins with the same boxes "
-        f"{c_fold}, {c_ms:.4f} ms vs plain {c_plain:.4f} ms; back to back "
-        f"{back_to_back(lambda: tr.depth_tiles_multi(*c_args))}")
+        f"{c_fold}, back to back {back_to_back(None, c_runs)} vs plain "
+        f"{c_plain:.4f} ms")
     c_bins = c_args[:3] + c_args[4:6]
     c_bound = depth_bound("K5c", c_bins, tr.TILE_H, c_boxes, 4 * got.numel(),
-                          c_ms)
+                          c_runs[0])
 
     # K5c on a dense crowd of two instances, each the dense tile's bins,
     # with boxes (small ones, a thread each) and without (every entry wide,
@@ -1826,12 +1872,13 @@ def check_kernels_crowd(crowd, results):
     lit = shadow_pcf.pcf_lit_map(*k3_args)
     lit_plain = shadow_pcf.pcf_lit_map_plain(*k3_args)
     k3_bad = mismatches(lit, lit_plain, k3_out)
-    k3_ms = cuda_ms(lambda: shadow_pcf.pcf_lit_map(*k3_args), 50)
-    k3_plain = cuda_ms(lambda: shadow_pcf.pcf_lit_map_plain(*k3_args), 5)
+    k3_plain = primed_ms(lambda: shadow_pcf.pcf_lit_map_plain(*k3_args), 5)
     k3_bound = pcf_bound(k3_args, lit)
     log(f"kernels: K3 pcf_lit_map on the crowd's maps {tuple(lit.shape)}: "
-        f"mismatches {k3_bad}, {k3_ms:.4f} ms vs plain {k3_plain:.4f} ms, "
-        f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+        f"mismatches {k3_bad}, plain {k3_plain:.4f} ms")
+    log(pcf_line(f"K3 pcf_lit_map on the crowd's maps {tuple(lit.shape)}",
+                 back_to_back_runs(
+                     lambda: shadow_pcf.pcf_lit_map(*k3_args)), k3_bound))
     k3_bad += check_pcf_per_map(k3_args, k3_bound)
 
     # K5a and K5b on all instances' character bins (A = 3: normals)
@@ -1855,15 +1902,16 @@ def check_kernels_crowd(crowd, results):
         one = single(args[0], *instance_bins(args[1], args[2], mid, n_tiles),
                      *args[4:])
         fold = sum(mismatches(a[mid], b) for a, b in zip(k, one))
-        ms = cuda_ms(lambda: fn(*args), 20)
-        plain_ms = cuda_ms(lambda: plain(*args[:7]), 3)
+        runs = back_to_back_runs(lambda: fn(*args))
+        plain_t = primed_ms(lambda: plain(*args[:7]), 3)
         log(f"kernels: {key} {fn.__name__} {tuple(k[0].shape)}, {args[6]} "
             f"attributes: depth/tri/b1/b2{'/sdepth' if len(k) > 5 else ''} "
             f"mismatches {bad}, attr max err {attr_err:.3g}, instance {mid} "
             f"vs {single.__name__} on its own bins (with the same boxes) "
-            f"{fold}, {ms:.4f} ms vs plain {plain_ms:.4f} ms")
-        bnd = boxed_bound(key, args[:3] + args[4:7], args[7], k, ms)
-        rec[key] = (bad, attr_err, fold, err, ms, plain_ms, bnd)
+            f"{fold}, back to back {back_to_back(None, runs)} vs plain "
+            f"{plain_t:.4f} ms")
+        bnd = boxed_bound(key, args[:3] + args[4:7], args[7], k, runs[0])
+        rec[key] = (bad, attr_err, fold, err, runs, plain_t, bnd)
 
     if c_bad or c_fold or any(c_dense) or k3_bad or any(
             any(r[0]) or r[2] for r in rec.values()):
@@ -1879,9 +1927,8 @@ def check_kernels_crowd(crowd, results):
            "visibility + attributes + per-sample depth)", "tiled_raster.cu",
            "ops/tiled_raster.py:1952", *rec["K5b"][3:])
     record(results, "K5c", "K5c depth_tiles_multi (crowd shadow depth)",
-           "tiled_raster.cu", "ops/tiled_raster.py:2072", c_err, c_ms,
-           c_plain,
-           c_bound)
+           "tiled_raster.cu", "ops/tiled_raster.py:2072", c_err, c_runs,
+           c_plain, c_bound)
 
 
 def crowd_frames(step, state, n: int):
@@ -2298,11 +2345,11 @@ def scan_parts(label, args, out, bnd) -> dict:
     """KSb and KS alone on a 1080p scan call (`args`, whose result the
     frame gave as `out`), at every tile of SCAN_SWEEP: KSb's words against
     scan_bins_plain's and KS's planes over them against `out`, both bit
-    for bit; each kernel back to back (`back_to_back_runs`), and at
-    SCAN_TILE also host-paced, beside KSb's byte bound (the words written,
-    the table's valid and box columns read) and KS's (`bnd`) -> the
-    record's numbers at SCAN_TILE: {"KS": ms, "KSb": ms, "KSb plain": ms,
-    "KSb err": max word difference, "KSb bound": bound}."""
+    for bit; each kernel back to back (`back_to_back_runs`, the record's
+    timer), beside KSb's byte bound (the words written, the table's valid
+    and box columns read) and KS's (`bnd`) -> the record's numbers at
+    SCAN_TILE: {"KS": runs, "KSb": runs, "KSb plain": ms, "KSb err": max
+    word difference, "KSb bound": bound}."""
     from simple_mmd_renderer_tpu_torch.ops import tiled_raster as tr
     from simple_mmd_renderer_tpu_torch.render import raster
 
@@ -2337,15 +2384,14 @@ def scan_parts(label, args, out, bnd) -> dict:
             want = tr.scan_bins_plain(table, width, height, tile)
             end.record()
             torch.cuda.synchronize()
-            res = {"KS": cuda_ms(ks, 20), "KSb": cuda_ms(ksb, 20),
+            res = {"KS": ks_runs, "KSb": ksb_runs,
                    "KSb plain": start.elapsed_time(end),
                    "KSb err": float((ksb().long() - want.long()).abs().max()),
                    "KSb bound": ksb_bnd}
-            log(f"scan: {label} at tile {tile}, host-paced: KSb "
-                f"{res['KSb']:.4f} ms (plain {res['KSb plain']:.3f} ms), KS "
-                f"{res['KS']:.4f} ms; card / bound: KSb "
-                f"{res['KSb'] / ksb_bnd[0]:.1f}, KS {res['KS'] / bnd[0]:.1f} "
-                f"(back to back {ks_runs[0] / bnd[0]:.1f})")
+            log(f"scan: {label} at tile {tile} (the record's), back to back: "
+                f"card / bound KSb {ksb_runs[0] / ksb_bnd[0]:.2f}, KS "
+                f"{ks_runs[0] / bnd[0]:.2f}; KSb's plain version once "
+                f"{res['KSb plain']:.3f} ms")
     return res
 
 
@@ -2435,7 +2481,8 @@ def check_scan(paths, results):
     hull's buffer and two instances, against the plain version bit for
     bit; every flagship path's big-triangle counts; the golden
     configurations card against CPU; the 1080p scan frame: KS on its
-    frame-1 calls timed (host-paced and back to back) beside its bound,
+    frame-1 calls timed (back to back, and host-paced: the wrapper's cost
+    to the frame) beside its bound,
     the plain version once on the character (bits and time), SCAN_SEGMENT
     frames through the compiled rollout in turns with the tiled msaa=1
     flagship (counters reset before each scan segment and read after),
@@ -2510,17 +2557,20 @@ def check_scan(paths, results):
     for label, (args, out) in zip(("shadow", "character"), calls):
         def fn(args=args):
             return tr.scan_raster(*args)
-        host = cuda_ms(fn, 10)
-        runs = sorted(primed_ms(fn, 10) for _ in range(3))
+        host = host_paced_ms(fn, 10)
+        # 10 calls a mean: the wrapper's ~55 eager operators must be queued
+        # before the sleep kernel ends
+        runs = sorted(primed_ms(fn, 10) for _ in range(6))
         bnd, evals = scan_bound(*args[:3])
         n = args[2]["xy"].shape[0]
         log(f"scan: KS {label} {args[0]}x{args[1]}, {n} triangles "
             f"({int(args[2]['valid'].sum())} valid, {evals} triangle-pixel "
             f"evaluations by the box rule): the wrapper (table, KSb, KS) "
-            f"host-paced {host:.4f} ms, back to back least {runs[0]:.4f}, "
-            f"median {runs[1]:.4f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}), "
-            f"card / bound {host / bnd[0]:.1f} (back to back "
-            f"{runs[0] / bnd[0]:.1f}); covers "
+            f"back to back (means of 10 calls) {back_to_back(None, runs)}, "
+            f"host-paced (the "
+            f"wrapper's cost to the frame) {host:.4f} ms; KS's bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]}), wrapper back to back / bound "
+            f"{runs[0] / bnd[0]:.1f}; covers "
             f"{100 * float((out.tri >= 0).float().mean()):.2f}% of the map")
         parts = scan_parts(label, args, out, bnd)
         if label == "character":
@@ -2530,19 +2580,19 @@ def check_scan(paths, results):
             plain = tr.scan_raster_plain(*args)
             end.record()
             torch.cuda.synchronize()
-            plain_ms = start.elapsed_time(end)
+            plain_t = start.elapsed_time(end)
             got = fn()
             n_bad = scan_bad(got, plain) + scan_bad(got, out)
             err = float((got.depth - plain.depth).abs().max())
             log(f"scan: the plain version once on the 1080p character: "
-                f"{plain_ms:.1f} ms, mismatches {n_bad}")
+                f"{plain_t:.1f} ms, mismatches {n_bad}")
             if n_bad:
                 raise AssertionError("scan: KS disagrees at 1080p")
             record(results, "KS", "KS scan_raster (the exact scan raster: "
                    "the scan frame's shadow, edge hull and character; the "
                    "tiled paths' big-triangle merges), the walk over KSb's "
                    "bins", "scan_raster.cu", "render/raster.py:111", err,
-                   parts["KS"], plain_ms, bnd)
+                   parts["KS"], plain_t, bnd)
             record(results, "KSb", "KSb scan_bins (the scan raster's tile "
                    "bins: a bit per triangle and coarse tile its pixel box "
                    "meets)", "scan_raster.cu", "render/raster.py:111",
@@ -2684,7 +2734,7 @@ def check_cli_seek(scene):
     scene.seek(fresh, 0.5)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
-    replay = cuda_ms(lambda: scene.seek(fresh, 0.5), 10)
+    replay = host_paced_ms(lambda: scene.seek(fresh, 0.5), 10)
     t0 = time.perf_counter()
     for _ in range(2):
         scene.seek(fresh, 0.5, compiled=False)
@@ -3342,6 +3392,12 @@ def main() -> int:
             raise AssertionError(f"{name} never launched on the main paths")
         results[name]["launches"] = MAIN_LAUNCHES[name]
     log(f"launches on the main paths (every timed segment): {MAIN_LAUNCHES}")
+    for name in RECORDED:
+        r = results[name]
+        log(f"record: {name} back to back least {r['ms']:.4f}, median "
+            f"{r['median_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}); card / bound {r['ms'] / r['bound_ms']:.2f}; "
+            f"plain {r['plain_ms']:.4f} ms; launches {r['launches']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: results[name][k] for k in keys} for name in RECORDED]

@@ -66,9 +66,9 @@ costs:
 Each time is the least of 6 means of 20 launches run back to back
 (`chip_smoke.primed_ms`: CUDA events, the stream held by a sleep kernel
 while the host queues the launches, so that a kernel shorter than its
-wrapper's Python is not timed at the host's pace as in
-`chip_smoke.cuda_ms`, whose times the kernels' record carries); two rounds
-over all variants show drift. K1, K2, K4 and K5c on empty bins (every count
+wrapper's Python is not timed at the host's pace), the timer of the
+kernels' record (`chip_smoke.back_to_back_runs`); two rounds over all
+variants show drift. K1, K2, K4 and K5c on empty bins (every count
 0) are printed as the floor of a launch at that frame size. `build_variants`,
 `capture` and `use` serve scripts/tune_torch_raster_ms.py too.
 """

@@ -377,9 +377,8 @@ def build_scene(args, dev):
         sph, modes = load_sphere_maps(static, model_dir)
         mmd_maps = (sph, modes, load_toon_ramps(static, model_dir))
         print("MMD extended shading: toon ramps + sphere maps")
-    return Scene(static, ps, mo, cfg, part_textures=part_textures,
-                 cubemap=cubemap, device=dev, mmd_maps=mmd_maps,
-                 camera=camera, light=light)
+    return Scene(static, ps, mo, cfg, part_textures, cubemap, camera, light,
+                 mmd_maps, device=dev)
 
 
 def main(argv=None):

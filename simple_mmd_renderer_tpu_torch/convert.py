@@ -30,6 +30,10 @@ this module needs neither JAX nor the reference package:
   frame. A crowd state (`parallel.mesh.
   crowd_init`: every leaf with a leading instance axis) converts the same
   way.
+- `pose_arrays`, `physics_state`: a PoseArrays / PhysicsState (the
+  posing's and the solver's state between the frame's stages) into the
+  port's on a device, so that a test can start one stage of both packages
+  from the same input.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from . import config as _config
 from .core import model as _model
 from .core.anim import MotionArrays
 from .core.physics import PhysicsState, PhysicsStatic
+from .core.pose import PoseArrays
 from .core.scene import SimState
 from .formats import pmx as _pmx
 from .render.camera_anim import CameraArrays, LightArrays
@@ -147,18 +152,33 @@ def light_arrays(light, device="cuda") -> LightArrays:
                        np.asarray(light.directions), device=device)
 
 
+def _f32(x, device):
+    return torch.as_tensor(np.array(x, np.float32), device=device)
+
+
+def pose_arrays(pose, device="cuda") -> PoseArrays:
+    """Reference PoseArrays (JAX or NumPy leaves) -> the port's on
+    `device`."""
+    device = resolve_device(device)
+    return PoseArrays(**{f.name: _f32(getattr(pose, f.name), device)
+                         for f in dataclasses.fields(PoseArrays)})
+
+
+def physics_state(state, device="cuda") -> PhysicsState:
+    """Reference PhysicsState (JAX or NumPy leaves) -> the port's on
+    `device`."""
+    device = resolve_device(device)
+    return PhysicsState(**{k: _f32(getattr(state, k), device)
+                           for k in PHYSICS_LEAVES})
+
+
 def sim_state_to_torch(state, device="cuda") -> SimState:
     """Reference SimState (JAX or NumPy leaves) -> port SimState on
     `device` (the card unless the caller asks for another device; no card
     raises, as every entry point does)."""
     device = resolve_device(device)
-
-    def t(x):
-        return torch.as_tensor(np.array(x, np.float32), device=device)
-    return SimState(
-        time=t(state.time),
-        physics=PhysicsState(**{k: t(getattr(state.physics, k))
-                                for k in PHYSICS_LEAVES}))
+    return SimState(time=_f32(state.time, device),
+                    physics=physics_state(state.physics, device))
 
 
 def sim_state_to_numpy(state: SimState) -> dict:

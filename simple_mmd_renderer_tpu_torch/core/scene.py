@@ -95,12 +95,17 @@ def _per_instance(obj, n_inst):
 
 
 class Scene(nn.Module):
+    """`Scene(static, phys_static, motion, config, part_textures, cubemap,
+    camera, light, mmd_maps, device)`: the reference's fields in its order
+    and with its defaults (`config=None` is `AppConfig()`, the reference's
+    default factory), then the port's `device`."""
+
     def __init__(self, static: ModelStatic, phys_static: PhysicsStatic,
                  motion: MotionArrays | None = None,
                  config: AppConfig | None = None,
                  part_textures: list | None = None, cubemap=None,
-                 device="cuda", mmd_maps: tuple | None = None,
-                 camera=None, light=None):
+                 camera=None, light=None, mmd_maps: tuple | None = None,
+                 device="cuda"):
         super().__init__()
         device = resolve_device(device)
         self.config = config if config is not None else AppConfig()
@@ -154,8 +159,8 @@ class Scene(nn.Module):
         return Scene(self.rig.host, self.phys.host,
                      None if self.motion is None else self.motion.host,
                      self.config, self.part_textures, self.cubemap,
-                     device=device, mmd_maps=self.mmd_maps,
-                     camera=copied(self.camera), light=copied(self.light))
+                     copied(self.camera), copied(self.light), self.mmd_maps,
+                     device=device)
 
     def packed_atlas(self):
         """The scene's texture atlas (render.pipeline.PackedAtlas, with
@@ -533,4 +538,4 @@ def build_sample_scene(density=2.0, width=1920, height=1080, shadow=2048,
     part_textures = (sample_textures(tuple(textures)) if textures is not None
                      else None)
     return Scene(static, phys_mod.build_physics(static), motion, cfg,
-                 part_textures, cubemap, device=device, mmd_maps=mmd_maps)
+                 part_textures, cubemap, mmd_maps=mmd_maps, device=device)

@@ -20,8 +20,20 @@ every `.py` module (one test case each):
   call written against the reference, so it is allowed;
 - a method is a property, a static or a class method on both sides;
 - a dataclass's fields are its constructor's parameters and are held the
-  same way (the flax dataclasses that are `nn.Module`s in the port are
-  named below: their tensors are registered buffers, not fields).
+  same way. The flax dataclasses that are `nn.Module`s in the port are
+  named below (their tensors are registered buffers, not fields): their
+  reference fields are held against the port's `__init__` parameters after
+  `self` by the same rule, port-only parameters (`device`) last;
+- a field with a `default_factory` matches a parameter whose default is
+  `None`, where the port resolves `None` to the factory's value (the
+  reference's `Scene.config = field(default_factory=AppConfig)` against
+  the port's `config=None`, which the constructor turns into
+  `AppConfig()`).
+
+Before `Scene` took the reference's order (its `device` parameter stood
+after `cubemap`, so `Scene(s, p, m, cfg, tex, cube, camera)` handed the
+camera to `device`), the `core/scene.py` case failed for `Scene` alone;
+`CameraArrays` and `LightArrays` already agreed.
 """
 
 import ast
@@ -55,8 +67,8 @@ NO_COUNTERPART = {
     "map size",
 }
 
-# flax dataclasses of the reference that are nn.Modules in the port: the
-# fields are not compared (the methods are)
+# flax dataclasses of the reference that are nn.Modules in the port: their
+# fields are compared with the port's __init__ parameters after `self`
 MODULE_CLASSES = {
     ("core/scene.py", "Scene"): "an nn.Module holding the device tables",
     ("render/camera_anim.py", "CameraArrays"): "an nn.Module; the track's "
@@ -180,10 +192,8 @@ def divergences(rel):
     for name, (kind, *rest) in ref_api.items():
         where = f"{rel}:{name}"
         if kind == "fields":
-            cls = name.split(".")[0]
-            if (rel, cls) in MODULE_CLASSES:
-                continue
-            ref_params, got = rest[0], _constructor(port_api, cls)
+            ref_params = rest[0]
+            got = _constructor(port_api, name.split(".")[0])
         elif (rel, name) in NO_COUNTERPART:
             continue
         elif name not in port_api:
@@ -209,7 +219,9 @@ def divergences(rel):
                          f"({_fmt(ref_params)}), the port ({_fmt(got)})")
             continue
         for (n, _, rd), (_, _, pd) in zip(ref_params, head):
-            if rd is not None and rd != pd:
+            # a default factory's counterpart is None, resolved to it
+            if rd is not None and rd != pd and not (
+                    rd.startswith("factory ") and pd == "None"):
                 found.append(f"{where}: default of {n} is {rd} in the "
                              f"reference, {pd} in the port")
     return found
@@ -240,8 +252,10 @@ def test_exceptions_name_what_the_reference_has():
 def test_the_walk_catches_a_divergence(tmp_path, monkeypatch):
     """The check itself: a moved parameter, a missing function, another
     default and a port-only parameter before the reference's last are each
-    found; a port-only parameter at the end and a port default where the
-    reference has none are not."""
+    found, in functions and in a dataclass's fields against a class's
+    `__init__`; a port-only parameter at the end, a port default where the
+    reference has none and a `None` default against a default factory are
+    not."""
     ref, port = tmp_path / "ref", tmp_path / "port"
     ref.mkdir()
     port.mkdir()
@@ -250,13 +264,28 @@ def test_the_walk_catches_a_divergence(tmp_path, monkeypatch):
         "def b(x): pass\n"
         "def c(x, dtype=jnp.float32): pass\n"
         "def d(x, y): pass\n"
-        "def e(x, y): pass\n")
+        "def e(x, y): pass\n"
+        "@dataclass\n"
+        "class F:\n"
+        "    s: int\n"
+        "    cfg: list = field(default_factory=list)\n"
+        "    cam: object = None\n"
+        "@dataclass\n"
+        "class G:\n"
+        "    s: int\n"
+        "    cfg: list = field(default_factory=list)\n"
+        "    cam: object = None\n")
     (port / "m.py").write_text(
         "def a(x, z=None, y=1): pass\n"
         "def c(x, dtype=torch.float64): pass\n"
         "def d(x, w, y): pass\n"
-        "def e(x, y=2, w=3): pass\n")
+        "def e(x, y=2, w=3): pass\n"
+        "class F:\n"
+        "    def __init__(self, s, cfg=None, device='cuda', cam=None): pass\n"
+        "class G:\n"
+        "    def __init__(self, s, cfg=None, cam=None, device='cuda'): pass\n")
     monkeypatch.setattr(sys.modules[__name__], "REF", ref)
     monkeypatch.setattr(sys.modules[__name__], "PORT", port)
     found = divergences("m.py")
-    assert [f.split(":")[1] for f in found] == ["a", "b", "c", "d"], found
+    assert [f.split(":")[1] for f in found] == ["a", "b", "c", "d",
+                                                "F.<fields>"], found

@@ -70,13 +70,16 @@ BODY_ATOL = 1e-4
 IK_ATOL = {"pos": 6e-3, "quat": 1.5e-3}
 
 
-def _reference_frames(ref, state, n_frames, renders):
+def _reference_frames(ref, state, n_frames, renders, steps=None):
     """The reference's frames, jitted: [(state, {name: image})]. Without
     `renders` the scene's own `step_and_render` (name None); with them
-    `step_pose` once a frame, then `render_frame` once a render config (the
-    scene's, with each entry's changes), each jitted alone: that is
-    step_and_render's composition where the scene has no camera or light
-    track, textures, skybox, MMD maps or extended morphs."""
+    `step_pose` once a frame (or `steps`, the jitted step's outputs
+    (state', pose, positions, normals) a frame, where the caller stepped
+    the reference already), then `render_frame` under every render config
+    (the scene's, with each entry's changes), all configs traced into one
+    jit: that is step_and_render's composition where the scene has no
+    camera or light track, textures, skybox, MMD maps or extended
+    morphs."""
     frames = []
     if renders is None:
         step = jax.jit(ref.step_and_render)
@@ -88,15 +91,21 @@ def _reference_frames(ref, state, n_frames, renders):
             and ref.part_textures is None and ref.cubemap is None
             and ref.mmd_maps is None
             and not ref.config.apply_extended_morphs)
-    step = jax.jit(ref.step_pose)
+    if steps is None:
+        step = jax.jit(ref.step_pose)
+        steps = []
+        for _ in range(n_frames):
+            steps.append(step(state))
+            state = steps[-1][0]
+    assert len(steps) == n_frames
     cfgs = {name: dataclasses.replace(ref.config.render, **changes)
             for name, changes in renders.items()}
-    draw = {name: jax.jit(lambda p, n, cfg=cfg: ref_pipeline.render_frame(
-        ref.static, p, n, cfg)) for name, cfg in cfgs.items()}
-    for _ in range(n_frames):
-        state, _, positions, normals = step(state)
-        frames.append((state, {name: np.asarray(fn(positions, normals))
-                               for name, fn in draw.items()}))
+    draw = jax.jit(lambda p, n: {
+        name: ref_pipeline.render_frame(ref.static, p, n, cfg)
+        for name, cfg in cfgs.items()})
+    for state, _, positions, normals in steps:
+        frames.append((state, {name: np.asarray(image) for name, image
+                               in draw(positions, normals).items()}))
     return frames
 
 
@@ -126,18 +135,20 @@ def _port_frames(port, state, n_frames, renders):
     return frames
 
 
-def slice_frames(ref, n_frames, renders=None):
+def slice_frames(ref, n_frames, renders=None, ref_run=None):
     """Step the reference Scene `ref` (jitted) and the port built from it
     (converted field by field, on the CPU) from one init_state, n_frames
     frames. `renders` ({name: render config changes}) renders each frame's
     pose under each of these configs in both packages (see
-    _reference_frames); None renders the scene's own frame. -> the frames
-    for check_slice."""
+    _reference_frames); None renders the scene's own frame. `ref_run`
+    (with `renders`: the reference's initial state and its `steps`, see
+    _reference_frames) stands for `ref.init_state()` and the reference's
+    stepping. -> the frames for check_slice."""
     port = Scene(convert.model_static(ref.static),
                  convert.physics_static(ref.phys_static),
                  convert.motion_arrays(ref.motion),
                  convert.app_config(ref.config), device="cpu")
-    ref_state = ref.init_state()
+    ref_state, steps = ref_run or (ref.init_state(), None)
     state = convert.sim_state_to_torch(ref_state, device="cpu")
     ik_bodies = _ik_driven_bodies(ref.static, ref.phys_static)
     assert 0 < ik_bodies.sum() < ref.phys_static.n_bodies
@@ -145,7 +156,7 @@ def slice_frames(ref, n_frames, renders=None):
                     dataclasses.replace(ref.config.render, **changes).width)
              for name, changes in (renders or {None: {}}).items()}
     return (ik_bodies, sizes,
-            _reference_frames(ref, ref_state, n_frames, renders),
+            _reference_frames(ref, ref_state, n_frames, renders, steps),
             _port_frames(port, state, n_frames, renders))
 
 
