@@ -77,7 +77,13 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    flagship, of the content path and of the light crowds. Prints the
    capture's seconds, the eager step's and the replay's ms/frame, and the
    CCD iterations the eager step ran per IK group against the fixed
-   count. The content step is also replayed with `sdef_true` off (its own
+   count, and that a replay launches 7 stamp kernels (the stage clock's,
+   `csrc/stamp.cu`). On the msaa=4 + window flagship's step, the bake's
+   (`check_stamp`): the stamps counted on the clock and in the device
+   trace of a replay, each posing pass's CCD (run, useful) in 4 replays'
+   ring rows against torch.sum of the flags the graph wrote, the stamps in
+   order, and the stamp kernel back to back with and without flags. The
+   content step is also replayed with `sdef_true` off (its own
    graph) in turns with it on (`sdef_step_times`: ms/frame of each, the
    SDEF vertex count; the two must differ at the SDEF vertices only), as
    is the content crowd's. Then under torch.profiler one eager frame of
@@ -1228,6 +1234,10 @@ def check_compiled(label, scene, state, n: int) -> None:
     torch.cuda.synchronize()
     replay_ms = 1000.0 * (time.perf_counter() - t0) / n
     bad = int(bad)
+    stamps = scene.captured_step(state).clock.stamps
+    if stamps != STAMPS:
+        raise AssertionError(f"the compiled step ({label}) launches {stamps}"
+                             f" stamps a replay, expected {STAMPS}")
     same = all(frame == iters[0] for frame in iters)
     log(f"compiled ({label}): capture {capture_s:.3f} s"
         f"{' (the graph already existed)' if shared else ''}; {n} replays "
@@ -1239,6 +1249,72 @@ def check_compiled(label, scene, state, n: int) -> None:
     if bad:
         raise AssertionError(f"the compiled step ({label}) differs from the "
                              "eager step")
+
+
+# stamp kernels a replay of a compiled step launches (`csrc/stamp.cu`): one
+# at its start and one at the end of each of its six stages
+STAMPS = 7
+
+
+def check_stamp(label, scene, state, n: int) -> None:
+    """The stage clock's stamp kernel (`csrc/stamp.cu`,
+    `utils/profiling.StepClock`) in the path's compiled step, the bake's
+    `Scene.jit_step(render=False)`: the stamps a replay launches, on the
+    clock's counter (`StepClock.stamps`) and in the device trace of one
+    replay (kernels named `stamp_kernel`); over n replays, each posing
+    pass's (run, useful) in the replay's ring row against the flags the
+    graph wrote (`StepClock.actives`) counted by torch.sum, and the row's
+    stamps in order; then the kernel back to back with the first pass's
+    flags and with none, beside its byte bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_mmd_renderer_tpu_torch.utils import profiling
+
+    step = scene.captured_step(state)
+    clock = step.clock
+    if clock.stamps != STAMPS:
+        raise AssertionError(f"stamp ({label}): {clock.stamps} stamps a "
+                             f"replay, expected {STAMPS}")
+    step.load(state)
+    bad, counts = 0, {}
+    for _ in range(n):
+        ordinal = clock.replays
+        step.replay()
+        torch.cuda.synchronize()
+        row = clock.ring[ordinal % clock.rows].tolist()
+        stamps = [row[0]] + [row[c] for _, c in clock.stages]
+        bad += any(b < a for a, b in zip(stamps, stamps[1:])) or not row[0]
+        for p, col in clock.ccd.items():
+            flags = clock.actives[p]
+            want = (flags.numel(), int(torch.sum(flags)))
+            counts[p] = (row[col], row[col + 1])
+            bad += counts[p] != want
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step.replay()
+        torch.cuda.synchronize()
+    traced = sum(1 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "stamp_kernel" in e.name)
+    log(f"stamp ({label}): {clock.stamps} stamps a replay, {traced} "
+        f"stamp_kernel in the device trace of one; {n} replays: ring rows "
+        f"against torch.sum of the graph's CCD flags and stamps in order, "
+        f"mismatches {bad}; (run, useful) per posing pass {counts}")
+    if bad or traced != STAMPS or set(clock.ccd) != set(
+            profiling.CCD_PASSES):
+        raise AssertionError(f"the stage clock ({label}) is wrong")
+
+    spare = profiling.StepClock("cuda")
+    flags = clock.actives["pre_physics"]
+    spare._stamp(0, advance=True)
+    with_flags = back_to_back_runs(lambda: spare._stamp(1, flags, 2))
+    alone = back_to_back_runs(lambda: spare._stamp(1))
+    # the flags and the counter read, the stamp and the pair written
+    bnd = bound(flags.numel() + 8 + 3 * 8, 0)
+    log(f"stamp ({label}): back to back with {flags.numel()} flags "
+        f"{back_to_back(None, with_flags)}, without "
+        f"{back_to_back(None, alone)}; bound {bnd[0] * 1e6:.3f} ns "
+        f"({bnd[1]}), "
+        f"card / bound {with_flags[0] / bnd[0]:.0f}: a launch's own cost")
 
 
 # the order of the SDEF-on (True) and SDEF-off step segments
@@ -3304,6 +3380,8 @@ def main() -> int:
                    COMPILED_FRAMES)
     check_compiled("flagship msaa=4 + shadow_window", paths[M4]["scene"],
                    paths[M4]["state"], COMPILED_FRAMES_SHORT)
+    check_stamp("flagship msaa=4 + shadow_window", paths[M4]["scene"],
+                paths[M4]["state"], COMPILED_FRAMES)
     check_compiled(CONTENT, paths[CONTENT]["scene"], paths[CONTENT]["state"],
                    COMPILED_FRAMES_SHORT)
     sdef_step_times(CONTENT, paths[CONTENT]["scene"], paths[CONTENT]["state"])

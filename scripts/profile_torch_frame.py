@@ -12,26 +12,34 @@ the frame the reference app renders) on the first CUDA device. With
 fps_keys=5)`, clocks 7 frames apart) at 256x144 with a 256^2 shadow map.
 
 The frame is profiled twice, each time after 3 warm-up frames, over N
-frames with torch.profiler (CPU + CUDA activities):
-- eager: `Scene.step_pose` (the CCD loop's early exit) and the render;
-- compiled: the step as one CUDA-graph replay (`Scene.rollout`, or
-  `parallel.mesh.crowd_step_fn` for a crowd) and the eager render. Its
-  capture's seconds are printed first.
-Prints for each, per pass label (the `pass_scope` ranges: anim,
-pre_physics, physics, post_physics, deform, shadow, ground, character,
-shade; the compiled frame's pose and physics passes run inside the graph,
-so only its render passes have host ranges), the host time, the device
-kernel time and the kernel launches per frame; then the frame's host
-launch calls (kernel launches, `cudaGraphLaunch`, `cudaMemcpyAsync`, ...),
-its device kernels (those a graph replays included) and the device busy
-share of the profiled window. The full `key_averages()` tables go to
-DIR/profile_frame_eager.txt and DIR/profile_frame_compiled.txt.
+frames with torch.profiler (CPU + CUDA activities), which switches on the
+program's recorder (`utils/profiling`):
+- eager: `Scene.step_pose` (the CCD loop's early exit) and the render,
+  each frame inside a `profiling.frame()` span;
+- compiled: `Scene.jit_step(render=True)`, the step as one CUDA-graph
+  replay and the eager render (for a crowd, `parallel.mesh.crowd_step_fn`,
+  whose recorded frame is the step alone). Its capture's seconds are
+  printed first.
+Prints for each the recorder's table, per frame: the frame and
+`step.launch` host ms; each stage of the step (anim, pre_physics, physics,
+post_physics, deform, write_back), host ms in the eager frame and device ms
+in the compiled one (stamped inside the graph; under the profiler a replay
+runs at the traced host's pace, so the compiled frame also prints the
+stages of the N unprofiled replays before the profiled ones); the
+render's host ms outside its host reads, its paced ms (after the first
+host read returns, outside later ones) and its host reads by site; the CCD
+chain-iterations run and still active. Then the frame's host launch
+calls (kernel launches, `cudaGraphLaunch`, `cudaMemcpyAsync`, ...), its
+device kernels (those a graph replays included), the device busy share of
+the profiled window and the top device operations by name (the hand
+kernels, launched through `ctypes`, among them). The full
+`key_averages()` tables go to DIR/profile_frame_eager.txt and
+DIR/profile_frame_compiled.txt.
 """
 
 from __future__ import annotations
 
 import argparse
-import bisect
 import os
 import sys
 import time
@@ -39,24 +47,86 @@ import time
 import torch
 
 
-def profile_frames(label, rollout, state, n, out_dir):
+def recorder_table(label, frames, untraced):
+    """Print the recorder's per-frame means over `frames`
+    (`profiling.recorded()`), and the stages of the `untraced` replays
+    (`profiling.untraced_replays`): under the profiler a replay runs at the
+    traced host's pace, so its own stamps read that pace."""
+    n = len(frames)
+    if not n:
+        print(f"{label}: the recorder holds no frame")
+        return
+
+    def mean_ms(pick):
+        return sum((s.end - s.start) for f in frames for s in f.spans
+                   if pick(s)) / 1e6 / n
+
+    print(f"{label}: recorder, per frame over {n}: frame "
+          f"{mean_ms(lambda s: s.name == 'frame' and s.parent is None):.3f}"
+          f" ms, step.launch {mean_ms(lambda s: s.name == 'step.launch'):.3f}"
+          " ms")
+    from simple_mmd_renderer_tpu_torch.utils.profiling import STAGES
+    clock = ("device" if any(s.device for f in frames for s in f.spans)
+             else "host")
+    print(f"{label}: stages ({clock} ms): " + ", ".join(
+        f"{name} {mean_ms(lambda s, m=name: s.name == m):.3f}"
+        for name in STAGES))
+    if untraced:        # the same stages at the card's own pace
+        k = len(untraced)
+        ms = {}
+        for s in (s for r in untraced for s in r):
+            ms[s.name] = ms.get(s.name, 0.0) + s.ms / k
+        print(f"{label}: stages of the {k} replays before the profiled "
+              "ones (device ms): " + ", ".join(
+                  f"{name} {v:.3f}" for name, v in ms.items()))
+    host = paced = 0
+    reads = {}
+    for f in frames:
+        for r in (s for s in f.spans if s.name == "render"):
+            inside = sorted((s for s in f.spans
+                             if s.name.startswith("host_read.")
+                             and r.start <= s.start and s.end <= r.end),
+                            key=lambda s: s.start)
+            waits = [s.end - s.start for s in inside]
+            host += (r.end - r.start) - sum(waits)
+            if inside:
+                paced += (r.end - inside[0].end) - sum(waits[1:])
+        for site, k in f.host_reads.items():
+            reads[site] = reads.get(site, 0) + k
+    if any(s.name == "render" for f in frames for s in f.spans):
+        print(f"{label}: render host {host / 1e6 / n:.3f} ms (host reads "
+              f"left out), paced {paced / 1e6 / n:.3f} ms, host reads "
+              f"{sum(reads.values()) / n:.1f} "
+              f"({', '.join(f'{k} {v / n:.1f}' for k, v in reads.items())})")
+    ccd = {}
+    for f in frames:
+        for p, (run, useful) in f.ccd_iterations.items():
+            got = ccd.get(p, (0, 0))
+            ccd[p] = (got[0] + run, got[1] + useful)
+    if ccd:
+        print(f"{label}: CCD chain-iterations run / active per frame: "
+              + ", ".join(f"{p} {r / n:.0f} / {u / n:.0f}"
+                          for p, (r, u) in ccd.items()))
+
+
+def profile_frames(label, run, state, n, out_dir):
     """Warm up 3 frames, time n, profile n more -> state'."""
     from torch.profiler import ProfilerActivity, profile
 
-    from simple_mmd_renderer_tpu_torch.utils.profiling import (PASSES,
-                                                               launch_counts)
+    from simple_mmd_renderer_tpu_torch.utils import profiling
 
-    state = rollout(state, 3)
+    state = run(state, 3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = rollout(state, n)
+    state = run(state, n)
     torch.cuda.synchronize()
     plain_ms = 1000 * (time.perf_counter() - t0) / n
 
+    profiling.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state = rollout(state, n)
+        state = run(state, n)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -66,51 +136,28 @@ def profile_frames(label, rollout, state, n, out_dir):
         f.write("\n\n")
         f.write(events.table(sort_by="device_time_total", row_limit=40))
 
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(
-            e, "cuda_time_total", 0.0)
-
     def self_dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0.0)
 
     print(f"{label}: frame (no profiler): {plain_ms:.3f} ms; profiled: "
           f"{1000 * wall / n:.3f} ms/frame over {n} frames")
-    # the kernel launches inside each pass's host ranges
-    raw = prof.events()
-    starts = sorted(e.time_range.start for e in raw
-                    if e.name == "cudaLaunchKernel")
-    in_pass = dict.fromkeys(PASSES, 0)
-    cpu = torch.autograd.DeviceType.CPU
-    for e in raw:
-        if e.name in in_pass and e.device_type == cpu:
-            in_pass[e.name] += (
-                bisect.bisect_right(starts, e.time_range.end)
-                - bisect.bisect_left(starts, e.time_range.start))
-    # a pass label appears twice (its host range and its device
-    # annotation); the host range carries both the host time and the
-    # device time of the kernels launched inside it
-    for name in PASSES:
-        rows = [e for e in events if e.key == name]
-        if not rows:
-            print(f"{label}: pass {name}: not seen")
-            continue
-        e = max(rows, key=lambda r: r.cpu_time_total)
-        print(f"{label}: pass {name}: host {e.cpu_time_total / 1000 / n:.3f} "
-              f"ms/frame, device kernels {dev_us(e) / 1000 / n:.3f} "
-              f"ms/frame, {in_pass[name] / n:.0f} kernel launches/frame")
-    host, kernels, busy_us = launch_counts(raw)
+    recorder_table(label, profiling.recorded(),
+                   profiling.untraced_replays(n))
+    host, kernels, busy_us = profiling.launch_counts(prof.events())
     calls = ", ".join(f"{k} {v / n:.0f}" for k, v in host.items())
     print(f"{label}: per frame: host launch calls {sum(host.values()) / n:.0f}"
           f" ({calls}); device kernels {kernels / n:.0f}; device busy "
           f"{busy_us / 1000 / n:.3f} ms = {100 * busy_us / (wall * 1e6):.1f}% "
           f"of the profiled wall time")
-    top = sorted((e for e in events if self_dev_us(e) > 0
-                  and e.key not in PASSES), key=self_dev_us, reverse=True)
+    top = sorted((e for e in events if self_dev_us(e) > 0 and not getattr(
+        e, "is_user_annotation", False) and e.key not in profiling.PASSES),
+                 key=self_dev_us, reverse=True)
     for e in top[:10]:
         print(f"{label}: device op {e.key[:60]}: "
               f"{self_dev_us(e) / 1000 / n:.3f} ms/frame, "
               f"{e.count / n:.0f} calls/frame")
+    profiling.reset()
     return state
 
 
@@ -129,6 +176,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from simple_mmd_renderer_tpu_torch.core.scene import build_sample_scene
+    from simple_mmd_renderer_tpu_torch.utils.profiling import frame
 
     if args.crowd:
         from simple_mmd_renderer_tpu_torch.parallel.mesh import (
@@ -143,9 +191,10 @@ def main() -> int:
 
         def eager(state, n_frames):
             for _ in range(n_frames):
-                state, _, positions, normals = scene.step_pose(state)
-                crowd_render_frame(scene.rig, positions, normals,
-                                   scene.config.render, None, None)
+                with frame():
+                    state, _, positions, normals = scene.step_pose(state)
+                    crowd_render_frame(scene.rig, positions, normals,
+                                       scene.config.render, None, None)
             return state
 
         def compiled(state, n_frames):
@@ -159,14 +208,18 @@ def main() -> int:
                                    msaa=args.msaa,
                                    shadow_window=args.shadow_window)
         state = scene.init_state()
+        step = scene.jit_step(render=True)
 
         def eager(state, n_frames):
             for _ in range(n_frames):
-                state, _ = scene.step_and_render(state)
+                with frame():
+                    state, _ = scene.step_and_render(state)
             return state
 
         def compiled(state, n_frames):
-            return scene.rollout(state, n_frames)[0]
+            for _ in range(n_frames):
+                state, _ = step(state)
+            return state
 
     os.makedirs(args.out, exist_ok=True)
     state = profile_frames("eager", eager, state, args.frames, args.out)

@@ -39,6 +39,7 @@ from dataclasses import dataclass
 import torch
 
 from ..utils import math3d as m3
+from ..utils import profiling
 from .model import FIX_ALL, FIX_NONE, FIX_X, FIX_Y, FIX_Z, ModelTables
 
 _EPS = 1e-8
@@ -281,14 +282,21 @@ def _limit_euler(euler, emin, emax, mirror: bool):
     return clamp_hi(clamp_lo(euler))
 
 
+def _still_active(done, out=None):
+    """The chains not yet converged (~done), written into `out` when given:
+    a row of the CCD counter's buffer."""
+    return ~done if out is None else torch.bitwise_not(done, out=out)
+
+
 def _solve_ik_group(static: ModelTables, pose: PoseArrays, seg, anim_rot,
                     anim_trans, morph_rot, morph_trans,
-                    capturable: bool = False) -> PoseArrays:
+                    capturable: bool = False, actives=None) -> PoseArrays:
     """CCD IK batched over a group of independent same-shaped chains
     (`seg`: an IKSegment). The link loop is unrolled per iteration; the
     iteration loop exits when every chain has converged (the reference's
     early return), or with `capturable` runs all `seg.loop` iterations
-    with converged chains frozen (no host read)."""
+    with converged chains frozen (no host read). `actives` (bool [loop *
+    G], with `capturable`) receives each iteration's active chains."""
     g = seg.links.shape[0]
     nl = seg.n_links
     dev = seg.links.device
@@ -318,10 +326,13 @@ def _solve_ik_group(static: ModelTables, pose: PoseArrays, seg, anim_rot,
 
     world, total_rot, ik_rot = pose.world, pose.total_rot, pose.ik_rot
     pre_ik_rot = pose.pre_ik_rot
+    if actives is not None:
+        actives = actives.view(loop, g)
     for i in range(loop):
         if not capturable and not bool((~done).any()):   # host sync
             break
-        active = ~done                                              # [G]
+        active = _still_active(done, None if actives is None
+                               else actives[i])                     # [G]
         mirror = i < ikt
         for j in range(nl):
             if seg.fix_types[j] == FIX_ALL:
@@ -403,7 +414,17 @@ def _solve_ik_group(static: ModelTables, pose: PoseArrays, seg, anim_rot,
 
 def _run_segments(static: ModelTables, pose: PoseArrays, segments,
                   anim_rot, anim_trans, morph_rot, morph_trans,
-                  capturable: bool = False) -> PoseArrays:
+                  capturable: bool = False, name: str = "") -> PoseArrays:
+    """The segments in order; with `capturable`, inside a compiled step,
+    every CCD iteration's active chains go into the step's counter of
+    posing pass `name` (`profiling.ccd_actives`), one buffer for the
+    pass."""
+    iks = [seg for seg in segments if seg.kind != "fk"]
+    sizes = [seg.loop * seg.links.shape[0] for seg in iks]
+    actives = (profiling.ccd_actives(name, sum(sizes), pose.world.device)
+               if capturable else None)
+    bufs = iter(actives.split(sizes) if actives is not None
+                else [None] * len(iks))
     for seg in segments:
         if seg.kind == "fk":
             for level in seg.levels:
@@ -413,7 +434,8 @@ def _run_segments(static: ModelTables, pose: PoseArrays, segments,
             pose = _fk_bones(static, pose, seg.goal_bones, anim_rot,
                              anim_trans, morph_rot, morph_trans)
             pose = _solve_ik_group(static, pose, seg, anim_rot, anim_trans,
-                                   morph_rot, morph_trans, capturable)
+                                   morph_rot, morph_trans, capturable,
+                                   next(bufs))
     return pose
 
 
@@ -440,7 +462,7 @@ def pre_physics_posing(static: ModelTables, anim_rot, anim_trans,
     pose = pose.replace(vertex_offsets=vertex_offsets, leaf_rates=leaf)
     pose = _run_segments(static, pose, static.pre_segments,
                          anim_rot, anim_trans, morph_rot, morph_trans,
-                         capturable)
+                         capturable, "pre_physics")
     return _update_skin(static, pose, static.pre_bones)
 
 
@@ -456,7 +478,7 @@ def post_physics_posing(static: ModelTables, pose: PoseArrays, anim_rot,
                                   device=static.device)
     pose = _run_segments(static, pose, static.post_segments,
                          anim_rot, anim_trans, morph_rot, morph_trans,
-                         capturable)
+                         capturable, "post_physics")
     return _update_skin(static, pose, static.post_bones)
 
 

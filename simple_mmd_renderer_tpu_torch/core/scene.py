@@ -64,6 +64,7 @@ from ..config import AppConfig, RenderConfig
 from ..render.camera_anim import sample_camera, sample_light
 from ..render.pipeline import (build_mmd_maps, build_packed_atlas,
                                render_frame)
+from ..utils import profiling
 from ..utils.device import resolve_device
 from ..utils.graph import CapturedStep, shape_key, tree_map
 from ..utils.profiling import pass_scope
@@ -266,7 +267,7 @@ class Scene(nn.Module):
         physics = state.physics
         n_inst = time.shape[0] if time.dim() else None
 
-        with pass_scope("anim"):
+        with profiling.stage("anim"):
             anim_rot, anim_trans, rates = self._sample_anim(time)
         if n_inst is not None:
             # instance-major rows: [I, K, ...] -> [I*K, ...] on the views
@@ -277,18 +278,18 @@ class Scene(nn.Module):
             physics = PhysicsState(**{
                 f.name: _flat(getattr(physics, f.name))
                 for f in dataclasses.fields(physics)})
-        with pass_scope("pre_physics"):
+        with profiling.stage("pre_physics"):
             pose = pose_mod.pre_physics_posing(static, anim_rot, anim_trans,
                                                rates, capturable)
-        if self.motion is not None and cfg.physics.enabled \
-                and self.phys.n_bodies:
-            with pass_scope("physics"):
+        with profiling.stage("physics"):
+            if self.motion is not None and cfg.physics.enabled \
+                    and self.phys.n_bodies:
                 physics, pose = phys_mod.physics_react(
                     static, phys, physics, pose, cfg.physics)
-        with pass_scope("post_physics"):
+        with profiling.stage("post_physics"):
             pose = pose_mod.post_physics_posing(static, pose, anim_rot,
                                                 anim_trans, rates, capturable)
-        with pass_scope("deform"):
+        with profiling.stage("deform"):
             positions, normals = pose_mod.deform(static, pose,
                                                  sdef=cfg.sdef_true)
         if n_inst is not None:
@@ -400,22 +401,25 @@ class Scene(nn.Module):
         normals), the graph's own tensors: the next replay of this shape
         overwrites them. `state` itself is only read."""
         step = self.captured_step(state)
-        step.load(state)
-        return step.replay()
+        with pass_scope("step.launch"):
+            step.load(state)
+            return step.replay()
 
     def _render(self, time, pose, positions, normals, width, height,
                 atlas=None, camera_override=None, proj_transform=None,
                 aspect=None):
-        if atlas is None:
-            atlas = self.packed_atlas()
-        uv_off, part_color = self.extended_morphs(pose.leaf_rates)
-        return render_frame(self.rig, positions, normals,
-                            self.frame_config(time, camera_override),
-                            part_textures=self.part_textures,
-                            cubemap=self.cubemap, width=width, height=height,
-                            uv_offsets=uv_off, part_color=part_color,
-                            mmd_maps=self.mmd_device_maps(), atlas=atlas,
-                            proj_transform=proj_transform, aspect=aspect)
+        with pass_scope("render"):
+            if atlas is None:
+                atlas = self.packed_atlas()
+            uv_off, part_color = self.extended_morphs(pose.leaf_rates)
+            return render_frame(self.rig, positions, normals,
+                                self.frame_config(time, camera_override),
+                                part_textures=self.part_textures,
+                                cubemap=self.cubemap, width=width,
+                                height=height, uv_offsets=uv_off,
+                                part_color=part_color,
+                                mmd_maps=self.mmd_device_maps(), atlas=atlas,
+                                proj_transform=proj_transform, aspect=aspect)
 
     def jit_step(self, render: bool = True, width=None, height=None,
                  donate: bool = True):
@@ -438,14 +442,18 @@ class Scene(nn.Module):
             return out if donate else tree_map(torch.clone, out)
 
         if not render:
-            return lambda state: keep(self.replay_step(state))
+            def pose_step(state):
+                with profiling.frame():
+                    return keep(self.replay_step(state))
+            return pose_step
         atlas = self.packed_atlas()
 
         def step(state, camera_override=None):
-            state, pose, positions, normals = self.replay_step(state)
-            return keep(state), self._render(state.time, pose, positions,
-                                             normals, width, height, atlas,
-                                             camera_override)
+            with profiling.frame():
+                state, pose, positions, normals = self.replay_step(state)
+                return keep(state), self._render(state.time, pose, positions,
+                                                 normals, width, height,
+                                                 atlas, camera_override)
         return step
 
     def rollout(self, state: SimState, n_frames: int, render: bool = True,

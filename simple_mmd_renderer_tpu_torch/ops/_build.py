@@ -2,7 +2,8 @@
 
 Every `csrc/*.cu` of this package is compiled by its own `nvcc` into a
 shared library with a plain C interface, all sources at once in parallel,
-at first use, and loaded with `ctypes` (no PyTorch headers: the build takes
+at first use (`lib()`; `entry(name)` builds only the source that defines
+`name`), and loaded with `ctypes` (no PyTorch headers: the build takes
 seconds, not minutes). Each library is named after a hash of its source and
 the flags, so an edited source is rebuilt and never served stale. They land
 in `BUILD_DIR`, by default `build/kernels/` at the repository root, which
@@ -24,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,10 +61,12 @@ SIGNATURES = {
                                   _P, _P, _P, _P, _P, _I, _I, _P],
     "smr_scan_bins": [_P, _I, _I, _I, _I, _I, _P, _P],
     "smr_scan_raster": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "smr_stamp": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
 _lib: SimpleNamespace | None = None
+_entries: dict = {}     # name -> a C entry point bound alone (`entry`)
 
 
 def _nvcc() -> str:
@@ -89,10 +93,11 @@ def library_path(src: Path) -> Path:
     return BUILD_DIR / f"libsmr_{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> list[Path]:
-    """Compile every csrc/*.cu that has no library yet, one nvcc process
-    per source, all started together; -> the libraries' paths."""
-    srcs = _sources()
+def build(srcs: list[Path] | None = None) -> list[Path]:
+    """Compile every csrc/*.cu (or those of `srcs`) that has no library
+    yet, one nvcc process per source, all started together; -> the
+    libraries' paths."""
+    srcs = _sources() if srcs is None else srcs
     outs = [library_path(src) for src in srcs]
     jobs = []
     for src, out in zip(srcs, outs):
@@ -124,17 +129,43 @@ def lib() -> SimpleNamespace:
         if _lib is None:
             handles = [ctypes.CDLL(str(path)) for path in build()]
             fns = {}
-            for name, argtypes in SIGNATURES.items():
+            for name in SIGNATURES:
                 owners = [h for h in handles if hasattr(h, name)]
                 if len(owners) != 1:
                     raise RuntimeError(f"{name}: exported by {len(owners)} "
                                        "kernel libraries, expected 1")
-                fn = getattr(owners[0], name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                fns[name] = fn
+                fns[name] = _bind(owners[0], name)
             _lib = SimpleNamespace(**fns)
         return _lib
+
+
+def entry(name: str):
+    """The C entry point `name` (SIGNATURES) alone, from the library of the
+    one source that defines it: only that source is built, so a caller of
+    one kernel (the step's stage clock) does not wait for the others."""
+    with _lock:
+        fn = _entries.get(name)
+        if fn is None:
+            if _lib is not None:
+                fn = getattr(_lib, name)
+            else:
+                defines = re.compile(rf'extern "C" int {re.escape(name)}\(')
+                srcs = [s for s in _sources()
+                        if defines.search(s.read_text())]
+                if len(srcs) != 1:
+                    raise RuntimeError(f"{name}: defined by {len(srcs)} "
+                                       "kernel sources, expected 1")
+                (path,) = build(srcs)
+                fn = _bind(ctypes.CDLL(str(path)), name)
+            _entries[name] = fn
+        return fn
+
+
+def _bind(handle, name: str):
+    fn = getattr(handle, name)
+    fn.argtypes = SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def check(rc: int, name: str) -> None:

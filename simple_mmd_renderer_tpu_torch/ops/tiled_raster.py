@@ -52,7 +52,8 @@ the same result.
 
 Host synchronisations (for a later CUDA-graph change): the compacted
 triangle count (`nonzero`) and the big-triangle count, once per raster
-whatever the number of instances.
+whatever the number of instances; each is a recorded span
+(`profiling.host_read`, sites `bin` and `big`).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ import math
 import torch
 
 from ..render import raster
+from ..utils.profiling import host_read
 from . import _build
 
 TILE_H = 32
@@ -269,7 +271,8 @@ def _bin(s, rows, width, height, e_max, compact, tile_h=TILE_H, boxes=None):
     dev = tile.device
     if compact:
         # slot 0 is real iff the triangle produced any entry at all
-        ids = torch.nonzero(tile[:, 0] < n_tiles).squeeze(1)
+        with host_read("bin"):
+            ids = torch.nonzero(tile[:, 0] < n_tiles).squeeze(1)
         tile = tile[ids]
     else:
         ids = torch.arange(t, device=dev)
@@ -1143,7 +1146,8 @@ def _big_subset(s, big):
     """Setup of the first BIG_TRI_CAP oversized triangles (stable order) ->
     (order [n], setup dict), or None when there is none. Triangles past
     the oversized ones could never pass the scan, so only those run."""
-    n_big = int(big.sum())          # host sync
+    with host_read("big"):
+        n_big = int(big.sum())          # host sync
     if n_big == 0:
         return None
     n = min(BIG_TRI_CAP, big.shape[0], n_big)
@@ -1418,7 +1422,8 @@ def _bin_crowd(s, rows, width, height, boxes=None):
     gtile = torch.where(tile < n_tiles, inst * n_tiles + tile,
                         all_tiles).reshape(n_inst * t, e_max)
     # slot 0 is real iff the triangle produced any entry at all
-    ids = torch.nonzero(gtile[:, 0] < all_tiles).squeeze(1)
+    with host_read("bin"):
+        ids = torch.nonzero(gtile[:, 0] < all_tiles).squeeze(1)
     id_bits = max(int(n_inst * t - 1).bit_length(), 1)
     key = (gtile[ids] << id_bits) | ids[:, None]
     packed = torch.sort(key.reshape(-1)).values
@@ -1584,7 +1589,8 @@ def _big_subset_crowd(s, big):
     when no instance has one (one host read for the whole crowd). n is the
     largest count of any instance, capped; an instance's slots past its own
     count are masked invalid."""
-    n_big = int(big.sum(-1).max())      # host sync
+    with host_read("big"):
+        n_big = int(big.sum(-1).max())      # host sync
     if n_big == 0:
         return None
     n = min(BIG_TRI_CAP, big.shape[1], n_big)

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from ..utils.profiling import pass_scope
+from ..utils.profiling import host_read, pass_scope
 from . import camera as cam
 from . import ibl
 from . import raster
@@ -741,7 +741,9 @@ def _frame_albedo(static, cfg, part_textures, atlas, vis, uv_px, uvs, tris,
     nl = torch.full((pn,), torch.iinfo(torch.int32).max, dtype=torch.int32,
                     device=lvl.device).scatter_reduce(0, pid, lvl, "amin")
     # one host read a frame (listed with the render's host syncs in ROADMAP)
-    if bool(torch.any(nl < _fit_levels(atl, slot))):
+    with host_read("resident"):
+        magnified = bool(torch.any(nl < _fit_levels(atl, slot)))
+    if magnified:
         rows = affine_uv_part_rows(uvs, tris, atl, static, screen_xy=screen)
         return character_albedo_windowed(static, vis.tri, None, part_textures,
                                          atl, bary=vis.bary, uv_rows=rows)

@@ -22,6 +22,13 @@ On the CPU there is no graph: `replay()` runs the step eagerly on the same
 buffers and copies its outputs into the same output tensors, so a CPU run
 has the card's buffer semantics (what a replay returns, the next replay
 overwrites).
+
+The step runs with a stage clock (`profiling.StepClock`): its stages
+(`profiling.stage`) and the write-back of the state stamp the card's clock
+inside the graph, and its CCD loops count their active chains there, a row
+of the clock's ring per replay; the step counts its replays on the host,
+and a replay made inside a recorded frame is noted there
+(`profiling.note_replay`).
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import dataclasses
 import gc
 
 import torch
+
+from . import profiling
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
@@ -92,20 +101,25 @@ class CapturedStep:
         self.state = tree_map(torch.clone, state)
         self.outputs = None
         self.graph = None
-        if tree_leaves(self.state)[0].is_cuda:
+        leaf = tree_leaves(self.state)[0]
+        self.clock = profiling.StepClock(leaf.device)
+        if leaf.is_cuda:
             self._capture()
 
     def _body(self):
-        new_state, *outputs = self.step(self.state)
-        tree_copy_(self.state, new_state)
+        with self.clock.running():
+            new_state, *outputs = self.step(self.state)
+            with profiling.stage("write_back"):
+                tree_copy_(self.state, new_state)
         return tuple(outputs)
 
     def _capture(self) -> None:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side), sync_errors():
-            # lazy handles and the crowd views are made here, outside the
-            # graph; the step is pure, so the buffers keep the state
+        with torch.cuda.stream(side), sync_errors(), self.clock.running():
+            # lazy handles, the crowd views and the stamp kernel's module
+            # are made here, outside the graph; the step is pure, so the
+            # buffers keep the state
             self.step(self.state)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
@@ -124,6 +138,7 @@ class CapturedStep:
             if was_enabled:
                 gc.enable()
         self.graph, self.outputs = graph, outputs
+        self.clock.restart()
 
     def load(self, state) -> None:
         """Copy `state` into the input buffers."""
@@ -132,6 +147,7 @@ class CapturedStep:
     def replay(self):
         """One step from the buffers -> (state', *outputs), the buffers
         themselves: state' is the input buffer of the next replay."""
+        profiling.note_replay(self.clock, self.clock.replays)
         if self.graph is not None:
             self.graph.replay()
         else:
@@ -140,4 +156,5 @@ class CapturedStep:
                 self.outputs = outputs
             else:
                 tree_copy_(self.outputs, outputs)
+        self.clock.replays += 1
         return (self.state,) + self.outputs

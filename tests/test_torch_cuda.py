@@ -34,7 +34,12 @@ for bit, and the tracks' sampling runs under sync debug mode "error".
 The scan raster's KS and its bin pass KSb are held bit for bit against
 `scan_raster_plain` and `scan_bins_plain` at every coarse tile that
 chip_smoke.py sweeps, and KSb + KS captured in a CUDA graph under sync
-debug mode "error" replay the eager call's bits.
+debug mode "error" replay the eager call's bits. The step's stage clock
+(`csrc/stamp.cu`): the stamp kernel captured under sync debug mode
+"error", recorded frames' rows surviving later replays, the six stages
+summing to within 3 % of the replay timed by CUDA events, and the CCD
+counts summed in the graph equal to a recount in the eager capturable
+step, the replay's bits the eager step's.
 """
 
 import dataclasses
@@ -842,6 +847,155 @@ def test_failed_capture_raises(cuda, monkeypatch):
     got = scene.jit_step(render=False)(state)
     want = scene.step_pose(state)
     assert torch.equal(got[2], want[2])
+
+
+# ---------------------------------------------------------------------------
+# The step's stage clock (utils/profiling.StepClock, csrc/stamp.cu)
+# ---------------------------------------------------------------------------
+
+def _clock_scene():
+    return build_sample_scene(0.5, 64, 48, 64, n_frames=30, fps_keys=10)
+
+
+def test_stamp_kernel_captures_under_sync_errors(cuda):
+    """The stamp kernel captured alone in a CUDA graph under sync debug
+    mode "error": each replay writes its own row (the clock rising), counts
+    the flags and advances the device counter."""
+    from simple_mmd_renderer_tpu_torch.utils import profiling
+    from simple_mmd_renderer_tpu_torch.utils.graph import sync_errors
+
+    clock = profiling.StepClock(cuda)
+    flags = torch.tensor([1, 0, 1, 1, 0] * 300, dtype=torch.bool,
+                         device=cuda)
+    col = 2                         # a CCD pair's columns: 2 and 3
+    work = torch.zeros(1 << 20, device=cuda)
+    clock._stamp(1, flags, col)     # the module loads outside the capture;
+    torch.cuda.synchronize()        # before a replay's start, no row
+    assert int(clock.ring.abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with sync_errors(), torch.cuda.graph(graph):
+        clock._stamp(0, advance=True)
+        work.add_(1.0)
+        clock._stamp(1, flags, col)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    rows = clock.ring.cpu()
+    assert int(clock.count) == 3
+    for r in range(3):
+        assert 0 < rows[r, 0] <= rows[r, 1]
+        assert rows[r, col] == 1500 and rows[r, col + 1] == 900
+    assert rows[0, 1] <= rows[1, 0] and rows[1, 1] <= rows[2, 0]
+    assert int(rows[3:].abs().sum()) == 0
+
+
+def test_ring_ordinals_survive_replays_after_recording(cuda):
+    """Frames recorded under the profiler keep their replays' rows: later
+    replays change nothing that `recorded()` reads. Each frame carries the
+    six device stage spans, in order, and the CCD counts; the replay made
+    before the session is the one untraced replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_mmd_renderer_tpu_torch.utils import profiling
+
+    scene = _clock_scene()
+    step = scene.jit_step(render=False)
+    state = step(scene.init_state())[0]         # captured, not recorded
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(3):
+            state = step(state)[0]
+    first = profiling.recorded()
+    for _ in range(5):
+        state = step(state)[0]
+    assert profiling.recorded() == first
+    assert [f.ordinal for f in first] == [0, 1, 2]
+    for f in first:
+        dev = [s for s in f.spans if s.device]
+        assert [s.name for s in dev] == list(profiling.STAGES)
+        assert all(a.end == b.start for a, b in zip(dev, dev[1:]))
+        assert all(s.end >= s.start > 0 for s in dev)
+        assert set(f.ccd_iterations) == set(profiling.CCD_PASSES)
+        assert f.ccd_iterations["pre_physics"][0] > 0
+    assert scene.captured_step(state).clock.replays == 1 + 3 + 5
+    # the one replay before the session, at the card's own pace
+    (before,) = profiling.untraced_replays(64)
+    assert [s.name for s in before] == list(profiling.STAGES)
+    assert before[-1].end <= min(s.start for s in first[0].spans
+                                 if s.device)
+    assert all(s.end >= s.start > 0 and s.frame == -1 for s in before)
+    profiling.reset()
+
+
+def test_stages_sum_to_the_replay_duration(cuda):
+    """The six stages of a replay (start stamp to the write-back's end)
+    against the replay timed by CUDA events around `graph.replay()`:
+    within 3 %."""
+    from simple_mmd_renderer_tpu_torch.utils import profiling
+
+    scene = _clock_scene()
+    state = scene.init_state()
+    step = scene.captured_step(state)
+    step.load(state)
+    for _ in range(2):          # the graph's upload rides its first launch
+        step.replay()
+    events = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        first = step.clock.replays
+        a.record()
+        step.replay()
+        b.record()
+        events.append((first, a, b))
+    torch.cuda.synchronize()
+    rows = step.clock.ring.cpu()
+    assert [n for n, _ in step.clock.stages] == list(profiling.STAGES)
+    end = step.clock.stages[-1][1]
+    for ordinal, a, b in events:
+        row = rows[ordinal]
+        stages_ms = float(row[end] - row[0]) / 1e6
+        replay_ms = a.elapsed_time(b)
+        assert abs(stages_ms - replay_ms) <= 0.03 * replay_ms, (
+            stages_ms, replay_ms)
+
+
+def test_ccd_counter_on_the_card_equals_the_recount(cuda, monkeypatch):
+    """The CCD counts summed inside the graph equal a recount of the
+    masked loop's active chains in the capturable step run eagerly on the
+    card from the same state; the replay's bits are the eager step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_mmd_renderer_tpu_torch.utils import profiling
+    from simple_mmd_renderer_tpu_torch.utils.graph import tree_leaves
+
+    scene = _clock_scene()
+    state = scene.init_state()
+    for _ in range(2):
+        state = scene.step_pose(state)[0]
+    counts = []
+    still = pose._still_active
+
+    def recount(done, out=None):
+        counts.append((done.numel(), int((~done).sum())))
+        return still(done, out)
+
+    monkeypatch.setattr(pose, "_still_active", recount)
+    scene.step_pose(state, capturable=True)
+    monkeypatch.undo()
+    want = scene.step_pose(state)
+    step = scene.jit_step(render=False, donate=False)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = step(state)
+    (frame,) = profiling.recorded()
+    profiling.reset()
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        assert torch.equal(a, b)
+    runs = sum(r for r, _ in frame.ccd_iterations.values())
+    useful = sum(u for _, u in frame.ccd_iterations.values())
+    assert (runs, useful) == (sum(n for n, _ in counts),
+                              sum(u for _, u in counts))
 
 
 # ---------------------------------------------------------------------------

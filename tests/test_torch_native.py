@@ -168,3 +168,27 @@ def test_compilation_cache_sends_the_next_build_to_path(monkeypatch,
         ROOT / "build" / "kernels"
     assert _build.library_path(srcs[0]).parent == ROOT / "build" / "kernels"
 
+
+
+def test_an_entry_point_builds_only_the_source_that_defines_it(monkeypatch):
+    """`_build.entry(name)` asks nvcc for the one csrc/*.cu that defines
+    `name` (patched here to stop there): the step's stage clock does not
+    wait for the raster kernels' build. Every entry point of SIGNATURES is
+    defined by exactly one source."""
+    asked = []
+
+    def stop(srcs=None):
+        asked.append([s.name for s in srcs])
+        raise RuntimeError("stopped before nvcc")
+
+    monkeypatch.setattr(_build, "build", stop)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_entries", {})
+    with pytest.raises(RuntimeError, match="stopped before nvcc"):
+        _build.entry("smr_stamp")
+    with pytest.raises(RuntimeError, match="stopped before nvcc"):
+        _build.entry("smr_pcf_lit_map")
+    assert asked == [["stamp.cu"], ["shadow_pcf.cu"]]
+    texts = [s.read_text() for s in _build._sources()]
+    for name in _build.SIGNATURES:
+        assert sum(f'extern "C" int {name}(' in t for t in texts) == 1, name
