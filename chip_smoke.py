@@ -78,7 +78,13 @@ Phases (each prints its own line; any failure raises and exits nonzero):
    capture's seconds, the eager step's and the replay's ms/frame, and the
    CCD iterations the eager step ran per IK group against the fixed
    count, and that a replay launches 7 stamp kernels (the stage clock's,
-   `csrc/stamp.cu`). On the msaa=4 + window flagship's step, the bake's
+   `csrc/stamp.cu`) and one CCD kernel an IK group (`ccd_kernel` in the
+   device trace of one replay; `ops.ccd.launches` two a group over the
+   capture). The CCD kernel on the msaa=4 + window flagship's, the content
+   path's and the dense crowd's IK groups (`check_ccd`): bit for bit
+   against the plain loop, one launch a dispatcher call, back to back
+   beside its bound (a launch's own cost plus the serial path timed by the
+   kernel's own clocks). On the msaa=4 + window flagship's step, the bake's
    (`check_stamp`): the stamps counted on the clock and in the device
    trace of a replay, each posing pass's CCD (run, useful) in 4 replays'
    ring rows against torch.sum of the flags the graph wrote, the stamps in
@@ -1163,31 +1169,27 @@ def check_kernels_msaa(scene, state, results):
 
 
 def eager_steps(scene, state, n: int):
-    """n frames of the eager step (`Scene.step_pose`, the CCD loop's early
-    exit) from `state` -> (the frames' outputs, ms/frame, the CCD
-    iterations each IK group ran in each frame: [(loop, chains,
-    iterations), ...] a frame). The iterations are counted from the
-    masked FK updates of the chains' targets, one per free link an
-    iteration."""
+    """n frames of the eager step (`Scene.step_pose`) from `state` -> (the
+    frames' outputs, ms/frame, the CCD iterations each IK group ran in each
+    frame: [(loop, chains, iterations), ...] a frame). The iterations are
+    those with a chain still active, as the plain loop's early exit runs
+    them, counted from the solve's flags (each group is solved with a
+    flag buffer, which leaves its bits as they are)."""
     from simple_mmd_renderer_tpu_torch.core import pose as pose_mod
-    from simple_mmd_renderer_tpu_torch.core.model import FIX_ALL
 
-    solve, fk = pose_mod._solve_ik_group, pose_mod._fk_bones
-    groups, masked = [], [0]
+    solve = pose_mod._solve_ik_group
+    groups = []
 
-    def fk_spy(*args, active=None, **kw):
-        masked[0] += active is not None
-        return fk(*args, active=active, **kw)
-
-    def solve_spy(static, pose, seg, *args, **kw):
-        masked[0] = 0
-        out = solve(static, pose, seg, *args, **kw)
-        free = sum(f != FIX_ALL for f in seg.fix_types)
-        groups[-1].append((seg.loop, seg.links.shape[0], masked[0] // free))
+    def solve_spy(static, pose, seg, *args):
+        g = seg.links.shape[0]
+        flags = torch.zeros(seg.loop * g, dtype=torch.bool,
+                            device=pose.world.device)
+        out = solve(static, pose, seg, *args[:4], True, flags)
+        groups[-1].append((seg.loop, g, flags.view(seg.loop, g).any(1)))
         return out
 
     frames = []
-    pose_mod._solve_ik_group, pose_mod._fk_bones = solve_spy, fk_spy
+    pose_mod._solve_ik_group = solve_spy
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1197,8 +1199,10 @@ def eager_steps(scene, state, n: int):
             state = frames[-1][0]
         torch.cuda.synchronize()
     finally:
-        pose_mod._solve_ik_group, pose_mod._fk_bones = solve, fk
-    return frames, 1000.0 * (time.perf_counter() - t0) / n, groups
+        pose_mod._solve_ik_group = solve
+    ms = 1000.0 * (time.perf_counter() - t0) / n
+    return frames, ms, [[(loop, g, int(run.sum())) for loop, g, run in frame]
+                        for frame in groups]
 
 
 def check_compiled(label, scene, state, n: int) -> None:
@@ -1206,17 +1210,26 @@ def check_compiled(label, scene, state, n: int) -> None:
     capture run under the sync debug mode "error") and replayed n times
     under that mode; each replay must equal the eager step's frame bit for
     bit. Prints the capture's seconds, both steps' ms/frame and the eager
-    CCD iterations."""
+    CCD iterations. The CCD solve's kernel (`csrc/ccd.cu`) on this path:
+    `ops.ccd.launches` over the capture must be two a group (the warm-up's
+    and the captured one), none where the graph already existed, and the
+    device trace of one replay must hold one `ccd_kernel` a group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_mmd_renderer_tpu_torch.ops import ccd
     from simple_mmd_renderer_tpu_torch.utils.graph import (shape_key,
                                                            sync_errors,
                                                            tree_leaves)
 
     eager, eager_ms, iters = eager_steps(scene, state, n)
+    groups = len(iters[0])
     shared = shape_key(state) in scene._graphs
+    ccd.launches = 0
     t0 = time.perf_counter()
     scene.captured_step(state)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
+    captured = ccd.launches
     step = scene.jit_step(render=False)
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
     with sync_errors():
@@ -1238,6 +1251,18 @@ def check_compiled(label, scene, state, n: int) -> None:
     if stamps != STAMPS:
         raise AssertionError(f"the compiled step ({label}) launches {stamps}"
                              f" stamps a replay, expected {STAMPS}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(s)
+        torch.cuda.synchronize()
+    traced = sum(1 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "ccd_kernel" in e.name)
+    log(f"compiled ({label}): the CCD kernel launched {captured} times "
+        f"over the capture, {traced} ccd_kernel in the device trace of one "
+        f"replay; {groups} IK groups a step")
+    if traced != groups or captured != (0 if shared else 2 * groups):
+        raise AssertionError(f"the compiled step ({label}) does not launch "
+                             "the CCD kernel once an IK group")
     same = all(frame == iters[0] for frame in iters)
     log(f"compiled ({label}): capture {capture_s:.3f} s"
         f"{' (the graph already existed)' if shared else ''}; {n} replays "
@@ -1315,6 +1340,99 @@ def check_stamp(label, scene, state, n: int) -> None:
         f"{back_to_back(None, alone)}; bound {bnd[0] * 1e6:.3f} ns "
         f"({bnd[1]}), "
         f"card / bound {with_flags[0] / bnd[0]:.0f}: a launch's own cost")
+
+
+# the pose fields the CCD solve writes
+CCD_FIELDS = ("world", "total_rot", "total_trans", "pre_ik_rot", "ik_rot")
+
+
+def ccd_serial(static, fields, seg, inputs):
+    """One launch of the CCD solve with its block's clocks (`ops.ccd.launch`
+    with `clocks`: %globaltimer and clock64 at the block's start, after the
+    pre-loop FK and at its end) -> (ms from start to end, ms of the pre-loop
+    FK, the SM's cycles a ns over the launch): the chain's serial path as
+    the kernel runs it."""
+    from simple_mmd_renderer_tpu_torch.ops import ccd
+
+    clocks = torch.zeros(6, dtype=torch.int64, device="cuda")
+    ccd.launch(static, fields, seg, inputs, clocks=clocks)
+    t = clocks.tolist()
+    ns = t[4] - t[0]
+    return ns / 1e6, (t[2] - t[0]) / 1e6, (t[5] - t[1]) / ns
+
+
+def check_ccd(label, scene, state) -> float:
+    """The CCD solve (`csrc/ccd.cu`) on the path's IK groups: the inputs
+    of each group from one eager capturable step, solved by the kernel and
+    by the plain loop (`pose.solve_ik_group_plain`): the pose fields it
+    writes and the CCD flags bit for bit, each dispatcher call one launch
+    of the kernel (`ops.ccd.launches`); then the kernel back to back on
+    them (`ops.ccd.launch`, in place) beside its bound: the launch's own
+    cost (the stamp kernel's without flags, back to back in this run) plus
+    the chain's serial path timed by the kernel's own clocks
+    (`ccd_serial`); and the plain loop's time at the host's pace (its
+    ~20,000 launches a group). Its launches a replay: one a group of each
+    posing pass. -> the groups' least back-to-back ms summed."""
+    from simple_mmd_renderer_tpu_torch.core import pose as pose_mod
+    from simple_mmd_renderer_tpu_torch.ops import ccd
+    from simple_mmd_renderer_tpu_torch.utils import profiling
+
+    solve, calls = pose_mod._solve_ik_group, []
+
+    def spy(static, pose, seg, *args):
+        calls.append((static, pose, seg, args[:4]))
+        return solve(static, pose, seg, *args)
+
+    pose_mod._solve_ik_group = spy
+    try:
+        scene.step_pose(state, capturable=True)
+    finally:
+        pose_mod._solve_ik_group = solve
+    spare = profiling.StepClock("cuda")
+    spare._stamp(0, advance=True)
+    launch_ms = back_to_back_runs(lambda: spare._stamp(1))[0]
+    bad_all, total = 0, 0.0
+    for static, p, seg, ins in calls:
+        g, n = seg.links.shape[0], seg.loop * seg.links.shape[0]
+        flags_plain = torch.zeros(n, dtype=torch.bool, device="cuda")
+        flags = torch.ones(n, dtype=torch.bool, device="cuda")
+        want = pose_mod.solve_ik_group_plain(static, p, seg, *ins, True,
+                                             flags_plain)
+        before = ccd.launches
+        got = solve(static, p, seg, *ins, True, flags)
+        launched = ccd.launches - before
+        bad = {f: int((getattr(got, f).view(torch.int32)
+                       != getattr(want, f).view(torch.int32)).sum())
+               for f in CCD_FIELDS}
+        bad["flags"] = int((flags != flags_plain).sum())
+        bad["launches"] = abs(launched - 1)
+        bad_all += sum(bad.values())
+        fields = [getattr(got, f).clone() for f in CCD_FIELDS]
+        inputs = [t.contiguous() for t in ins]
+        runs = back_to_back_runs(lambda: ccd.launch(static, fields, seg,
+                                                    inputs))
+        plain_ms = host_paced_ms(lambda: pose_mod.solve_ik_group_plain(
+            static, p, seg, *ins, True, flags_plain), 2)
+        serial_ms, pre_ms, ghz = ccd_serial(static, fields, seg, inputs)
+        bnd = launch_ms + serial_ms
+        total += runs[0]
+        log(f"ccd ({label}): {g} chains x {seg.n_links} links, loop "
+            f"{seg.loop}, fix {seg.fix_types}, orders "
+            f"{ccd.orders(p.world.device, g).tolist()}: kernel vs plain "
+            f"loop mismatches {bad}; active {int(flags_plain.sum())} of {n} "
+            f"chain-iterations; back to back {back_to_back(None, runs)}; "
+            f"bound {bnd:.4f} ms (launch {launch_ms:.4f} + serial path "
+            f"{serial_ms:.4f} by the kernel's clocks: pre-loop FK "
+            f"{pre_ms:.4f}, {(serial_ms - pre_ms) / seg.loop * 1e3:.3f} us "
+            f"an iteration, SM at {ghz:.3f} GHz), card / bound "
+            f"{runs[0] / bnd:.2f}; the plain loop "
+            f"{plain_ms:.3f} ms host-paced")
+    log(f"ccd ({label}): {len(calls)} launches a replay (one a group), "
+        f"{total:.4f} ms back to back in all")
+    if bad_all or not calls:
+        raise AssertionError(f"the CCD solve ({label}) differs from the "
+                             "plain loop")
+    return total
 
 
 # the order of the SDEF-on (True) and SDEF-off step segments
@@ -3382,11 +3500,15 @@ def main() -> int:
                    paths[M4]["state"], COMPILED_FRAMES_SHORT)
     check_stamp("flagship msaa=4 + shadow_window", paths[M4]["scene"],
                 paths[M4]["state"], COMPILED_FRAMES)
+    check_ccd("flagship msaa=4 + shadow_window", paths[M4]["scene"],
+              paths[M4]["state"])
     check_compiled(CONTENT, paths[CONTENT]["scene"], paths[CONTENT]["state"],
                    COMPILED_FRAMES_SHORT)
+    check_ccd(CONTENT, paths[CONTENT]["scene"], paths[CONTENT]["state"])
     sdef_step_times(CONTENT, paths[CONTENT]["scene"], paths[CONTENT]["state"])
     check_compiled("crowd-dense, both paths", dense_scene, dense[False][1],
                    COMPILED_FRAMES)
+    check_ccd("crowd-dense", dense_scene, dense[False][1])
     check_kernels_crowd(dense, results)
 
     # a frame of each kind (the compiled paths share their step's graph

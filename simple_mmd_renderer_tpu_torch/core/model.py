@@ -36,6 +36,8 @@ __all__ = ["FIX_ALL", "FIX_NONE", "FIX_X", "FIX_Y", "FIX_Z", "ORDER_XYZ",
 FIX_NONE, FIX_X, FIX_Y, FIX_Z, FIX_ALL = 0, 1, 2, 3, 4
 # IK euler clamp orders (BoneImage::ORDER_*)
 ORDER_YZX, ORDER_ZXY, ORDER_XYZ = "yzx", "zxy", "xyz"
+# the six Euler orders in the numbering of `IKSegment.codes`
+EULER_ORDERS = ("xyz", "xzy", "yxz", "yzx", "zxy", "zyx")
 
 _EPS = 1e-8
 _HALF_PI = math.pi * 0.5
@@ -557,7 +559,11 @@ class FKSegment(nn.Module):
 
 
 class IKSegment(nn.Module):
-    """A group of independent, same-shaped CCD chains solved batched."""
+    """A group of independent, same-shaped CCD chains solved batched.
+
+    `codes` (int32 [3, L]) packs the per-link lists that the CUDA solve
+    (`ops/ccd.py`) reads, once: the fix types, the limited flags and the
+    Euler orders (their index in `EULER_ORDERS`)."""
     kind = "ik"
 
     def __init__(self, seg: Segment, device=None):
@@ -579,7 +585,10 @@ class IKSegment(nn.Module):
             angle_limit=np.asarray([ik.angle_limit for ik in iks],
                                    np.float32),
             limits_min=np.stack([ik.limits_min for ik in iks]),
-            limits_max=np.stack([ik.limits_max for ik in iks]))
+            limits_max=np.stack([ik.limits_max for ik in iks]),
+            codes=np.array([self.fix_types, self.limited,
+                            [EULER_ORDERS.index(o) for o in self.orders]],
+                           np.int32).reshape(3, self.n_links))
         for name, arr in tables.items():
             self.register_buffer(name, torch.as_tensor(arr, device=device))
 
@@ -746,7 +755,8 @@ class _CrowdIK:
     kind = "ik"
 
     def __init__(self, seg: IKSegment, n_inst, n_bones):
-        for name in ("n_links", "loop", "fix_types", "orders", "limited"):
+        for name in ("n_links", "loop", "fix_types", "orders", "limited",
+                     "codes"):
             setattr(self, name, getattr(seg, name))
         for name in ("links", "link_parent_safe", "targets", "goal_bones"):
             setattr(self, name, tile_index(getattr(seg, name), n_inst,

@@ -14,13 +14,16 @@ overwrites the SDEF vertices (spherical deform) from the device tables
 `ModelTables` gathered once (`sdef_*`), with an index copy: no host read,
 so it runs inside the captured step.
 
-The CCD loop's early exit (every chain converged) reads a device flag
+An IK group's CCD solve (`_solve_ik_group`) is one launch of a
+hand-written kernel on the card (`ops/ccd.py`, `csrc/ccd.cu`) and the plain
+loop `solve_ik_group_plain` elsewhere; both give the same bits on the card.
+The plain loop's early exit (every chain converged) reads a device flag
 once per iteration, a host synchronisation. The posing functions take
 `capturable=True` for the form a CUDA graph can hold (`Scene.jit_step`):
 every one of the group's `loop` iterations runs, masked by `active`. A
 chain that has converged is frozen either way (`done` only grows and every
 write is `torch.where(active, new, old)`), so both forms give the same
-bits.
+bits; the kernel runs the masked form, captured or not.
 
 A crowd is posed by the same functions on the rig's instance-major view
 (`ModelTables.crowd(n)`, see `CrowdModelTables`): the state then holds
@@ -291,6 +294,29 @@ def _still_active(done, out=None):
 def _solve_ik_group(static: ModelTables, pose: PoseArrays, seg, anim_rot,
                     anim_trans, morph_rot, morph_trans,
                     capturable: bool = False, actives=None) -> PoseArrays:
+    """CCD IK of the group `seg`: on the card one launch of the CUDA solve
+    (`ops.ccd.solve_ik_group_cuda`: every iteration, converged chains
+    frozen, the same bits captured or not, no host read), elsewhere the
+    plain loop. `actives` (bool [loop * G]) receives each iteration's
+    active chains."""
+    if pose.world.is_cuda:
+        from ..ops import ccd
+        world, total_rot, total_trans, pre_ik_rot, ik_rot = \
+            ccd.solve_ik_group_cuda(static, pose.world, pose.total_rot,
+                                    pose.total_trans, pose.pre_ik_rot,
+                                    pose.ik_rot, seg, anim_rot, anim_trans,
+                                    morph_rot, morph_trans, actives)
+        return pose.replace(world=world, total_rot=total_rot,
+                            total_trans=total_trans, pre_ik_rot=pre_ik_rot,
+                            ik_rot=ik_rot)
+    return solve_ik_group_plain(static, pose, seg, anim_rot, anim_trans,
+                                morph_rot, morph_trans, capturable, actives)
+
+
+def solve_ik_group_plain(static: ModelTables, pose: PoseArrays, seg,
+                         anim_rot, anim_trans, morph_rot, morph_trans,
+                         capturable: bool = False,
+                         actives=None) -> PoseArrays:
     """CCD IK batched over a group of independent same-shaped chains
     (`seg`: an IKSegment). The link loop is unrolled per iteration; the
     iteration loop exits when every chain has converged (the reference's

@@ -62,6 +62,9 @@ SIGNATURES = {
     "smr_scan_bins": [_P, _I, _I, _I, _I, _I, _P, _P],
     "smr_scan_raster": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "smr_stamp": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P],
+    "smr_ccd": [_P] * 25 + [_I, _I, _I] + [_P] * 5,
+    "smr_ccd_orders": [_P, _P, _P, _P, _P, _I, _P, _P],
+    "smr_ccd_primitive": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -39,7 +39,17 @@ debug mode "error" replay the eager call's bits. The step's stage clock
 "error", recorded frames' rows surviving later replays, the six stages
 summing to within 3 % of the replay timed by CUDA events, and the CCD
 counts summed in the graph equal to a recount in the eager capturable
-step, the replay's bits the eager step's.
+step, the replay's bits the eager step's. The CCD solve (`csrc/ccd.cu`):
+its primitives (torch.sum of 3 and 4 terms, vector_norm, linalg.cross, the
+4x4 product and the einsum in the order codes found at the batch) equal
+torch's at G = 1, 2 and 128, the codes found at every batch from 1 to 2048
+reproduce cuBLAS, and each IK group's solve equals the plain loop's bit for
+bit (the pose fields and the CCD flags) on the sample rig at 32 seeded
+frames, on the 64-instance crowd, and on tests/torch_ik_rigs.py's six
+variants (every fix type and Euler order, groups of one and two chains),
+on a rig whose chains read each other through append parents, and on
+groups of more chains than the kernel's block has threads; the codes of a
+new batch are refused inside a capture.
 """
 
 import dataclasses
@@ -961,9 +971,10 @@ def test_stages_sum_to_the_replay_duration(cuda):
 
 
 def test_ccd_counter_on_the_card_equals_the_recount(cuda, monkeypatch):
-    """The CCD counts summed inside the graph equal a recount of the
-    masked loop's active chains in the capturable step run eagerly on the
-    card from the same state; the replay's bits are the eager step's."""
+    """The CCD counts summed inside the graph (the flags of the CUDA
+    solve, `csrc/ccd.cu`) equal a recount of the plain masked loop's active
+    chains in the capturable step run eagerly on the card from the same
+    state; the replay's bits are the eager step's."""
     from torch.profiler import ProfilerActivity, profile
 
     from simple_mmd_renderer_tpu_torch.utils import profiling
@@ -981,6 +992,7 @@ def test_ccd_counter_on_the_card_equals_the_recount(cuda, monkeypatch):
         return still(done, out)
 
     monkeypatch.setattr(pose, "_still_active", recount)
+    monkeypatch.setattr(pose, "_solve_ik_group", pose.solve_ik_group_plain)
     scene.step_pose(state, capturable=True)
     monkeypatch.undo()
     want = scene.step_pose(state)
@@ -1807,3 +1819,183 @@ def test_native_pmx_parser_loads(cuda, monkeypatch):
     for f in ("positions", "normals", "uvs", "skin_type", "skin_bones",
               "skin_weights", "sdef_c", "edge_scale", "triangles"):
         assert np.array_equal(getattr(fast, f), getattr(slow, f)), f
+
+
+# ---------------------------------------------------------------------------
+# The CCD solve (`csrc/ccd.cu`): its primitives against torch's, the
+# order codes against cuBLAS at every batch, and the whole solve of each
+# IK group against the plain loop, bit for bit
+# ---------------------------------------------------------------------------
+
+def _ccd_data(g, seed, scale=1.0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return lambda *shape: torch.randn(shape, device="cuda",
+                                      generator=gen) * scale
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("g", [1, 2, 128])
+def test_ccd_primitives_equal_torch(cuda, g):
+    """The kernel's torch.sum of 3 and 4 terms, vector_norm of 3,
+    linalg.cross, and the 4x4 product and einsum("gji,gj->gi") in the order
+    codes found at batch g, bit for bit against torch's own calls at batch
+    g, over 40 draws at magnitudes 1e-3 to 1e3."""
+    from simple_mmd_renderer_tpu_torch.ops import ccd
+
+    codes = ccd.orders(cuda, g).tolist()
+    assert min(codes) >= 0, codes
+    for k in range(40):
+        rnd = _ccd_data(g, 1000 * g + k, 10.0 ** (k % 7 - 3))
+        v, w, q = rnd(g, 3), rnd(g, 3), rnd(g, 4)
+        sq = v * v
+        pairs = [
+            (ccd.primitive("sum3", sq), torch.sum(sq, -1)),
+            (ccd.primitive("sum4", q * q), torch.sum(q * q, dim=-1)),
+            (ccd.primitive("norm3", v),
+             torch.linalg.vector_norm(v, dim=-1, keepdim=True)[:, 0]),
+            (ccd.primitive("cross", v, w), torch.linalg.cross(v, w, dim=-1)),
+        ]
+        a, b = rnd(g, 4, 4), rnd(g, 4, 4)
+        pairs.append((ccd.primitive("mm4", a, b, codes[0]), a @ b))
+        pairs.append((ccd.primitive("rotate_t", a, v, codes[1]),
+                      torch.einsum("gji,gj->gi", a[:, :3, :3], v)))
+        for i, (got, want) in enumerate(pairs):
+            assert torch.equal(_bits(got), _bits(want)), (i, k)
+
+
+def test_ccd_orders_reproduce_cublas_at_every_batch(cuda):
+    """At each batch from 1 to 260 and at 300-2048, the order codes the
+    device finds are candidates (not -1), and the 4x4 product and the
+    einsum in those orders give torch's bits on fresh data."""
+    from simple_mmd_renderer_tpu_torch.ops import ccd
+
+    batches = list(range(1, 261)) + [300, 384, 512, 640, 1000, 1024, 2048]
+    found = torch.stack([ccd.orders(cuda, g) for g in batches]).tolist()
+    bad = []
+    for g, codes in zip(batches, found):
+        if min(codes) < 0:
+            bad.append((g, codes))
+            continue
+        rnd = _ccd_data(g, 77 + g)
+        a, b, v = rnd(g, 4, 4), rnd(g, 4, 4), rnd(g, 3)
+        if not torch.equal(_bits(ccd.primitive("mm4", a, b, codes[0])),
+                           _bits(a @ b)):
+            bad.append((g, "mm4", codes))
+        if not torch.equal(
+                _bits(ccd.primitive("rotate_t", a, v, codes[1])),
+                _bits(torch.einsum("gji,gj->gi", a[:, :3, :3], v))):
+            bad.append((g, "rotate_t", codes))
+    assert not bad, bad
+
+
+def _ccd_calls_bit_equal(calls):
+    """Each recorded IK group solved again by the kernel (the dispatcher,
+    capturable, with flags) and by the plain loop from the same inputs:
+    world, total_rot, total_trans, pre_ik_rot, ik_rot and the flags bit
+    for bit. -> (active, converged) chain-iterations over the calls."""
+    from simple_mmd_renderer_tpu_torch.ops import ccd
+
+    seen = [0, 0]
+    for static, p, seg, ar, at, mr, mt in calls:
+        n = seg.loop * seg.links.shape[0]
+        flags_plain = torch.zeros(n, dtype=torch.bool, device="cuda")
+        flags_kernel = torch.ones(n, dtype=torch.bool, device="cuda")
+        want = pose.solve_ik_group_plain(static, p, seg, ar, at, mr, mt,
+                                         True, flags_plain)
+        before = ccd.launches
+        got = pose._solve_ik_group(static, p, seg, ar, at, mr, mt, True,
+                                   flags_kernel)
+        assert ccd.launches == before + 1
+        for f in ("world", "total_rot", "total_trans", "pre_ik_rot",
+                  "ik_rot"):
+            d = int((_bits(getattr(got, f)) != _bits(getattr(want, f))).sum())
+            assert d == 0, (f, d, seg.loop, seg.links.shape, seg.fix_types,
+                            seg.orders)
+        assert torch.equal(flags_plain, flags_kernel)
+        seen[0] += int(flags_plain.sum())
+        seen[1] += int((~flags_plain).sum())
+    return seen
+
+
+def test_ccd_kernel_equals_the_plain_loop_on_the_sample_rig(cuda,
+                                                            monkeypatch):
+    """The sample rig's leg group (2 chains, 2 links, 40 iterations) and
+    toe group (2 chains, 1 link, 8) at 32 seeded frames of the sample
+    dance: chains that converge within the loop and chains that do not."""
+    from torch_ik_rigs import frame_inputs, record_groups
+
+    from simple_mmd_renderer_tpu_torch.app.sample import sample_motion
+    from simple_mmd_renderer_tpu_torch.core import anim
+
+    static = build_model(sample_character(density=0.5))
+    tables = ModelTables(static, device=cuda)
+    motion = anim.MotionTables(anim.bind_motion(
+        static, sample_motion(240, fps_keys=5)), device=cuda)
+    calls = record_groups(monkeypatch, pose)
+    frames = np.random.default_rng(2026).uniform(0, 240, 32)
+    for fr in frames:
+        pose.pre_physics_posing(tables, *frame_inputs(motion, fr),
+                                capturable=True)
+    monkeypatch.undo()
+    assert len(calls) == 64
+    active, converged = _ccd_calls_bit_equal(calls)
+    assert active > 0 and converged > 0, (active, converged)
+
+
+@pytest.mark.parametrize("n_inst", [64, 160])
+def test_ccd_kernel_equals_the_plain_loop_on_the_crowd(cuda, monkeypatch,
+                                                       n_inst):
+    """The crowd's groups (2 n_inst chains each, instance-major rows,
+    staggered clocks) through three eager crowd steps; at 160 instances
+    more chains than the kernel's block of 256 threads, so threads take
+    two chains each."""
+    from torch_ik_rigs import record_groups
+
+    from simple_mmd_renderer_tpu_torch.parallel import mesh
+
+    scene = build_sample_scene(0.5, 64, 48, 64, n_frames=240, fps_keys=5)
+    state = mesh.crowd_init(scene, n_inst)
+    calls = record_groups(monkeypatch, pose)
+    for _ in range(3):
+        state = scene.step_pose(state)[0]
+    monkeypatch.undo()
+    assert calls and all(c[2].links.shape[0] == 2 * n_inst for c in calls)
+    active, _ = _ccd_calls_bit_equal(calls)
+    assert active > 0
+
+
+@pytest.mark.parametrize("variant", list(range(6)) + ["cross"])
+def test_ccd_kernel_equals_the_plain_loop_on_synthetic_rigs(cuda,
+                                                            monkeypatch,
+                                                            variant):
+    """tests/torch_ik_rigs.py's variants: every fix type and all six Euler
+    orders, limited and not, in the legs' group of two chains and the arms'
+    groups of one chain of three and two links (one an append-rotated
+    bone), at 8 frames each; and the "cross" rig, whose legs' chains read
+    each other through append parents, in the pre-loop FK phase that
+    writes them and after the loop's refresh (the kernel's lockstep)."""
+    from torch_ik_rigs import frame_inputs, ik_rig, record_groups
+
+    tables, motion = ik_rig(variant, device=cuda)
+    calls = record_groups(monkeypatch, pose)
+    for fr in (1, 9, 23, 37, 50, 61, 74, 88):
+        pose.pre_physics_posing(tables, *frame_inputs(motion, fr),
+                                capturable=True)
+    monkeypatch.undo()
+    assert sorted({c[2].links.shape[0] for c in calls}) == [1, 2]
+    _ccd_calls_bit_equal(calls)
+
+
+def test_ccd_orders_are_found_before_a_capture(cuda):
+    """The order codes of a batch not yet seen are refused inside a
+    capture (the eager warm-up finds them)."""
+    from simple_mmd_renderer_tpu_torch.ops import ccd
+
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="outside a capture"):
+        with torch.cuda.graph(graph):
+            ccd.orders(cuda, 4093)
+    assert all(g != 4093 for _, g in ccd._orders)
